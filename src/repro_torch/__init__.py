@@ -7,9 +7,12 @@ so each counterpart is found under the same relative path.  Kernels that
 (``repro_torch.kernels``), built from the sources in this checkout at
 first use.
 
-This slice ports the serving path: ``python -m repro_torch.launch.serve``
-(whole-prompt prefill, continuous batching, greedy decoding, static
-parameters) on the dense GQA configs.
+Ported so far, on the dense GQA configs: serving
+(``python -m repro_torch.launch.serve``: whole-prompt prefill, continuous
+batching, greedy decoding, static parameters) and training
+(``python -m repro_torch.launch.train``: the ParameterDB train engine,
+synchronous or delta-stale on a ring of parameter versions, with
+checkpoints and restart drills).
 """
 from .device import resolve_device
 

@@ -1,4 +1,4 @@
-"""Plain PyTorch versions of the serving kernels (own copy of the oracles in
+"""Plain PyTorch versions of the port's kernels (own copy of the oracles in
 ``repro.kernels.ref``).  They are the ground truth the CUDA kernels are
 held to on the card, and the path a CPU tensor takes through
 :mod:`repro_torch.kernels.ops`."""
@@ -100,3 +100,10 @@ def page_gather(pool: torch.Tensor, page_table: torch.Tensor) -> torch.Tensor:
     B, n_pp = page_table.shape
     out = pool[page_table.long()]                # (B, n_pp, page, ...)
     return out.reshape((B, n_pp * pool.shape[1]) + tuple(pool.shape[2:]))
+
+
+def ring_gather(hist: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """hist: (size, ...) stacked versions; idx: 0-d integer tensor ->
+    a copy of hist[idx], bit for bit (``hist[idx]`` itself would be a view,
+    which the ring's in-place writes would change under the reader)."""
+    return torch.index_select(hist, 0, idx.reshape(1).long())[0]

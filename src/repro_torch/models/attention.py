@@ -1,5 +1,6 @@
 """Self-attention with GQA, sliding windows, RoPE and a paged KV cache
-(port of the serving half of ``repro.models.attention``).
+(port of ``repro.models.attention``'s self-attention: the training and
+prefill forward, and paged decode).
 
 The softmax path dispatches through :mod:`repro_torch.kernels.ops`, so the
 CUDA kernels and their plain versions share one call site.
@@ -56,6 +57,19 @@ def _qkv(params: dict, x: torch.Tensor, cfg: ModelConfig):
         q = rmsnorm(q, params["q_norm"])
         k = rmsnorm(k, params["k_norm"])
     return q, k, v
+
+
+def attention_fwd(params: dict, x: torch.Tensor, cfg: ModelConfig,
+                  kind: str, positions: torch.Tensor) -> torch.Tensor:
+    """Full-sequence causal attention.  x: (B, S, d); positions: (B, S).
+    Differentiable: on the card the flash kernels' forward and backward."""
+    q, k, v = _qkv(params, x, cfg)
+    theta = _rope_theta(cfg, kind)
+    q = apply_rope(q, positions, theta)
+    k = apply_rope(k, positions, theta)
+    window = cfg.window if kind in ("local", "swa") else 0
+    out = kops.attention(q, k, v, causal=True, window=window)
+    return _merge_heads(out) @ params["wo"].to(x.dtype)
 
 
 def _ring_valid(pos: torch.Tensor, L: int, cfg: ModelConfig,

@@ -1,14 +1,19 @@
-"""Model composition for serving (port of ``repro.models.transformer``).
+"""Model composition (port of ``repro.models.transformer``).
 
 Entry points (plain functions over a params dict):
 
   model_specs(cfg)                                  -> P-spec tree
+  forward(params, tokens, cfg, remat)               -> logits   [train path]
+  lm_loss(params, batch, cfg, remat)                -> (loss, metrics)
   prefill(params, tokens, cfg, cache_len)           -> (last_logits, cache)
   decode_step(params, cache, tokens, pos, cfg)      -> (logits, cache)
 
 Parameters of each block-group slot are stacked ``(n, ...)`` as in the JAX
 package, so paths match its checkpoints; the port loops over the stack
-(``for i in range(g.n)``) where JAX scans.  This slice carries the dense
+where JAX scans, taking each layer's parameters (and caches) with one
+``unbind`` per stacked leaf, so the training backward stacks the
+per-layer gradients once instead of scattering each layer's into a zero
+tensor of the whole stack.  The port carries the dense
 self-attention kinds (``attn``, and ``local``/``swa`` windows through the
 same code); every other layer kind raises ``NotImplementedError`` naming
 the slice that brings it.
@@ -18,6 +23,7 @@ from __future__ import annotations
 from typing import Any
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..kernels import ops as kops
 from . import attention as attn
@@ -72,10 +78,80 @@ def model_specs(cfg: ModelConfig) -> dict:
     return specs
 
 
-def _at(tree: dict, i: int) -> dict:
-    """Layer ``i`` of a stacked ``(n, ...)`` subtree (views, no copies)."""
-    return {k: _at(v, i) if isinstance(v, dict) else v[i]
-            for k, v in tree.items()}
+def _unstack(tree: dict, n: int) -> list[dict]:
+    """The ``n`` layers of a stacked ``(n, ...)`` subtree, one ``unbind``
+    per leaf (views, no copies)."""
+    parts = {k: _unstack(v, n) if isinstance(v, dict) else v.unbind(0)
+             for k, v in tree.items()}
+    return [{k: p[i] for k, p in parts.items()} for i in range(n)]
+
+
+# ---------------------------------------------------------------------------
+# Train forward and loss
+# ---------------------------------------------------------------------------
+
+def _apply_block(bp: dict, kind: str, x: torch.Tensor, cfg: ModelConfig,
+                 positions: torch.Tensor) -> torch.Tensor:
+    h = apply_norm(bp["ln1"], x, cfg)
+    x = x + attn.attention_fwd(bp["mix"], h, cfg, kind, positions)
+    h2 = apply_norm(bp["ln2"], x, cfg)
+    return x + apply_mlp(bp["ffn"], h2, cfg)
+
+
+def _remat_wrap(fn, remat: str):
+    """``none`` keeps every activation; ``full`` recomputes each layer's in
+    the backward (``jax.checkpoint`` of the JAX package's scan body)."""
+    if remat == "none":
+        return fn
+    if remat == "full":
+        return lambda *a: checkpoint(fn, *a, use_reentrant=False)
+    if remat == "dots":
+        raise NotImplementedError(
+            "remat 'dots' (keep the matmul outputs, recompute the rest) "
+            "comes with a later slice of the port")
+    raise ValueError(f"unknown remat policy {remat!r}")
+
+
+def forward(params: dict, tokens: torch.Tensor, cfg: ModelConfig,
+            remat: str = "none") -> torch.Tensor:
+    """Full-sequence forward.  tokens: (B, S) int -> logits (B, S, V) f32."""
+    check_supported(cfg)
+    B, S = tokens.shape
+    x = embed_tokens(params, tokens, cfg)
+    positions = torch.arange(S, device=tokens.device).expand(B, S)
+    for gi, g in enumerate(cfg.groups):
+
+        def body(xc, slot_params, _g=g):
+            for si, kind in enumerate(_g.pattern):
+                xc = _apply_block(slot_params[f"s{si}"], kind, xc, cfg,
+                                  positions)
+            return xc
+
+        layer = _remat_wrap(body, remat)
+        for lp in _unstack(params["groups"][f"g{gi}"], g.n):
+            x = layer(x, lp)
+    x = apply_norm(params["final_norm"], x, cfg)
+    return lm_logits(params, x, cfg)
+
+
+def lm_loss(params: dict, batch: dict, cfg: ModelConfig,
+            remat: str = "none") -> tuple[torch.Tensor, dict]:
+    """Next-token cross entropy.  batch: tokens (B,S), labels (B,S), mask
+    (B,S).  The label logit is picked with ``gather`` where the JAX package
+    sums against a one-hot: both are exact in f32, every other term being
+    0.  Dense models have no router losses, so the total is the loss."""
+    logits = forward(params, batch["tokens"], cfg, remat=remat).float()
+    lse = torch.logsumexp(logits, dim=-1)                       # (B, S)
+    correct = torch.gather(logits, -1,
+                           batch["labels"].long()[..., None])[..., 0]
+    nll = lse - correct
+    mask = batch.get("mask")
+    mask = torch.ones_like(nll) if mask is None else mask.float()
+    loss = torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)
+    zero = torch.zeros((), dtype=torch.float32, device=loss.device)
+    metrics = {"loss": loss, "total_loss": loss, "lb_loss": zero,
+               "router_entropy": zero}
+    return loss, metrics
 
 
 # ---------------------------------------------------------------------------
@@ -131,9 +207,9 @@ def prefill(params: dict, tokens: torch.Tensor, cfg: ModelConfig,
         gp = params["groups"][f"g{gi}"]
         per_layer: dict[str, list] = {f"s{si}": [] for si in
                                       range(len(g.pattern))}
-        for i in range(g.n):
+        for lp in _unstack(gp, g.n):
             for si, kind in enumerate(g.pattern):
-                x, c = _prefill_block(_at(gp[f"s{si}"], i), kind, x, cfg,
+                x, c = _prefill_block(lp[f"s{si}"], kind, x, cfg,
                                       positions, cache_len)
                 per_layer[f"s{si}"].append(c)
         cache[f"g{gi}"] = {
@@ -172,9 +248,9 @@ def decode_step(params: dict, cache: dict, tokens: torch.Tensor,
     x = embed_tokens(params, tokens, cfg)
     for gi, g in enumerate(cfg.groups):
         gp, gc = params["groups"][f"g{gi}"], cache[f"g{gi}"]
-        for i in range(g.n):
+        for lp, lc in zip(_unstack(gp, g.n), _unstack(gc, g.n)):
             for si, kind in enumerate(g.pattern):
-                x = _decode_block(_at(gp[f"s{si}"], i), kind, x,
-                                  _at(gc[f"s{si}"], i), cfg, pos)
+                x = _decode_block(lp[f"s{si}"], kind, x, lc[f"s{si}"], cfg,
+                                  pos)
     x = apply_norm(params["final_norm"], x, cfg)
     return lm_logits(params, x, cfg), cache

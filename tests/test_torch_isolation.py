@@ -1,7 +1,8 @@
 """The port stands alone: no file of ``src/repro_torch`` and not
 ``chip_smoke.py`` imports ``jax`` or the JAX package ``repro``; importing
-the serving CLI leaves ``jax`` out of ``sys.modules``; and ``chip_smoke.py``
-alone, or without a GPU, exits non-zero and prints no result."""
+the serving or the training CLI leaves ``jax`` out of ``sys.modules``; and
+``chip_smoke.py`` alone, or without a GPU, exits non-zero and prints no
+result."""
 import ast
 import os
 import shutil
@@ -39,6 +40,16 @@ def test_no_jax_or_repro_import(path):
 
 def test_serving_cli_import_leaves_jax_out():
     code = ("import sys, repro_torch.launch.serve, repro_torch.checkpoint; "
+            "sys.exit(int(any(m == 'jax' or m.startswith(('jax.', 'repro.'))"
+            " or m == 'repro' for m in sys.modules)))")
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    res = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+
+
+def test_train_cli_import_leaves_jax_out():
+    code = ("import sys, repro_torch.launch.train, repro_torch.pdb; "
             "sys.exit(int(any(m == 'jax' or m.startswith(('jax.', 'repro.'))"
             " or m == 'repro' for m in sys.modules)))")
     env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}

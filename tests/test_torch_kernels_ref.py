@@ -2,7 +2,11 @@
 its Pallas kernels (interpret mode), on the same numpy inputs.
 
 Tolerances as tests/test_kernels.py: f32 rtol/atol 2e-5, bf16 2e-2; the
-page gather bit for bit.  bf16 inputs are rounded from the same f32 draws
+page and ring gathers bit for bit.  Attention gradients (torch autograd
+through the plain version, the oracle of the CUDA backward) are held to
+``jax.grad`` of the JAX plain version at f32, rtol/atol 1e-5: both sides
+differentiate the same softmax in f32, and the sums of a few dozen terms
+differ only in order.  bf16 inputs are rounded from the same f32 draws
 on both sides (round-to-nearest-even in both frameworks).
 """
 import numpy as np
@@ -18,6 +22,7 @@ from repro.kernels.decode_attention import \
 from repro.kernels.flash_attention import \
     flash_attention as pallas_flash  # noqa: E402
 from repro.kernels.page_gather import page_gather as pallas_gather  # noqa
+from repro.kernels.ring_gather import ring_gather as pallas_ring  # noqa
 from repro_torch.kernels import ops, ref  # noqa: E402
 
 torch.set_num_threads(1)
@@ -96,6 +101,49 @@ def test_page_gather_bit_exact(dtype):
                  pallas_gather(jpool, jnp.asarray(table), interpret=True)):
         np.testing.assert_array_equal(got.float().numpy(),
                                       np.asarray(want, np.float32))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ring_gather_bit_exact(dtype):
+    """N = 1000 is no multiple of the Pallas block (256): its last tile is
+    clipped."""
+    rng = np.random.default_rng(5)
+    hist, jhist = _pair(rng.standard_normal((3, 1000), np.float32), dtype)
+    for i in range(3):
+        got = ref.ring_gather(hist, torch.tensor(i, dtype=torch.int32))
+        assert got.shape == (1000,) and got.dtype == hist.dtype
+        for want in (jref.ring_gather(jhist, i),
+                     pallas_ring(jhist, jnp.int32(i), block=256,
+                                 interpret=True)):
+            np.testing.assert_array_equal(got.float().numpy(),
+                                          np.asarray(want, np.float32))
+    assert torch.equal(ops.ring_gather(hist, torch.tensor(2, dtype=torch.int32)),
+                       hist[2])
+
+
+@pytest.mark.parametrize("H,KV,causal,window", [
+    (6, 2, True, 0),      # GQA 3:1
+    (4, 4, True, 9),      # sliding window
+    (4, 1, False, 0),     # all heads on one kv head, bidirectional
+])
+def test_attention_grads_match_jax(H, KV, causal, window):
+    B, S, hd = 2, 24, 16
+    rng = np.random.default_rng(6)
+    arrs = [rng.standard_normal(shape, np.float32) for shape in
+            ((B, S, H, hd), (B, S, KV, hd), (B, S, KV, hd), (B, S, H, hd))]
+    q, k, v = (torch.from_numpy(a).requires_grad_() for a in arrs[:3])
+    out = ref.attention(q, k, v, causal=causal, window=window)
+    got = torch.autograd.grad((out * torch.from_numpy(arrs[3])).sum(),
+                              (q, k, v))
+
+    def jloss(jq, jk, jv):
+        o = jref.attention(jq, jk, jv, causal=causal, window=window)
+        return jnp.sum(o * arrs[3])
+
+    want = jax.grad(jloss, argnums=(0, 1, 2))(*map(jnp.asarray, arrs[:3]))
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=1e-5,
+                                   atol=1e-5)
 
 
 def test_ops_on_cpu_take_the_plain_versions(monkeypatch):
