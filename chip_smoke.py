@@ -21,10 +21,15 @@ Phases (any failure raises and the script exits non-zero):
    once under ``torch.cuda.set_sync_debug_mode("error")``: no host sync);
    the flash-attention backward against torch autograd of the plain
    attention, f32 at rtol/atol 1e-4, bf16 at a normalized max error of
-   2e-2;
+   2e-2; chunked-prefill attention over rings with dead slots, wrapped
+   rings and windows, bf16 at 2e-2 and f32 at 1e-4;
 3. end to end, small: the serving engine on a narrow f32 model on the card
    (CUDA kernels) against the same model on the CPU (plain versions): same
-   greedy tokens, prefill logits within 1e-3;
+   greedy tokens, prefill logits within 1e-3; on shared-prefix requests,
+   chunked, prefix-cached, prefix-cached under eviction pressure and
+   sampled runs: greedy tokens CUDA == CPU, chunked == prefix-cached ==
+   static whole-prompt on the card, sampled tokens the same under both
+   schedules and not the greedy ones;
 4. serving at full width: ``llama3.2-1b`` in bf16 with random weights from
    seed 0, batch 8, page 16, 16 open-loop requests (prompts 128/300/512,
    generations 16/32, cache 544).  Continuous and static modes on the
@@ -33,7 +38,17 @@ Phases (any failure raises and the script exits non-zero):
    after) must launch each of its kernels.  Then one continuous
    ``wall``-clock run, and ``torch.profiler`` over a continuous run of 8
    requests arriving together: device time by kernel group and the
-   device's idle share;
+   device's idle share.  Then the chunked path on the same weights: 16
+   shared-prefix requests (4 hot 256-token prefixes, suffixes 64/192,
+   generations 16/32), chunk 128, run chunked, prefix-cached and
+   prefix-cached with nucleus sampling (launch counts reset before the
+   three, read after): each run launches ``prefill_page_attention`` 16
+   times per chunk (its own and the warmup's) and the paged decode
+   kernels, no plain version runs, every output is whole, the cache hits
+   more than 30 % of prompt tokens and saves chunks, sampling changes the
+   tokens; the first-token logits of the chunk plan agree with the whole
+   prompt's within a normalized 2e-2; then a ``wall``-clock prefix-cached
+   run and its profile;
 5. training, small: a narrow f32 model trained 4 steps through the train
    engine at delta 2 on the packed ring, on the card (CUDA kernels)
    against the CPU (plain versions): losses and parameters within 1e-4.
@@ -89,14 +104,20 @@ def time_ms(fn, iters: int, warmup: int = 3) -> tuple[float, float]:
     first keeps the card busy while the host enqueues them, so the host's
     per-call cost (Python, argument checks, ctypes) leaves no gaps between
     the launches.  Host time is that enqueue time per call.  ``i`` counts
-    the calls, so ``fn`` can rotate through input copies (``rotation``)."""
+    the calls, so ``fn`` can rotate through input copies (``rotation``).
+    The spin is sized from calls made after the warmup: a first call's
+    one-off set-up (a library loading its kernels) would stretch it to
+    minutes."""
     import torch
+    for i in range(warmup):
+        fn(i)
+    torch.cuda.synchronize()
     t0 = time.perf_counter()
     for i in range(warmup):
         fn(i)
     torch.cuda.synchronize()
     per_call = (time.perf_counter() - t0) / warmup
-    spin_s = 2 * per_call * iters + 1e-3
+    spin_s = 4 * per_call * iters + 5e-3
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     torch.cuda._sleep(int(spin_s * SPIN_HZ))
@@ -427,6 +448,85 @@ def check_flash_bwd(torch, F, ref, gen):
     return {**main, "max_abs_err": max(r["max_abs_err"] for r in rows)}
 
 
+# chunked prefill at llama3.2-1b's heads (C, L, start, window, dtype): an
+# empty ring, dead slots (start < L), wrapped rings (start > L), windows and
+# one f32 case; PREFILL_MAIN, the third chunk of a 448-token prompt in the
+# 544-slot ring, is the main path's shape
+PREFILL_CASES = [(128, 544, 0, 0, "bfloat16"), (128, 544, 256, 0, "bfloat16"),
+                 (16, 544, 320, 0, "bfloat16"),
+                 (128, 1024, 700, 0, "bfloat16"),
+                 (128, 544, 900, 0, "bfloat16"),
+                 (16, 1024, 1500, 128, "bfloat16"),
+                 (128, 544, 300, 128, "bfloat16"),
+                 (128, 544, 900, 0, "float32")]
+PREFILL_MAIN = (128, 544, 256, 0, "bfloat16")
+F32_TOL = 1e-4
+
+
+def chunk_inputs(torch, gen, C, L, start, dtype, B=1, H=32, KV=8, hd=64):
+    """A chunk at positions start..start+C-1 over a ring of L slots holding
+    the positions before it, as ``attention_prefill_paged`` makes them."""
+    from repro_torch.models.attention import ring_positions
+    mk = lambda *s: torch.randn(s, generator=gen,  # noqa: E731
+                                device="cuda").to(dtype)
+    ctx_pos = ring_positions(start, L, "cuda")[None].expand(B, L)
+    q_pos = (start + torch.arange(C, dtype=torch.int32,
+                                  device="cuda"))[None].expand(B, C)
+    return (mk(B, C, H, hd), mk(B, L, KV, hd), mk(B, L, KV, hd),
+            mk(B, C, KV, hd), mk(B, C, KV, hd), ctx_pos, q_pos)
+
+
+def check_prefill_page_attention(torch, F, ref, gen):
+    """The chunked-prefill kernel against its plain version over the cases
+    above, each timed beside its bound, the plain version and SDPA with a
+    boolean mask over the concatenated keys (timed only)."""
+    from repro_torch.kernels.page_gather import prefill_page_attention
+    rows = {}
+    for C, L, start, window, dt in PREFILL_CASES:
+        dtype = getattr(torch, dt)
+        ins = chunk_inputs(torch, gen, C, L, start, dtype)
+        got = prefill_page_attention(*ins, window=window)
+        want = ref.prefill_page_attention(*ins, window=window)
+        torch.cuda.synchronize()
+        tol = BF16_TOL if dt == "bfloat16" else F32_TOL
+        err = (got.float() - want.float()).abs().max().item()
+        torch.testing.assert_close(got.float(), want.float(), rtol=tol,
+                                   atol=tol)
+        q, k_ctx, v_ctx, k_new, v_new, ctx_pos, q_pos = ins
+        mask = ref.prefill_mask(ctx_pos, q_pos, window)
+        H, hd, KV = q.shape[2], q.shape[3], k_ctx.shape[2]
+        live = int(mask.sum().item())           # this run's (row, key) pairs
+        # bytes: q, out and both position arrays whole, K/V only for the
+        # key slots some row of the chunk sees (the kernel loads no other)
+        keys = int(mask.any(1).sum().item())
+        kv_bytes = 2 * keys * KV * hd * k_ctx.element_size()
+        b_ms, b_by = bound(nbytes(q, got, ctx_pos, q_pos) + kv_bytes,
+                           4.0 * hd * H * live, dt)
+        sets = rotation(ins)
+        n = len(sets)
+        lib_sets = [(st[0].transpose(1, 2),
+                     torch.cat([st[1], st[3]], 1).transpose(1, 2),
+                     torch.cat([st[2], st[4]], 1).transpose(1, 2),
+                     mask[:, None]) for st in sets]
+        ms, host_ms = time_ms(lambda i: prefill_page_attention(
+            *sets[i % n], window=window), 50)
+        row = dict(
+            shape=[1, C, L, 32, 8, 64], start=start, window=window, dtype=dt,
+            live_pairs_per_head=live, live_keys=keys, max_abs_err=err,
+            tolerance=tol, ms=ms, host_ms=host_ms,
+            plain_ms=time_ms(lambda i: ref.prefill_page_attention(
+                *sets[i % n], window=window), 10)[0],
+            library_ms=time_ms(lambda i: F.scaled_dot_product_attention(
+                *lib_sets[i % n][:3], attn_mask=lib_sets[i % n][3],
+                enable_gqa=True), 50)[0],
+            bound_ms=b_ms, bound_by=b_by)
+        rows[C, L, start, window, dt] = row
+        print("prefill_page_attention", json.dumps(row), flush=True)
+        del sets, lib_sets
+    worst = max(r["max_abs_err"] for r in rows.values())
+    return {**rows[PREFILL_MAIN], "max_abs_err": worst}
+
+
 # ---------------------------------------------------------------------------
 # phases 3 and 4: serving
 # ---------------------------------------------------------------------------
@@ -460,6 +560,66 @@ def small_end_to_end(torch):
         raise AssertionError(f"greedy tokens differ: {outs}")
     if not err <= 1e-3:
         raise AssertionError(f"prefill logits differ by {err}")
+    small_chunked(torch, cfg, params)
+
+
+# the four chunked configurations of the small f32 run; "pressure" evicts
+# trie pages under a pool of one spare sequence
+SMALL_CHUNKED = {"chunked": dict(prefill_chunk=8),
+                 "prefix": dict(prefix_cache=True),
+                 "pressure": dict(prefix_cache=True, prefix_seqs=1),
+                 "sampled": dict(prefix_cache=True, temperature=0.8,
+                                 top_p=0.9, sample_seed=7)}
+
+
+def small_chunked(torch, cfg, params):
+    """Chunked prefill, the prefix cache and sampling on the narrow f32
+    model: greedy tokens CUDA == CPU and chunked == prefix-cached ==
+    static whole-prompt on the card; sampled tokens the same under
+    continuous + prefix cache and static on the card, and not greedy's."""
+    from repro_torch.serve import (ServeConfig, ServeEngine,
+                                   shared_prefix_requests)
+    base = dict(batch_size=3, page_size=8, cache_len=56, clock="steps")
+    reqs = shared_prefix_requests(10, 100.0, cfg.vocab_size, n_prefixes=3,
+                                  prefix_len=16, suffix_lens=(4, 8),
+                                  gen_lens=(2, 4, 8), seed=3)
+    pressure = shared_prefix_requests(12, 100.0, cfg.vocab_size,
+                                      n_prefixes=6, prefix_len=16,
+                                      suffix_lens=(4, 8), gen_lens=(2, 4, 8),
+                                      seed=9)
+    sampling = {k: v for k, v in SMALL_CHUNKED["sampled"].items()
+                if k != "prefix_cache"}
+    reps = {}
+    for dev in ("cpu", "cuda"):
+        p = _to(params, dev)
+        for name, kw in SMALL_CHUNKED.items():
+            rq = pressure if name == "pressure" else reqs
+            reps[name, dev] = ServeEngine(cfg, p, ServeConfig(
+                **kw, **base)).run(rq)
+        for name, kw, rq in (("static", {}, reqs),
+                             ("static_pressure", {}, pressure),
+                             ("static_sampled", sampling, reqs)):
+            reps[name, dev] = ServeEngine(cfg, p, ServeConfig(
+                continuous=False, **kw, **base)).run(rq)
+    out = {k: r.outputs for k, r in reps.items()}
+    checks = {
+        "cuda_eq_cpu": all(out[n, "cuda"] == out[n, "cpu"]
+                           for n, _ in reps if n not in ("sampled",
+                                                         "static_sampled")),
+        "chunked_eq_prefix_eq_static": out["chunked", "cuda"]
+        == out["prefix", "cuda"] == out["static", "cuda"],
+        "pressure_eq_static": out["pressure", "cuda"]
+        == out["static_pressure", "cuda"],
+        "sampled_schedule_invariant": out["sampled", "cuda"]
+        == out["static_sampled", "cuda"],
+        "sampled_ne_greedy": out["sampled", "cuda"] != out["static", "cuda"]}
+    print("small f32 chunked / prefix / sampled:", json.dumps(dict(
+        **checks, prefill_chunks={n: reps[n, "cuda"].prefill_chunks
+                                  for n in SMALL_CHUNKED},
+        prefix_hit_rate={n: reps[n, "cuda"].prefix_hit_rate
+                         for n in SMALL_CHUNKED})), flush=True)
+    if not all(checks.values()):
+        raise AssertionError(f"small chunked run: {checks}")
 
 
 def _to(tree, dev):
@@ -546,7 +706,156 @@ def full_width(torch, ops, ref):
         peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30)),
         flush=True)
     where_time_goes(torch, cfg, params, common)
-    return launches[True]
+    return {"serving": launches[True],
+            "chunked_serving": chunked_serving(torch, ops, ref, cfg, params,
+                                               common)}
+
+
+CHUNK = 128
+CHUNKED_KERNELS = ("prefill_page_attention", "page_gather",
+                   "decode_attention")
+LOGITS_NORM_TOL = 2e-2          # bf16 first-token logits: max |d| / max |l|
+
+
+def chunked_serving(torch, ops, ref, cfg, params, common):
+    """llama3.2-1b at full width through chunked prefill (chunk 128), the
+    prefix cache and nucleus sampling, on 16 shared-prefix requests (4 hot
+    256-token prefixes, suffixes 64/192, generations 16/32): the chunked
+    serving path.  Launch counts are set to 0 before its three
+    ``steps``-clock runs and read after them."""
+    from repro_torch.serve import (ServeConfig, ServeEngine,
+                                   shared_prefix_requests)
+    V = cfg.vocab_size
+    n_layers = sum(g.n * len(g.pattern) for g in cfg.groups)
+    reqs = shared_prefix_requests(16, 0.5, V, n_prefixes=4, prefix_len=256,
+                                  suffix_lens=(64, 192), gen_lens=(16, 32),
+                                  seed=0)
+    runs = {"chunked": dict(prefill_chunk=CHUNK),
+            "prefix": dict(prefill_chunk=CHUNK, prefix_cache=True),
+            "sampled": dict(prefill_chunk=CHUNK, prefix_cache=True,
+                            temperature=0.8, top_p=0.9, sample_seed=7)}
+    reps, per_run = {}, {}
+    ops.reset_launches()                 # the chunked path starts here
+    with plain_versions_counted(ref) as plain_calls:
+        for name, kw in runs.items():
+            eng = ServeEngine(cfg, params, ServeConfig(clock="steps", **kw,
+                                                       **common))
+            before = dict(ops.launches)
+            t0 = time.perf_counter()
+            reps[name] = rep = eng.run(reqs)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            per_run[name] = {k: ops.launches[k] - before[k]
+                             for k in ops.launches}
+            # the warmup runs one chunk before the clock starts
+            want = n_layers * (rep.prefill_chunks + 1)
+            print(f"{name} (steps clock): {rep.total_tokens} tokens, "
+                  f"{rep.decode_steps} decode steps, {rep.prefill_chunks} "
+                  f"prefill chunks (+1 in the warmup), prefix hit rate "
+                  f"{rep.prefix_hit_rate:.4f}, {dt:.2f} s host time; "
+                  f"launches {per_run[name]}; prefill_page_attention "
+                  f"expected {want}", flush=True)
+            if per_run[name]["prefill_page_attention"] != want:
+                raise AssertionError(f"{name}: prefill_page_attention "
+                                     f"launched {per_run[name]}, want {want}")
+            if min(per_run[name][k] for k in CHUNKED_KERNELS) <= 0:
+                raise AssertionError(f"{name}: a kernel never launched")
+    launches = dict(ops.launches)        # ... and ends here
+    print(f"chunked path: launches {launches}; plain version calls "
+          f"{plain_calls}", flush=True)
+    if any(plain_calls.values()):
+        raise AssertionError(f"plain versions ran: {plain_calls}")
+    for name, rep in reps.items():
+        for r in reqs:
+            toks = rep.outputs[r.rid]
+            if len(toks) != r.gen_len or not all(0 <= t < V for t in toks):
+                raise AssertionError(f"{name} request {r.rid}: bad output "
+                                     f"{toks}")
+    for name in ("prefix", "sampled"):
+        if not reps[name].prefix_hit_rate > 0.3:
+            raise AssertionError(f"{name}: prefix hit rate "
+                                 f"{reps[name].prefix_hit_rate}")
+    if not reps["prefix"].prefill_chunks < reps["chunked"].prefill_chunks:
+        raise AssertionError("the prefix cache saved no chunk")
+    if reps["sampled"].outputs == reps["prefix"].outputs:
+        raise AssertionError("sampled tokens equal the greedy ones")
+    static = ServeEngine(cfg, params, ServeConfig(
+        continuous=False, clock="steps", **common)).run(reqs)
+    share = {name: sum(reps[name].outputs[r.rid] == static.outputs[r.rid]
+                       for r in reqs) / len(reqs)
+             for name in ("chunked", "prefix")}
+    print("greedy requests equal to the static whole-prompt run (bf16, "
+          "not gated):", json.dumps(share), flush=True)
+    first_token_logits(torch, cfg, params, reqs, common)
+
+    wreqs = shared_prefix_requests(16, 50.0, V, n_prefixes=4,
+                                   prefix_len=256, suffix_lens=(64, 192),
+                                   gen_lens=(16, 32), seed=0)
+    torch.cuda.reset_peak_memory_stats()
+    rep = ServeEngine(cfg, params, ServeConfig(
+        clock="wall", **runs["prefix"], **common)).run(wreqs)
+    print("wall clock prefix-cached:", json.dumps(dict(
+        tokens=rep.total_tokens, duration_s=rep.duration,
+        tok_per_s=rep.tokens_per_sec, latency_p50_s=rep.latency_p50,
+        latency_p99_s=rep.latency_p99, ttft_p50_s=rep.ttft_p50,
+        ttft_p99_s=rep.ttft_p99, decode_steps=rep.decode_steps,
+        prefill_chunks=rep.prefill_chunks,
+        prefix_hit_rate=rep.prefix_hit_rate, utilization=rep.utilization,
+        peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30)),
+        flush=True)
+
+    from torch.profiler import ProfilerActivity, profile
+    preqs = [dataclasses.replace(r, arrival=0.0) for r in wreqs[:8]]
+    eng = ServeEngine(cfg, params, ServeConfig(clock="steps", warmup=False,
+                                               **runs["prefix"], **common))
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        rep = eng.run(preqs)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    device_profile(torch, prof, wall_ms, "chunked profile",
+                   requests=len(preqs), decode_steps=rep.decode_steps,
+                   prefill_chunks=rep.prefill_chunks,
+                   prefix_hit_rate=rep.prefix_hit_rate,
+                   tokens=rep.total_tokens)
+    return launches
+
+
+def first_token_logits(torch, cfg, params, reqs, common):
+    """For the first request of each hot prefix (prefix + its suffix), the
+    last logits of ``prefill_chunk`` over the engine's end-aligned chunk
+    plan against the whole-prompt ``prefill``: max |d| / max |logit|."""
+    from repro_torch.models.transformer import (init_chunk_carry, prefill,
+                                                prefill_chunk)
+    from repro_torch.serve import PageAllocator, init_paged_cache
+    L, page = common["cache_len"], common["page_size"]
+    seen, errs = set(), []
+    for r in reqs:
+        if r.prompt[:256] in seen:
+            continue
+        seen.add(r.prompt[:256])
+        S = len(r.prompt)
+        alloc = PageAllocator(cfg, 1, L, page)
+        cache = init_paged_cache(cfg, 1, L, page, device="cuda")
+        rows = {k: torch.from_numpy(v).cuda()
+                for k, v in alloc.alloc(0).items()}
+        carry = init_chunk_carry(cfg)
+        for s0 in list(range(0, S - CHUNK, CHUNK)) + [S - CHUNK]:
+            toks = torch.tensor([r.prompt[s0:s0 + CHUNK]], device="cuda")
+            got, cache, carry = prefill_chunk(params, cache, toks, s0, rows,
+                                              carry, cfg, L)
+        want, _ = prefill(params, torch.tensor([r.prompt], device="cuda"),
+                          cfg, cache_len=L)
+        errs.append(((got.float() - want.float()).abs().max()
+                     / want.float().abs().max()).item())
+        del cache
+    print("first-token logits, chunked vs whole prompt:", json.dumps(dict(
+        prompts=len(errs), normalized_err=errs, tolerance=LOGITS_NORM_TOL)),
+        flush=True)
+    if len(errs) != 4 or not max(errs) <= LOGITS_NORM_TOL:
+        raise AssertionError(f"first-token logits differ: {errs}")
 
 
 KERNEL_GROUPS = (("flash_attention", "flash_fwd_kernel"),
@@ -554,6 +863,7 @@ KERNEL_GROUPS = (("flash_attention", "flash_fwd_kernel"),
                  ("decode_attention", "decode_kernel"),
                  ("page_gather", "page_gather_kernel"),
                  ("ring_gather", "ring_gather_kernel"),
+                 ("prefill_page_attention", "prefill_page_attention_kernel"),
                  ("matmul", ("gemm", "nvjet", "cutlass", "xmma", "splitK")))
 
 
@@ -635,7 +945,7 @@ def where_time_goes(torch, cfg, params, common):
 # ---------------------------------------------------------------------------
 
 PLAIN_VERSIONS = ("attention", "attention_chunked", "attention_decode",
-                  "page_gather", "ring_gather")
+                  "page_gather", "ring_gather", "prefill_page_attention")
 
 
 @contextlib.contextmanager
@@ -894,16 +1204,31 @@ def main() -> int:
                     print(f"ptxas {name}: {line.strip()}")
 
     gen = torch.Generator(device="cuda").manual_seed(0)
-    results = {"flash_attention": check_flash(torch, F, ref, gen),
-               "page_gather": check_page_gather(torch, ref, gen),
-               "decode_attention": check_decode(torch, F, ref, gen),
-               "ring_gather": check_ring_gather(torch, ref, gen),
-               "flash_attention_bwd": check_flash_bwd(torch, F, ref, gen)}
-    small_end_to_end(torch)
-    paths = {"serving": full_width(torch, ops, ref)}
+    phase_s = {}
+
+    def timed(name, fn, *args):
+        t1 = time.perf_counter()
+        out = fn(*args)
+        phase_s[name] = time.perf_counter() - t1
+        print(f"phase {name}: {phase_s[name]:.1f} s", flush=True)
+        return out
+
+    results = {name: timed(name, fn, *args) for name, fn, args in (
+        ("flash_attention", check_flash, (torch, F, ref, gen)),
+        ("page_gather", check_page_gather, (torch, ref, gen)),
+        ("decode_attention", check_decode, (torch, F, ref, gen)),
+        ("ring_gather", check_ring_gather, (torch, ref, gen)),
+        ("flash_attention_bwd", check_flash_bwd, (torch, F, ref, gen)),
+        ("prefill_page_attention", check_prefill_page_attention,
+         (torch, F, ref, gen)))}
+    timed("small_end_to_end", small_end_to_end, torch)
+    paths = timed("full_width_serving", full_width, torch, ops, ref)
     torch.cuda.empty_cache()
-    small_training(torch)
-    paths["training"] = full_width_training(torch, ops, ref)
+    timed("small_training", small_training, torch)
+    paths["training"] = timed("full_width_training", full_width_training,
+                              torch, ops, ref)
+    print("phase seconds:", json.dumps(dict(
+        phase_s, total=time.perf_counter() - t0)), flush=True)
 
     replaces = {"flash_attention": "src/repro/kernels/flash_attention.py:86",
                 "page_gather": "src/repro/kernels/page_gather.py:35",
@@ -912,10 +1237,13 @@ def main() -> int:
                 # the gradient of the kernel above: the TPU package has
                 # none and trains through autodiff of its plain attention
                 "flash_attention_bwd":
-                    "src/repro/kernels/flash_attention.py:86"}
+                    "src/repro/kernels/flash_attention.py:86",
+                "prefill_page_attention":
+                    "src/repro/kernels/page_gather.py:107"}
     own_path = {"flash_attention": "serving", "page_gather": "serving",
                 "decode_attention": "serving", "ring_gather": "training",
-                "flash_attention_bwd": "training"}
+                "flash_attention_bwd": "training",
+                "prefill_page_attention": "chunked_serving"}
     kernels = []
     for name, row in results.items():
         source = "flash_attention" if name == "flash_attention_bwd" else name

@@ -16,10 +16,12 @@ from ._build import launches, reset_launches
 from .decode_attention import decode_attention as _decode_attention
 from .flash_attention import FlashAttention
 from .page_gather import page_gather as _page_gather
+from .page_gather import prefill_page_attention as _prefill_page_attention
 from .ring_gather import ring_gather as _ring_gather
 
-__all__ = ["attention", "attention_decode", "page_gather", "ring_gather",
-           "launches", "reset_launches", "CHUNK_THRESHOLD"]
+__all__ = ["attention", "attention_decode", "page_gather",
+           "prefill_page_attention", "ring_gather", "launches",
+           "reset_launches", "CHUNK_THRESHOLD"]
 
 # on the CPU, sequences at or above this length take the blockwise path
 # (bounded score-matrix memory), as in repro.kernels.ops
@@ -62,6 +64,20 @@ def page_gather(pool: torch.Tensor, page_table: torch.Tensor
     if _on_cuda(pool):
         return _page_gather(pool, page_table)
     return ref.page_gather(pool, page_table)
+
+
+def prefill_page_attention(q: torch.Tensor, k_ctx: torch.Tensor,
+                           v_ctx: torch.Tensor, k_new: torch.Tensor,
+                           v_new: torch.Tensor, ctx_pos: torch.Tensor,
+                           q_pos: torch.Tensor,
+                           window: int = 0) -> torch.Tensor:
+    """One prompt chunk (B, C, H, hd) against its gathered ring context
+    (B, L, KV, hd) and its own keys, masked by absolute position."""
+    if _on_cuda(q):
+        return _prefill_page_attention(q, k_ctx, v_ctx, k_new, v_new,
+                                       ctx_pos, q_pos, window=window)
+    return ref.prefill_page_attention(q, k_ctx, v_ctx, k_new, v_new,
+                                      ctx_pos, q_pos, window=window)
 
 
 def ring_gather(hist: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:

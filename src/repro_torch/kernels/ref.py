@@ -94,6 +94,43 @@ def attention_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return _softmax_av(scores, v, q.dtype)
 
 
+def prefill_mask(ctx_pos: torch.Tensor, q_pos: torch.Tensor,
+                 window: int = 0) -> torch.Tensor:
+    """(B, C, L + C) bool: which keys (context slots, then the chunk's
+    own) each chunk row sees — ``0 <= kpos <= qpos``, and
+    ``kpos > qpos - window`` when window > 0."""
+    kpos = torch.cat([ctx_pos, q_pos], dim=1)[:, None, :]   # (B, 1, L + C)
+    qp = q_pos[:, :, None]                                  # (B, C, 1)
+    mask = (kpos >= 0) & (kpos <= qp)
+    if window > 0:
+        mask &= kpos > qp - window
+    return mask
+
+
+def prefill_page_attention(q: torch.Tensor, k_ctx: torch.Tensor,
+                           v_ctx: torch.Tensor, k_new: torch.Tensor,
+                           v_new: torch.Tensor, ctx_pos: torch.Tensor,
+                           q_pos: torch.Tensor,
+                           window: int = 0) -> torch.Tensor:
+    """Chunked-prefill attention against a gathered ring/paged context.
+
+    q, k_new, v_new: (B, C, H|KV, hd) — the current prompt chunk (RoPE'd);
+    k_ctx, v_ctx: (B, L, KV, hd) — the logical ring view of prior chunks'
+    pages (page_gather output); ctx_pos: (B, L) int32 absolute position
+    held by each ring slot, negative = dead slot; q_pos: (B, C) int32
+    absolute positions of the chunk tokens.  Keys are masked to
+    ``0 <= kpos <= qpos`` (and ``kpos > qpos - window`` when window > 0),
+    so a chunk starting mid-sequence attends to exactly the prefix it
+    would see in a full-sequence prefill.  Returns (B, C, H, hd).
+    """
+    H = q.shape[2]
+    k = _repeat_kv(torch.cat([k_ctx, k_new.to(k_ctx.dtype)], dim=1), H)
+    v = _repeat_kv(torch.cat([v_ctx, v_new.to(v_ctx.dtype)], dim=1), H)
+    mask = prefill_mask(ctx_pos, q_pos, window)
+    scores = _scores(q, k).masked_fill(~mask[:, None], float("-inf"))
+    return _softmax_av(scores, v, q.dtype)
+
+
 def page_gather(pool: torch.Tensor, page_table: torch.Tensor) -> torch.Tensor:
     """pool: (P, page, ...); page_table: (B, n_pp) int32 ->
     (B, n_pp * page, ...) — the paged KV cache's logical view."""

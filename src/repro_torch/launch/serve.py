@@ -1,17 +1,24 @@
 """Serving CLI: the continuous-batching engine on an open-loop workload
 (port of ``repro.launch.serve``).
 
-Prompts are prefilled whole into paged per-sequence KV caches, then
-decoded greedily with sequences joining and leaving the batch mid-decode
-(``--static`` restores the drain-the-batch baseline).  Arrivals follow a
-Poisson process at ``--rate`` requests per second.  Weights are random,
-drawn from ``--seed`` (which also seeds the workload).  The kernels are
-picked by device: ``--device cuda`` (the default) runs the hand-written
-CUDA kernels, ``--device cpu`` their plain PyTorch versions.
+Prompts are prefilled into paged per-sequence KV caches — whole at
+admission, or in ``--prefill-chunk`` token chunks interleaved with decode,
+adopting cached pages of shared prefixes with ``--prefix-cache`` — then
+decoded (greedy, or sampled with ``--temperature``/``--top-p``) with
+sequences joining and leaving the batch mid-decode (``--static`` restores
+the drain-the-batch baseline).  Arrivals follow a Poisson process at
+``--rate`` requests per second; ``--shared-prefix`` draws prompts as hot
+system prompts plus unique suffixes.  Weights are random, drawn from
+``--seed`` (which also seeds the workload).  The kernels are picked by
+device: ``--device cuda`` (the default) runs the hand-written CUDA
+kernels, ``--device cpu`` their plain PyTorch versions.
 
-Example:
+Examples:
   PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3.2-1b \\
       --smoke --device cpu --requests 8 --rate 4 --batch 4
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3.2-1b \\
+      --smoke --device cpu --shared-prefix --prefix-cache \\
+      --temperature 0.8 --top-p 0.9
 """
 from __future__ import annotations
 
@@ -23,7 +30,8 @@ from ..configs import get_config, get_smoke_config
 from ..device import resolve_device
 from ..models import paramlib
 from ..models.transformer import model_specs
-from ..serve import ServeConfig, ServeEngine, open_loop_requests
+from ..serve import (ServeConfig, ServeEngine, open_loop_requests,
+                     shared_prefix_requests)
 
 
 def main(argv=None) -> dict:
@@ -50,12 +58,22 @@ def main(argv=None) -> dict:
                     help="logical KV ring length (default: fits the "
                          "longest prompt+gen, page-aligned)")
     ap.add_argument("--prefill-chunk", type=int, default=0,
-                    help="chunked prefill (not ported yet: must stay 0)")
+                    help="chunked prefill: tokens per chunk, one chunk "
+                         "per tick interleaved with decode (0 = whole-"
+                         "prompt prefill at admission)")
     ap.add_argument("--prefix-cache", action="store_true",
-                    help="prompt-prefix caching (not ported yet)")
+                    help="prompt-prefix caching: adopt cached KV pages "
+                         "for shared prompt prefixes (implies chunked "
+                         "prefill at --page-size granularity)")
+    ap.add_argument("--shared-prefix", action="store_true",
+                    help="shared-prefix traffic (hot system prompts + "
+                         "unique suffixes) instead of fully random "
+                         "prompts")
     ap.add_argument("--temperature", type=float, default=0.0,
-                    help="sampling temperature (not ported yet: 0 = greedy)")
-    ap.add_argument("--top-p", type=float, default=1.0)
+                    help="sampling temperature (0 = greedy argmax)")
+    ap.add_argument("--top-p", type=float, default=1.0,
+                    help="nucleus sampling mass (with --temperature)")
+    ap.add_argument("--sample-seed", type=int, default=0)
     ap.add_argument("--seed", type=int, default=0,
                     help="seeds the random weights and the workload")
     args = ap.parse_args(argv)
@@ -67,19 +85,29 @@ def main(argv=None) -> dict:
                                 dtype=cfg.param_dtype)
 
     gen_lens = (args.gen,) if args.gen else (4, 8, 16, 48)
-    prompt_lens = (args.prompt_len,) if args.prompt_len else (8, 16, 32)
-    requests = open_loop_requests(
-        args.requests, args.rate, cfg.vocab_size,
-        prompt_lens=prompt_lens, gen_lens=gen_lens, seed=args.seed)
+    if args.shared_prefix:
+        plen = args.prompt_len or 32
+        requests = shared_prefix_requests(
+            args.requests, args.rate, cfg.vocab_size,
+            prefix_len=plen - plen // 4, suffix_lens=(plen // 4,),
+            gen_lens=gen_lens, seed=args.seed)
+        max_prompt = plen
+    else:
+        prompt_lens = (args.prompt_len,) if args.prompt_len else (8, 16, 32)
+        requests = open_loop_requests(
+            args.requests, args.rate, cfg.vocab_size,
+            prompt_lens=prompt_lens, gen_lens=gen_lens, seed=args.seed)
+        max_prompt = max(prompt_lens)
     page = args.page_size
-    need = max(prompt_lens) + max(gen_lens)
+    need = max_prompt + max(gen_lens)
     cache_len = args.cache_len or -(-need // page) * page
 
     scfg = ServeConfig(batch_size=args.batch, page_size=page,
                        cache_len=cache_len, continuous=not args.static,
                        prefill_chunk=args.prefill_chunk,
                        prefix_cache=args.prefix_cache,
-                       temperature=args.temperature, top_p=args.top_p)
+                       temperature=args.temperature, top_p=args.top_p,
+                       sample_seed=args.sample_seed)
     report = ServeEngine(cfg, params, scfg).run(requests)
 
     print(f"{report.mode} on {device}: {report.total_tokens} tokens / "
@@ -90,7 +118,9 @@ def main(argv=None) -> dict:
           f"p99 {report.latency_p99*1e3:.0f}ms over {report.decode_steps} "
           f"decode steps")
     print(f"ttft p50 {report.ttft_p50*1e3:.0f}ms "
-          f"p99 {report.ttft_p99*1e3:.0f}ms")
+          f"p99 {report.ttft_p99*1e3:.0f}ms; "
+          f"{report.prefill_chunks} prefill chunks, "
+          f"prefix hit rate {report.prefix_hit_rate:.0%}")
     first = report.outputs[min(report.outputs)]
     print("first request:", list(first[:12]))
     return {"report": report, "tok_per_s": report.tokens_per_sec}

@@ -1,6 +1,7 @@
 """Self-attention with GQA, sliding windows, RoPE and a paged KV cache
 (port of ``repro.models.attention``'s self-attention: the training and
-prefill forward, and paged decode).
+prefill forward, paged decode, and chunked prefill against the paged
+cache).
 
 The softmax path dispatches through :mod:`repro_torch.kernels.ops`, so the
 CUDA kernels and their plain versions share one call site.
@@ -122,5 +123,73 @@ def attention_decode_paged(params: dict, x: torch.Tensor, cache: dict,
     v = kops.page_gather(pv, pt)
     valid = _ring_valid(posb, L, cfg, kind)
     out = kops.attention_decode(q, k, v, valid)
+    out = _merge_heads(out) @ params["wo"].to(x.dtype)
+    return out, cache
+
+
+def ring_positions(start: int, L: int, device) -> torch.Tensor:
+    """Absolute position held by each slot of an L-slot ring just before
+    position ``start`` lands: the newest prior entry is start-1 and slot i
+    holds last - (last-i) % L; slots never written come out -1 (dead).
+    ``torch.remainder`` is the floor modulo of ``jnp.mod``, so at start 0
+    every slot is dead.  Returns (L,) int32."""
+    idx = torch.arange(L, device=device, dtype=torch.int32)
+    last = start - 1
+    abs_pos = last - torch.remainder(last - idx, L)
+    return torch.where(abs_pos >= 0, abs_pos, -1)
+
+
+def chunk_positions(start: int, C: int, pt: torch.Tensor,
+                    page: int) -> dict:
+    """Positions and scatter targets of a chunk at start..start+C-1 over
+    the ring behind page-table row ``pt`` (1, n_pp): ``q_pos`` (1, C) and
+    ``ctx_pos`` (1, L) int32, and the pool coordinates (``phys``, ``off``)
+    of the chunk's own slots.  Every layer of one page class shares them,
+    so ``prefill_chunk`` makes them once per chunk and class."""
+    dev = pt.device
+    L = pt.shape[1] * page
+    q_pos = (start + torch.arange(C, device=dev, dtype=torch.int32))[None]
+    slot = torch.remainder(q_pos[0].long(), L)                  # (C,)
+    return {"q_pos": q_pos, "ctx_pos": ring_positions(start, L, dev)[None],
+            "phys": pt[0, slot // page].long(), "off": slot % page}
+
+
+def attention_prefill_paged(params: dict, x: torch.Tensor, cache: dict,
+                            cfg: ModelConfig, kind: str, start: int,
+                            pos: dict | None = None
+                            ) -> tuple[torch.Tensor, dict]:
+    """One prompt chunk against a paged KV cache (chunked prefill).
+
+    x: (1, C, d) — chunk tokens at absolute positions start..start+C-1;
+    cache: {"pk", "pv": (P, page, KV, hd) pools, "pt": (1, n_pp) page-table
+    row of the slot being prefilled}; pos: ``chunk_positions`` of this
+    chunk and row, made here when not given.  Prior chunks' K/V are read
+    through the page table (gathered *before* the chunk's own K/V are
+    scattered in, so a windowed ring that wraps within this chunk still
+    sees the pre-wrap entries it legitimately covers: ``page_gather``
+    copies them out ahead of the in-place scatter on the same stream),
+    masked by absolute position exactly like a full-sequence causal
+    prefill.  C must not exceed the ring length L (the serve engine caps
+    the chunk at the smallest page-class L so scatter slots are unique).
+    The chunk's K/V are written into the pools in place; returns
+    (out (1, C, d), cache).
+    """
+    pk, pv, pt = cache["pk"], cache["pv"], cache["pt"]
+    if pos is None:
+        pos = chunk_positions(start, x.shape[1], pt, pk.shape[1])
+    q, k_new, v_new = _qkv(params, x, cfg)
+    theta = _rope_theta(cfg, kind)
+    q_pos = pos["q_pos"]
+    q = apply_rope(q, q_pos, theta)
+    k_new = apply_rope(k_new, q_pos, theta)
+
+    k_ctx = kops.page_gather(pk, pt)                            # (1, L, KV, hd)
+    v_ctx = kops.page_gather(pv, pt)
+    window = cfg.window if kind in ("local", "swa") else 0
+    out = kops.prefill_page_attention(q, k_ctx, v_ctx, k_new, v_new,
+                                      pos["ctx_pos"], q_pos, window=window)
+
+    pk.index_put_((pos["phys"], pos["off"]), k_new[0].to(pk.dtype))
+    pv.index_put_((pos["phys"], pos["off"]), v_new[0].to(pv.dtype))
     out = _merge_heads(out) @ params["wo"].to(x.dtype)
     return out, cache

@@ -7,6 +7,8 @@ Entry points (plain functions over a params dict):
   lm_loss(params, batch, cfg, remat)                -> (loss, metrics)
   prefill(params, tokens, cfg, cache_len)           -> (last_logits, cache)
   decode_step(params, cache, tokens, pos, cfg)      -> (logits, cache)
+  prefill_chunk(params, cache, tokens, start, rows, carry, cfg, cache_len)
+                                                    -> (logits, cache, carry)
 
 Parameters of each block-group slot are stacked ``(n, ...)`` as in the JAX
 package, so paths match its checkpoints; the port loops over the stack
@@ -254,3 +256,58 @@ def decode_step(params: dict, cache: dict, tokens: torch.Tensor,
                                   pos)
     x = apply_norm(params["final_norm"], x, cfg)
     return lm_logits(params, x, cfg), cache
+
+
+# ---------------------------------------------------------------------------
+# Chunked prefill (repro_torch.serve): one prompt chunk against the paged cache
+# ---------------------------------------------------------------------------
+
+def init_chunk_carry(cfg: ModelConfig) -> dict:
+    """Per-slot recurrent carry for chunked prefill (B=1 per prefilling
+    sequence), in the JAX package's tree shape.  Attention layers carry
+    nothing — their state lives in the page pools — and they are the only
+    kinds ported (``check_supported``), so every leaf is empty here; the
+    recurrent kinds' carries come with their slice."""
+    check_supported(cfg)
+    return {f"g{gi}": {f"s{si}": {} for si in range(len(g.pattern))}
+            for gi, g in enumerate(cfg.groups)}
+
+
+def _chunk_block(bp: dict, kind: str, x: torch.Tensor, c: dict,
+                 cfg: ModelConfig, rows: dict, start: int, cache_len: int,
+                 pos: dict) -> torch.Tensor:
+    h = apply_norm(bp["ln1"], x, cfg)
+    L = cfg.kv_cache_len(kind, cache_len)
+    tmp = {"pk": c["pk"], "pv": c["pv"], "pt": rows[L][None]}
+    if L not in pos:                    # once per chunk and page class
+        pos[L] = attn.chunk_positions(start, x.shape[1], tmp["pt"],
+                                      c["pk"].shape[1])
+    mix, _ = attn.attention_prefill_paged(bp["mix"], h, tmp, cfg, kind,
+                                          start, pos[L])
+    x = x + mix
+    h2 = apply_norm(bp["ln2"], x, cfg)
+    return x + apply_mlp(bp["ffn"], h2, cfg)
+
+
+def prefill_chunk(params: dict, cache: dict, tokens: torch.Tensor,
+                  start: int, rows: dict, carry: dict, cfg: ModelConfig,
+                  cache_len: int) -> tuple[torch.Tensor, dict, dict]:
+    """Process one prompt chunk of an in-flight prefill against the paged
+    cache.  tokens: (1, C) at absolute positions start..start+C-1; rows:
+    {L: (n_pp,) int32 tensor} the slot's physical pages per page class
+    (the batch page table stays on the junk page until activation, so
+    decode steps interleave freely); carry: ``init_chunk_carry`` tree,
+    returned as it came (attention layers carry nothing).  The chunk's K/V
+    are written into the pools in place.  Returns (last-position logits
+    (1, V) f32, cache, carry)."""
+    check_supported(cfg)
+    x = embed_tokens(params, tokens, cfg)
+    pos: dict = {}
+    for gi, g in enumerate(cfg.groups):
+        gp, gc = params["groups"][f"g{gi}"], cache[f"g{gi}"]
+        for lp, lc in zip(_unstack(gp, g.n), _unstack(gc, g.n)):
+            for si, kind in enumerate(g.pattern):
+                x = _chunk_block(lp[f"s{si}"], kind, x, lc[f"s{si}"], cfg,
+                                 rows, start, cache_len, pos)
+    x = apply_norm(params["final_norm"], x[:, -1:], cfg)
+    return lm_logits(params, x, cfg)[:, 0], cache, carry

@@ -13,10 +13,17 @@ of a class share one page table per slot.  Each class pool reserves one
 extra *junk page* (id ``P - 1``): freed slots' tables point at it, so the
 unconditional per-step KV write of an idle batch row lands there.
 
-Unlike the JAX package, the device side is updated **in place**: ``join``
-and ``evict`` write the pools and tables with indexed assignment
-(``index_put_``) and return the same cache dict, and so does the decode
-step's KV write (``models.attention.attention_decode_paged``).
+Chunked prefill fills a slot's pages while its table still points at the
+junk page; ``activate`` then installs the table.  The prefix cache
+(:mod:`repro_torch.serve.prefix_cache`) shares pages between slots under
+refcounts (``incref``/``install``), with ``extra_seqs`` sequences' worth
+of pool headroom for the pages it retains, and ``copy_page`` gives a slot
+a private copy of a shared page (copy-on-write).
+
+Unlike the JAX package, the device side is updated **in place**: ``join``,
+``evict``, ``activate`` and ``copy_page`` write the pools and tables with
+indexed assignment and return the same cache dict, and so do the decode
+step's and the prefill chunk's KV writes (``models.attention``).
 """
 from __future__ import annotations
 
@@ -52,20 +59,29 @@ class PageAllocator:
     """Refcounted free-list page allocator over one engine's page classes.
 
     Pure host-side bookkeeping in numpy; the device copies of the tables
-    inside the cache are written by ``join``/``evict``.  Pool capacity per
-    class is ``batch * pages_per_seq + 1`` (the +1 is the junk page, id
-    ``P - 1``), so allocation succeeds iff a sequence slot is free.  Each
-    page carries a refcount (1 while a slot owns it), so a page freed twice
-    raises instead of entering the free list twice; page sharing
-    (``incref``) comes with the prefix cache.
+    inside the cache are written by ``join``/``evict``/``activate``.  Pool
+    capacity per class is ``(batch + extra_seqs) * pages_per_seq + 1`` (the
+    +1 is the junk page, id ``P - 1``): with the default ``extra_seqs=0``,
+    allocation succeeds iff a sequence slot is free; the extra headroom
+    holds the prefix cache's retained pages and the transient
+    copy-on-write duplicates.
+
+    Pages are refcounted so they can be *shared*: a slot adopting a cached
+    prefix and the prefix trie holding it each own one reference
+    (``incref``/``decref``); a page returns to the free list only when its
+    last owner drops it, and a page freed once too often raises.
+    ``alloc``/``free_slot`` keep the whole-slot semantics on top: a fresh
+    page is born with one reference owned through the slot's table row,
+    and ``free_slot`` drops one reference per table entry.
     """
 
     def __init__(self, cfg: ModelConfig, batch: int, cache_len: int,
-                 page_size: int):
+                 page_size: int, extra_seqs: int = 0):
         self.batch = batch
         self.page_size = page_size
         self.classes = page_classes(cfg, cache_len, page_size)
-        cap = {L: batch * npp for L, npp in self.classes.items()}
+        cap = {L: (batch + extra_seqs) * npp
+               for L, npp in self.classes.items()}
         self.junk = dict(cap)
         self.free: dict[int, list[int]] = {
             L: list(range(n)) for L, n in cap.items()}
@@ -87,6 +103,10 @@ class PageAllocator:
         self.refcount[L][ids] = 1
         return ids
 
+    def incref(self, L: int, ids) -> None:
+        for p in np.atleast_1d(np.asarray(ids, np.int64)):
+            self.refcount[L][p] += 1
+
     def decref(self, L: int, ids) -> None:
         for p in np.atleast_1d(np.asarray(ids, np.int64)):
             if self.refcount[L][p] <= 0:
@@ -94,6 +114,14 @@ class PageAllocator:
             self.refcount[L][p] -= 1
             if self.refcount[L][p] == 0:
                 self.free[L].append(int(p))
+
+    def install(self, b: int, rows: dict[int, np.ndarray]) -> None:
+        """Record slot ``b``'s page-id rows (the caller already owns one
+        reference per page, through ``alloc_pages`` or ``incref``)."""
+        for L, ids in rows.items():
+            if (self.tables[L][b] != self.junk[L]).any():
+                raise ValueError(f"slot {b} already holds pages (L={L})")
+            self.tables[L][b] = np.asarray(ids, np.int32)
 
     def alloc(self, b: int) -> dict[int, np.ndarray]:
         """Allocate slot ``b``'s pages in every class; returns the page-id
@@ -124,12 +152,14 @@ def _walk_slots(cfg: ModelConfig):
 
 
 def init_paged_cache(cfg: ModelConfig, batch: int, cache_len: int,
-                     page_size: int,
+                     page_size: int, extra_seqs: int = 0,
                      device: str | torch.device | None = None) -> dict:
     """Attention slots get {"pk", "pv": (n, P, page, KV, hd) pools,
     "pt": (n, B, n_pp) int32 tables} on ``device`` (default ``cuda``),
     tables starting at the junk page ``P - 1``.  ``pk`` and ``pv`` are
-    separate tensors, since both are written in place."""
+    separate tensors, since both are written in place.  ``extra_seqs``
+    adds that many sequences' worth of pool headroom per class (it must
+    match the PageAllocator's)."""
     dev = resolve_device(device)
     classes = page_classes(cfg, cache_len, page_size)
     cache: dict[str, Any] = {}
@@ -140,7 +170,7 @@ def init_paged_cache(cfg: ModelConfig, batch: int, cache_len: int,
                 "slice of the port")
         L = cfg.kv_cache_len(kind, cache_len)
         npp = classes[L]
-        P = batch * npp + 1
+        P = (batch + extra_seqs) * npp + 1
         shape = (n, P, page_size, cfg.n_kv_heads, cfg.hd)
         cache.setdefault(gkey, {})[skey] = {
             "pk": torch.zeros(shape, dtype=cfg.dtype, device=dev),
@@ -186,3 +216,49 @@ def make_evict_fn(cfg: ModelConfig, cache_len: int,
         return cache
 
     return evict
+
+
+def make_activate_fn(cfg: ModelConfig, cache_len: int,
+                     page_size: int) -> Callable:
+    """Build ``activate(cache, b, rows, carry) -> cache``: flip a slot from
+    prefilling to live by pointing slot ``b``'s page-table rows at its
+    physical pages (``rows``: {L: (n_pp,) int32 tensors}), in place.
+    Until this runs the slot's tables sit on the junk page, so the
+    interleaved decode steps of other slots cannot touch an in-flight
+    prefill.  ``carry`` (``transformer.init_chunk_carry``) holds no state
+    for the attention layers, the only kinds ported."""
+
+    def activate(cache: dict, b: int, rows: dict, carry: dict) -> dict:
+        del carry
+        for gkey, skey, kind, n in _walk_slots(cfg):
+            L = cfg.kv_cache_len(kind, cache_len)
+            cache[gkey][skey]["pt"][:, b] = rows[L]
+        return cache
+
+    return activate
+
+
+def make_copy_page_fn(cfg: ModelConfig, cache_len: int,
+                      page_size: int) -> Callable:
+    """Build ``copy_page(cache, src, dst, L, set_pt, b, idx) -> cache``:
+    duplicate physical page ``src`` into ``dst`` across every attention
+    layer of page class ``L``, in place.  With ``set_pt`` the slot's
+    page-table entry ``idx`` is repointed at the copy in the same step —
+    the copy-on-write when a live slot is about to overwrite a page it
+    shares with the prefix cache.  Without it only the pools change (the
+    admission-time copy of a partially matched prefix page, while the
+    slot's device table is still on the junk page)."""
+
+    def copy_page(cache: dict, src: int, dst: int, L: int, set_pt: bool,
+                  b: int, idx: int) -> dict:
+        for gkey, skey, kind, n in _walk_slots(cfg):
+            if cfg.kv_cache_len(kind, cache_len) != L:
+                continue
+            pc = cache[gkey][skey]
+            pc["pk"][:, dst] = pc["pk"][:, src]
+            pc["pv"][:, dst] = pc["pv"][:, src]
+            if set_pt:
+                pc["pt"][:, b, idx] = dst
+        return cache
+
+    return copy_page

@@ -43,3 +43,39 @@ def open_loop_requests(n: int, rate: float, vocab_size: int,
         out.append(Request(rid=i, arrival=float(arrivals[i]),
                            prompt=prompt, gen_len=glen))
     return out
+
+
+def shared_prefix_requests(n: int, rate: float, vocab_size: int,
+                           n_prefixes: int = 4,
+                           prefix_len: int = 64,
+                           suffix_lens: tuple[int, ...] = (8, 16),
+                           gen_lens: tuple[int, ...] = (8, 16, 32),
+                           zipf_a: float = 1.2,
+                           seed: int = 0) -> list[Request]:
+    """Shared-prefix traffic: each request picks one of ``n_prefixes``
+    hot "system prompts" (``prefix_len`` tokens) by a Zipf-ish law —
+    prefix ``k`` has weight ``(k+1)**-zipf_a``, so a couple of prefixes
+    dominate with a long tail — and appends a unique random suffix.
+    This is the realistic prefix-reuse shape the prefix cache targets;
+    with fully-unique prompts (``open_loop_requests``) it can only ever
+    miss.  Arrival process and ``gen_len`` sampling match
+    :func:`open_loop_requests`."""
+    rng = np.random.default_rng(seed)
+    prefixes = [tuple(int(t) for t in
+                      rng.integers(0, vocab_size, size=prefix_len))
+                for _ in range(n_prefixes)]
+    w = np.array([(k + 1.0) ** -zipf_a for k in range(n_prefixes)])
+    w /= w.sum()
+    gaps = rng.exponential(1.0 / rate, size=n)
+    gaps[0] = 0.0
+    arrivals = np.cumsum(gaps)
+    out = []
+    for i in range(n):
+        pre = prefixes[int(rng.choice(n_prefixes, p=w))]
+        slen = int(rng.choice(suffix_lens))
+        suffix = tuple(int(t) for t in
+                       rng.integers(0, vocab_size, size=slen))
+        out.append(Request(rid=i, arrival=float(arrivals[i]),
+                           prompt=pre + suffix,
+                           gen_len=int(rng.choice(gen_lens))))
+    return out

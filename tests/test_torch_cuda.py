@@ -29,8 +29,10 @@ from repro_torch.kernels import _build, ops, ref  # noqa: E402
 from repro_torch.kernels.decode_attention import decode_attention  # noqa
 from repro_torch.kernels.flash_attention import (  # noqa: E402
     FlashAttention, flash_attention, flash_attention_bwd)
-from repro_torch.kernels.page_gather import page_gather  # noqa: E402
+from repro_torch.kernels.page_gather import (  # noqa: E402
+    page_gather, prefill_page_attention)
 from repro_torch.kernels.ring_gather import ring_gather  # noqa: E402
+from repro_torch.models.attention import ring_positions  # noqa: E402
 
 torch.set_num_threads(1)
 
@@ -135,6 +137,8 @@ def test_ops_route_by_device_and_count_launches(gen):
     ops.attention_decode(q[:, :1].detach(), k.detach(), k.detach(),
                          torch.ones((16,), dtype=torch.bool, device="cuda"))
     ops.ring_gather(hist, torch.tensor(1, dtype=torch.int32, device="cuda"))
+    ops.prefill_page_attention(*_chunk_inputs(gen, 1, 8, 16, 4, 2, 64, 5,
+                                              torch.bfloat16))
     torch.cuda.synchronize()
     assert ops.launches == {name: 1 for name in _build.KERNELS}
     ref.attention(q, k, k)                  # the plain version never counts
@@ -260,3 +264,91 @@ def test_flash_attention_bwd_is_deterministic(gen, dtype):
     a = _attn_grads(q, k, k, do, True, 0, kernel=True)
     b = _attn_grads(q, k, k, do, True, 0, kernel=True)
     assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def _chunk_inputs(gen, B, C, L, H, KV, hd, start, dtype):
+    """A chunk at positions start..start+C-1 over a ring of L slots holding
+    the positions before it, as ``attention_prefill_paged`` makes them."""
+    q = _randn(gen, (B, C, H, hd), dtype)
+    k_ctx, v_ctx = (_randn(gen, (B, L, KV, hd), dtype) for _ in range(2))
+    k_new, v_new = (_randn(gen, (B, C, KV, hd), dtype) for _ in range(2))
+    ctx_pos = ring_positions(start, L, "cuda")[None].expand(B, L)
+    q_pos = (start + torch.arange(C, dtype=torch.int32,
+                                  device="cuda"))[None].expand(B, C)
+    return q, k_ctx, v_ctx, k_new, v_new, ctx_pos, q_pos
+
+
+# chip_smoke.py's cases at llama3.2-1b's heads (C, L, start, window, dtype):
+# an empty ring, dead slots, a wrapped ring, windows, one f32 case
+PREFILL_CASES = [
+    (128, 544, 0, 0, torch.bfloat16),
+    (128, 544, 256, 0, torch.bfloat16),
+    (16, 544, 320, 0, torch.bfloat16),
+    (128, 1024, 700, 0, torch.bfloat16),
+    (128, 544, 900, 0, torch.bfloat16),
+    (16, 1024, 1500, 128, torch.bfloat16),
+    (128, 544, 300, 128, torch.bfloat16),
+    (128, 544, 900, 0, torch.float32),
+]
+
+
+@pytest.mark.parametrize("C,L,start,window,dtype", PREFILL_CASES)
+def test_prefill_page_attention_serving_shapes(gen, C, L, start, window,
+                                               dtype):
+    ins = _chunk_inputs(gen, 1, C, L, 32, 8, 64, start, dtype)
+    got = prefill_page_attention(*ins, window=window)
+    want = ref.prefill_page_attention(*ins, window=window)
+    tol = TOL[dtype] if dtype == torch.bfloat16 else \
+        dict(rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(got.float(), want.float(), **tol)
+
+
+@pytest.mark.parametrize("B,C,L,H,KV,hd,start,window", [
+    (2, 8, 32, 4, 2, 16, 10, 0),      # GQA, head dim padded in the kernel
+    (2, 8, 16, 2, 2, 8, 45, 12),      # MHA, wrapped windowed ring
+    (1, 24, 40, 15, 5, 64, 17, 0),    # smollm-360m heads: group 3
+    (2, 33, 64, 16, 2, 128, 70, 0),   # group 8, widest head, ragged tiles
+    (1, 8, 8, 4, 1, 32, 3, 0),        # C == L
+])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_prefill_page_attention(gen, B, C, L, H, KV, hd, start, window,
+                                dtype):
+    ins = _chunk_inputs(gen, B, C, L, H, KV, hd, start, dtype)
+    got = prefill_page_attention(*ins, window=window)
+    want = ref.prefill_page_attention(*ins, window=window)
+    torch.testing.assert_close(got.float(), want.float(), **TOL[dtype])
+
+
+def test_prefill_page_attention_dead_rows_write_zero(gen):
+    """A row with no live key writes 0, not NaN (denominator clamp)."""
+    q, k_ctx, v_ctx, k_new, v_new, ctx_pos, q_pos = _chunk_inputs(
+        gen, 1, 8, 16, 4, 2, 64, 0, torch.float32)
+    ctx_pos = torch.full_like(ctx_pos, -1)
+    q_pos = torch.full_like(q_pos, -5)
+    out = prefill_page_attention(q, k_ctx, v_ctx, k_new, v_new, ctx_pos,
+                                 q_pos)
+    assert torch.equal(out, torch.zeros_like(out))
+
+
+def test_prefill_page_attention_refuses(gen):
+    ins = list(_chunk_inputs(gen, 1, 8, 16, 4, 2, 64, 5, torch.float32))
+    long = _chunk_inputs(gen, 1, 24, 16, 4, 2, 64, 5, torch.float32)
+    with pytest.raises(ValueError, match="longer than the ring"):
+        prefill_page_attention(*long)
+    bad = list(ins)
+    bad[0] = _randn(gen, (1, 8, 3, 64), torch.float32)
+    with pytest.raises(ValueError, match="heads"):
+        prefill_page_attention(*bad)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        prefill_page_attention(*[t.cpu() for t in ins])
+    bad = list(ins)
+    bad[5] = bad[5].long()
+    with pytest.raises(ValueError, match="ctx_pos"):
+        prefill_page_attention(*bad)
+
+
+def test_prefill_page_attention_is_deterministic(gen):
+    ins = _chunk_inputs(gen, 1, 128, 544, 32, 8, 64, 900, torch.bfloat16)
+    a = prefill_page_attention(*ins, window=128)
+    b = prefill_page_attention(*ins, window=128)
+    assert torch.equal(a, b)

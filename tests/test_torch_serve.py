@@ -4,6 +4,8 @@
   f32 on the ``steps`` clock, from the same numpy parameters and requests
   (both packages draw the same workload from one seed).
 * Continuous == static inside the port (scheduling never changes tokens).
+* The engine's configuration checks and the CLI's chunked, prefix-cached,
+  sampled path on the CPU (their parity with JAX: test_torch_prefix.py).
 * Allocator churn, exhaustion and evict/rejoin oracles mirroring
   tests/test_paged_cache.py, with JAX's per-sequence dense decode as the
   token oracle.
@@ -97,12 +99,23 @@ def test_raw_tree_wrapped_as_serving_copy(model):
         tp["groups"]["g0"]["s0"]["ln1"]["scale"]
 
 
-@pytest.mark.parametrize("knob", [dict(prefill_chunk=8),
-                                  dict(prefix_cache=True),
-                                  dict(temperature=0.7)])
-def test_later_slices_raise(knob):
-    with pytest.raises(NotImplementedError, match="slice 3"):
-        tserve.ServeConfig(**SCFG, **knob)
+def test_config_validation(model):
+    """As tests/test_serve_engine.py: the chunked path needs continuous
+    batching, top_p lies in (0, 1], temperature is >= 0, the prefix cache
+    implies a page-sized chunk, and a chunk longer than the smallest ring
+    is refused (its scatter slots would not be unique)."""
+    with pytest.raises(ValueError, match="continuous"):
+        tserve.ServeConfig(continuous=False, prefill_chunk=8, **SCFG)
+    with pytest.raises(ValueError, match="top_p"):
+        tserve.ServeConfig(top_p=0.0, **SCFG)
+    with pytest.raises(ValueError, match="temperature"):
+        tserve.ServeConfig(temperature=-0.5, **SCFG)
+    scfg = tserve.ServeConfig(prefix_cache=True, **SCFG)
+    assert scfg.prefill_chunk == SCFG["page_size"]
+    _, tcfg, _, tp = model
+    with pytest.raises(ValueError, match="smallest"):
+        tserve.ServeEngine(tcfg, tp, tserve.ServeConfig(
+            prefill_chunk=CACHE_LEN + PAGE, **SCFG))
 
 
 def test_unported_arch_names_its_slice():
@@ -134,10 +147,16 @@ def test_serving_cli_on_cpu(capsys):
     assert "continuous on cpu" in capsys.readouterr().out
 
 
-def test_serving_cli_refuses_unported_knobs():
-    with pytest.raises(NotImplementedError, match="slice 3"):
-        serve_cli.main(["--arch", ARCH, "--smoke", "--device", "cpu",
-                        "--prefill-chunk", "8"])
+def test_serving_cli_prefix_cache_and_sampling_on_cpu(capsys):
+    out = serve_cli.main(["--arch", ARCH, "--smoke", "--device", "cpu",
+                          "--requests", "6", "--rate", "50", "--batch", "2",
+                          "--gen", "4", "--seed", "1", "--shared-prefix",
+                          "--prefix-cache", "--temperature", "0.8",
+                          "--top-p", "0.9"])
+    rep = out["report"]
+    assert rep.n_requests == 6 and rep.total_tokens == 6 * 4
+    assert rep.prefill_chunks > 0 and rep.prefix_hit_rate > 0.0
+    assert "prefix hit rate" in capsys.readouterr().out
 
 
 # ---------------------------------------------------------------------------
