@@ -22,7 +22,12 @@ Phases (any failure raises and the script exits non-zero):
    the flash-attention backward against torch autograd of the plain
    attention, f32 at rtol/atol 1e-4, bf16 at a normalized max error of
    2e-2; chunked-prefill attention over rings with dead slots, wrapped
-   rings and windows, bf16 at 2e-2 and f32 at 1e-4;
+   rings and windows, bf16 at 2e-2 and f32 at 1e-4; the three attention
+   kernels also at mixtral-8x7b's head dim 128; the grouped MoE FFN at
+   mixtral-8x7b's width (a decode batch, a 128-token chunk, prompts of 300
+   and 512 tokens) in bf16 at a normalized 2e-2, its edge cases (an expert
+   with no token, a token no expert takes: exactly 0, two tokens in one
+   slot) and one f32 case at 1e-4;
 3. end to end, small: the serving engine on a narrow f32 model on the card
    (CUDA kernels) against the same model on the CPU (plain versions): same
    greedy tokens, prefill logits within 1e-3; on shared-prefix requests,
@@ -49,6 +54,19 @@ Phases (any failure raises and the script exits non-zero):
    tokens; the first-token logits of the chunk plan agree with the whole
    prompt's within a normalized 2e-2; then a ``wall``-clock prefix-cached
    run and its profile;
+4b. MoE serving: a narrow f32 mixtral (4 experts, top-2, window 16) on the
+   card against the CPU at capacity factor 1.25 (whole prompt, chunked,
+   prefix-cached: same greedy tokens, prefill logits within 1e-3), and
+   continuous == static on the card at 4.0, where nothing is dropped; then
+   ``mixtral-8x7b`` at full width, depth 8 of 32, bf16, random weights from
+   seed 0 built leaf by leaf, batch 8, page 16, cache 544, the traffic of
+   phase 4: continuous and static runs on the steps clock (the MoE serving
+   path: exact launch counts of the grouped FFN and the attention kernels,
+   no plain version; continuous-vs-static agreement reported, not gated,
+   since capacity drops depend on the batch), the first-token logits of
+   the kernels against the plain versions on the card, a ``wall``-clock
+   run, a chunked (128) prefix-cached run on shared-prefix traffic, and a
+   profile;
 5. training, small: a narrow f32 model trained 4 steps through the train
    engine at delta 2 on the packed ring, on the card (CUDA kernels)
    against the CPU (plain versions): losses and parameters within 1e-4.
@@ -73,6 +91,7 @@ import contextlib
 import dataclasses
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -161,7 +180,8 @@ def nbytes(*ts) -> int:
 def check_flash(torch, F, ref, gen):
     from repro_torch.kernels.flash_attention import flash_attention
     cases = [(1, S, 32, 8, 64) for S in (128, 300, 512, 1024)] \
-        + [(1, 300, 15, 5, 64)]          # smollm-360m heads: group 3
+        + [(1, 300, 15, 5, 64),          # smollm-360m heads: group 3
+           (1, 512, 32, 8, 128)]         # mixtral-8x7b heads
     worst, rows = 0.0, []
     for B, S, H, KV, hd in cases:
         mk = lambda n: torch.randn((B, S, n, hd), generator=gen,
@@ -191,20 +211,24 @@ def check_flash(torch, F, ref, gen):
                    bound_ms=b_ms, bound_by=b_by)
         rows.append(row)
         print("flash_attention", json.dumps(row), flush=True)
-    main = next(r for r in rows if r["shape"][1] == 512)   # longest prompt
-    return {**main, "max_abs_err": worst}
+    main = next(r for r in rows if r["shape"] == [1, 512, 32, 8, 64])
+    hd128 = next(r for r in rows if r["shape"][4] == 128)
+    return {**main, "max_abs_err": worst, "hd128": hd128}
 
 
 # decode shapes: the serving run's ring (cache_len 544 = 34 pages of 16)
 # and a 1024-slot ring; the first is the one the main path gives the kernels
 MAIN_L, RING_LENS = 544, (544, 1024)
+# (ring length, head dim) of the decode checks: llama3.2-1b's head dim 64,
+# then mixtral-8x7b's 128 on the serving ring
+DECODE_CASES = tuple((L, 64) for L in RING_LENS) + ((MAIN_L, 128),)
 
 
 def check_decode(torch, F, ref, gen):
     from repro_torch.kernels.decode_attention import decode_attention
     rows = {}
-    for L in RING_LENS:
-        B, H, KV, hd = 8, 32, 8, 64
+    for L, hd in DECODE_CASES:
+        B, H, KV = 8, 32, 8
         mk = lambda s, n: torch.randn((B, s, n, hd), generator=gen,
                                       device="cuda").to(torch.bfloat16)
         q, k, v = mk(1, H), mk(L, KV), mk(L, KV)
@@ -228,7 +252,7 @@ def check_decode(torch, F, ref, gen):
                      v_.transpose(1, 2), m_[:, None, None, :])
                     for q_, k_, v_, m_ in sets]
         ms, host_ms = time_ms(lambda i: decode_attention(*sets[i % n]), 200)
-        rows[L] = dict(
+        rows[L, hd] = dict(
             shape=[B, L, H, KV, hd], max_abs_err=err, tolerance=BF16_TOL,
             ms=ms, host_ms=host_ms,
             plain_ms=time_ms(lambda i: ref.attention_decode(*sets[i % n]),
@@ -237,9 +261,10 @@ def check_decode(torch, F, ref, gen):
                 *lib_sets[i % n][:3], attn_mask=lib_sets[i % n][3],
                 enable_gqa=True), 200)[0],
             bound_ms=b_ms, bound_by=b_by)
-        print("decode_attention", json.dumps(rows[L]), flush=True)
+        print("decode_attention", json.dumps(rows[L, hd]), flush=True)
     worst = max(r["max_abs_err"] for r in rows.values())
-    return {**rows[MAIN_L], "max_abs_err": worst}
+    return {**rows[MAIN_L, 64], "max_abs_err": worst,
+            "hd128": rows[MAIN_L, 128]}
 
 
 def check_page_gather(torch, ref, gen):
@@ -448,18 +473,22 @@ def check_flash_bwd(torch, F, ref, gen):
     return {**main, "max_abs_err": max(r["max_abs_err"] for r in rows)}
 
 
-# chunked prefill at llama3.2-1b's heads (C, L, start, window, dtype): an
-# empty ring, dead slots (start < L), wrapped rings (start > L), windows and
-# one f32 case; PREFILL_MAIN, the third chunk of a 448-token prompt in the
-# 544-slot ring, is the main path's shape
-PREFILL_CASES = [(128, 544, 0, 0, "bfloat16"), (128, 544, 256, 0, "bfloat16"),
-                 (16, 544, 320, 0, "bfloat16"),
-                 (128, 1024, 700, 0, "bfloat16"),
-                 (128, 544, 900, 0, "bfloat16"),
-                 (16, 1024, 1500, 128, "bfloat16"),
-                 (128, 544, 300, 128, "bfloat16"),
-                 (128, 544, 900, 0, "float32")]
-PREFILL_MAIN = (128, 544, 256, 0, "bfloat16")
+# chunked prefill at 32 heads over 8 kv heads (C, L, start, window, dtype,
+# head dim): an empty ring, dead slots (start < L), wrapped rings (start >
+# L), windows and one f32 case at llama3.2-1b's head dim 64, and the main
+# shape at mixtral-8x7b's 128; PREFILL_MAIN, the third chunk of a 448-token
+# prompt in the 544-slot ring, is the main path's shape
+PREFILL_CASES = [(128, 544, 0, 0, "bfloat16", 64),
+                 (128, 544, 256, 0, "bfloat16", 64),
+                 (16, 544, 320, 0, "bfloat16", 64),
+                 (128, 1024, 700, 0, "bfloat16", 64),
+                 (128, 544, 900, 0, "bfloat16", 64),
+                 (16, 1024, 1500, 128, "bfloat16", 64),
+                 (128, 544, 300, 128, "bfloat16", 64),
+                 (128, 544, 900, 0, "float32", 64),
+                 (128, 544, 256, 0, "bfloat16", 128)]
+PREFILL_MAIN = (128, 544, 256, 0, "bfloat16", 64)
+PREFILL_HD128 = (128, 544, 256, 0, "bfloat16", 128)
 F32_TOL = 1e-4
 
 
@@ -482,9 +511,9 @@ def check_prefill_page_attention(torch, F, ref, gen):
     boolean mask over the concatenated keys (timed only)."""
     from repro_torch.kernels.page_gather import prefill_page_attention
     rows = {}
-    for C, L, start, window, dt in PREFILL_CASES:
+    for C, L, start, window, dt, hd in PREFILL_CASES:
         dtype = getattr(torch, dt)
-        ins = chunk_inputs(torch, gen, C, L, start, dtype)
+        ins = chunk_inputs(torch, gen, C, L, start, dtype, hd=hd)
         got = prefill_page_attention(*ins, window=window)
         want = ref.prefill_page_attention(*ins, window=window)
         torch.cuda.synchronize()
@@ -511,7 +540,7 @@ def check_prefill_page_attention(torch, F, ref, gen):
         ms, host_ms = time_ms(lambda i: prefill_page_attention(
             *sets[i % n], window=window), 50)
         row = dict(
-            shape=[1, C, L, 32, 8, 64], start=start, window=window, dtype=dt,
+            shape=[1, C, L, 32, 8, hd], start=start, window=window, dtype=dt,
             live_pairs_per_head=live, live_keys=keys, max_abs_err=err,
             tolerance=tol, ms=ms, host_ms=host_ms,
             plain_ms=time_ms(lambda i: ref.prefill_page_attention(
@@ -520,11 +549,143 @@ def check_prefill_page_attention(torch, F, ref, gen):
                 *lib_sets[i % n][:3], attn_mask=lib_sets[i % n][3],
                 enable_gqa=True), 50)[0],
             bound_ms=b_ms, bound_by=b_by)
-        rows[C, L, start, window, dt] = row
+        rows[C, L, start, window, dt, hd] = row
         print("prefill_page_attention", json.dumps(row), flush=True)
         del sets, lib_sets
     worst = max(r["max_abs_err"] for r in rows.values())
-    return {**rows[PREFILL_MAIN], "max_abs_err": worst}
+    return {**rows[PREFILL_MAIN], "max_abs_err": worst,
+            "hd128": rows[PREFILL_HD128]}
+
+
+# moe_grouped_ffn at mixtral-8x7b's width (d 4096, f 14336, 8 experts,
+# top-2, capacity factor 1.25), one routing group of g tokens each: a decode
+# batch (the shape the serving path launches most, so the main row), a
+# 128-token chunk and whole prompts of 300 and 512 tokens
+MOE_SHAPES = (("decode", 8), ("chunk", 128), ("prompt300", 300),
+              ("prompt512", 512))
+MOE_F32_TOL = 1e-4
+
+
+def moe_route(torch, gen, cfg, g):
+    """dispatch and combine for one group of g tokens from random router
+    logits, through the model's own routing (``models.moe.route``)."""
+    import math
+    from repro_torch.models.moe import route
+    E = cfg.n_experts
+    C = max(math.ceil(g * cfg.top_k * cfg.capacity_factor / E), 1)
+    probs = torch.softmax(torch.randn((1, g, E), generator=gen,
+                                      device="cuda"), -1)
+    return route(probs, cfg.top_k, C)
+
+
+def _moe_norm_err(torch, got, want) -> tuple[float, float]:
+    err = (got.float() - want.float()).abs().max().item()
+    return err, err / max(want.float().abs().max().item(), 1e-30)
+
+
+def check_moe_grouped_ffn(torch, F, ref, gen):
+    """The grouped MoE FFN kernel against its plain version at the mixtral
+    shapes in bf16 (normalized max error <= 2e-2), the edge cases at the
+    decode shape (an expert with no token, a token no expert takes, a
+    random dispatch with two tokens in one slot), and one small f32 case
+    at rtol/atol 1e-4.  Timed beside its bound over the live experts and
+    slots, the plain version, and as a library yardstick the three expert
+    products as ``torch.bmm`` (cuBLAS) on the gathered (E, C, d) input,
+    with the SwiGLU between them and no dispatch or combine: no single
+    PyTorch call computes the grouped FFN.  Only the small tensors are
+    rotated past the L2 cache: the 2.8 GB of expert weights exceed it."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.moe_matmul import moe_grouped_ffn
+    cfg = get_config("mixtral-8x7b")
+    E, d, f, bf = cfg.n_experts, cfg.d_model, cfg.d_ff, torch.bfloat16
+
+    def weight(shape, fan_in):
+        w = torch.randn(shape, generator=gen, device="cuda")
+        return w.mul_(fan_in ** -0.5).to(bf)
+
+    ws = (weight((E, d, f), d), weight((E, d, f), d), weight((E, f, d), f))
+    torch.cuda.empty_cache()
+
+    def gathered(dispatch, x):          # (E, C, d): the bmm yardstick's input
+        return torch.einsum("GgEC,Ggd->ECd", dispatch.to(bf), x).contiguous()
+
+    def library(xin):
+        h = F.silu(torch.bmm(xin, ws[0])) * torch.bmm(xin, ws[1])
+        return torch.bmm(h, ws[2])
+
+    rows = {}
+    for name, g in MOE_SHAPES:
+        dispatch, combine = moe_route(torch, gen, cfg, g)
+        x = torch.randn((1, g, d), generator=gen, device="cuda").to(bf)
+        got = moe_grouped_ffn(dispatch, combine, x, *ws)
+        want = ref.moe_grouped_ffn(dispatch, combine, x, *ws)
+        torch.cuda.synchronize()
+        err, norm = _moe_norm_err(torch, got, want)
+        if not norm <= BF16_TOL:
+            raise AssertionError(f"moe_grouped_ffn {name}: normalized error "
+                                 f"{norm}")
+        slots = int(dispatch.any(1).sum().item())          # live (e, c)
+        experts = int(dispatch.any(3).any(1).sum().item())
+        need = experts * 3 * d * f * 2 + nbytes(dispatch, combine, x, got)
+        b_ms, b_by = bound(need, 6.0 * d * f * slots, "bfloat16")
+        sets = rotation((dispatch, combine, x))
+        n = len(sets)
+        lib_sets = [gathered(st[0], st[2]) for st in sets]
+        iters = 40 if g <= 128 else 10
+        ms, host_ms = time_ms(lambda i: moe_grouped_ffn(*sets[i % n], *ws),
+                              iters)
+        rows[name] = dict(
+            shape=[1, g, E, dispatch.shape[-1], d, f], live_experts=experts,
+            live_slots=slots, max_abs_err=err, normalized_err=norm,
+            tolerance=BF16_TOL, ms=ms, host_ms=host_ms,
+            plain_ms=time_ms(lambda i: ref.moe_grouped_ffn(
+                *sets[i % n], *ws), max(iters // 4, 3))[0],
+            library_ms=time_ms(lambda i: library(lib_sets[i % n]), iters)[0],
+            library="3 x torch.bmm + SwiGLU on the gathered (E, C, d) input",
+            bound_ms=b_ms, bound_by=b_by)
+        print("moe_grouped_ffn", json.dumps(rows[name]), flush=True)
+        del sets, lib_sets
+
+    # edge cases at the decode shape
+    dispatch, combine = moe_route(torch, gen, cfg, 8)
+    dispatch[..., 0, :] = False                 # expert 0 gets no token
+    combine[..., 0, :] = 0
+    dispatch[:, 3] = False                      # token 3 is dropped
+    combine[:, 3] = 0
+    x = torch.randn((1, 8, d), generator=gen, device="cuda").to(bf)
+    got = moe_grouped_ffn(dispatch, combine, x, *ws)
+    edge = {"no_token_expert_and_dropped_token":
+            _moe_norm_err(torch, got, ref.moe_grouped_ffn(
+                dispatch, combine, x, *ws))[1]}
+    if not torch.equal(got[:, 3], torch.zeros_like(got[:, 3])):
+        raise AssertionError("moe_grouped_ffn: a dropped token is not 0")
+    dispatch = torch.rand(dispatch.shape, generator=gen, device="cuda") < 0.2
+    dispatch[0, 0, 1, 0] = dispatch[0, 1, 1, 0] = True   # two in one slot
+    combine = torch.rand(dispatch.shape, generator=gen, device="cuda")
+    edge["random_dispatch_two_in_one_slot"] = _moe_norm_err(
+        torch, moe_grouped_ffn(dispatch, combine, x, *ws),
+        ref.moe_grouped_ffn(dispatch, combine, x, *ws))[1]
+    del ws
+    torch.cuda.empty_cache()
+    # one small f32 case
+    small = dataclasses.replace(cfg, n_experts=4)
+    dispatch, combine = moe_route(torch, gen, small, 16)
+    x = torch.randn((1, 16, 256), generator=gen, device="cuda")
+    w32 = [torch.randn(s, generator=gen, device="cuda") * s[1] ** -0.5
+           for s in ((4, 256, 512), (4, 256, 512), (4, 512, 256))]
+    got = moe_grouped_ffn(dispatch, combine, x, *w32)
+    want = ref.moe_grouped_ffn(dispatch, combine, x, *w32)
+    torch.testing.assert_close(got, want, rtol=MOE_F32_TOL, atol=MOE_F32_TOL)
+    edge["float32_max_abs_err"] = (got - want).abs().max().item()
+    print("moe_grouped_ffn edge cases:", json.dumps(dict(
+        **edge, tolerance=BF16_TOL, float32_tolerance=MOE_F32_TOL)),
+        flush=True)
+    if not max(edge["no_token_expert_and_dropped_token"],
+               edge["random_dispatch_two_in_one_slot"]) <= BF16_TOL:
+        raise AssertionError(f"moe_grouped_ffn edge cases: {edge}")
+    worst = max(r["max_abs_err"] for r in rows.values())
+    return {**rows["decode"], "max_abs_err": worst, "shapes": rows,
+            "edge_cases": edge}
 
 
 # ---------------------------------------------------------------------------
@@ -711,6 +872,237 @@ def full_width(torch, ops, ref):
                                                common)}
 
 
+def small_moe(torch):
+    """The MoE serving path on a narrow f32 mixtral (4 experts, top-2,
+    window 16, so the ring wraps): CUDA kernels on the card vs plain
+    versions on the CPU, same params and requests, at capacity factor
+    1.25 (whole prompt, chunked and prefix-cached: same greedy tokens,
+    prefill logits within 1e-3); then at 4.0, where no token is dropped,
+    continuous == static greedy tokens on the card."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import paramlib
+    from repro_torch.models.transformer import model_specs, prefill
+    from repro_torch.serve import (ServeConfig, ServeEngine,
+                                   open_loop_requests, shared_prefix_requests)
+    cfg = dataclasses.replace(get_smoke_config("mixtral-8x7b"), d_model=256,
+                              n_heads=8, n_kv_heads=2, head_dim=64,
+                              d_ff=512, dtype=torch.float32)
+    params = paramlib.init_tree(model_specs(cfg),
+                                torch.Generator().manual_seed(1))
+    V = cfg.vocab_size
+    reqs = open_loop_requests(6, 1.0, V, prompt_lens=(8, 40),
+                              gen_lens=(4, 12), seed=1)
+    shared = shared_prefix_requests(8, 100.0, V, n_prefixes=2, prefix_len=8,
+                                    suffix_lens=(4, 8), gen_lens=(4, 8),
+                                    seed=3)
+    base = dict(batch_size=3, page_size=8, cache_len=56, clock="steps")
+    runs = {"whole": ({}, reqs), "chunked": (dict(prefill_chunk=8), reqs),
+            "prefix": (dict(prefix_cache=True), shared)}
+    reps, logits = {}, {}
+    for dev in ("cpu", "cuda"):
+        p = _to(params, dev)
+        for name, (kw, rq) in runs.items():
+            reps[name, dev] = ServeEngine(cfg, p, ServeConfig(
+                **kw, **base)).run(rq)
+        toks = torch.tensor([reqs[1].prompt], device=dev)
+        logits[dev] = prefill(p, toks, cfg, cache_len=56)[0].cpu()
+    err = (logits["cpu"] - logits["cuda"]).abs().max().item()
+    same = {name: reps[name, "cpu"].outputs == reps[name, "cuda"].outputs
+            for name in runs}
+    wide = dataclasses.replace(cfg, capacity_factor=4.0)
+    p = _to(params, "cuda")
+    cont, static = (ServeEngine(wide, p, ServeConfig(
+        continuous=c, **base)).run(reqs).outputs for c in (True, False))
+    print("small f32 MoE:", json.dumps(dict(
+        prefill_logits_max_abs_err_cuda_vs_cpu=err,
+        greedy_tokens_cuda_eq_cpu=same,
+        prefill_chunks={n: reps[n, "cuda"].prefill_chunks for n in runs},
+        prefix_hit_rate=reps["prefix", "cuda"].prefix_hit_rate,
+        continuous_eq_static_at_cf4=cont == static)), flush=True)
+    if not all(same.values()):
+        raise AssertionError(f"MoE greedy tokens differ CUDA vs CPU: {same}")
+    if not err <= 1e-3:
+        raise AssertionError(f"MoE prefill logits differ by {err}")
+    if not reps["prefix", "cuda"].prefix_hit_rate > 0:
+        raise AssertionError("the MoE prefix-cached run hit nothing")
+    if cont != static:
+        raise AssertionError("MoE continuous != static at capacity 4.0")
+
+
+# mixtral-8x7b at full width, cut from 32 layers to MOE_DEPTH so its bf16
+# weights (23.7 GB) fit one 80 GB card beside their f32 draw
+MOE_DEPTH = 8
+MOE_KERNELS = ("moe_grouped_ffn", "flash_attention", "page_gather",
+               "decode_attention")
+
+
+@contextlib.contextmanager
+def plain_route(ops):
+    """Send CUDA tensors through the plain versions while the block runs
+    (the dispatch asks ``_on_cuda`` at each call)."""
+    saved = ops._on_cuda
+    ops._on_cuda = lambda t: False
+    try:
+        yield
+    finally:
+        ops._on_cuda = saved
+
+
+@contextlib.contextmanager
+def routing_traced(ops):
+    """Record the ``dispatch`` of every MoE layer while the block runs."""
+    seen, saved = [], ops.moe_grouped_ffn
+
+    def spy(dispatch, *rest):
+        seen.append(dispatch.clone())
+        return saved(dispatch, *rest)
+    ops.moe_grouped_ffn = spy
+    try:
+        yield seen
+    finally:
+        ops.moe_grouped_ffn = saved
+
+
+def moe_serving(torch, ops, ref):
+    """mixtral-8x7b at full width and depth 8 in bf16, random weights from
+    seed 0, built leaf by leaf (each f32 leaf drawn, cast and freed): the
+    MoE serving path.  Continuous and static runs on the steps clock
+    (launch counts reset just before the continuous run, read just after;
+    exact counts for the grouped FFN and the attention kernels, no plain
+    version); the first-token logits of the kernels against the plain
+    versions on the card; a wall-clock run; a chunked, prefix-cached run;
+    and a device profile."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import paramlib
+    from repro_torch.models.config import BlockGroup
+    from repro_torch.models.transformer import model_specs, prefill
+    from repro_torch.serve import (ServeConfig, ServeEngine,
+                                   open_loop_requests, serving_leaf,
+                                   shared_prefix_requests)
+    full = get_config("mixtral-8x7b")
+    cfg = dataclasses.replace(full, groups=(BlockGroup(("swa",),
+                                                       MOE_DEPTH),))
+    n_layers = MOE_DEPTH
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = paramlib.init_tree(
+        model_specs(cfg), torch.Generator(device="cuda").manual_seed(0),
+        dtype=cfg.param_dtype, leaf_fn=lambda k, t: serving_leaf(k, t, cfg))
+    torch.cuda.synchronize()
+    print(f"mixtral-8x7b depth {MOE_DEPTH} of {len(full.layer_kinds)}: "
+          f"{paramlib.param_count(model_specs(cfg))} params (bf16 serving "
+          f"copy, router f32) in {time.perf_counter() - t0:.2f} s, "
+          f"{torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB allocated, "
+          f"peak {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB",
+          flush=True)
+
+    V = cfg.vocab_size
+    common = dict(batch_size=8, page_size=16, cache_len=MAIN_L)
+    reqs = open_loop_requests(16, 0.5, V, prompt_lens=(128, 300, 512),
+                              gen_lens=(16, 32), seed=0)
+    toks = torch.tensor([reqs[0].prompt], device="cuda")
+    with routing_traced(ops) as kernel_routes:
+        got, _ = prefill(params, toks, cfg, cache_len=MAIN_L)
+    with plain_route(ops), routing_traced(ops) as plain_routes:
+        want, _ = prefill(params, toks, cfg, cache_len=MAIN_L)
+    if got.shape != (1, V) or not torch.isfinite(got).all():
+        raise AssertionError("mixtral prefill logits are not finite")
+    norm = ((got - want).abs().max() / want.abs().max()).item()
+    # bf16 rounds differently on the two paths (the kernel keeps f32 until
+    # its output), and a token whose top-2 choice flips, or which another
+    # flip pushes over an expert's capacity, takes other experts: the
+    # share of tokens routed differently, layer by layer, says how far
+    # the two paths' inputs have drifted apart
+    moved = [(a.any(-1) != b.any(-1)).any(-1).float().mean().item()
+             for a, b in zip(kernel_routes, plain_routes)]
+    print("mixtral first-token logits, kernels vs plain versions on the "
+          "card (bf16; not gated):", json.dumps(dict(
+              prompt_len=len(reqs[0].prompt), normalized_err=norm,
+              tokens_routed_differently_by_layer=moved)), flush=True)
+
+    reports, launches = {}, {}
+    n_prefills = len(reqs) + len({len(r.prompt) for r in reqs})  # + warmup
+    for cont in (True, False):
+        eng = ServeEngine(cfg, params, ServeConfig(continuous=cont,
+                                                   clock="steps", **common))
+        ops.reset_launches()                 # the MoE serving path starts
+        t0 = time.perf_counter()
+        with plain_versions_counted(ref) as plain_calls:
+            rep = eng.run(reqs)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        launches[cont] = dict(ops.launches)  # ... and ends here
+        reports[cont] = rep
+        steps = rep.decode_steps + 1         # + the warmup's decode step
+        want_l = {"moe_grouped_ffn": n_layers * (n_prefills + steps),
+                  "flash_attention": n_layers * n_prefills,
+                  "decode_attention": n_layers * steps,
+                  "page_gather": 2 * n_layers * steps}
+        print(f"mixtral {rep.mode} (steps clock): {rep.total_tokens} tokens, "
+              f"{rep.decode_steps} decode steps, utilization "
+              f"{rep.utilization:.3f}, {dt:.2f} s host time; launches "
+              f"{launches[cont]}; expected {want_l}; plain version calls "
+              f"{plain_calls}", flush=True)
+        if any(launches[cont][k] != v for k, v in want_l.items()):
+            raise AssertionError(f"launches {launches[cont]}, want {want_l}")
+        if any(plain_calls.values()):
+            raise AssertionError(f"plain versions ran: {plain_calls}")
+        for r in reqs:
+            out = rep.outputs[r.rid]
+            if len(out) != r.gen_len or not all(0 <= t < V for t in out):
+                raise AssertionError(f"request {r.rid}: bad output {out}")
+    share = sum(reports[True].outputs[r.rid] == reports[False].outputs[r.rid]
+                for r in reqs) / len(reqs)
+    print("mixtral continuous vs static greedy requests equal (capacity "
+          "1.25 drops depend on the batch; not gated):", share, flush=True)
+
+    torch.cuda.reset_peak_memory_stats()
+    wreqs = open_loop_requests(16, 50.0, V, prompt_lens=(128, 300, 512),
+                               gen_lens=(16, 32), seed=0)
+    rep = ServeEngine(cfg, params, ServeConfig(
+        continuous=True, clock="wall", **common)).run(wreqs)
+    print("mixtral wall clock continuous:", json.dumps(dict(
+        tokens=rep.total_tokens, duration_s=rep.duration,
+        tok_per_s=rep.tokens_per_sec, latency_p50_s=rep.latency_p50,
+        latency_p99_s=rep.latency_p99, ttft_p50_s=rep.ttft_p50,
+        ttft_p99_s=rep.ttft_p99, decode_steps=rep.decode_steps,
+        utilization=rep.utilization,
+        peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30)),
+        flush=True)
+
+    sreqs = shared_prefix_requests(16, 0.5, V, n_prefixes=4, prefix_len=256,
+                                   suffix_lens=(64, 192), gen_lens=(16, 32),
+                                   seed=0)
+    eng = ServeEngine(cfg, params, ServeConfig(
+        clock="steps", prefill_chunk=CHUNK, prefix_cache=True, **common))
+    ops.reset_launches()
+    with plain_versions_counted(ref) as plain_calls:
+        rep = eng.run(sreqs)
+    torch.cuda.synchronize()
+    chunked = dict(ops.launches)
+    want_c = {"prefill_page_attention": n_layers * (rep.prefill_chunks + 1),
+              "moe_grouped_ffn": n_layers * (rep.prefill_chunks + 1
+                                             + rep.decode_steps + 1)}
+    print("mixtral chunked, prefix-cached (steps clock):", json.dumps(dict(
+        tokens=rep.total_tokens, decode_steps=rep.decode_steps,
+        prefill_chunks=rep.prefill_chunks,
+        prefix_hit_rate=rep.prefix_hit_rate, launches=chunked,
+        expected=want_c, plain_version_calls=plain_calls)), flush=True)
+    if any(chunked[k] != v for k, v in want_c.items()):
+        raise AssertionError(f"chunked launches {chunked}, want {want_c}")
+    if any(plain_calls.values()) or not rep.prefix_hit_rate > 0.3:
+        raise AssertionError(f"chunked run: plain {plain_calls}, hit rate "
+                             f"{rep.prefix_hit_rate}")
+    for r in sreqs:
+        out = rep.outputs[r.rid]
+        if len(out) != r.gen_len or not all(0 <= t < V for t in out):
+            raise AssertionError(f"chunked request {r.rid}: bad {out}")
+    where_time_goes(torch, cfg, params, common, label="mixtral profile")
+    del params
+    torch.cuda.empty_cache()
+    return launches[True]
+
+
 CHUNK = 128
 CHUNKED_KERNELS = ("prefill_page_attention", "page_gather",
                    "decode_attention")
@@ -864,6 +1256,8 @@ KERNEL_GROUPS = (("flash_attention", "flash_fwd_kernel"),
                  ("page_gather", "page_gather_kernel"),
                  ("ring_gather", "ring_gather_kernel"),
                  ("prefill_page_attention", "prefill_page_attention_kernel"),
+                 ("moe_grouped_ffn", ("moe_dispatch_kernel", "moe_gemm_kernel",
+                                      "moe_combine_kernel")),
                  ("matmul", ("gemm", "nvjet", "cutlass", "xmma", "splitK")))
 
 
@@ -901,7 +1295,7 @@ def device_profile(torch, prof, wall_ms: float, label: str, **extra):
               f"x{e.count:6d} {e.key[:90]}", flush=True)
 
 
-def where_time_goes(torch, cfg, params, common):
+def where_time_goes(torch, cfg, params, common, label="profile"):
     """torch.profiler over one continuous run of 8 requests arriving
     together (8 whole-prompt prefills, then decode to the end): device
     time by kernel group and the device's idle share of the host's wall
@@ -923,7 +1317,7 @@ def where_time_goes(torch, cfg, params, common):
         reqs, step_hook=lambda _: stamps.append(time.perf_counter()))
     gaps = sorted(b - a for a, b in zip(stamps, stamps[1:]))
     step_ms = gaps[len(gaps) // 2] * 1e3
-    print("host clock:", json.dumps(dict(
+    print(f"{label} host clock:", json.dumps(dict(
         decode_step_p50_ms=step_ms,
         prefill_mean_ms=((stamps[0] - t0) * 1e3 - step_ms) / len(reqs),
         prompt_lens=[len(r.prompt) for r in reqs])), flush=True)
@@ -936,7 +1330,7 @@ def where_time_goes(torch, cfg, params, common):
         rep = eng.run(reqs)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    device_profile(torch, prof, wall_ms, "profile", requests=len(reqs),
+    device_profile(torch, prof, wall_ms, label, requests=len(reqs),
                    decode_steps=rep.decode_steps, tokens=rep.total_tokens)
 
 
@@ -945,7 +1339,8 @@ def where_time_goes(torch, cfg, params, common):
 # ---------------------------------------------------------------------------
 
 PLAIN_VERSIONS = ("attention", "attention_chunked", "attention_decode",
-                  "page_gather", "ring_gather", "prefill_page_attention")
+                  "page_gather", "ring_gather", "prefill_page_attention",
+                  "moe_grouped_ffn")
 
 
 @contextlib.contextmanager
@@ -1167,6 +1562,22 @@ def full_width_training(torch, ops, ref):
     return launches
 
 
+def print_ptxas(source: str, log: str) -> None:
+    """One line per compiled kernel: its entry (the mangled name without
+    the anonymous-namespace prefix, so the template arguments show, e.g.
+    ``Li128E`` for head dim 128), registers, shared memory and spills."""
+    entry, spills = "?", ""
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            entry = re.sub(r"^_ZN\w*?_cu_[0-9a-f]{8}\d*", "", m.group(1))
+        elif "spill" in line:
+            spills = line.strip()
+        elif "registers" in line:
+            print(f"ptxas {source} {entry[:60]}: "
+                  f"{line.split(':', 1)[-1].strip()}; {spills}")
+
+
 def main() -> int:
     # deterministic cuBLAS for the engine's bit-identity checks: read when
     # the first cuBLAS handle is made, so it is set before CUDA starts
@@ -1199,9 +1610,7 @@ def main() -> int:
         log = _build.library_path(name).with_name(
             _build.library_path(name).name + ".log")
         if log.exists():
-            for line in log.read_text().splitlines():
-                if "registers" in line or "spill" in line:
-                    print(f"ptxas {name}: {line.strip()}")
+            print_ptxas(name, log.read_text())
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     phase_s = {}
@@ -1220,10 +1629,13 @@ def main() -> int:
         ("ring_gather", check_ring_gather, (torch, ref, gen)),
         ("flash_attention_bwd", check_flash_bwd, (torch, F, ref, gen)),
         ("prefill_page_attention", check_prefill_page_attention,
-         (torch, F, ref, gen)))}
+         (torch, F, ref, gen)),
+        ("moe_grouped_ffn", check_moe_grouped_ffn, (torch, F, ref, gen)))}
     timed("small_end_to_end", small_end_to_end, torch)
     paths = timed("full_width_serving", full_width, torch, ops, ref)
     torch.cuda.empty_cache()
+    timed("small_moe", small_moe, torch)
+    paths["moe_serving"] = timed("moe_serving", moe_serving, torch, ops, ref)
     timed("small_training", small_training, torch)
     paths["training"] = timed("full_width_training", full_width_training,
                               torch, ops, ref)
@@ -1239,11 +1651,13 @@ def main() -> int:
                 "flash_attention_bwd":
                     "src/repro/kernels/flash_attention.py:86",
                 "prefill_page_attention":
-                    "src/repro/kernels/page_gather.py:107"}
+                    "src/repro/kernels/page_gather.py:107",
+                "moe_grouped_ffn": "src/repro/kernels/moe_matmul.py:64"}
     own_path = {"flash_attention": "serving", "page_gather": "serving",
                 "decode_attention": "serving", "ring_gather": "training",
                 "flash_attention_bwd": "training",
-                "prefill_page_attention": "chunked_serving"}
+                "prefill_page_attention": "chunked_serving",
+                "moe_grouped_ffn": "moe_serving"}
     kernels = []
     for name, row in results.items():
         source = "flash_attention" if name == "flash_attention_bwd" else name
@@ -1257,7 +1671,9 @@ def main() -> int:
             ms=row["ms"],
             plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
             bound_by=row["bound_by"], library_ms=row["library_ms"],
-            host_ms=row["host_ms"], shape=row["shape"]))
+            host_ms=row["host_ms"], shape=row["shape"],
+            **{k: row[k] for k in ("hd128", "shapes", "edge_cases")
+               if k in row}))
     print(smi())
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -2,9 +2,9 @@
 
 ``get_config(arch_id)`` returns the full published config;
 ``get_smoke_config(arch_id)`` the reduced same-family variant the CPU tests
-use.  Only the dense GQA architectures are ported so far; asking for any
-other known architecture raises ``KeyError`` naming the slice of the port
-that brings it.
+use.  The dense GQA and the MoE architectures are ported so far; asking
+for any other known architecture raises ``KeyError`` naming the slice of
+the port that brings it.
 """
 from __future__ import annotations
 
@@ -13,12 +13,12 @@ import importlib
 ARCHS = (
     "llama3_2_1b",
     "smollm_360m",
+    "mixtral_8x7b",
+    "llama4_scout_17b_16e",
 )
 
 # architectures of the JAX zoo that later slices of the port bring
 PENDING = {
-    "mixtral_8x7b": "slice 4 (MoE: moe_grouped_ffn)",
-    "llama4_scout_17b_16e": "slice 4 (MoE: moe_grouped_ffn)",
     "rwkv6_1_6b": "slice 5 (recurrent mixers: rwkv6_scan)",
     "recurrentgemma_2b": "slice 5 (recurrent mixers: rglru_scan)",
     "olmo_1b": "slice 6 (rest of the zoo: layernorm_np)",

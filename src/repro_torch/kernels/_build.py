@@ -30,9 +30,10 @@ from pathlib import Path
 CSRC = Path(__file__).with_name("csrc")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "torch_kernels"
 SOURCES = ("flash_attention", "page_gather", "decode_attention",
-           "ring_gather", "prefill_page_attention")
+           "ring_gather", "prefill_page_attention", "moe_grouped_ffn")
 KERNELS = ("flash_attention", "flash_attention_bwd", "page_gather",
-           "decode_attention", "ring_gather", "prefill_page_attention")
+           "decode_attention", "ring_gather", "prefill_page_attention",
+           "moe_grouped_ffn")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 NVCC_TIMEOUT_S = 600

@@ -15,11 +15,12 @@ from . import ref
 from ._build import launches, reset_launches
 from .decode_attention import decode_attention as _decode_attention
 from .flash_attention import FlashAttention
+from .moe_matmul import moe_grouped_ffn as _moe_grouped_ffn
 from .page_gather import page_gather as _page_gather
 from .page_gather import prefill_page_attention as _prefill_page_attention
 from .ring_gather import ring_gather as _ring_gather
 
-__all__ = ["attention", "attention_decode", "page_gather",
+__all__ = ["attention", "attention_decode", "moe_grouped_ffn", "page_gather",
            "prefill_page_attention", "ring_gather", "launches",
            "reset_launches", "CHUNK_THRESHOLD"]
 
@@ -86,3 +87,15 @@ def ring_gather(hist: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     if _on_cuda(hist):
         return _ring_gather(hist, idx)
     return ref.ring_gather(hist, idx)
+
+
+def moe_grouped_ffn(dispatch: torch.Tensor, combine: torch.Tensor,
+                    xg: torch.Tensor, wg: torch.Tensor, wu: torch.Tensor,
+                    wd: torch.Tensor) -> torch.Tensor:
+    """Grouped-expert SwiGLU FFN over dispatched token groups
+    (models/moe.py): dispatch (G, g, E, C) bool, combine (G, g, E, C) f32,
+    xg (G, g, d), wg/wu (E, d, f), wd (E, f, d) -> (G, g, d).  The card's
+    route has no backward."""
+    if _on_cuda(xg):
+        return _moe_grouped_ffn(dispatch, combine, xg, wg, wu, wd)
+    return ref.moe_grouped_ffn(dispatch, combine, xg, wg, wu, wd)

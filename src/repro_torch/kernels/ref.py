@@ -144,3 +144,20 @@ def ring_gather(hist: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     a copy of hist[idx], bit for bit (``hist[idx]`` itself would be a view,
     which the ring's in-place writes would change under the reader)."""
     return torch.index_select(hist, 0, idx.reshape(1).long())[0]
+
+
+def moe_grouped_ffn(dispatch: torch.Tensor, combine: torch.Tensor,
+                    xg: torch.Tensor, wg: torch.Tensor, wu: torch.Tensor,
+                    wd: torch.Tensor) -> torch.Tensor:
+    """Dense one-hot MoE dispatch (GShard style).
+
+    dispatch: (G, g, E, C) bool; combine: (G, g, E, C) f32; xg: (G, g, d);
+    wg/wu: (E, d, f); wd: (E, f, d) -> (G, g, d) in xg's dtype.  The
+    combine weights are rounded to xg's dtype before the last product, as
+    the JAX package's plain version does.
+    """
+    xin = torch.einsum("GgEC,Ggd->EGCd", dispatch.to(xg.dtype), xg)
+    h = torch.nn.functional.silu(torch.einsum("EGCd,Edf->EGCf", xin, wg))
+    u = torch.einsum("EGCd,Edf->EGCf", xin, wu)
+    out_e = torch.einsum("EGCf,Efd->EGCd", h * u, wd)
+    return torch.einsum("GgEC,EGCd->Ggd", combine.to(xg.dtype), out_e)

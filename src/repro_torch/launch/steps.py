@@ -8,7 +8,7 @@ import torch
 
 from ..core.sync import SyncConfig
 from ..models.config import ModelConfig
-from ..models.transformer import lm_loss
+from ..models.transformer import check_trainable, lm_loss
 from ..optim.optimizers import Optimizer
 from ..pdb.torch_backend import TrainEngine, make_engine
 from ..tree import leaves_with_path, unflatten
@@ -18,7 +18,10 @@ def make_lm_grad_fn(cfg: ModelConfig, sync: SyncConfig) -> Callable:
     """grad_fn(params, batch) -> (loss, grads) over the LM loss, the
     counterpart of ``jax.value_and_grad(lm_loss)``.  Each parameter leaf
     is detached (an alias, no copy) and made a leaf of the graph, so the
-    gradients come back per leaf, in the parameters' dtypes."""
+    gradients come back per leaf, in the parameters' dtypes.  MoE configs
+    raise here, before any step (``check_trainable``)."""
+    check_trainable(cfg)
+
     def grad_fn(params, batch):
         lv = leaves_with_path(params)
         paths = [p for p, _ in lv]

@@ -11,7 +11,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any
+from typing import Any, Callable
 
 import torch
 
@@ -49,9 +49,14 @@ def leaves(specs, prefix: str = ""):
             yield from leaves(v, path)
 
 
-def init_tree(specs, generator: torch.Generator, dtype=torch.float32):
+def init_tree(specs, generator: torch.Generator, dtype=torch.float32,
+              leaf_fn: Callable[[str, torch.Tensor], torch.Tensor] | None
+              = None):
     """Materialize parameters on the generator's device, leaf by leaf in
-    path order (one draw per normal leaf from ``generator``)."""
+    path order (one draw per normal leaf from ``generator``).  ``leaf_fn
+    (name, leaf)``, when given, maps each leaf as soon as it is made (a
+    serving cast, say), so only one leaf of the master tree is alive at a
+    time; the draws are the same with or without it."""
     dev = generator.device
 
     def make(spec: P) -> torch.Tensor:
@@ -62,11 +67,14 @@ def init_tree(specs, generator: torch.Generator, dtype=torch.float32):
             return torch.ones(spec.shape, dtype=dt, device=dev)
         x = torch.randn(spec.shape, generator=generator, dtype=torch.float32,
                         device=dev)
-        return (x * _std(spec)).to(dt)
+        return x.mul_(_std(spec)).to(dt)
+
+    def leaf(k: str, spec: P) -> torch.Tensor:
+        return make(spec) if leaf_fn is None else leaf_fn(k, make(spec))
 
     def walk(node):
-        return {k: make(node[k]) if isinstance(node[k], P) else walk(node[k])
-                for k in sorted(node)}
+        return {k: leaf(k, node[k]) if isinstance(node[k], P)
+                else walk(node[k]) for k in sorted(node)}
 
     return walk(specs)
 

@@ -15,10 +15,11 @@ package, so paths match its checkpoints; the port loops over the stack
 where JAX scans, taking each layer's parameters (and caches) with one
 ``unbind`` per stacked leaf, so the training backward stacks the
 per-layer gradients once instead of scattering each layer's into a zero
-tensor of the whole stack.  The port carries the dense
-self-attention kinds (``attn``, and ``local``/``swa`` windows through the
-same code); every other layer kind raises ``NotImplementedError`` naming
-the slice that brings it.
+tensor of the whole stack.  The port carries the self-attention kinds
+(``attn``, and ``local``/``swa`` windows through the same code) with a
+dense or a mixture-of-experts FFN (``models/moe.py``); every other layer
+kind raises ``NotImplementedError`` naming the slice that brings it, and
+so does ``lm_loss`` on an MoE config (MoE training is a later slice).
 """
 from __future__ import annotations
 
@@ -32,6 +33,7 @@ from . import attention as attn
 from .config import ModelConfig
 from .layers import (apply_mlp, apply_norm, apply_rope, embed_specs,
                      embed_tokens, lm_logits, mlp_specs, norm_specs)
+from .moe import moe_ffn, moe_specs
 
 SELF_ATTN_KINDS = ("attn", "local", "swa")
 _LATER = {
@@ -43,10 +45,7 @@ _LATER = {
 
 def check_supported(cfg: ModelConfig) -> None:
     """Raise ``NotImplementedError`` for what later slices of the port
-    bring: MoE, frontends and non-self-attention layer kinds."""
-    if cfg.is_moe:
-        raise NotImplementedError(
-            f"{cfg.name}: MoE layers come with slice 4 (moe_grouped_ffn)")
+    bring: frontends and non-self-attention layer kinds."""
     if cfg.frontend is not None:
         raise NotImplementedError(
             f"{cfg.name}: the {cfg.frontend} frontend comes with slice 6")
@@ -57,15 +56,37 @@ def check_supported(cfg: ModelConfig) -> None:
                 f"{_LATER.get(kind, 'a later slice')}")
 
 
+def check_trainable(cfg: ModelConfig) -> None:
+    """The training path takes dense configs only: MoE training needs a
+    backward of the grouped FFN kernel and the router's aux losses in the
+    loss, which come with a later slice of the port."""
+    if cfg.is_moe:
+        raise NotImplementedError(
+            f"{cfg.name}: MoE training (a moe_grouped_ffn backward and the "
+            "router aux losses in lm_loss) comes with a later slice of the "
+            "port; MoE models serve")
+
+
 # ---------------------------------------------------------------------------
 # Specs
 # ---------------------------------------------------------------------------
 
 def _block_specs(cfg: ModelConfig, kind: str, stack: tuple[int, ...]) -> dict:
+    ffn = (moe_specs(cfg, stack) if cfg.is_moe and kind != "xattn"
+           else mlp_specs(cfg, stack))
     return {"ln1": norm_specs(cfg, stack),
             "mix": attn.attn_specs(cfg, kind, stack),
             "ln2": norm_specs(cfg, stack),
-            "ffn": mlp_specs(cfg, stack)}
+            "ffn": ffn}
+
+
+def _apply_ffn(bp: dict, kind: str, h: torch.Tensor,
+               cfg: ModelConfig) -> torch.Tensor:
+    """The block's FFN, as JAX's ``_apply_ffn``; the MoE router's aux
+    losses are dropped (they only enter the training loss)."""
+    if cfg.is_moe and kind != "xattn":
+        return moe_ffn(bp["ffn"], h, cfg)[0]
+    return apply_mlp(bp["ffn"], h, cfg)
 
 
 def model_specs(cfg: ModelConfig) -> dict:
@@ -97,7 +118,7 @@ def _apply_block(bp: dict, kind: str, x: torch.Tensor, cfg: ModelConfig,
     h = apply_norm(bp["ln1"], x, cfg)
     x = x + attn.attention_fwd(bp["mix"], h, cfg, kind, positions)
     h2 = apply_norm(bp["ln2"], x, cfg)
-    return x + apply_mlp(bp["ffn"], h2, cfg)
+    return x + _apply_ffn(bp, kind, h2, cfg)
 
 
 def _remat_wrap(fn, remat: str):
@@ -141,7 +162,9 @@ def lm_loss(params: dict, batch: dict, cfg: ModelConfig,
     """Next-token cross entropy.  batch: tokens (B,S), labels (B,S), mask
     (B,S).  The label logit is picked with ``gather`` where the JAX package
     sums against a one-hot: both are exact in f32, every other term being
-    0.  Dense models have no router losses, so the total is the loss."""
+    0.  Dense models have no router losses, so the total is the loss; MoE
+    configs raise (``check_trainable``)."""
+    check_trainable(cfg)
     logits = forward(params, batch["tokens"], cfg, remat=remat).float()
     lse = torch.logsumexp(logits, dim=-1)                       # (B, S)
     correct = torch.gather(logits, -1,
@@ -191,7 +214,7 @@ def _prefill_block(bp: dict, kind: str, x: torch.Tensor, cfg: ModelConfig,
     c = _fill_kv(cfg, kind, kk, vv, cache_len)
     x = x + mix
     h2 = apply_norm(bp["ln2"], x, cfg)
-    return x + apply_mlp(bp["ffn"], h2, cfg), c
+    return x + _apply_ffn(bp, kind, h2, cfg), c
 
 
 def prefill(params: dict, tokens: torch.Tensor, cfg: ModelConfig,
@@ -237,7 +260,7 @@ def _decode_block(bp: dict, kind: str, x: torch.Tensor, c: dict,
     mix, _ = attn.attention_decode_paged(bp["mix"], h, c, cfg, kind, pos)
     x = x + mix
     h2 = apply_norm(bp["ln2"], x, cfg)
-    return x + apply_mlp(bp["ffn"], h2, cfg)
+    return x + _apply_ffn(bp, kind, h2, cfg)
 
 
 def decode_step(params: dict, cache: dict, tokens: torch.Tensor,
@@ -286,7 +309,7 @@ def _chunk_block(bp: dict, kind: str, x: torch.Tensor, c: dict,
                                           start, pos[L])
     x = x + mix
     h2 = apply_norm(bp["ln2"], x, cfg)
-    return x + apply_mlp(bp["ffn"], h2, cfg)
+    return x + _apply_ffn(bp, kind, h2, cfg)
 
 
 def prefill_chunk(params: dict, cache: dict, tokens: torch.Tensor,

@@ -2,7 +2,7 @@
 workloads and the continuous-batching engine (whole-prompt or chunked
 prefill, greedy or nucleus sampling)."""
 from .engine import FinishedRequest, ServeConfig, ServeEngine, ServeReport
-from .live_db import StaticParams, serving_params
+from .live_db import StaticParams, serving_leaf, serving_params
 from .paged_cache import (PageAllocator, init_paged_cache, make_activate_fn,
                           make_copy_page_fn, make_evict_fn, make_join_fn,
                           page_classes)
@@ -13,4 +13,5 @@ __all__ = ["FinishedRequest", "PageAllocator", "PrefixCache", "Request",
            "ServeConfig", "ServeEngine", "ServeReport", "StaticParams",
            "init_paged_cache", "make_activate_fn", "make_copy_page_fn",
            "make_evict_fn", "make_join_fn", "open_loop_requests",
-           "page_classes", "serving_params", "shared_prefix_requests"]
+           "page_classes", "serving_leaf", "serving_params",
+           "shared_prefix_requests"]

@@ -16,22 +16,24 @@ _CAST_PREFIX = "w"
 _CAST_NAMES = ("embedding", "lm_head")
 
 
+def serving_leaf(name: str, leaf: Any, cfg: ModelConfig) -> Any:
+    """The serving copy of one master leaf called ``name``: the weight
+    matrices (``w*``), ``embedding`` and ``lm_head`` cast to ``cfg.dtype``
+    — bit-identical to the per-use cast, which then costs nothing — and
+    every other leaf (norm scales and the MoE router, read as f32) as it
+    is."""
+    if name.startswith(_CAST_PREFIX) or name in _CAST_NAMES:
+        return leaf.to(cfg.dtype)
+    return leaf
+
+
 def serving_params(params: dict, cfg: ModelConfig) -> dict:
-    """A serving copy of an f32 master tree: the weight matrices
-    (``w*``), ``embedding`` and ``lm_head`` cast once to ``cfg.dtype`` —
-    bit-identical to the per-use cast, which then costs nothing — and
-    every other leaf (norm scales, read as f32) left as it is."""
+    """A serving copy of an f32 master tree, leaf by leaf
+    (``serving_leaf``)."""
 
     def walk(node):
-        out = {}
-        for k, v in node.items():
-            if isinstance(v, dict):
-                out[k] = walk(v)
-            elif k.startswith(_CAST_PREFIX) or k in _CAST_NAMES:
-                out[k] = v.to(cfg.dtype)
-            else:
-                out[k] = v
-        return out
+        return {k: walk(v) if isinstance(v, dict) else serving_leaf(k, v, cfg)
+                for k, v in node.items()}
 
     return walk(params)
 

@@ -29,10 +29,12 @@ from repro_torch.kernels import _build, ops, ref  # noqa: E402
 from repro_torch.kernels.decode_attention import decode_attention  # noqa
 from repro_torch.kernels.flash_attention import (  # noqa: E402
     FlashAttention, flash_attention, flash_attention_bwd)
+from repro_torch.kernels.moe_matmul import moe_grouped_ffn  # noqa: E402
 from repro_torch.kernels.page_gather import (  # noqa: E402
     page_gather, prefill_page_attention)
 from repro_torch.kernels.ring_gather import ring_gather  # noqa: E402
 from repro_torch.models.attention import ring_positions  # noqa: E402
+from repro_torch.models.moe import route  # noqa: E402
 
 torch.set_num_threads(1)
 
@@ -139,6 +141,8 @@ def test_ops_route_by_device_and_count_launches(gen):
     ops.ring_gather(hist, torch.tensor(1, dtype=torch.int32, device="cuda"))
     ops.prefill_page_attention(*_chunk_inputs(gen, 1, 8, 16, 4, 2, 64, 5,
                                               torch.bfloat16))
+    ops.moe_grouped_ffn(*_moe_inputs(gen, 1, 8, 4, 4, 64, 96,
+                                     torch.bfloat16))
     torch.cuda.synchronize()
     assert ops.launches == {name: 1 for name in _build.KERNELS}
     ref.attention(q, k, k)                  # the plain version never counts
@@ -352,3 +356,114 @@ def test_prefill_page_attention_is_deterministic(gen):
     a = prefill_page_attention(*ins, window=128)
     b = prefill_page_attention(*ins, window=128)
     assert torch.equal(a, b)
+
+
+# ---------------------------------------------------------------------------
+# moe_grouped_ffn
+# ---------------------------------------------------------------------------
+
+def _moe_routing(gen, G, g, E, C, k=2):
+    """Top-k dispatch/combine on the card from random router logits."""
+    probs = torch.softmax(torch.randn((G, g, E), generator=gen,
+                                      device="cuda"), -1)
+    return route(probs, k, C)
+
+
+def _moe_inputs(gen, G, g, E, C, d, f, dtype, routing=None):
+    dispatch, combine = routing or _moe_routing(gen, G, g, E, C)
+    x = _randn(gen, (G, g, d), dtype)
+    wg = (_randn(gen, (E, d, f), torch.float32) * d ** -0.5).to(dtype)
+    wu = (_randn(gen, (E, d, f), torch.float32) * d ** -0.5).to(dtype)
+    wd = (_randn(gen, (E, f, d), torch.float32) * f ** -0.5).to(dtype)
+    return dispatch, combine, x, wg, wu, wd
+
+
+def _moe_close(got, want, dtype):
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, want, **TOL[dtype])
+    else:       # normalized as the bf16 checks of the model paths
+        err = (got.float() - want.float()).abs().max()
+        assert err <= 2e-2 * max(want.float().abs().max(), 1.0), err
+
+
+@pytest.mark.parametrize("G,g,E,C,d,f", [
+    (1, 16, 4, 8, 32, 48),          # tests/test_kernels.py's shapes
+    (2, 24, 4, 16, 16, 64),
+    (1, 32, 8, 10, 64, 96),         # capacity drops
+    (1, 8, 8, 3, 256, 512),         # a decode batch: g 8, C 3
+    (1, 128, 8, 40, 128, 256),      # a chunk: C 40
+    (1, 300, 8, 94, 64, 128),       # a 300-token prompt: 2 slot tiles
+])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_moe_grouped_ffn(gen, G, g, E, C, d, f, dtype):
+    ins = _moe_inputs(gen, G, g, E, C, d, f, dtype)
+    got = moe_grouped_ffn(*ins)
+    assert got.dtype == dtype and got.shape == (G, g, d)
+    _moe_close(got, ref.moe_grouped_ffn(*ins), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_moe_grouped_ffn_edge_cases(gen, dtype):
+    """An expert with no token, a token no expert takes (output exactly
+    0), and a random dispatch with several tokens in one slot and a
+    combine weight on slots the token was not sent to."""
+    G, g, E, C, d, f = 1, 16, 4, 8, 64, 96
+    dispatch, combine = _moe_routing(gen, G, g, E, C)
+    dispatch[..., 2, :] = False               # expert 2 gets no token
+    combine[..., 2, :] = 0
+    dispatch[:, 5] = False                    # token 5 is dropped everywhere
+    combine[:, 5] = 0
+    ins = _moe_inputs(gen, G, g, E, C, d, f, dtype, (dispatch, combine))
+    got = moe_grouped_ffn(*ins)
+    _moe_close(got, ref.moe_grouped_ffn(*ins), dtype)
+    assert torch.equal(got[:, 5], torch.zeros_like(got[:, 5]))
+    rnd = torch.rand((G, g, E, C), generator=gen, device="cuda")
+    dispatch = rnd < 0.15
+    dispatch[0, 0, 1, 3] = dispatch[0, 1, 1, 3] = True   # two in one slot
+    combine = torch.rand((G, g, E, C), generator=gen, device="cuda")
+    ins = _moe_inputs(gen, G, g, E, C, d, f, dtype, (dispatch, combine))
+    _moe_close(moe_grouped_ffn(*ins), ref.moe_grouped_ffn(*ins), dtype)
+
+
+def test_moe_grouped_ffn_rows_do_not_depend_on_the_batch(gen):
+    """No atomics and fixed sums: a token's output bits are the same
+    whatever the other tokens are and whichever slots it lands in."""
+    G, g, E, C, d, f = 1, 8, 8, 2, 256, 512
+    ins = list(_moe_inputs(gen, G, g, E, C, d, f, torch.bfloat16))
+    outs = []
+    for slots, seed in (((0, 0), 1), ((1, 1), 2)):
+        disp = torch.zeros((G, g, E, C), dtype=torch.bool, device="cuda")
+        comb = torch.zeros((G, g, E, C), device="cuda")
+        disp[0, 0, 1, slots[0]] = disp[0, 0, 3, slots[1]] = True
+        comb[0, 0, 1, slots[0]], comb[0, 0, 3, slots[1]] = 0.6, 0.4
+        other = torch.Generator(device="cuda").manual_seed(seed)
+        for t in range(1, g):                # other tokens fill other slots
+            e = int(torch.randint(0, E, (), generator=other, device="cuda"))
+            c = 1 - slots[0] if e in (1, 3) else t % C
+            disp[0, t, e, c] = True
+            comb[0, t, e, c] = 1.0
+        x = ins[2].clone()
+        x[0, 1:] = torch.randn((g - 1, d), generator=other,
+                               device="cuda").to(x.dtype)
+        outs.append(moe_grouped_ffn(disp, comb, x, *ins[3:])[0, 0])
+    assert torch.equal(outs[0], outs[1])
+
+
+def test_moe_grouped_ffn_is_sync_free_and_refuses(gen):
+    ins = _moe_inputs(gen, 1, 8, 8, 2, 64, 96, torch.bfloat16)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = moe_grouped_ffn(*ins)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    _moe_close(out, ref.moe_grouped_ffn(*ins), torch.bfloat16)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        moe_grouped_ffn(*[t.cpu() for t in ins])
+    with pytest.raises(ValueError, match="dtypes"):
+        moe_grouped_ffn(*ins[:3], ins[3].float(), *ins[4:])
+    strided = ins[3].transpose(1, 2).contiguous().transpose(1, 2)
+    with pytest.raises(ValueError, match="contiguous"):
+        moe_grouped_ffn(*ins[:3], strided, *ins[4:])
+    with pytest.raises(NotImplementedError, match="no backward"):
+        moe_grouped_ffn(*ins[:3], ins[3].float().requires_grad_(),
+                        ins[4].float(), ins[5].float())

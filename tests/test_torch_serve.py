@@ -119,8 +119,8 @@ def test_config_validation(model):
 
 
 def test_unported_arch_names_its_slice():
-    with pytest.raises(KeyError, match="slice 4"):
-        tconfigs.get_config("mixtral-8x7b")
+    with pytest.raises(KeyError, match="slice 5"):
+        tconfigs.get_config("rwkv6-1.6b")
     with pytest.raises(KeyError, match="unknown arch"):
         tconfigs.get_config("no-such-model")
 
