@@ -27,7 +27,14 @@ Phases (any failure raises and the script exits non-zero):
    mixtral-8x7b's width (a decode batch, a 128-token chunk, prompts of 300
    and 512 tokens) in bf16 at a normalized 2e-2, its edge cases (an expert
    with no token, a token no expert takes: exactly 0, two tokens in one
-   slot) and one f32 case at 1e-4;
+   slot) and one f32 case at 1e-4; the RWKV-6 WKV forward at rwkv6-1.6b's
+   training shape (batch 4 x 512, 32 heads of 64) in bf16 at 2e-2, with
+   the decay from N(0, 1) and near 0 (N(2, 1)), at a ragged T = 77 in f32
+   at 1e-4 (head dims 16 and 64), its checkpointed states against the
+   plain stateful version at 1e-4, and its backward against torch
+   autograd of the plain version (f32 at 1e-4, bf16 at a normalized
+   2e-2), both decays; no PyTorch call computes the recurrence, so these
+   two rows have no library time;
 3. end to end, small: the serving engine on a narrow f32 model on the card
    (CUDA kernels) against the same model on the CPU (plain versions): same
    greedy tokens, prefill logits within 1e-3; on shared-prefix requests,
@@ -79,7 +86,14 @@ Phases (any failure raises and the script exits non-zero):
    after; every kernel of the path launches, as often as the model says,
    and no plain version runs).  Finite losses, the staleness ramp 0, 1,
    2, 2, ... in the telemetry, non-zero q/k/v projection gradients; step
-   time, tokens/s, peak memory, and ``torch.profiler`` over 2 more steps.
+   time, tokens/s, peak memory, and ``torch.profiler`` over 2 more steps;
+7. RWKV-6 training: phase 5 on the rwkv6-1.6b smoke config (f32, 2 layers,
+   d 64, 4 heads of 16), then phase 6 on ``rwkv6-1.6b`` at full width and
+   full depth (24 layers, d 2048, 32 heads of 64, d_ff 7168, vocab 65536,
+   untied head): the WKV forward and backward kernels launch once per
+   layer and step, the ring gather once per group and step, and no plain
+   version runs; ``wr``, ``wk``, ``wv``, ``decay_w1`` and ``bonus_u`` of
+   layer 0 get non-zero gradients.
 
 The last two lines are the ``kernels`` JSON object and
 ``{"ok": true, "device": {...}}``.  float32 matmuls and convolutions run in
@@ -117,7 +131,8 @@ def smi() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def time_ms(fn, iters: int, warmup: int = 3) -> tuple[float, float]:
+def time_ms(fn, iters: int, warmup: int = 3,
+            spin: bool = True) -> tuple[float, float]:
     """(device ms, host ms) of one call ``fn(i)``.  Device time comes from
     CUDA events around ``iters`` back-to-back calls; a spin kernel queued
     first keeps the card busy while the host enqueues them, so the host's
@@ -126,7 +141,11 @@ def time_ms(fn, iters: int, warmup: int = 3) -> tuple[float, float]:
     the calls, so ``fn`` can rotate through input copies (``rotation``).
     The spin is sized from calls made after the warmup: a first call's
     one-off set-up (a library loading its kernels) would stretch it to
-    minutes."""
+    minutes.  ``spin=False`` times without the spin, for a call of more
+    launches than the card's launch queue holds (the WKV plain versions,
+    thousands of small kernels a call): the host cannot queue them ahead,
+    so the device time includes the host's gaps and is the time a caller
+    waits."""
     import torch
     for i in range(warmup):
         fn(i)
@@ -136,10 +155,11 @@ def time_ms(fn, iters: int, warmup: int = 3) -> tuple[float, float]:
         fn(i)
     torch.cuda.synchronize()
     per_call = (time.perf_counter() - t0) / warmup
-    spin_s = 4 * per_call * iters + 5e-3
+    spin_s = 4 * per_call * iters + 5e-3 if spin else 0.0
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
-    torch.cuda._sleep(int(spin_s * SPIN_HZ))
+    if spin:
+        torch.cuda._sleep(int(spin_s * SPIN_HZ))
     t0 = time.perf_counter()
     start.record()
     for i in range(iters):
@@ -147,7 +167,7 @@ def time_ms(fn, iters: int, warmup: int = 3) -> tuple[float, float]:
     end.record()
     host = time.perf_counter() - t0
     torch.cuda.synchronize()
-    if host > spin_s:
+    if spin and host > spin_s:
         raise RuntimeError(f"enqueue {host:.4f} s outlasted the spin "
                            f"{spin_s:.4f} s: device time would include gaps")
     return start.elapsed_time(end) / iters, host * 1e3 / iters
@@ -688,6 +708,175 @@ def check_moe_grouped_ffn(torch, F, ref, gen):
             "edge_cases": edge}
 
 
+# the WKV recurrence at rwkv6-1.6b's width on the training path (batch 4 x
+# 512 tokens, 32 heads of 64), ragged T at the smoke and full head dims
+WKV_MAIN = (4, 512, 32, 64)
+WKV_RAGGED = ((4, 77, 32, 16), (4, 77, 32, 64))
+WKV_LIBRARY = "none: no single PyTorch call computes the WKV recurrence"
+WKV_PLAIN_TIMING = "events without the spin: host-bound, host gaps included"
+
+
+def wkv_inputs(torch, gen, B, T, H, hd, dtype, decay_mean=0.0):
+    """r, k, v in ``dtype``; w = exp(-exp(x)), x ~ N(decay_mean, 1), and u
+    in f32, the range and types the model gives the kernel (decay_mean 2
+    puts w near 0)."""
+    r, k, v = (torch.randn((B, T, H, hd), generator=gen, device="cuda")
+               .to(dtype) for _ in range(3))
+    x = torch.randn((B, T, H, hd), generator=gen, device="cuda")
+    u = torch.randn((H, hd), generator=gen, device="cuda") * 0.1
+    return r, k, v, torch.exp(-torch.exp(x + decay_mean)), u
+
+
+def check_rwkv6_scan(torch, ref, gen):
+    """The WKV forward against its plain version: at the training shape in
+    bf16 (w from N(0, 1) and near 0 from N(2, 1)) at rtol/atol 2e-2, at a
+    ragged T = 77 in f32 at 1e-4 (head dims 16 and 64), and its checkpointed
+    states against ``ref.rwkv6_stateful`` over the first chunks and the
+    last, f32 at 1e-4.  Timed as the training path calls it (with its
+    checkpoints) beside its bound, the serial floor of T dependent steps
+    and the plain version; there is no library call to time."""
+    from repro_torch.kernels.rwkv6_scan import chunk, rwkv6_scan
+    B, T, H, hd = WKV_MAIN
+    errs = {}
+    for mean in (0.0, 2.0):
+        ins = wkv_inputs(torch, gen, B, T, H, hd, torch.bfloat16, mean)
+        got, want = rwkv6_scan(*ins), ref.rwkv6(*ins)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got.float(), want.float(), rtol=BF16_TOL,
+                                   atol=BF16_TOL)
+        errs[f"bfloat16_decay_mean_{mean:g}"] = \
+            (got.float() - want.float()).abs().max().item()
+    for shape in WKV_RAGGED:
+        ins = wkv_inputs(torch, gen, *shape, torch.float32)
+        got, want = rwkv6_scan(*ins), ref.rwkv6(*ins)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got, want, rtol=F32_TOL, atol=F32_TOL)
+        errs[f"float32_T{shape[1]}_hd{shape[3]}"] = \
+            (got - want).abs().max().item()
+    ins = wkv_inputs(torch, gen, B, T, H, hd, torch.float32)
+    _, ckpt = rwkv6_scan(*ins, with_state=True)
+    S0 = torch.zeros((B, H, hd, hd), device="cuda")
+    ck_err = 0.0
+    for c in (0, 1, 2, 3, ckpt.shape[2] - 1):
+        t = c * chunk()
+        _, want = ref.rwkv6_stateful(*(x[:, :t] for x in ins[:4]), ins[4], S0)
+        torch.testing.assert_close(ckpt[:, :, c], want, rtol=F32_TOL,
+                                   atol=F32_TOL)
+        ck_err = max(ck_err, (ckpt[:, :, c] - want).abs().max().item())
+    errs["float32_checkpoints"] = ck_err
+    del ckpt
+    # timing in bf16, the training path's dtype, with its checkpoints
+    ins = wkv_inputs(torch, gen, B, T, H, hd, torch.bfloat16)
+    y, ckpt = rwkv6_scan(*ins, with_state=True)
+    # the bound counts the function's own traffic (r, k, v, w, u in, y out);
+    # the checkpoints are this kernel's design, reported apart
+    b_ms, b_by = bound(nbytes(*ins, y), 5.0 * hd * hd * B * T * H,
+                       "float32")
+    sets = rotation(ins)
+    n = len(sets)
+    ms, host_ms = time_ms(lambda i: rwkv6_scan(*sets[i % n], with_state=True),
+                          20)
+    row = dict(shape=[B, T, H, hd], dtype="bfloat16 r/k/v, float32 w/u",
+               max_abs_err=max(errs.values()), errors=errs,
+               tolerance=BF16_TOL, f32_tolerance=F32_TOL, ms=ms,
+               host_ms=host_ms, serial_steps=T, ms_per_step=ms / T,
+               plain_ms=time_ms(lambda i: ref.rwkv6(*sets[i % n]), 3,
+                                spin=False)[0],
+               plain_timing=WKV_PLAIN_TIMING, library_ms=None,
+               library=WKV_LIBRARY, bound_ms=b_ms, bound_by=b_by,
+               checkpoint_bytes=nbytes(ckpt))
+    print("rwkv6_scan", json.dumps(row), flush=True)
+    del sets, y, ckpt
+    torch.cuda.empty_cache()
+    return row
+
+
+def check_rwkv6_scan_bwd(torch, ref, gen):
+    """The WKV backward against torch autograd of the plain version in f32
+    on the same inputs (f32 at rtol/atol 1e-4, du against its closed form
+    sum_{b,t} r k (v . dy) in f64; bf16 to a normalized max error of 2e-2,
+    the plain version run on the bf16 inputs upcast), at the training
+    shape with w from N(0, 1) and near 0 from N(2, 1).
+    Timed in bf16 beside its bound, the serial floor and autograd of the
+    plain version; there is no library call to time."""
+    from repro_torch.kernels.rwkv6_scan import rwkv6_scan, rwkv6_scan_bwd
+    B, T, H, hd = WKV_MAIN
+    errs = {}
+    for mean in (0.0, 2.0):
+        ins32 = wkv_inputs(torch, gen, B, T, H, hd, torch.float32, mean)
+        dy32 = torch.randn((B, T, H, hd), generator=gen, device="cuda")
+        for dt in (torch.float32, torch.bfloat16):
+            ins = [x.to(dt) for x in ins32[:3]] + list(ins32[3:])
+            dy = dy32.to(dt)
+            leaves = [x.float().requires_grad_() for x in ins]
+            want = torch.autograd.grad(ref.rwkv6(*leaves), leaves,
+                                       dy.float())
+            del leaves
+            _, ckpt = rwkv6_scan(*ins, with_state=True)
+            got = rwkv6_scan_bwd(*ins, ckpt, dy)
+            torch.cuda.synchronize()
+            key = f"{str(dt)[6:]}_decay_mean_{mean:g}"
+            if dt == torch.float32:
+                for g, w in zip(got[:4], want[:4]):
+                    torch.testing.assert_close(g, w, rtol=BWD_F32_TOL,
+                                               atol=BWD_F32_TOL)
+                # du sums B*T = 2048 terms of ~|v.dy|: autograd's f32
+                # running sum drifts ~1e-3 from the exact value, so du is
+                # held to its closed form in f64 instead
+                du = torch.einsum("bthi,bthi,bth->hi", ins[0].double(),
+                                  ins[1].double(),
+                                  (ins[2].double() * dy.double()).sum(-1))
+                torch.testing.assert_close(got[4].double(), du,
+                                           rtol=BWD_F32_TOL,
+                                           atol=BWD_F32_TOL)
+                errs[key] = max([(g - w).abs().max().item()
+                                 for g, w in zip(got[:4], want[:4])]
+                                + [(got[4].double() - du).abs().max().item()])
+                errs[key + "_du_autograd_vs_exact"] = \
+                    (want[4].double() - du).abs().max().item()
+            else:
+                norm = max(((g.float() - w).abs().max()
+                            / w.abs().max()).item()
+                           for g, w in zip(got, want))
+                if not norm <= BWD_BF16_NORM_TOL:
+                    raise AssertionError(f"rwkv6_scan_bwd bf16 normalized "
+                                         f"error {norm}")
+                errs[key + "_normalized"] = norm
+            del got, want, ckpt
+    torch.cuda.empty_cache()
+    # timing in bf16, the training path's dtype
+    ins = wkv_inputs(torch, gen, B, T, H, hd, torch.bfloat16)
+    dy = torch.randn((B, T, H, hd), generator=gen,
+                     device="cuda").to(torch.bfloat16)
+    _, ckpt = rwkv6_scan(*ins, with_state=True)
+    grads = rwkv6_scan_bwd(*ins, ckpt, dy)
+    # the function's own traffic: r, k, v, w, u, dy in, the five gradients
+    # out; the checkpoints it reads are the forward's design, reported apart
+    b_ms, b_by = bound(nbytes(*ins, dy, *grads),
+                       14.0 * hd * hd * B * T * H, "float32")
+    sets = rotation((*ins, ckpt, dy))
+    n = len(sets)
+    ms, host_ms = time_ms(lambda i: rwkv6_scan_bwd(*sets[i % n]), 10)
+    leaves = [x.float().requires_grad_() for x in ins]
+    out = ref.rwkv6(*leaves)
+    plain_ms = time_ms(lambda i: torch.autograd.grad(
+        out, leaves, dy.float(), retain_graph=True), 3, spin=False)[0]
+    row = dict(shape=[B, T, H, hd], dtype="bfloat16 r/k/v/dy, float32 w/u",
+               max_abs_err=max(v for k, v in errs.items()
+                               if k.startswith("float32")
+                               and not k.endswith("exact")),
+               errors=errs, tolerance=BWD_F32_TOL,
+               bf16_tolerance=BWD_BF16_NORM_TOL, ms=ms, host_ms=host_ms,
+               serial_steps=T, ms_per_step=ms / T, plain_ms=plain_ms,
+               plain_timing=WKV_PLAIN_TIMING, library_ms=None,
+               library=WKV_LIBRARY, bound_ms=b_ms, bound_by=b_by,
+               checkpoint_bytes=nbytes(ckpt))
+    print("rwkv6_scan_bwd", json.dumps(row), flush=True)
+    del sets, leaves, out, grads, ckpt
+    torch.cuda.empty_cache()
+    return row
+
+
 # ---------------------------------------------------------------------------
 # phases 3 and 4: serving
 # ---------------------------------------------------------------------------
@@ -789,7 +978,6 @@ def _to(tree, dev):
 
 
 SERVING_KERNELS = ("flash_attention", "page_gather", "decode_attention")
-TRAINING_KERNELS = ("flash_attention", "flash_attention_bwd", "ring_gather")
 
 
 def full_width(torch, ops, ref):
@@ -1258,6 +1446,8 @@ KERNEL_GROUPS = (("flash_attention", "flash_fwd_kernel"),
                  ("prefill_page_attention", "prefill_page_attention_kernel"),
                  ("moe_grouped_ffn", ("moe_dispatch_kernel", "moe_gemm_kernel",
                                       "moe_combine_kernel")),
+                 ("rwkv6_scan", "rwkv6_fwd_kernel"),
+                 ("rwkv6_scan_bwd", ("rwkv6_bwd_kernel", "rwkv6_du_kernel")),
                  ("matmul", ("gemm", "nvjet", "cutlass", "xmma", "splitK")))
 
 
@@ -1340,7 +1530,7 @@ def where_time_goes(torch, cfg, params, common, label="profile"):
 
 PLAIN_VERSIONS = ("attention", "attention_chunked", "attention_decode",
                   "page_gather", "ring_gather", "prefill_page_attention",
-                  "moe_grouped_ffn")
+                  "moe_grouped_ffn", "rwkv6", "rwkv6_stateful")
 
 
 @contextlib.contextmanager
@@ -1378,11 +1568,22 @@ def _train_run(torch, cfg, params, opt_name, sync, batches, lr):
     return torch.stack(losses), p
 
 
-def small_training(torch):
+def small_train_config(torch, arch: str):
+    """The narrow f32 model of the small training run: llama3.2-1b's smoke
+    config widened to d 256 and head dim 64; rwkv6-1.6b's smoke config as
+    it is (d 64, 4 heads of 16)."""
+    from repro_torch.configs import get_smoke_config
+    cfg = dataclasses.replace(get_smoke_config(arch), dtype=torch.float32)
+    if arch == "llama3.2-1b":
+        cfg = dataclasses.replace(cfg, d_model=256, n_heads=8, n_kv_heads=2,
+                                  head_dim=64, d_ff=512)
+    return cfg
+
+
+def small_training(torch, arch):
     """The training path on a narrow f32 model: CUDA kernels on the card vs
     plain versions on the CPU, then the engine's bit-identities on the
     card under deterministic algorithms."""
-    from repro_torch.configs import get_smoke_config
     from repro_torch.core.sync import SyncConfig
     from repro_torch.data import LMBatchSpec, make_lm_batch
     from repro_torch.models import paramlib
@@ -1391,9 +1592,7 @@ def small_training(torch):
     from repro_torch.launch.steps import make_lm_grad_fn
     from repro_torch.optim import OptConfig, make_optimizer
     from repro_torch.tree import leaves_with_path
-    cfg = dataclasses.replace(get_smoke_config("llama3.2-1b"), d_model=256,
-                              n_heads=8, n_kv_heads=2, head_dim=64,
-                              d_ff=512, dtype=torch.float32)
+    cfg = small_train_config(torch, arch)
     params = paramlib.init_tree(model_specs(cfg),
                                 torch.Generator().manual_seed(1))
     spec = LMBatchSpec(batch=2, seq_len=96, vocab_size=cfg.vocab_size,
@@ -1412,7 +1611,7 @@ def small_training(torch):
         leaves_with_path(res["sgd", "cpu"][1]),
         leaves_with_path(res["sgd", "cuda"][1])))
     print("small f32 training, delta 2 packed, 4 steps:", json.dumps(dict(
-        loss_rel_err_cuda_vs_cpu=loss_err,
+        arch=arch, loss_rel_err_cuda_vs_cpu=loss_err,
         sgd_param_max_abs_err_cuda_vs_cpu=param_err,
         losses_cuda={o: res[o, "cuda"][0].tolist() for o in ("sgd", "adamw")},
         tolerance=TRAIN_TOL)), flush=True)
@@ -1451,19 +1650,27 @@ def small_training(torch):
                 leaves_with_path(finals[False][1])))
     finally:
         torch.use_deterministic_algorithms(False)
-    print(f"deterministic, on the card: delta=0 == sync bit for bit: "
-          f"{same0}; packed == tree at delta 2 bit for bit: {same_layout}",
-          flush=True)
+    print(f"deterministic, on the card ({arch}): delta=0 == sync bit for "
+          f"bit: {same0}; packed == tree at delta 2 bit for bit: "
+          f"{same_layout}", flush=True)
     if not (same0 and same_layout):
         raise AssertionError("a bit-identity of the engine failed")
 
 
 TRAIN_B, TRAIN_S, TRAIN_STEPS, TRAIN_DELTA = 4, 512, 8, 2
+# per trained arch: the kernels each layer launches once per step (forward
+# and backward), and the projections of layer 0 that must get a gradient
+TRAIN_RUNS = {
+    "llama3.2-1b": (("flash_attention", "flash_attention_bwd"),
+                    ("wq", "wk", "wv")),
+    "rwkv6-1.6b": (("rwkv6_scan", "rwkv6_scan_bwd"),
+                   ("wr", "wk", "wv", "decay_w1", "bonus_u")),
+}
 
 
-def full_width_training(torch, ops, ref):
-    """llama3.2-1b at full width through the train engine: f32 master,
-    bf16 compute, AdamW, delta 2 on the packed ring."""
+def full_width_training(torch, ops, ref, arch):
+    """``arch`` at full width and depth through the train engine: f32
+    master, bf16 compute, AdamW, delta 2 on the packed ring."""
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.configs import get_config
     from repro_torch.core.sync import SyncConfig
@@ -1473,7 +1680,8 @@ def full_width_training(torch, ops, ref):
     from repro_torch.models.transformer import model_specs
     from repro_torch.optim import OptConfig, make_optimizer
     from repro_torch.pdb import make_engine
-    cfg = get_config("llama3.2-1b")
+    cfg = get_config(arch)
+    layer_kernels, watched = TRAIN_RUNS[arch]
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     params = paramlib.init_tree(
@@ -1483,13 +1691,13 @@ def full_width_training(torch, ops, ref):
     spec = LMBatchSpec(batch=TRAIN_B, seq_len=TRAIN_S,
                        vocab_size=cfg.vocab_size, seed=0)
     inner = make_lm_grad_fn(cfg, sync)
-    qkv_grad_max = []
+    watched_max = []
 
     def grad_fn(p, batch):              # the engine's grad_fn, watched
         loss, grads = inner(p, batch)
         mix = grads["groups"]["g0"]["s0"]["mix"]
-        qkv_grad_max.append(torch.stack(
-            [mix[w].abs().max() for w in ("wq", "wk", "wv")]))
+        watched_max.append(torch.stack([mix[w].abs().max()
+                                        for w in watched]))
         return loss, grads
 
     opt = make_optimizer(OptConfig(name="adamw", lr=3e-4))
@@ -1497,7 +1705,7 @@ def full_width_training(torch, ops, ref):
     state = eng.init_state()
     del params
     torch.cuda.synchronize()
-    print(f"llama3.2-1b training state ready in "
+    print(f"{cfg.name} training state ready in "
           f"{time.perf_counter() - t0:.2f} s: ring "
           f"{ {k: list(v.shape) for k, v in state.hist.items()} }, "
           f"{torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB allocated",
@@ -1520,20 +1728,19 @@ def full_width_training(torch, ops, ref):
     n_groups = len(state.hist)
     n_layers = sum(g.n * len(g.pattern) for g in cfg.groups)
     want = {"ring_gather": n_groups * TRAIN_STEPS,
-            "flash_attention": n_layers * TRAIN_STEPS,
-            "flash_attention_bwd": n_layers * TRAIN_STEPS}
+            **{k: n_layers * TRAIN_STEPS for k in layer_kernels}}
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
-    qkv = torch.stack(qkv_grad_max).min().item()
+    grad_min = dict(zip(watched, torch.stack(watched_max).amin(0).tolist()))
     tele = eng.telemetry.summary()
     steady = sorted(step_s[1:])[len(step_s[1:]) // 2]
     print("full-width training:", json.dumps(dict(
-        arch=cfg.name, batch=TRAIN_B, seq=TRAIN_S, delta=TRAIN_DELTA,
-        optimizer="adamw", steps=TRAIN_STEPS, losses=losses,
-        step_s=step_s, step_s_p50_after_first=steady,
+        arch=cfg.name, layers=n_layers, batch=TRAIN_B, seq=TRAIN_S,
+        delta=TRAIN_DELTA, optimizer="adamw", steps=TRAIN_STEPS,
+        losses=losses, step_s=step_s, step_s_p50_after_first=steady,
         tokens_per_s=TRAIN_B * TRAIN_S / steady, peak_mem_gib=peak,
         staleness_per_step=ramp, telemetry=tele, launches=launches,
         expected_launches=want, plain_version_calls=plain_calls,
-        min_qkv_grad_max_abs=qkv)), flush=True)
+        min_layer0_grad_max_abs=grad_min)), flush=True)
     if not all(map(lambda x: x == x and abs(x) < float("inf"), losses)):
         raise AssertionError(f"non-finite training losses {losses}")
     if ramp != [min(i, TRAIN_DELTA) for i in range(TRAIN_STEPS)] or \
@@ -1543,8 +1750,9 @@ def full_width_training(torch, ops, ref):
         raise AssertionError(f"launches {launches}, expected {want}")
     if any(plain_calls.values()):
         raise AssertionError(f"plain versions ran: {plain_calls}")
-    if not qkv > 0:
-        raise AssertionError("a q/k/v projection got no gradient")
+    if not min(grad_min.values()) > 0:
+        raise AssertionError(f"a watched parameter got no gradient: "
+                             f"{grad_min}")
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -1555,8 +1763,8 @@ def full_width_training(torch, ops, ref):
             float(m["loss"])
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t1) * 1e3
-    device_profile(torch, prof, wall_ms, "train profile", steps=2,
-                   tokens=2 * TRAIN_B * TRAIN_S)
+    device_profile(torch, prof, wall_ms, f"train profile {cfg.name}",
+                   steps=2, tokens=2 * TRAIN_B * TRAIN_S)
     del state, eng, batches
     torch.cuda.empty_cache()
     return launches
@@ -1630,15 +1838,20 @@ def main() -> int:
         ("flash_attention_bwd", check_flash_bwd, (torch, F, ref, gen)),
         ("prefill_page_attention", check_prefill_page_attention,
          (torch, F, ref, gen)),
-        ("moe_grouped_ffn", check_moe_grouped_ffn, (torch, F, ref, gen)))}
+        ("moe_grouped_ffn", check_moe_grouped_ffn, (torch, F, ref, gen)),
+        ("rwkv6_scan", check_rwkv6_scan, (torch, ref, gen)),
+        ("rwkv6_scan_bwd", check_rwkv6_scan_bwd, (torch, ref, gen)))}
     timed("small_end_to_end", small_end_to_end, torch)
     paths = timed("full_width_serving", full_width, torch, ops, ref)
     torch.cuda.empty_cache()
     timed("small_moe", small_moe, torch)
     paths["moe_serving"] = timed("moe_serving", moe_serving, torch, ops, ref)
-    timed("small_training", small_training, torch)
+    timed("small_training", small_training, torch, "llama3.2-1b")
     paths["training"] = timed("full_width_training", full_width_training,
-                              torch, ops, ref)
+                              torch, ops, ref, "llama3.2-1b")
+    timed("small_rwkv6_training", small_training, torch, "rwkv6-1.6b")
+    paths["rwkv6_training"] = timed("rwkv6_training", full_width_training,
+                                    torch, ops, ref, "rwkv6-1.6b")
     print("phase seconds:", json.dumps(dict(
         phase_s, total=time.perf_counter() - t0)), flush=True)
 
@@ -1652,15 +1865,21 @@ def main() -> int:
                     "src/repro/kernels/flash_attention.py:86",
                 "prefill_page_attention":
                     "src/repro/kernels/page_gather.py:107",
-                "moe_grouped_ffn": "src/repro/kernels/moe_matmul.py:64"}
+                "moe_grouped_ffn": "src/repro/kernels/moe_matmul.py:64",
+                "rwkv6_scan": "src/repro/kernels/rwkv6_scan.py:54",
+                # the gradient of the kernel above: the TPU package has
+                # none and trains through autodiff of its plain recurrence
+                "rwkv6_scan_bwd": "src/repro/kernels/rwkv6_scan.py:54"}
     own_path = {"flash_attention": "serving", "page_gather": "serving",
                 "decode_attention": "serving", "ring_gather": "training",
                 "flash_attention_bwd": "training",
                 "prefill_page_attention": "chunked_serving",
-                "moe_grouped_ffn": "moe_serving"}
+                "moe_grouped_ffn": "moe_serving",
+                "rwkv6_scan": "rwkv6_training",
+                "rwkv6_scan_bwd": "rwkv6_training"}
     kernels = []
     for name, row in results.items():
-        source = "flash_attention" if name == "flash_attention_bwd" else name
+        source = name.removesuffix("_bwd")
         kernels.append(dict(
             name=name, route="cuda",
             source=f"src/repro_torch/kernels/csrc/{source}.cu",
@@ -1672,7 +1891,8 @@ def main() -> int:
             plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
             bound_by=row["bound_by"], library_ms=row["library_ms"],
             host_ms=row["host_ms"], shape=row["shape"],
-            **{k: row[k] for k in ("hd128", "shapes", "edge_cases")
+            **{k: row[k] for k in ("hd128", "shapes", "edge_cases",
+                                   "library", "serial_steps")
                if k in row}))
     print(smi())
     print(json.dumps({"kernels": kernels}))

@@ -62,7 +62,7 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"{name}: needs Sq == Sk, got {S} and {k.shape[1]}")
     if hd > MAX_HD:
         raise ValueError(f"{name}: head dim {hd} > {MAX_HD}")
-    if min(t.stride(-1) for t in (q, k, v)) != 1:
+    if any(t.stride(-1) != 1 for t in (q, k, v)):
         raise ValueError(f"{name}: head dim must be contiguous")
 
 

@@ -19,10 +19,11 @@ from .moe_matmul import moe_grouped_ffn as _moe_grouped_ffn
 from .page_gather import page_gather as _page_gather
 from .page_gather import prefill_page_attention as _prefill_page_attention
 from .ring_gather import ring_gather as _ring_gather
+from .rwkv6_scan import RWKV6Scan
 
 __all__ = ["attention", "attention_decode", "moe_grouped_ffn", "page_gather",
-           "prefill_page_attention", "ring_gather", "launches",
-           "reset_launches", "CHUNK_THRESHOLD"]
+           "prefill_page_attention", "ring_gather", "rwkv6", "rwkv6_stateful",
+           "launches", "reset_launches", "CHUNK_THRESHOLD"]
 
 # on the CPU, sequences at or above this length take the blockwise path
 # (bounded score-matrix memory), as in repro.kernels.ops
@@ -99,3 +100,24 @@ def moe_grouped_ffn(dispatch: torch.Tensor, combine: torch.Tensor,
     if _on_cuda(xg):
         return _moe_grouped_ffn(dispatch, combine, xg, wg, wu, wd)
     return ref.moe_grouped_ffn(dispatch, combine, xg, wg, wu, wd)
+
+
+def rwkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
+          u: torch.Tensor) -> torch.Tensor:
+    """The RWKV-6 WKV recurrence from a zero state (models/rwkv6.py): r, k,
+    v (B, T, H, hd) in the compute dtype, w (B, T, H, hd) f32, u (H, hd) ->
+    (B, T, H, hd) in r's dtype.  Differentiable on both routes: on the card
+    through :class:`RWKV6Scan` (forward and backward kernels), on the CPU
+    through autograd of the plain version."""
+    if _on_cuda(r):
+        return RWKV6Scan.apply(r, k, v, w, u)
+    return ref.rwkv6(r, k, v, w, u)
+
+
+def rwkv6_stateful(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                   w: torch.Tensor, u: torch.Tensor, S0: torch.Tensor
+                   ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The recurrence from the state S0 (B, H, hd, hd) -> (y, final f32
+    state).  The plain version on every device, as in the JAX package,
+    where the stateful (decode) path never reaches the kernel."""
+    return ref.rwkv6_stateful(r, k, v, w, u, S0)

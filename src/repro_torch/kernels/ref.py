@@ -161,3 +161,40 @@ def moe_grouped_ffn(dispatch: torch.Tensor, combine: torch.Tensor,
     u = torch.einsum("EGCd,Edf->EGCf", xin, wu)
     out_e = torch.einsum("EGCf,Efd->EGCd", h * u, wd)
     return torch.einsum("GgEC,EGCd->Ggd", combine.to(xg.dtype), out_e)
+
+
+def rwkv6_stateful(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                   w: torch.Tensor, u: torch.Tensor, S0: torch.Tensor
+                   ) -> tuple[torch.Tensor, torch.Tensor]:
+    """RWKV-6 WKV recurrence (Finch, arXiv:2404.05892) from the state S0.
+
+    r, k, v, w: (B, T, H, hd) with w in (0, 1) the data-dependent decay;
+    u: (H, hd) the current-token bonus; S0: (B, H, hd, hd).  In f32:
+
+        y_t[j] = sum_i r_t[i] * (S_t[i,j] + u[i] k_t[i] v_t[j])
+        S_{t+1}[i,j] = w_t[i] S_t[i,j] + k_t[i] v_t[j]
+
+    Returns (y (B, T, H, hd) in r's dtype, the final state (B, H, hd, hd)
+    in f32).
+    """
+    rf, kf, vf, wf = (x.float() for x in (r, k, v, w))
+    uf = u.float()
+    S = S0.float()
+    ys = []
+    for t in range(r.shape[1]):
+        r_t, k_t, v_t, w_t = rf[:, t], kf[:, t], vf[:, t], wf[:, t]
+        y = torch.einsum("bhi,bhij->bhj", r_t, S)
+        bonus = torch.einsum("bhi,bhi->bh", r_t, uf[None] * k_t)
+        ys.append(y + bonus[..., None] * v_t)
+        S = S * w_t[..., :, None] + k_t[..., :, None] * v_t[..., None, :]
+    y = torch.stack(ys, dim=1) if ys else torch.zeros_like(rf)
+    return y.to(r.dtype), S
+
+
+def rwkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+          w: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
+    """The WKV recurrence of ``rwkv6_stateful`` from a zero state:
+    (B, T, H, hd) -> (B, T, H, hd) in r's dtype."""
+    B, _, H, hd = r.shape
+    S0 = torch.zeros((B, H, hd, hd), dtype=torch.float32, device=r.device)
+    return rwkv6_stateful(r, k, v, w, u, S0)[0]

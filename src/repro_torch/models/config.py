@@ -13,8 +13,9 @@ scans).  Layer kinds:
   rwkv6   — RWKV-6 token-shift + data-dependent-decay WKV mixer
   rglru   — Griffin RG-LRU recurrent block (conv1d + gated linear recurrence)
 
-Only the dense self-attention kinds run in the port so far; the others
-raise ``NotImplementedError`` where a model is built.
+The self-attention kinds run in the port, and ``rwkv6`` trains (its
+serving comes later); the others raise ``NotImplementedError`` where a
+model is built.
 """
 from __future__ import annotations
 

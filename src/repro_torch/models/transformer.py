@@ -17,9 +17,13 @@ where JAX scans, taking each layer's parameters (and caches) with one
 per-layer gradients once instead of scattering each layer's into a zero
 tensor of the whole stack.  The port carries the self-attention kinds
 (``attn``, and ``local``/``swa`` windows through the same code) with a
-dense or a mixture-of-experts FFN (``models/moe.py``); every other layer
-kind raises ``NotImplementedError`` naming the slice that brings it, and
-so does ``lm_loss`` on an MoE config (MoE training is a later slice).
+dense or a mixture-of-experts FFN (``models/moe.py``), and the RWKV-6
+block (``models/rwkv6.py``: time mix and channel mix) on the training
+path (``model_specs``, ``forward``, ``lm_loss``); its serving path raises
+``NotImplementedError`` naming the queue item that brings it
+(``check_servable``).  Every other layer kind raises naming the slice
+that brings it, and so does ``lm_loss`` on an MoE config (MoE training
+is a later slice).
 """
 from __future__ import annotations
 
@@ -34,26 +38,38 @@ from .config import ModelConfig
 from .layers import (apply_mlp, apply_norm, apply_rope, embed_specs,
                      embed_tokens, lm_logits, mlp_specs, norm_specs)
 from .moe import moe_ffn, moe_specs
+from .rwkv6 import chan_mix_fwd, rwkv6_specs, time_mix_fwd
 
 SELF_ATTN_KINDS = ("attn", "local", "swa")
 _LATER = {
-    "xattn": "slice 6 (rest of the zoo: xattn, vision)",
-    "rwkv6": "slice 5 (recurrent mixers: rwkv6_scan)",
-    "rglru": "slice 5 (recurrent mixers: rglru_scan)",
+    "xattn": "slice 7 (rest of the zoo: xattn, vision)",
+    "rglru": "slice 6 (recurrentgemma: rglru_scan, the causal conv)",
 }
+RWKV6_SERVING = ("ROADMAP queue A item 9b (rwkv6 serving: time_mix_decode, "
+                 "init_rwkv_state and the chunk carries)")
 
 
 def check_supported(cfg: ModelConfig) -> None:
     """Raise ``NotImplementedError`` for what later slices of the port
-    bring: frontends and non-self-attention layer kinds."""
+    bring: frontends and the layer kinds not ported yet."""
     if cfg.frontend is not None:
         raise NotImplementedError(
-            f"{cfg.name}: the {cfg.frontend} frontend comes with slice 6")
+            f"{cfg.name}: the {cfg.frontend} frontend comes with slice 7")
     for kind in set(cfg.layer_kinds):
-        if kind not in SELF_ATTN_KINDS:
+        if kind not in SELF_ATTN_KINDS + ("rwkv6",):
             raise NotImplementedError(
                 f"{cfg.name}: layer kind {kind!r} comes with "
                 f"{_LATER.get(kind, 'a later slice')}")
+
+
+def check_servable(cfg: ModelConfig) -> None:
+    """``check_supported``, and the serving paths take attention layers
+    only: RWKV-6 trains, its stateful decode comes later."""
+    check_supported(cfg)
+    if "rwkv6" in cfg.layer_kinds:
+        raise NotImplementedError(
+            f"{cfg.name}: serving layer kind 'rwkv6' comes with "
+            f"{RWKV6_SERVING}")
 
 
 def check_trainable(cfg: ModelConfig) -> None:
@@ -72,6 +88,10 @@ def check_trainable(cfg: ModelConfig) -> None:
 # ---------------------------------------------------------------------------
 
 def _block_specs(cfg: ModelConfig, kind: str, stack: tuple[int, ...]) -> dict:
+    if kind == "rwkv6":
+        both = rwkv6_specs(cfg, stack)
+        return {"ln1": norm_specs(cfg, stack), "mix": both["time"],
+                "ln2": norm_specs(cfg, stack), "ffn": both["chan"]}
     ffn = (moe_specs(cfg, stack) if cfg.is_moe and kind != "xattn"
            else mlp_specs(cfg, stack))
     return {"ln1": norm_specs(cfg, stack),
@@ -84,6 +104,8 @@ def _apply_ffn(bp: dict, kind: str, h: torch.Tensor,
                cfg: ModelConfig) -> torch.Tensor:
     """The block's FFN, as JAX's ``_apply_ffn``; the MoE router's aux
     losses are dropped (they only enter the training loss)."""
+    if kind == "rwkv6":
+        return chan_mix_fwd(bp["ffn"], h, cfg)
     if cfg.is_moe and kind != "xattn":
         return moe_ffn(bp["ffn"], h, cfg)[0]
     return apply_mlp(bp["ffn"], h, cfg)
@@ -116,7 +138,10 @@ def _unstack(tree: dict, n: int) -> list[dict]:
 def _apply_block(bp: dict, kind: str, x: torch.Tensor, cfg: ModelConfig,
                  positions: torch.Tensor) -> torch.Tensor:
     h = apply_norm(bp["ln1"], x, cfg)
-    x = x + attn.attention_fwd(bp["mix"], h, cfg, kind, positions)
+    if kind == "rwkv6":
+        x = x + time_mix_fwd(bp["mix"], h, cfg)
+    else:
+        x = x + attn.attention_fwd(bp["mix"], h, cfg, kind, positions)
     h2 = apply_norm(bp["ln2"], x, cfg)
     return x + _apply_ffn(bp, kind, h2, cfg)
 
@@ -221,7 +246,7 @@ def prefill(params: dict, tokens: torch.Tensor, cfg: ModelConfig,
             cache_len: int | None = None) -> tuple[torch.Tensor, dict]:
     """Process a prompt: tokens (B, S) -> (last-position logits (B, V) f32,
     dense ring cache {g: {s: {"k", "v": (n, B, L, KV, hd)}}})."""
-    check_supported(cfg)
+    check_servable(cfg)
     B, S = tokens.shape
     cache_len = cache_len or S
     x = embed_tokens(params, tokens, cfg)
@@ -269,7 +294,7 @@ def decode_step(params: dict, cache: dict, tokens: torch.Tensor,
     """One decode step against a paged cache.  tokens: (B, 1); pos: (B,)
     per-sequence positions (or a scalar for all rows).  Returns (logits
     (B, 1, V) f32, cache); the cache's pools are updated in place."""
-    check_supported(cfg)
+    check_servable(cfg)
     x = embed_tokens(params, tokens, cfg)
     for gi, g in enumerate(cfg.groups):
         gp, gc = params["groups"][f"g{gi}"], cache[f"g{gi}"]
@@ -289,9 +314,9 @@ def init_chunk_carry(cfg: ModelConfig) -> dict:
     """Per-slot recurrent carry for chunked prefill (B=1 per prefilling
     sequence), in the JAX package's tree shape.  Attention layers carry
     nothing — their state lives in the page pools — and they are the only
-    kinds ported (``check_supported``), so every leaf is empty here; the
-    recurrent kinds' carries come with their slice."""
-    check_supported(cfg)
+    kinds served (``check_servable``), so every leaf is empty here; the
+    recurrent kinds' carries come with rwkv6 serving."""
+    check_servable(cfg)
     return {f"g{gi}": {f"s{si}": {} for si in range(len(g.pattern))}
             for gi, g in enumerate(cfg.groups)}
 
@@ -323,7 +348,7 @@ def prefill_chunk(params: dict, cache: dict, tokens: torch.Tensor,
     returned as it came (attention layers carry nothing).  The chunk's K/V
     are written into the pools in place.  Returns (last-position logits
     (1, V) f32, cache, carry)."""
-    check_supported(cfg)
+    check_servable(cfg)
     x = embed_tokens(params, tokens, cfg)
     pos: dict = {}
     for gi, g in enumerate(cfg.groups):

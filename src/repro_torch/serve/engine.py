@@ -67,7 +67,7 @@ import numpy as np
 import torch
 
 from ..models.config import ModelConfig
-from ..models.transformer import (check_supported, decode_step,
+from ..models.transformer import (check_servable, decode_step,
                                   init_chunk_carry, prefill, prefill_chunk)
 from .live_db import StaticParams, serving_params
 from .paged_cache import (PageAllocator, init_paged_cache, make_activate_fn,
@@ -232,7 +232,7 @@ class ServeEngine:
     """
 
     def __init__(self, cfg: ModelConfig, params: Any, scfg: ServeConfig):
-        check_supported(cfg)
+        check_servable(cfg)
         self.cfg, self.scfg = cfg, scfg
         if isinstance(params, Mapping):
             self.db = StaticParams(serving_params(params, cfg))
@@ -255,7 +255,7 @@ class ServeEngine:
                 f"prefill_chunk {scfg.prefill_chunk} exceeds the smallest "
                 f"page-class ring ({self._min_L}); chunk scatter slots "
                 "must stay unique within a chunk")
-        # every ported layer kind is attention (check_supported), so
+        # every servable layer kind is attention (check_servable), so
         # prefix adoption and end-aligned chunks are always sound here
         self.prefix = (PrefixCache(self.alloc, scfg.page_size)
                        if scfg.prefix_cache else None)

@@ -13,8 +13,11 @@ rtol/atol 1e-4 (sums over up to a few hundred keys in another order); at
 bf16 to a normalized max error (max |kernel - ref| / max |ref| per
 gradient) of 2e-2, since ``dS = P (dP - D)`` is a difference of nearly
 equal terms whose bf16 rounding (of O, dO and the outputs) is relative to
-the tensor's scale, not to each element.  TF32 is off, so the plain
-versions' f32 products run in full f32.
+the tensor's scale, not to each element.  The WKV recurrence's backward
+is held the same way (f32 at 1e-4, bf16 at a normalized 2e-2), its
+forward at the kernel tolerances above and its checkpointed states to
+``ref.rwkv6_stateful`` at f32 1e-4.  TF32 is off, so the plain versions'
+f32 products run in full f32.
 """
 import os
 import subprocess
@@ -33,6 +36,8 @@ from repro_torch.kernels.moe_matmul import moe_grouped_ffn  # noqa: E402
 from repro_torch.kernels.page_gather import (  # noqa: E402
     page_gather, prefill_page_attention)
 from repro_torch.kernels.ring_gather import ring_gather  # noqa: E402
+from repro_torch.kernels.rwkv6_scan import (  # noqa: E402
+    RWKV6Scan, chunk, rwkv6_scan, rwkv6_scan_bwd)
 from repro_torch.models.attention import ring_positions  # noqa: E402
 from repro_torch.models.moe import route  # noqa: E402
 
@@ -85,6 +90,16 @@ def test_flash_attention_strided_input(gen):
     torch.testing.assert_close(flash_attention(q, k, v),
                                ref.attention(q, k, v),
                                **TOL[torch.float32])
+
+
+def test_flash_attention_refuses_a_strided_head_dim(gen):
+    """Any one of q, k, v with a non-unit head-dim stride is refused (the
+    kernel reads the head dim as contiguous)."""
+    q = _randn(gen, (1, 8, 2, 64), torch.float32)
+    strided = q.transpose(2, 3).contiguous().transpose(2, 3)
+    for args in ((strided, q, q), (q, strided, q), (q, q, strided)):
+        with pytest.raises(ValueError, match="head dim must be contiguous"):
+            flash_attention(*args)
 
 
 def test_flash_attention_rejects_cross_lengths(gen):
@@ -143,6 +158,9 @@ def test_ops_route_by_device_and_count_launches(gen):
                                               torch.bfloat16))
     ops.moe_grouped_ffn(*_moe_inputs(gen, 1, 8, 4, 4, 64, 96,
                                      torch.bfloat16))
+    wkv = [t.requires_grad_() for t in _wkv_inputs(gen, 1, 9, 2, 16,
+                                                   torch.bfloat16)]
+    ops.rwkv6(*wkv).float().sum().backward()
     torch.cuda.synchronize()
     assert ops.launches == {name: 1 for name in _build.KERNELS}
     ref.attention(q, k, k)                  # the plain version never counts
@@ -467,3 +485,132 @@ def test_moe_grouped_ffn_is_sync_free_and_refuses(gen):
     with pytest.raises(NotImplementedError, match="no backward"):
         moe_grouped_ffn(*ins[:3], ins[3].float().requires_grad_(),
                         ins[4].float(), ins[5].float())
+
+
+# ---------------------------------------------------------------------------
+# the RWKV-6 WKV recurrence
+# ---------------------------------------------------------------------------
+
+def _wkv_inputs(gen, B, T, H, hd, dtype, decay_mean=0.0):
+    """r, k, v in ``dtype``; w = exp(-exp(x)), x ~ N(decay_mean, 1), and u
+    in f32, as the model gives them (decay_mean 2: w near 0)."""
+    r, k, v = (_randn(gen, (B, T, H, hd), dtype) for _ in range(3))
+    x = torch.randn((B, T, H, hd), generator=gen, device="cuda") + decay_mean
+    u = torch.randn((H, hd), generator=gen, device="cuda") * 0.1
+    return r, k, v, torch.exp(-torch.exp(x)), u
+
+
+def _wkv_grads(ins, dy, kernel):
+    ins = [t.detach().requires_grad_() for t in ins]
+    out = RWKV6Scan.apply(*ins) if kernel else ref.rwkv6(*ins)
+    return torch.autograd.grad(out, ins, dy)
+
+
+@pytest.mark.parametrize("B,T,H,hd", [
+    (2, 64, 4, 64),       # full-width head dim, T a multiple of the chunk
+    (2, 77, 3, 64),       # ragged T
+    (3, 77, 2, 16),       # smoke head dim, ragged T
+    (1, 5, 2, 64),        # shorter than one chunk
+])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("decay_mean", [0.0, 2.0])
+def test_rwkv6_scan(gen, B, T, H, hd, dtype, decay_mean):
+    ins = _wkv_inputs(gen, B, T, H, hd, dtype, decay_mean)
+    got = rwkv6_scan(*ins)
+    want = ref.rwkv6(*ins)
+    assert got.dtype == dtype and got.shape == want.shape
+    torch.testing.assert_close(got.float(), want.float(), **TOL[dtype])
+
+
+@pytest.mark.parametrize("T,hd", [(77, 16), (64, 64), (41, 64)])
+def test_rwkv6_scan_checkpoints(gen, T, hd):
+    """The state before steps 0, chunk(), 2 chunk(), ... equals the plain
+    stateful version's final state over that prefix."""
+    r, k, v, w, u = _wkv_inputs(gen, 2, T, 3, hd, torch.float32)
+    y, ckpt = rwkv6_scan(r, k, v, w, u, with_state=True)
+    assert ckpt.shape == (2, 3, -(-T // chunk()), hd, hd)
+    torch.testing.assert_close(y, ref.rwkv6(r, k, v, w, u), rtol=1e-4,
+                               atol=1e-4)
+    S0 = torch.zeros((2, 3, hd, hd), device="cuda")
+    for c in range(ckpt.shape[2]):
+        t = c * chunk()
+        _, want = ref.rwkv6_stateful(r[:, :t], k[:, :t], v[:, :t], w[:, :t],
+                                     u, S0)
+        torch.testing.assert_close(ckpt[:, :, c], want, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("B,T,H,hd", [
+    (2, 64, 4, 64), (2, 77, 3, 64), (3, 77, 2, 16), (1, 5, 2, 64)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("decay_mean", [0.0, 2.0])
+def test_rwkv6_scan_bwd(gen, B, T, H, hd, dtype, decay_mean):
+    ins = _wkv_inputs(gen, B, T, H, hd, dtype, decay_mean)
+    dy = _randn(gen, (B, T, H, hd), dtype)
+    got = _wkv_grads(ins, dy, kernel=True)
+    want = _wkv_grads([t.float() for t in ins], dy.float(), kernel=False)
+    for g, w, x in zip(got, want, ins):
+        assert g.dtype == x.dtype and g.shape == w.shape
+        if dtype == torch.float32:
+            torch.testing.assert_close(g, w, rtol=1e-4, atol=1e-4)
+        else:
+            err = (g.float() - w).abs().max() / w.abs().max()
+            assert err <= 2e-2, err
+
+
+def test_rwkv6_scan_strided_and_deterministic(gen):
+    """(B, H, T, hd) tensors transposed to (B, T, H, hd) are read through
+    their strides; the backward gives the same bits twice."""
+    mk = lambda: _randn(gen, (2, 3, 50, 64), torch.float32).transpose(1, 2)
+    r, k, v = mk(), mk(), mk()
+    w = torch.exp(-torch.exp(mk()))
+    u = torch.randn((3, 64), generator=gen, device="cuda") * 0.1
+    torch.testing.assert_close(rwkv6_scan(r, k, v, w, u),
+                               ref.rwkv6(r, k, v, w, u), rtol=1e-4,
+                               atol=1e-4)
+    dy = mk()
+    a = _wkv_grads((r, k, v, w, u), dy, kernel=True)
+    b = _wkv_grads((r, k, v, w, u), dy, kernel=True)
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+    want = _wkv_grads((r, k, v, w, u), dy, kernel=False)
+    for g, w_ in zip(a, want):
+        torch.testing.assert_close(g, w_, rtol=1e-4, atol=1e-4)
+
+
+def test_rwkv6_scan_refuses(gen):
+    r, k, v, w, u = _wkv_inputs(gen, 1, 16, 2, 64, torch.bfloat16)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        rwkv6_scan(*(t.cpu() for t in (r, k, v, w, u)))
+    with pytest.raises(ValueError, match="float32"):
+        rwkv6_scan(r, k, v, w.to(torch.bfloat16), u)     # a bf16 decay
+    with pytest.raises(ValueError, match="float32"):
+        rwkv6_scan(r, k, v, w, u.to(torch.bfloat16))
+    with pytest.raises(ValueError, match="dtypes"):
+        rwkv6_scan(r, k.float(), v, w, u)
+    strided = r.transpose(2, 3).contiguous().transpose(2, 3)
+    with pytest.raises(ValueError, match="head dim must be contiguous"):
+        rwkv6_scan(strided, k, v, w, u)
+    with pytest.raises(ValueError, match="head dim 48"):
+        rwkv6_scan(*(t[..., :48] for t in (r, k, v, w)),
+                   u[:, :48].contiguous())
+    y, ckpt = rwkv6_scan(r, k, v, w, u, with_state=True)
+    with pytest.raises(ValueError, match="ckpt"):
+        rwkv6_scan_bwd(r, k, v, w, u, ckpt[:, :, :1].contiguous(), y)
+    with pytest.raises(ValueError, match="dy"):
+        rwkv6_scan_bwd(r, k, v, w, u, ckpt, y.float())
+
+
+def test_ops_rwkv6_trains_through_the_kernels(gen):
+    """Training through ``ops.rwkv6`` on the card launches the forward and
+    the backward once each, and every input gets the plain version's
+    gradient."""
+    ins = _wkv_inputs(gen, 2, 40, 2, 16, torch.float32)
+    ops.reset_launches()
+    got = torch.autograd.grad(
+        (ops.rwkv6(*[t.requires_grad_() for t in ins]) ** 2).sum(), ins)
+    assert ops.launches["rwkv6_scan"] == 1
+    assert ops.launches["rwkv6_scan_bwd"] == 1
+    want = torch.autograd.grad((ref.rwkv6(*ins) ** 2).sum(), ins)
+    for g, w in zip(got, want):
+        assert g.abs().max() > 0
+        torch.testing.assert_close(g, w, rtol=1e-4,
+                                   atol=1e-4 * w.abs().max().item())

@@ -140,8 +140,13 @@ def test_paged_decode_matches_jax_through_ring_wrap(arch):
 
 def test_unported_layer_kinds_raise():
     cfg = tconfigs.get_smoke_config("llama3.2-1b")
-    for kind, slice_ in (("rwkv6", "slice 5"), ("xattn", "slice 6")):
+    for kind, slice_ in (("rglru", "slice 6"), ("xattn", "slice 7")):
         bad = dataclasses.replace(
             cfg, groups=(BlockGroup((kind,), 1),))
         with pytest.raises(NotImplementedError, match=slice_):
             ttf.model_specs(bad)
+    # rwkv6 trains (model_specs builds it) but does not serve yet
+    rwkv = tconfigs.get_smoke_config("rwkv6-1.6b")
+    ttf.model_specs(rwkv)
+    with pytest.raises(NotImplementedError, match="queue A item 9b"):
+        ttf.prefill({}, torch.zeros((1, 4), dtype=torch.long), rwkv)
