@@ -34,7 +34,16 @@ Phases (any failure raises and the script exits non-zero):
    plain stateful version at 1e-4, and its backward against torch
    autograd of the plain version (f32 at 1e-4, bf16 at a normalized
    2e-2), both decays; no PyTorch call computes the recurrence, so these
-   two rows have no library time;
+   two rows have no library time; flash attention forward and backward
+   at recurrentgemma-2b's heads (10 over 1 kv head of 256) at batch 4 x
+   512 and at 4096 tokens with its 2048 window (``hd256`` entries, SDPA
+   with a boolean mask as the library time); the RG-LRU forward at
+   recurrentgemma-2b's training shape (batch 4 x 512, 2560 channels) in
+   bf16 at 2e-2, the decay from the model's map and near 1, at a ragged
+   T 77, D 200 and on strided inputs in f32 at 1e-4, and its backward
+   against torch autograd of the plain version where a < 1 (f32 at 1e-4,
+   bf16 at a normalized 2e-2), its value at a = 1 (dx = 0, da = dh
+   h_{t-1}) pinned and two runs bit for bit; no library time either;
 3. end to end, small: the serving engine on a narrow f32 model on the card
    (CUDA kernels) against the same model on the CPU (plain versions): same
    greedy tokens, prefill logits within 1e-3; on shared-prefix requests,
@@ -93,9 +102,19 @@ Phases (any failure raises and the script exits non-zero):
    untied head): the WKV forward and backward kernels launch once per
    layer and step, the ring gather once per group and step, and no plain
    version runs; ``wr``, ``wk``, ``wv``, ``decay_w1`` and ``bonus_u`` of
-   layer 0 get non-zero gradients.
+   layer 0 get non-zero gradients;
+8. recurrentgemma training: phase 5 on the recurrentgemma-2b smoke config
+   (f32, one (rglru, rglru, local) group, d 64, window 16 at 96 tokens),
+   then phase 6 on ``recurrentgemma-2b`` at full width (d 2560, 10 heads
+   over 1 kv head of 256, window 2048, d_ff 7680, vocab 256000, tied and
+   scaled embeddings), depth cut to 11 of 26 layers (``reduced``): each
+   rglru layer launches the RG-LRU forward and backward once a step, each
+   local layer the flash forward and backward, the ring gather once per
+   group and step, no plain version runs, and layer 0's ``wx``, ``wa``,
+   ``wi``, ``lam``, ``conv_w`` (slot 0) and ``wq``, ``wk``, ``wv`` (slot 2)
+   get non-zero gradients.
 
-The last two lines are the ``kernels`` JSON object and
+The last two lines are the ``kernels`` JSON object (eleven rows) and
 ``{"ok": true, "device": {...}}``.  float32 matmuls and convolutions run in
 full f32 (TF32 off) throughout.
 """
@@ -197,43 +216,59 @@ def nbytes(*ts) -> int:
 # phase 2: kernels against their plain versions
 # ---------------------------------------------------------------------------
 
+# recurrentgemma-2b's local attention (10 q heads over 1 kv head of 256):
+# the training shape, and one sequence past its 2048 window (B, S, window)
+FLASH_HD256 = ((4, 512, 0), (1, 4096, 2048))
+
+
+def window_mask(torch, S: int, window: int):
+    """The boolean (S, S) mask of a causal window, SDPA's ``attn_mask``."""
+    qp = torch.arange(S, device="cuda")[:, None]
+    kp = torch.arange(S, device="cuda")[None, :]
+    return (kp <= qp) & (kp > qp - window)
+
+
 def check_flash(torch, F, ref, gen):
     from repro_torch.kernels.flash_attention import flash_attention
-    cases = [(1, S, 32, 8, 64) for S in (128, 300, 512, 1024)] \
-        + [(1, 300, 15, 5, 64),          # smollm-360m heads: group 3
-           (1, 512, 32, 8, 128)]         # mixtral-8x7b heads
+    cases = [(1, S, 32, 8, 64, 0) for S in (128, 300, 512, 1024)] \
+        + [(1, 300, 15, 5, 64, 0),       # smollm-360m heads: group 3
+           (1, 512, 32, 8, 128, 0)]      # mixtral-8x7b heads
+    cases += [(B, S, 10, 1, 256, w) for B, S, w in FLASH_HD256]
     worst, rows = 0.0, []
-    for B, S, H, KV, hd in cases:
+    for B, S, H, KV, hd, window in cases:
         mk = lambda n: torch.randn((B, S, n, hd), generator=gen,
                                    device="cuda").to(torch.bfloat16)
         q, k, v = mk(H), mk(KV), mk(KV)
-        got = flash_attention(q, k, v, causal=True)
-        want = ref.attention(q, k, v, causal=True)
+        got = flash_attention(q, k, v, causal=True, window=window)
+        want = ref.attention(q, k, v, causal=True, window=window)
         torch.cuda.synchronize()
         err = (got.float() - want.float()).abs().max().item()
         torch.testing.assert_close(got.float(), want.float(),
                                    rtol=BF16_TOL, atol=BF16_TOL)
         worst = max(worst, err)
-        flops = 4.0 * hd * H * B * S * (S + 1) / 2
+        flops = 4.0 * hd * H * B * _live_pairs(S, True, window)
         b_ms, b_by = bound(nbytes(q, k, v, got), flops, "bfloat16")
         sets = rotation((q, k, v))
         n = len(sets)
         lib_sets = [tuple(t.transpose(1, 2) for t in st) for st in sets]
-        ms, host_ms = time_ms(lambda i: flash_attention(*sets[i % n]), 20)
-        row = dict(shape=[B, S, H, KV, hd], max_abs_err=err,
+        mask = window_mask(torch, S, window) if window > 0 else None
+        ms, host_ms = time_ms(lambda i: flash_attention(
+            *sets[i % n], causal=True, window=window), 20)
+        row = dict(shape=[B, S, H, KV, hd], window=window, max_abs_err=err,
                    tolerance=BF16_TOL, ms=ms,
                    host_ms=host_ms,
-                   plain_ms=time_ms(lambda i: ref.attention(*sets[i % n]),
-                                    10)[0],
+                   plain_ms=time_ms(lambda i: ref.attention(
+                       *sets[i % n], causal=True, window=window), 10)[0],
                    library_ms=time_ms(lambda i: F.scaled_dot_product_attention(
-                       *lib_sets[i % n], is_causal=True, enable_gqa=True),
-                       20)[0],
+                       *lib_sets[i % n], is_causal=mask is None,
+                       attn_mask=mask, enable_gqa=True), 20)[0],
                    bound_ms=b_ms, bound_by=b_by)
         rows.append(row)
         print("flash_attention", json.dumps(row), flush=True)
     main = next(r for r in rows if r["shape"] == [1, 512, 32, 8, 64])
     hd128 = next(r for r in rows if r["shape"][4] == 128)
-    return {**main, "max_abs_err": worst, "hd128": hd128}
+    hd256 = [r for r in rows if r["shape"][4] == 256]
+    return {**main, "max_abs_err": worst, "hd128": hd128, "hd256": hd256}
 
 
 # decode shapes: the serving run's ring (cache_len 544 = 34 pages of 16)
@@ -398,6 +433,7 @@ def check_flash_bwd(torch, F, ref, gen):
     cases = [(4, 512, 32, 8, 64, True, 0), (4, 128, 32, 8, 64, True, 0),
              (4, 1024, 32, 8, 64, True, 0), (4, 300, 15, 5, 64, True, 0),
              (4, 512, 32, 8, 64, True, 128)]
+    cases += [(B, S, 10, 1, 256, True, w) for B, S, w in FLASH_HD256]
     rows = []
     for B, S, H, KV, hd, causal, window in cases:
         mk = lambda n: torch.randn((B, S, n, hd), generator=gen,   # noqa
@@ -467,11 +503,7 @@ def check_flash_bwd(torch, F, ref, gen):
         plain_ms = time_ms(lambda i: torch.autograd.grad(
             pout, pin, do, retain_graph=True), 5)[0]
         lin = [t.transpose(1, 2).detach().requires_grad_() for t in (q, k, v)]
-        mask = None
-        if window > 0:
-            qp = torch.arange(S, device="cuda")[:, None]
-            kp = torch.arange(S, device="cuda")[None, :]
-            mask = (kp <= qp) & (kp > qp - window)
+        mask = window_mask(torch, S, window) if window > 0 else None
         lout = F.scaled_dot_product_attention(
             *lin, is_causal=causal and mask is None, attn_mask=mask,
             enable_gqa=True)
@@ -490,7 +522,8 @@ def check_flash_bwd(torch, F, ref, gen):
         del pin, pout, lin, lout, sets
     torch.cuda.empty_cache()
     main = rows[0]                  # the training shape, causal
-    return {**main, "max_abs_err": max(r["max_abs_err"] for r in rows)}
+    return {**main, "max_abs_err": max(r["max_abs_err"] for r in rows),
+            "hd256": [r for r in rows if r["shape"][4] == 256]}
 
 
 # chunked prefill at 32 heads over 8 kv heads (C, L, start, window, dtype,
@@ -873,6 +906,191 @@ def check_rwkv6_scan_bwd(torch, ref, gen):
                checkpoint_bytes=nbytes(ckpt))
     print("rwkv6_scan_bwd", json.dumps(row), flush=True)
     del sets, leaves, out, grads, ckpt
+    torch.cuda.empty_cache()
+    return row
+
+
+# the RG-LRU recurrence at recurrentgemma-2b's width on the training path
+# (batch 4 x 512 tokens, 2560 channels), and a ragged shape
+LRU_MAIN = (4, 512, 2560)
+LRU_RAGGED = (4, 77, 200)
+LRU_LIBRARY = "none: no single PyTorch call computes the RG-LRU recurrence"
+LRU_FWD_FLOPS = 6.0             # a step: a^2, 1 - a^2, sqrt, 2 products, sum
+LRU_BWD_FLOPS = 10.0            # the gate again, dh, dx, da, the carry
+
+
+def lru_inputs(torch, gen, B, T, D, dtype, draw="model"):
+    """x ~ N(0, 1) and the decay a in ``dtype``: ``model`` as recurrentgemma
+    makes it, exp(-8 softplus(lam) sigmoid(z)) with lam ~ N(0, 0.5^2) per
+    channel (the init scale of ``lam``) and z ~ N(0, 1); ``near1`` puts
+    1 - a in [5e-4, 4e-3], which bf16 rounds to 1 (g = 0) or 1 - 2^-8."""
+    x = torch.randn((B, T, D), generator=gen, device="cuda")
+    z = torch.randn((B, T, D), generator=gen, device="cuda")
+    if draw == "model":
+        lam = 0.5 * torch.randn((D,), generator=gen, device="cuda")
+        a = torch.exp(-8.0 * torch.nn.functional.softplus(lam)
+                      * torch.sigmoid(z))
+    else:
+        a = 1.0 - (5e-4 + 3.5e-3 * torch.sigmoid(z))
+    return x.to(dtype), a.to(dtype)
+
+
+def check_rglru_scan(torch, ref, gen):
+    """The RG-LRU forward against its plain version: at the training shape
+    in bf16 (a from the model's map, and a near 1, where bf16 makes it 1 and
+    g = 0) at rtol/atol 2e-2, at a ragged T 77, D 200 in f32 at 1e-4, and on
+    strided inputs (x a slice of a wider tensor, a with a transposed batch
+    layout) in f32 at 1e-4; its f32 states against the plain version in
+    f32 at 1e-4.  Timed as the training path calls it (with its states)
+    beside its bound, the serial floor of T dependent steps and the plain
+    version; there is no library call to time."""
+    from repro_torch.kernels.rglru_scan import rglru_scan
+    B, T, D = LRU_MAIN
+    errs = {}
+    for draw in ("model", "near1"):
+        x, a = lru_inputs(torch, gen, B, T, D, torch.bfloat16, draw)
+        got, want = rglru_scan(x, a), ref.rglru(x, a)[0]
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got.float(), want.float(), rtol=BF16_TOL,
+                                   atol=BF16_TOL)
+        errs[f"bfloat16_{draw}"] = \
+            (got.float() - want.float()).abs().max().item()
+        if draw == "near1":
+            errs["bfloat16_near1_saturated_share"] = \
+                (a == 1.0).float().mean().item()
+    x, a = lru_inputs(torch, gen, *LRU_RAGGED, torch.float32)
+    got, hs = rglru_scan(x, a, with_state=True)
+    want = ref.rglru(x, a)[0]
+    torch.cuda.synchronize()
+    for name, t in (("", got), ("_states", hs)):
+        torch.testing.assert_close(t, want, rtol=F32_TOL, atol=F32_TOL)
+        errs[f"float32_T77_D200{name}"] = (t - want).abs().max().item()
+    xs = torch.cat([x, x], 2)[..., LRU_RAGGED[2]:]
+    as_ = a.transpose(0, 1).contiguous().transpose(0, 1)
+    got = rglru_scan(xs, as_)
+    torch.testing.assert_close(got, want, rtol=F32_TOL, atol=F32_TOL)
+    errs["float32_strided"] = (got - want).abs().max().item()
+    # timing in bf16, the training path's dtype, with its states
+    x, a = lru_inputs(torch, gen, B, T, D, torch.bfloat16)
+    y, hs = rglru_scan(x, a, with_state=True)
+    # the bound counts the function's own traffic (x, a in, h out); the f32
+    # states are this kernel's design, reported apart
+    b_ms, b_by = bound(nbytes(x, a, y), LRU_FWD_FLOPS * B * T * D,
+                       "float32")
+    sets = rotation((x, a))
+    n = len(sets)
+    ms, host_ms = time_ms(lambda i: rglru_scan(*sets[i % n],
+                                               with_state=True), 20)
+    row = dict(shape=[B, T, D], dtype="bfloat16", max_abs_err=max(
+                   v for k, v in errs.items() if not k.endswith("share")),
+               errors=errs, tolerance=BF16_TOL, f32_tolerance=F32_TOL,
+               ms=ms, host_ms=host_ms, serial_steps=T, ms_per_step=ms / T,
+               plain_ms=time_ms(lambda i: ref.rglru(*sets[i % n]), 3,
+                                spin=False)[0],
+               plain_timing=WKV_PLAIN_TIMING, library_ms=None,
+               library=LRU_LIBRARY, bound_ms=b_ms, bound_by=b_by,
+               state_bytes=nbytes(hs))
+    print("rglru_scan", json.dumps(row), flush=True)
+    del sets, y, hs
+    torch.cuda.empty_cache()
+    return row
+
+
+def check_rglru_scan_bwd(torch, ref, gen):
+    """The RG-LRU backward against torch autograd of the plain version in
+    f32 on the same inputs, where a < 1 (f32 at rtol/atol 1e-4; bf16 to a
+    normalized max error of 2e-2, the plain version run on the bf16 inputs
+    upcast) at the training shape, a from the model's map; the value at
+    g = 0 pinned (a band of steps with a = 1: dx = 0 and da = dh h_{t-1}
+    exactly as its closed form from the plain version's states, and finite
+    where autograd of the plain version is not); two runs bit for bit.
+    Timed in bf16 beside its bound, the serial floor and autograd of the
+    plain version; there is no library call to time."""
+    from repro_torch.kernels.rglru_scan import rglru_scan, rglru_scan_bwd
+    B, T, D = LRU_MAIN
+    errs = {}
+    x32, a32 = lru_inputs(torch, gen, B, T, D, torch.float32)
+    dy32 = torch.randn((B, T, D), generator=gen, device="cuda")
+    for dt in (torch.float32, torch.bfloat16):
+        x, a, dy = x32.to(dt), a32.to(dt), dy32.to(dt)
+        if not a.max().item() < 1.0:
+            raise AssertionError("rglru_scan_bwd: the draw reached a = 1")
+        leaves = [t.float().requires_grad_() for t in (x, a)]
+        want = torch.autograd.grad(ref.rglru(*leaves)[0], leaves,
+                                   dy.float())
+        _, hs = rglru_scan(x, a, with_state=True)
+        got = rglru_scan_bwd(x, a, hs, dy)
+        torch.cuda.synchronize()
+        if dt == torch.float32:
+            for g, w in zip(got, want):
+                torch.testing.assert_close(g, w, rtol=BWD_F32_TOL,
+                                           atol=BWD_F32_TOL)
+            errs["float32"] = max((g - w).abs().max().item()
+                                  for g, w in zip(got, want))
+        else:
+            norm = max(((g.float() - w).abs().max() / w.abs().max()).item()
+                       for g, w in zip(got, want))
+            if not norm <= BWD_BF16_NORM_TOL:
+                raise AssertionError(f"rglru_scan_bwd bf16 normalized "
+                                     f"error {norm}")
+            errs["bfloat16_normalized"] = norm
+        del leaves, want, got, hs
+    # the value at g = 0, in f32 (bf16 rounds a >= 0.998046875 to 1)
+    n = min(64, T)
+    x, a = x32[:, :n].contiguous(), a32[:, :n].clone()
+    a[:, 8:n - 8:4] = 1.0
+    dy = dy32[:, :n].contiguous()
+    _, hs = rglru_scan(x, a, with_state=True)
+    dx, da = rglru_scan_bwd(x, a, hs, dy)
+    h = ref.rglru(x, a)[0]
+    hprev = torch.cat([torch.zeros_like(h[:, :1]), h[:, :-1]], 1)
+    dh, c = torch.empty_like(dy), torch.zeros_like(dy[:, 0])
+    for t in range(n - 1, -1, -1):
+        dh[:, t] = dy[:, t] + c
+        c = a[:, t] * dh[:, t]
+    sat = a == 1.0
+    leaves = [t.clone().requires_grad_() for t in (x, a)]
+    plain_da = torch.autograd.grad(ref.rglru(*leaves)[0], leaves, dy)[1]
+    torch.cuda.synchronize()
+    torch.testing.assert_close(da[sat], (dh * hprev)[sat], rtol=BWD_F32_TOL,
+                               atol=BWD_F32_TOL)
+    pinned = (torch.equal(dx[sat], torch.zeros_like(dx[sat]))
+              and bool(torch.isfinite(da).all())
+              and not bool(torch.isfinite(plain_da[sat]).all()))
+    errs["g0_da_err"] = (da[sat] - (dh * hprev)[sat]).abs().max().item()
+    if not pinned:
+        raise AssertionError("rglru_scan_bwd: the g = 0 rule does not hold")
+    del leaves, plain_da
+    # two runs, bit for bit
+    x, a, dy = x32.to(torch.bfloat16), a32.to(torch.bfloat16), \
+        dy32.to(torch.bfloat16)
+    _, hs = rglru_scan(x, a, with_state=True)
+    first = rglru_scan_bwd(x, a, hs, dy)
+    again = rglru_scan_bwd(x, a, hs, dy)
+    if not all(torch.equal(p, q) for p, q in zip(first, again)):
+        raise AssertionError("rglru_scan_bwd is not deterministic")
+    # timing in bf16, the training path's dtype: the function's own traffic
+    # (x, a, dy in, dx, da out); the f32 states it reads are the forward's
+    # design, reported apart
+    b_ms, b_by = bound(nbytes(x, a, dy, *first),
+                       LRU_BWD_FLOPS * B * T * D, "float32")
+    sets = rotation((x, a, hs, dy))
+    n = len(sets)
+    ms, host_ms = time_ms(lambda i: rglru_scan_bwd(*sets[i % n]), 20)
+    leaves = [t.float().requires_grad_() for t in (x, a)]
+    out = ref.rglru(*leaves)[0]
+    plain_ms = time_ms(lambda i: torch.autograd.grad(
+        out, leaves, dy.float(), retain_graph=True), 3, spin=False)[0]
+    row = dict(shape=[B, T, D], dtype="bfloat16",
+               max_abs_err=errs["float32"], errors=errs,
+               tolerance=BWD_F32_TOL, bf16_tolerance=BWD_BF16_NORM_TOL,
+               g0_rule_pinned=pinned, deterministic=True, ms=ms,
+               host_ms=host_ms, serial_steps=T, ms_per_step=ms / T,
+               plain_ms=plain_ms, plain_timing=WKV_PLAIN_TIMING,
+               library_ms=None, library=LRU_LIBRARY, bound_ms=b_ms,
+               bound_by=b_by, state_bytes=nbytes(hs))
+    print("rglru_scan_bwd", json.dumps(row), flush=True)
+    del sets, leaves, out, first, again, hs
     torch.cuda.empty_cache()
     return row
 
@@ -1448,6 +1666,8 @@ KERNEL_GROUPS = (("flash_attention", "flash_fwd_kernel"),
                                       "moe_combine_kernel")),
                  ("rwkv6_scan", "rwkv6_fwd_kernel"),
                  ("rwkv6_scan_bwd", ("rwkv6_bwd_kernel", "rwkv6_du_kernel")),
+                 ("rglru_scan", "rglru_fwd_kernel"),
+                 ("rglru_scan_bwd", "rglru_bwd_kernel"),
                  ("matmul", ("gemm", "nvjet", "cutlass", "xmma", "splitK")))
 
 
@@ -1530,7 +1750,7 @@ def where_time_goes(torch, cfg, params, common, label="profile"):
 
 PLAIN_VERSIONS = ("attention", "attention_chunked", "attention_decode",
                   "page_gather", "ring_gather", "prefill_page_attention",
-                  "moe_grouped_ffn", "rwkv6", "rwkv6_stateful")
+                  "moe_grouped_ffn", "rwkv6", "rwkv6_stateful", "rglru")
 
 
 @contextlib.contextmanager
@@ -1570,8 +1790,9 @@ def _train_run(torch, cfg, params, opt_name, sync, batches, lr):
 
 def small_train_config(torch, arch: str):
     """The narrow f32 model of the small training run: llama3.2-1b's smoke
-    config widened to d 256 and head dim 64; rwkv6-1.6b's smoke config as
-    it is (d 64, 4 heads of 16)."""
+    config widened to d 256 and head dim 64; rwkv6-1.6b's and
+    recurrentgemma-2b's smoke configs as they are (d 64, 4 heads of 16;
+    recurrentgemma's window of 16 wraps at the run's 96 tokens)."""
     from repro_torch.configs import get_smoke_config
     cfg = dataclasses.replace(get_smoke_config(arch), dtype=torch.float32)
     if arch == "llama3.2-1b":
@@ -1658,21 +1879,56 @@ def small_training(torch, arch):
 
 
 TRAIN_B, TRAIN_S, TRAIN_STEPS, TRAIN_DELTA = 4, 512, 8, 2
-# per trained arch: the kernels each layer launches once per step (forward
-# and backward), and the projections of layer 0 that must get a gradient
+# per trained arch: the kernels a layer of each kind launches once per step
+# (forward and backward), and per slot of the first group the projections
+# of its layer 0 that must get a gradient
+FLASH = ("flash_attention", "flash_attention_bwd")
 TRAIN_RUNS = {
-    "llama3.2-1b": (("flash_attention", "flash_attention_bwd"),
-                    ("wq", "wk", "wv")),
-    "rwkv6-1.6b": (("rwkv6_scan", "rwkv6_scan_bwd"),
-                   ("wr", "wk", "wv", "decay_w1", "bonus_u")),
+    "llama3.2-1b": ({"attn": FLASH}, {"s0": ("wq", "wk", "wv")}),
+    "rwkv6-1.6b": ({"rwkv6": ("rwkv6_scan", "rwkv6_scan_bwd")},
+                   {"s0": ("wr", "wk", "wv", "decay_w1", "bonus_u")}),
+    "recurrentgemma-2b": ({"rglru": ("rglru_scan", "rglru_scan_bwd"),
+                           "local": FLASH},
+                          {"s0": ("wx", "wa", "wi", "lam", "conv_w"),
+                           "s2": ("wq", "wk", "wv")}),
 }
+# depth cuts, every width kept: recurrentgemma-2b's 26 layers (2,894,574,080
+# parameters) need 69.5 GB of engine state at delta 2 (12 + 4 (delta + 1)
+# bytes a parameter) plus 11.6 GB of f32 gradients, over the card's 80 GB.
+# AdamW's update is out of place, so the step also holds a second copy of
+# the parameters and moments (12 bytes a parameter) and the stale read:
+# 4 of the 8 (rglru, rglru, local) groups and the (rglru, rglru) tail (14
+# layers, 1,866,744,320 parameters) run out of memory in that update; 3
+# groups and the tail are 11 layers, 1,609,786,880 parameters, 38.6 GB of
+# state
+TRAIN_GROUPS = {"recurrentgemma-2b": 3}
+
+
+def train_config(arch: str):
+    """``arch``'s published config, its first group cut to
+    ``TRAIN_GROUPS`` repeats where the card's memory forces a cut; and the
+    ``reduced`` note for the printed result (None when nothing is cut)."""
+    from repro_torch.configs import get_config
+    cfg = get_config(arch)
+    if arch not in TRAIN_GROUPS:
+        return cfg, None
+    n = TRAIN_GROUPS[arch]
+    full = len(cfg.layer_kinds)
+    first, *rest = cfg.groups
+    cut = dataclasses.replace(
+        cfg, groups=(dataclasses.replace(first, n=n), *rest))
+    return cut, (f"layers {full} -> {len(cut.layer_kinds)}: {n} of the "
+                 f"{first.n} {first.pattern} groups and the groups after "
+                 f"them; every width kept (the engine's delta-{TRAIN_DELTA} "
+                 f"state and AdamW's update for all {full} layers exceed "
+                 "the card's memory)")
 
 
 def full_width_training(torch, ops, ref, arch):
-    """``arch`` at full width and depth through the train engine: f32
-    master, bf16 compute, AdamW, delta 2 on the packed ring."""
+    """``arch`` at full width through the train engine, at full depth or
+    at its ``TRAIN_GROUPS`` cut: f32 master, bf16 compute, AdamW, delta 2
+    on the packed ring."""
     from torch.profiler import ProfilerActivity, profile
-    from repro_torch.configs import get_config
     from repro_torch.core.sync import SyncConfig
     from repro_torch.data import LMBatchSpec, make_lm_batch
     from repro_torch.launch.steps import make_lm_grad_fn
@@ -1680,8 +1936,9 @@ def full_width_training(torch, ops, ref, arch):
     from repro_torch.models.transformer import model_specs
     from repro_torch.optim import OptConfig, make_optimizer
     from repro_torch.pdb import make_engine
-    cfg = get_config(arch)
-    layer_kernels, watched = TRAIN_RUNS[arch]
+    from repro_torch.tree import leaves
+    cfg, reduced = train_config(arch)
+    kind_kernels, watched = TRAIN_RUNS[arch]
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     params = paramlib.init_tree(
@@ -1695,9 +1952,10 @@ def full_width_training(torch, ops, ref, arch):
 
     def grad_fn(p, batch):              # the engine's grad_fn, watched
         loss, grads = inner(p, batch)
-        mix = grads["groups"]["g0"]["s0"]["mix"]
-        watched_max.append(torch.stack([mix[w].abs().max()
-                                        for w in watched]))
+        g0 = grads["groups"]["g0"]
+        watched_max.append(torch.stack([
+            g0[slot]["mix"][w][0].abs().max()
+            for slot, names in watched.items() for w in names]))
         return loss, grads
 
     opt = make_optimizer(OptConfig(name="adamw", lr=3e-4))
@@ -1726,15 +1984,23 @@ def full_width_training(torch, ops, ref, arch):
                         / len(eng.group_delays))
     launches = dict(ops.launches)        # ... and ends here
     n_groups = len(state.hist)
-    n_layers = sum(g.n * len(g.pattern) for g in cfg.groups)
-    want = {"ring_gather": n_groups * TRAIN_STEPS,
-            **{k: n_layers * TRAIN_STEPS for k in layer_kernels}}
+    n_layers = len(cfg.layer_kinds)
+    want = {"ring_gather": n_groups * TRAIN_STEPS}
+    for kind, names in kind_kernels.items():
+        for k in names:
+            want[k] = want.get(k, 0) \
+                + cfg.layer_kinds.count(kind) * TRAIN_STEPS
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
-    grad_min = dict(zip(watched, torch.stack(watched_max).amin(0).tolist()))
+    grad_min = dict(zip(
+        [f"g0.{slot}.mix.{w}" for slot, names in watched.items()
+         for w in names],
+        torch.stack(watched_max).amin(0).tolist()))
     tele = eng.telemetry.summary()
     steady = sorted(step_s[1:])[len(step_s[1:]) // 2]
     print("full-width training:", json.dumps(dict(
-        arch=cfg.name, layers=n_layers, batch=TRAIN_B, seq=TRAIN_S,
+        arch=cfg.name, layers=n_layers, reduced=reduced,
+        parameters=sum(t.numel() for t in leaves(state.params)),
+        batch=TRAIN_B, seq=TRAIN_S,
         delta=TRAIN_DELTA, optimizer="adamw", steps=TRAIN_STEPS,
         losses=losses, step_s=step_s, step_s_p50_after_first=steady,
         tokens_per_s=TRAIN_B * TRAIN_S / steady, peak_mem_gib=peak,
@@ -1840,7 +2106,9 @@ def main() -> int:
          (torch, F, ref, gen)),
         ("moe_grouped_ffn", check_moe_grouped_ffn, (torch, F, ref, gen)),
         ("rwkv6_scan", check_rwkv6_scan, (torch, ref, gen)),
-        ("rwkv6_scan_bwd", check_rwkv6_scan_bwd, (torch, ref, gen)))}
+        ("rwkv6_scan_bwd", check_rwkv6_scan_bwd, (torch, ref, gen)),
+        ("rglru_scan", check_rglru_scan, (torch, ref, gen)),
+        ("rglru_scan_bwd", check_rglru_scan_bwd, (torch, ref, gen)))}
     timed("small_end_to_end", small_end_to_end, torch)
     paths = timed("full_width_serving", full_width, torch, ops, ref)
     torch.cuda.empty_cache()
@@ -1852,6 +2120,11 @@ def main() -> int:
     timed("small_rwkv6_training", small_training, torch, "rwkv6-1.6b")
     paths["rwkv6_training"] = timed("rwkv6_training", full_width_training,
                                     torch, ops, ref, "rwkv6-1.6b")
+    timed("small_recurrentgemma_training", small_training, torch,
+          "recurrentgemma-2b")
+    paths["recurrentgemma_training"] = timed(
+        "recurrentgemma_training", full_width_training, torch, ops, ref,
+        "recurrentgemma-2b")
     print("phase seconds:", json.dumps(dict(
         phase_s, total=time.perf_counter() - t0)), flush=True)
 
@@ -1869,14 +2142,20 @@ def main() -> int:
                 "rwkv6_scan": "src/repro/kernels/rwkv6_scan.py:54",
                 # the gradient of the kernel above: the TPU package has
                 # none and trains through autodiff of its plain recurrence
-                "rwkv6_scan_bwd": "src/repro/kernels/rwkv6_scan.py:54"}
+                "rwkv6_scan_bwd": "src/repro/kernels/rwkv6_scan.py:54",
+                "rglru_scan": "src/repro/kernels/rglru_scan.py:44",
+                # the gradient of the kernel above: the TPU package has
+                # none and trains through autodiff of its plain recurrence
+                "rglru_scan_bwd": "src/repro/kernels/rglru_scan.py:44"}
     own_path = {"flash_attention": "serving", "page_gather": "serving",
                 "decode_attention": "serving", "ring_gather": "training",
                 "flash_attention_bwd": "training",
                 "prefill_page_attention": "chunked_serving",
                 "moe_grouped_ffn": "moe_serving",
                 "rwkv6_scan": "rwkv6_training",
-                "rwkv6_scan_bwd": "rwkv6_training"}
+                "rwkv6_scan_bwd": "rwkv6_training",
+                "rglru_scan": "recurrentgemma_training",
+                "rglru_scan_bwd": "recurrentgemma_training"}
     kernels = []
     for name, row in results.items():
         source = name.removesuffix("_bwd")
@@ -1891,8 +2170,9 @@ def main() -> int:
             plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
             bound_by=row["bound_by"], library_ms=row["library_ms"],
             host_ms=row["host_ms"], shape=row["shape"],
-            **{k: row[k] for k in ("hd128", "shapes", "edge_cases",
-                                   "library", "serial_steps")
+            **{k: row[k] for k in ("hd128", "hd256", "shapes", "edge_cases",
+                                   "library", "serial_steps", "state_bytes",
+                                   "checkpoint_bytes")
                if k in row}))
     print(smi())
     print(json.dumps({"kernels": kernels}))

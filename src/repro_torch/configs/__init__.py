@@ -2,9 +2,9 @@
 
 ``get_config(arch_id)`` returns the full published config;
 ``get_smoke_config(arch_id)`` the reduced same-family variant the CPU tests
-use.  The dense GQA, the MoE and the RWKV-6 architectures are ported so
-far; asking for any other known architecture raises ``KeyError`` naming
-the slice of the port that brings it.
+use.  The dense GQA, the MoE, the RWKV-6 and the recurrentgemma
+architectures are ported so far; asking for any other known architecture
+raises ``KeyError`` naming the slice of the port that brings it.
 """
 from __future__ import annotations
 
@@ -16,12 +16,11 @@ ARCHS = (
     "mixtral_8x7b",
     "llama4_scout_17b_16e",
     "rwkv6_1_6b",
+    "recurrentgemma_2b",
 )
 
 # architectures of the JAX zoo that later slices of the port bring
 PENDING = {
-    "recurrentgemma_2b": "slice 6 (recurrentgemma: rglru_scan, the causal "
-                         "conv, flash attention at head dim 256)",
     "olmo_1b": "slice 7 (rest of the zoo: layernorm_np)",
     "gemma3_4b": "slice 7 (rest of the zoo: qk_norm, local layers, softcap)",
     "musicgen_large": "slice 7 (rest of the zoo: audio tokens)",

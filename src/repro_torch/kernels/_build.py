@@ -12,8 +12,8 @@ started together.
 
 Each C entry point returns ``cudaGetLastError()`` after its launch;
 ``check`` raises on anything but 0.  ``launches`` counts kernel launches
-per kernel (``KERNELS``: the flash-attention and the WKV sources hold two
-each, the forward and the backward); each wrapper adds one right after
+per kernel (``KERNELS``: the flash-attention, the WKV and the RG-LRU
+sources hold two each, the forward and the backward); each wrapper adds one right after
 its launch and nowhere else.
 """
 from __future__ import annotations
@@ -31,10 +31,11 @@ CSRC = Path(__file__).with_name("csrc")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "torch_kernels"
 SOURCES = ("flash_attention", "page_gather", "decode_attention",
            "ring_gather", "prefill_page_attention", "moe_grouped_ffn",
-           "rwkv6_scan")
+           "rwkv6_scan", "rglru_scan")
 KERNELS = ("flash_attention", "flash_attention_bwd", "page_gather",
            "decode_attention", "ring_gather", "prefill_page_attention",
-           "moe_grouped_ffn", "rwkv6_scan", "rwkv6_scan_bwd")
+           "moe_grouped_ffn", "rwkv6_scan", "rwkv6_scan_bwd", "rglru_scan",
+           "rglru_scan_bwd")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 NVCC_TIMEOUT_S = 600

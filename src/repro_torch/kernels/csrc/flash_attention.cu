@@ -44,6 +44,19 @@
 // Every output element is written once by one thread, with no atomics: the
 // backward is deterministic, run to run.  Making the products mma/wgmma is
 // a later PR's work.
+//
+// Head dims 32, 64, 128 and 256 (recurrentgemma: 10 q heads over 1 kv
+// head).  The forward keeps its 64 x 64 tiles at 256: 213,760 bytes of
+// shared memory (of the 232,448 a block may opt into) and a 4 x 16
+// accumulator a thread.  The backward's 64-row tiles would need 296,960
+// bytes at 256, and the dK/dV kernel 2 x 4 x 16 = 128 f32 accumulators a
+// thread, so at 256 the rows that carry accumulators drop to 32
+// (bwd_rows): the dK/dV kernel walks 64-query tiles over a 32-key tile
+// (214,528 bytes; dK and dV 2 x 16 each a thread, a 2 x 4 score patch),
+// the dQ kernel 64-key tiles under a 32-row q tile (205,952 bytes; dQ 2 x
+// 16 a thread).  The head dims up to 128 keep the 64 x 64 tiles, and so
+// their bits.  The GQA group need not be a power of two: the dK/dV
+// kernel loops over the group's q heads (10 at 256) inside the block.
 #include <type_traits>
 
 #include "common.cuh"
@@ -66,12 +79,36 @@ constexpr size_t fwd_smem_bytes() {
          (BQ * (HD + 1) + BK * (HD + 1) + BK * HD + BQ * (BK + 1));
 }
 
+// the backward's tile rows where its accumulators live: the dK/dV
+// kernel's keys and the dQ kernel's queries.  64 up to head dim 128; 32 at
+// 256, where 64-row f32 tiles would need 296,960 bytes of shared memory
+// and 2 x 4 x 16 = 128 f32 accumulators a thread in the dK/dV kernel
 template <int HD>
-constexpr size_t bwd_smem_bytes() {
-  // four [64][HD+1] tiles, two [64][65] probability tiles (the dQ kernel
-  // uses one), lse and D rows
-  return sizeof(float) * (4 * 64 * (HD + 1) + 2 * 64 * 65 + 2 * 64);
+constexpr int bwd_rows() {
+  return HD > 128 ? 32 : 64;
 }
+
+template <int HD, int KR, int QR>
+constexpr size_t dkdv_smem_bytes() {
+  // K and V [KR][HD+1], Q and dO [QR][HD+1], P and dS [KR][QR+1], lse and
+  // D rows
+  return sizeof(float) * (2 * KR * (HD + 1) + 2 * QR * (HD + 1) +
+                          2 * KR * (QR + 1) + 2 * QR);
+}
+
+template <int HD, int QR, int KR>
+constexpr size_t dq_smem_bytes() {
+  // Q and dO [QR][HD+1], K and V [KR][HD+1], dS [QR][KR+1], lse and D rows
+  return sizeof(float) * (2 * QR * (HD + 1) + 2 * KR * (HD + 1) +
+                          QR * (KR + 1) + 2 * QR);
+}
+
+constexpr size_t MAX_SMEM = 232448;  // a block's opt-in limit on sm_90
+static_assert(fwd_smem_bytes<256>() <= MAX_SMEM, "forward tiles at hd 256");
+static_assert(dkdv_smem_bytes<256, bwd_rows<256>(), BQ>() <= MAX_SMEM,
+              "dK/dV tiles at hd 256");
+static_assert(dq_smem_bytes<256, bwd_rows<256>(), BK>() <= MAX_SMEM,
+              "dQ tiles at hd 256");
 
 __device__ __forceinline__ bool is_live(int qpos, int kpos, int S,
                                         int causal, int window) {
@@ -79,13 +116,13 @@ __device__ __forceinline__ bool is_live(int qpos, int kpos, int S,
          (window <= 0 || kpos > qpos - window);
 }
 
-// rows [r0, r0+64) of one head of a (B,S,heads,hd) tensor into a
-// [64][HD+1] f32 tile, zero past S and past hd
-template <typename T, int HD>
+// rows [r0, r0+R) of one head of a (B,S,heads,hd) tensor into an
+// [R][HD+1] f32 tile, zero past S and past hd
+template <typename T, int HD, int R = 64>
 __device__ __forceinline__ void load_tile(float* dst, const T* src,
                                           long long ss, int r0, int S,
                                           int hd) {
-  for (int i = threadIdx.x; i < 64 * HD; i += NT) {
+  for (int i = threadIdx.x; i < R * HD; i += NT) {
     const int r = i / HD, d = i % HD, s = r0 + r;
     dst[r * (HD + 1) + d] =
         (s < S && d < hd) ? to_f32(src[(long long)s * ss + d]) : 0.f;
@@ -251,8 +288,8 @@ __global__ void __launch_bounds__(NT)
   if (lane == 0) D[row] = acc;
 }
 
-// (b) dK and dV of one 64-key tile of one kv head, summed over the group
-template <typename T, int HD>
+// (b) dK and dV of one KR-key tile of one kv head, summed over the group
+template <typename T, int HD, int KR, int QR>
 __global__ void __launch_bounds__(NT)
     flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                           const T* __restrict__ v,
@@ -264,36 +301,38 @@ __global__ void __launch_bounds__(NT)
                           Strides sdo, Strides sdk, Strides sdv, float scale,
                           int causal, int window) {
   constexpr int DPT = HD / 16;
+  constexpr int KPT = KR / 16;  // keys per thread
+  constexpr int QPT = QR / 16;  // queries per thread
   extern __shared__ float smem[];
   float* Ks = smem;
-  float* Vs = Ks + BK * (HD + 1);
-  float* Qs = Vs + BK * (HD + 1);
-  float* dOs = Qs + BQ * (HD + 1);
-  float* Ps = dOs + BQ * (HD + 1);   // [key][query]
-  float* dSs = Ps + BK * (BQ + 1);   // [key][query]
-  float* lse_s = dSs + BK * (BQ + 1);
-  float* D_s = lse_s + BQ;
+  float* Vs = Ks + KR * (HD + 1);
+  float* Qs = Vs + KR * (HD + 1);
+  float* dOs = Qs + QR * (HD + 1);
+  float* Ps = dOs + QR * (HD + 1);   // [key][query]
+  float* dSs = Ps + KR * (QR + 1);   // [key][query]
+  float* lse_s = dSs + KR * (QR + 1);
+  float* D_s = lse_s + QR;
 
-  const int k0 = blockIdx.x * BK;
+  const int k0 = blockIdx.x * KR;
   const int kvh = blockIdx.y;
   const int b = blockIdx.z;
   const int tid = threadIdx.x;
-  const int ty = tid >> 4;  // keys ty*4 .. ty*4+3
+  const int ty = tid >> 4;  // keys ty*KPT .. ty*KPT+KPT-1
   const int tx = tid & 15;  // queries tx + 16*j; dims tx + 16*j
 
-  load_tile<T, HD>(Ks, k + b * sk.b + kvh * sk.h, sk.s, k0, S, hd);
-  load_tile<T, HD>(Vs, v + b * sv.b + kvh * sv.h, sv.s, k0, S, hd);
+  load_tile<T, HD, KR>(Ks, k + b * sk.b + kvh * sk.h, sk.s, k0, S, hd);
+  load_tile<T, HD, KR>(Vs, v + b * sv.b + kvh * sv.h, sv.s, k0, S, hd);
 
-  float adk[4][DPT], adv[4][DPT];
+  float adk[KPT][DPT], adv[KPT][DPT];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < KPT; ++i)
 #pragma unroll
     for (int j = 0; j < DPT; ++j) adk[i][j] = adv[i][j] = 0.f;
 
   // live queries of this key tile: qpos >= kpos (causal) and
   // qpos < kpos + window
-  const int q_begin = causal ? (k0 / BQ) * BQ : 0;
-  const int q_end = window > 0 ? min(S, k0 + BK - 1 + window) : S;
+  const int q_begin = causal ? (k0 / QR) * QR : 0;
+  const int q_end = window > 0 ? min(S, k0 + KR - 1 + window) : S;
 
   for (int hh = 0; hh < group; ++hh) {
     const int h = kvh * group + hh;
@@ -301,72 +340,72 @@ __global__ void __launch_bounds__(NT)
     const T* db = dout + b * sdo.b + h * sdo.h;
     const float* lse_b = lse + ((long long)b * H + h) * S;
     const float* D_b = D + ((long long)b * H + h) * S;
-    for (int q0 = q_begin; q0 < q_end; q0 += BQ) {
+    for (int q0 = q_begin; q0 < q_end; q0 += QR) {
       __syncthreads();  // the previous tile's Qs/dOs/Ps/dSs are not read
-      load_tile<T, HD>(Qs, qb, sq.s, q0, S, hd);
-      load_tile<T, HD>(dOs, db, sdo.s, q0, S, hd);
-      if (tid < BQ) {
+      load_tile<T, HD, QR>(Qs, qb, sq.s, q0, S, hd);
+      load_tile<T, HD, QR>(dOs, db, sdo.s, q0, S, hd);
+      if (tid < QR) {
         const int s = q0 + tid;
         lse_s[tid] = s < S ? lse_b[s] : 0.f;
         D_s[tid] = s < S ? D_b[s] : 0.f;
       }
       __syncthreads();
 
-      float sc[4][4], dp[4][4];
+      float sc[KPT][QPT], dp[KPT][QPT];
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+      for (int i = 0; i < KPT; ++i)
 #pragma unroll
-        for (int j = 0; j < 4; ++j) sc[i][j] = dp[i][j] = 0.f;
+        for (int j = 0; j < QPT; ++j) sc[i][j] = dp[i][j] = 0.f;
 #pragma unroll 4
       for (int d = 0; d < HD; ++d) {
-        float kv[4], vv[4], qv[4], gv[4];
+        float kv[KPT], vv[KPT], qv[QPT], gv[QPT];
 #pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          kv[i] = Ks[(ty * 4 + i) * (HD + 1) + d];
-          vv[i] = Vs[(ty * 4 + i) * (HD + 1) + d];
+        for (int i = 0; i < KPT; ++i) {
+          kv[i] = Ks[(ty * KPT + i) * (HD + 1) + d];
+          vv[i] = Vs[(ty * KPT + i) * (HD + 1) + d];
         }
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
+        for (int j = 0; j < QPT; ++j) {
           qv[j] = Qs[(tx + 16 * j) * (HD + 1) + d];
           gv[j] = dOs[(tx + 16 * j) * (HD + 1) + d];
         }
 #pragma unroll
-        for (int i = 0; i < 4; ++i)
+        for (int i = 0; i < KPT; ++i)
 #pragma unroll
-          for (int j = 0; j < 4; ++j) {
+          for (int j = 0; j < QPT; ++j) {
             sc[i][j] = fmaf(kv[i], qv[j], sc[i][j]);
             dp[i][j] = fmaf(vv[i], gv[j], dp[i][j]);
           }
       }
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int kpos = k0 + ty * 4 + i;
+      for (int i = 0; i < KPT; ++i) {
+        const int kpos = k0 + ty * KPT + i;
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
+        for (int j = 0; j < QPT; ++j) {
           const int c = tx + 16 * j;
           const float p = is_live(q0 + c, kpos, S, causal, window)
                               ? expf(sc[i][j] * scale - lse_s[c])
                               : 0.f;
-          Ps[(ty * 4 + i) * (BQ + 1) + c] = p;
-          dSs[(ty * 4 + i) * (BQ + 1) + c] = p * (dp[i][j] - D_s[c]);
+          Ps[(ty * KPT + i) * (QR + 1) + c] = p;
+          dSs[(ty * KPT + i) * (QR + 1) + c] = p * (dp[i][j] - D_s[c]);
         }
       }
       __syncthreads();
 
 #pragma unroll 4
-      for (int c = 0; c < BQ; ++c) {
-        float pv[4], sv_[4];
+      for (int c = 0; c < QR; ++c) {
+        float pv[KPT], sv_[KPT];
 #pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          pv[i] = Ps[(ty * 4 + i) * (BQ + 1) + c];
-          sv_[i] = dSs[(ty * 4 + i) * (BQ + 1) + c];
+        for (int i = 0; i < KPT; ++i) {
+          pv[i] = Ps[(ty * KPT + i) * (QR + 1) + c];
+          sv_[i] = dSs[(ty * KPT + i) * (QR + 1) + c];
         }
 #pragma unroll
         for (int j = 0; j < DPT; ++j) {
           const float g = dOs[c * (HD + 1) + tx + 16 * j];
           const float qq = Qs[c * (HD + 1) + tx + 16 * j];
 #pragma unroll
-          for (int i = 0; i < 4; ++i) {
+          for (int i = 0; i < KPT; ++i) {
             adv[i][j] = fmaf(pv[i], g, adv[i][j]);
             adk[i][j] = fmaf(sv_[i], qq, adk[i][j]);
           }
@@ -378,8 +417,8 @@ __global__ void __launch_bounds__(NT)
   T* dkb = dk + b * sdk.b + kvh * sdk.h;
   T* dvb = dv + b * sdv.b + kvh * sdv.h;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int s = k0 + ty * 4 + i;
+  for (int i = 0; i < KPT; ++i) {
+    const int s = k0 + ty * KPT + i;
     if (s >= S) continue;
 #pragma unroll
     for (int j = 0; j < DPT; ++j) {
@@ -391,8 +430,8 @@ __global__ void __launch_bounds__(NT)
   }
 }
 
-// (c) dQ of one 64-row q tile of one q head
-template <typename T, int HD>
+// (c) dQ of one QR-row q tile of one q head
+template <typename T, int HD, int QR, int KR>
 __global__ void __launch_bounds__(NT)
     flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                         const T* __restrict__ v, const T* __restrict__ dout,
@@ -402,26 +441,28 @@ __global__ void __launch_bounds__(NT)
                         Strides sk, Strides sv, Strides sdo, Strides sdq,
                         float scale, int causal, int window) {
   constexpr int DPT = HD / 16;
+  constexpr int QPT = QR / 16;  // queries per thread
+  constexpr int KPT = KR / 16;  // keys per thread
   extern __shared__ float smem[];
   float* Qs = smem;
-  float* dOs = Qs + BQ * (HD + 1);
-  float* Ks = dOs + BQ * (HD + 1);
-  float* Vs = Ks + BK * (HD + 1);
-  float* dSs = Vs + BK * (HD + 1);   // [query][key]
-  float* lse_s = dSs + BQ * (BK + 1);
-  float* D_s = lse_s + BQ;
+  float* dOs = Qs + QR * (HD + 1);
+  float* Ks = dOs + QR * (HD + 1);
+  float* Vs = Ks + KR * (HD + 1);
+  float* dSs = Vs + KR * (HD + 1);   // [query][key]
+  float* lse_s = dSs + QR * (KR + 1);
+  float* D_s = lse_s + QR;
 
-  const int q0 = blockIdx.x * BQ;
+  const int q0 = blockIdx.x * QR;
   const int h = blockIdx.y;
   const int b = blockIdx.z;
   const int kvh = h / group;
   const int tid = threadIdx.x;
-  const int ty = tid >> 4;  // queries ty*4 .. ty*4+3
+  const int ty = tid >> 4;  // queries ty*QPT .. ty*QPT+QPT-1
   const int tx = tid & 15;  // keys tx + 16*j; dims tx + 16*j
 
-  load_tile<T, HD>(Qs, q + b * sq.b + h * sq.h, sq.s, q0, S, hd);
-  load_tile<T, HD>(dOs, dout + b * sdo.b + h * sdo.h, sdo.s, q0, S, hd);
-  if (tid < BQ) {
+  load_tile<T, HD, QR>(Qs, q + b * sq.b + h * sq.h, sq.s, q0, S, hd);
+  load_tile<T, HD, QR>(dOs, dout + b * sdo.b + h * sdo.h, sdo.s, q0, S, hd);
+  if (tid < QR) {
     const int s = q0 + tid;
     const long long r = ((long long)b * H + h) * S + s;
     lse_s[tid] = s < S ? lse[r] : 0.f;
@@ -430,80 +471,81 @@ __global__ void __launch_bounds__(NT)
   const T* kb = k + b * sk.b + kvh * sk.h;
   const T* vb = v + b * sv.b + kvh * sv.h;
 
-  float acc[4][DPT];
+  float acc[QPT][DPT];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < QPT; ++i)
 #pragma unroll
     for (int j = 0; j < DPT; ++j) acc[i][j] = 0.f;
 
-  const int k_end = causal ? min(S, q0 + BQ) : S;
+  const int k_end = causal ? min(S, q0 + QR) : S;
   int k_begin = 0;
-  if (window > 0) k_begin = (max(0, q0 - window + 1) / BK) * BK;
+  if (window > 0) k_begin = (max(0, q0 - window + 1) / KR) * KR;
 
-  for (int k0 = k_begin; k0 < k_end; k0 += BK) {
+  for (int k0 = k_begin; k0 < k_end; k0 += KR) {
     __syncthreads();  // the previous tile's Ks/Vs/dSs are no longer read
-    load_tile<T, HD>(Ks, kb, sk.s, k0, S, hd);
-    load_tile<T, HD>(Vs, vb, sv.s, k0, S, hd);
+    load_tile<T, HD, KR>(Ks, kb, sk.s, k0, S, hd);
+    load_tile<T, HD, KR>(Vs, vb, sv.s, k0, S, hd);
     __syncthreads();
 
-    float sc[4][4], dp[4][4];
+    float sc[QPT][KPT], dp[QPT][KPT];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int i = 0; i < QPT; ++i)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) sc[i][j] = dp[i][j] = 0.f;
+      for (int j = 0; j < KPT; ++j) sc[i][j] = dp[i][j] = 0.f;
 #pragma unroll 4
     for (int d = 0; d < HD; ++d) {
-      float qv[4], gv[4], kv[4], vv[4];
+      float qv[QPT], gv[QPT], kv[KPT], vv[KPT];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        qv[i] = Qs[(ty * 4 + i) * (HD + 1) + d];
-        gv[i] = dOs[(ty * 4 + i) * (HD + 1) + d];
+      for (int i = 0; i < QPT; ++i) {
+        qv[i] = Qs[(ty * QPT + i) * (HD + 1) + d];
+        gv[i] = dOs[(ty * QPT + i) * (HD + 1) + d];
       }
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
+      for (int j = 0; j < KPT; ++j) {
         kv[j] = Ks[(tx + 16 * j) * (HD + 1) + d];
         vv[j] = Vs[(tx + 16 * j) * (HD + 1) + d];
       }
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+      for (int i = 0; i < QPT; ++i)
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
+        for (int j = 0; j < KPT; ++j) {
           sc[i][j] = fmaf(qv[i], kv[j], sc[i][j]);
           dp[i][j] = fmaf(gv[i], vv[j], dp[i][j]);
         }
     }
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int r = ty * 4 + i;
+    for (int i = 0; i < QPT; ++i) {
+      const int r = ty * QPT + i;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
+      for (int j = 0; j < KPT; ++j) {
         const int c = tx + 16 * j;
         const float p = is_live(q0 + r, k0 + c, S, causal, window)
                             ? expf(sc[i][j] * scale - lse_s[r])
                             : 0.f;
-        dSs[r * (BK + 1) + c] = p * (dp[i][j] - D_s[r]);
+        dSs[r * (KR + 1) + c] = p * (dp[i][j] - D_s[r]);
       }
     }
     __syncthreads();
 
 #pragma unroll 4
-    for (int c = 0; c < BK; ++c) {
-      float sv_[4];
+    for (int c = 0; c < KR; ++c) {
+      float sv_[QPT];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) sv_[i] = dSs[(ty * 4 + i) * (BK + 1) + c];
+      for (int i = 0; i < QPT; ++i)
+        sv_[i] = dSs[(ty * QPT + i) * (KR + 1) + c];
 #pragma unroll
       for (int j = 0; j < DPT; ++j) {
         const float kk = Ks[c * (HD + 1) + tx + 16 * j];
 #pragma unroll
-        for (int i = 0; i < 4; ++i) acc[i][j] = fmaf(sv_[i], kk, acc[i][j]);
+        for (int i = 0; i < QPT; ++i) acc[i][j] = fmaf(sv_[i], kk, acc[i][j]);
       }
     }
   }
 
   T* dqb = dq + b * sdq.b + h * sdq.h;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int s = q0 + ty * 4 + i;
+  for (int i = 0; i < QPT; ++i) {
+    const int s = q0 + ty * QPT + i;
     if (s >= S) continue;
 #pragma unroll
     for (int j = 0; j < DPT; ++j) {
@@ -538,6 +580,7 @@ int with_hd(int hd, F&& f) {
   if (hd <= 32) return f(std::integral_constant<int, 32>{});
   if (hd <= 64) return f(std::integral_constant<int, 64>{});
   if (hd <= 128) return f(std::integral_constant<int, 128>{});
+  if (hd <= 256) return f(std::integral_constant<int, 256>{});
   return (int)cudaErrorInvalidValue;
 }
 
@@ -614,20 +657,22 @@ extern "C" int flash_attention_bwd(const void* q, const void* k,
 
     return with_hd(hd, [&](auto hdc) {
       constexpr int HD = decltype(hdc)::value;
-      const size_t smem = bwd_smem_bytes<HD>();
-      auto kv_kern = flash_bwd_dkdv_kernel<T, HD>;
+      constexpr int R = bwd_rows<HD>();
+      size_t smem = dkdv_smem_bytes<HD, R, BQ>();
+      auto kv_kern = flash_bwd_dkdv_kernel<T, HD, R, BQ>;
       int e = allow_smem(kv_kern, smem);
       if (e) return e;
-      kv_kern<<<dim3((S + BK - 1) / BK, KV, B), NT, smem, s>>>(
+      kv_kern<<<dim3((S + R - 1) / R, KV, B), NT, smem, s>>>(
           tq, tk, tv, tdo, tlse, tD, static_cast<T*>(dk),
           static_cast<T*>(dv), S, H, hd, H / KV, sq, sk, sv, sdo, sdk, sdv,
           scale, causal, window);
       e = (int)cudaGetLastError();
       if (e) return e;
-      auto q_kern = flash_bwd_dq_kernel<T, HD>;
+      smem = dq_smem_bytes<HD, R, BK>();
+      auto q_kern = flash_bwd_dq_kernel<T, HD, R, BK>;
       e = allow_smem(q_kern, smem);
       if (e) return e;
-      q_kern<<<dim3((S + BQ - 1) / BQ, H, B), NT, smem, s>>>(
+      q_kern<<<dim3((S + R - 1) / R, H, B), NT, smem, s>>>(
           tq, tk, tv, tdo, tlse, tD, static_cast<T*>(dq), S, H, hd, H / KV,
           sq, sk, sv, sdo, sdq, scale, causal, window);
       return (int)cudaGetLastError();

@@ -9,8 +9,10 @@ for a causal prefill, about 0.4*S per byte at llama3.2-1b's heads, so the
 two meet near S = 740).  The kernel runs one block per (64-row q tile,
 q head, batch row), skips tiles entirely above the diagonal or behind the
 window, re-masks dead keys' probabilities, and reads the (B, S, H, hd)
-layout through strides, so this wrapper makes no transposes.  Its plain
-version is ``ref.attention``.
+layout through strides, so this wrapper makes no transposes.  Head dims
+up to 256 (recurrentgemma: 10 q heads over one kv head, a 2048 window);
+at 256 the backward's accumulating tiles are 32 rows, to fit shared
+memory.  Its plain version is ``ref.attention``.
 
 Training needs the gradient, which the Pallas kernel never had (the JAX
 package trains through autodiff of its plain attention).
@@ -41,7 +43,7 @@ SIGNATURES = {
     "flash_attention_bwd":
         [_P] * 10 + [_I] * 6 + [_P, ctypes.c_float, _I, _I, _P],
 }
-MAX_HD = 128
+MAX_HD = 256
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

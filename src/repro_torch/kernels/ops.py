@@ -18,12 +18,13 @@ from .flash_attention import FlashAttention
 from .moe_matmul import moe_grouped_ffn as _moe_grouped_ffn
 from .page_gather import page_gather as _page_gather
 from .page_gather import prefill_page_attention as _prefill_page_attention
+from .rglru_scan import RGLRUScan
 from .ring_gather import ring_gather as _ring_gather
 from .rwkv6_scan import RWKV6Scan
 
 __all__ = ["attention", "attention_decode", "moe_grouped_ffn", "page_gather",
-           "prefill_page_attention", "ring_gather", "rwkv6", "rwkv6_stateful",
-           "launches", "reset_launches", "CHUNK_THRESHOLD"]
+           "prefill_page_attention", "rglru", "ring_gather", "rwkv6",
+           "rwkv6_stateful", "launches", "reset_launches", "CHUNK_THRESHOLD"]
 
 # on the CPU, sequences at or above this length take the blockwise path
 # (bounded score-matrix memory), as in repro.kernels.ops
@@ -121,3 +122,14 @@ def rwkv6_stateful(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     state).  The plain version on every device, as in the JAX package,
     where the stateful (decode) path never reaches the kernel."""
     return ref.rwkv6_stateful(r, k, v, w, u, S0)
+
+
+def rglru(x: torch.Tensor, a: torch.Tensor) -> torch.Tensor:
+    """The RG-LRU recurrence from a zero state (models/rglru.py): x, a
+    (B, T, D) in the compute dtype -> h (B, T, D) in x's dtype.
+    Differentiable on both routes: on the card through :class:`RGLRUScan`
+    (forward and backward kernels), on the CPU through autograd of the
+    plain version."""
+    if _on_cuda(x):
+        return RGLRUScan.apply(x, a)
+    return ref.rglru(x, a)[0]

@@ -28,7 +28,7 @@ import math
 import torch
 
 from . import _build
-from .flash_attention import ELEM, MAX_HD
+from .flash_attention import ELEM
 
 NAME = "page_gather"
 _P, _I = ctypes.c_void_p, ctypes.c_int
@@ -38,6 +38,7 @@ SIGNATURES = {"page_gather_fwd":
 PREFILL_NAME = "prefill_page_attention"
 PREFILL_SIGNATURES = {"prefill_page_attention_fwd":
                       [_P] * 8 + [_I] * 7 + [_P, ctypes.c_float, _I, _P]}
+MAX_HD = 128        # prefill at head dim 256 comes with recurrent serving
 
 
 def page_gather(pool: torch.Tensor, page_table: torch.Tensor

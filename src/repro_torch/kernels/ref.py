@@ -198,3 +198,25 @@ def rwkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     B, _, H, hd = r.shape
     S0 = torch.zeros((B, H, hd, hd), dtype=torch.float32, device=r.device)
     return rwkv6_stateful(r, k, v, w, u, S0)[0]
+
+
+def rglru(x: torch.Tensor, a: torch.Tensor,
+          h0: torch.Tensor | None = None) -> tuple[torch.Tensor, torch.Tensor]:
+    """RG-LRU linear recurrence (Griffin, arXiv:2402.19427).
+
+    x: (B, T, D) gated input (i_t * x_t); a: (B, T, D) decay in (0, 1).
+        h_t = a_t * h_{t-1} + sqrt(clip(1 - a_t^2, 0, 1)) * x_t
+    in f32 from h0 (B, D) or zero.  Returns (h (B, T, D) in x's dtype, the
+    final state (B, D) in f32).
+    """
+    B, T, D = x.shape
+    xf, af = x.float(), a.float()
+    gate = torch.sqrt(torch.clamp(1.0 - af * af, 0.0, 1.0))
+    h = (torch.zeros((B, D), dtype=torch.float32, device=x.device)
+         if h0 is None else h0.float())
+    hs = []
+    for t in range(T):
+        h = af[:, t] * h + gate[:, t] * xf[:, t]
+        hs.append(h)
+    out = torch.stack(hs, dim=1) if hs else torch.zeros_like(xf)
+    return out.to(x.dtype), h

@@ -1,15 +1,16 @@
 """Training driver (port of ``repro.launch.train``'s ``engine`` backend).
 
-Runs the training loop of the dense zoo archs, at full width or reduced
+Runs the training loop of the ported archs, at full width or reduced
 (``--smoke``), through the ParameterDB train engine
 (:mod:`repro_torch.pdb.torch_backend`): the synchronous step at
 ``--delta 0``, the delta-stale ring buffer above it, with Op/staleness
 telemetry, atomic checkpointing + resume (``--resume``), failure-injection
 drills (``--fail-at-step``, exit code 17) and deterministic data (batch t
 depends only on (seed, t)).  The kernels are picked by device: ``--device
-cuda`` (the default) runs the hand-written CUDA kernels (flash attention
-forward and backward, the ring gather), ``--device cpu`` their plain
-versions.  Weights are random, drawn from ``--seed``.
+cuda`` (the default) runs the hand-written CUDA kernels (flash attention,
+the WKV and RG-LRU recurrences, forward and backward; the ring gather) and
+ends with the peak device memory, ``--device cpu`` their plain versions.
+Weights are random, drawn from ``--seed``.
 
 Example:
   PYTHONPATH=src python -m repro_torch.launch.train --arch llama3.2-1b \\
@@ -138,6 +139,9 @@ def main(argv=None) -> dict:
           f"[pdb: {tele['reads']}r/{tele['writes']}w "
           f"max_staleness={tele['max_staleness']:.0f} "
           f"retried={tele['retried_steps']} skipped={tele['skipped_steps']}]")
+    if device.type == "cuda":
+        print(f"peak device memory "
+              f"{torch.cuda.max_memory_allocated(device) / 2 ** 30:.2f} GiB")
     return {"first_loss": losses[0], "final_loss": losses[-1],
             "telemetry": tele}
 

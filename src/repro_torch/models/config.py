@@ -13,9 +13,9 @@ scans).  Layer kinds:
   rwkv6   — RWKV-6 token-shift + data-dependent-decay WKV mixer
   rglru   — Griffin RG-LRU recurrent block (conv1d + gated linear recurrence)
 
-The self-attention kinds run in the port, and ``rwkv6`` trains (its
-serving comes later); the others raise ``NotImplementedError`` where a
-model is built.
+The self-attention kinds run in the port, and ``rwkv6`` and ``rglru``
+train (their serving comes later); the others raise
+``NotImplementedError`` where a model is built.
 """
 from __future__ import annotations
 
@@ -84,6 +84,10 @@ class ModelConfig:
     @property
     def is_moe(self) -> bool:
         return self.n_experts > 0
+
+    @property
+    def rnn_width(self) -> int:
+        return self.d_rnn or self.d_model
 
     @property
     def layer_kinds(self) -> tuple[str, ...]:

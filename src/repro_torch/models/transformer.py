@@ -17,13 +17,14 @@ where JAX scans, taking each layer's parameters (and caches) with one
 per-layer gradients once instead of scattering each layer's into a zero
 tensor of the whole stack.  The port carries the self-attention kinds
 (``attn``, and ``local``/``swa`` windows through the same code) with a
-dense or a mixture-of-experts FFN (``models/moe.py``), and the RWKV-6
-block (``models/rwkv6.py``: time mix and channel mix) on the training
-path (``model_specs``, ``forward``, ``lm_loss``); its serving path raises
-``NotImplementedError`` naming the queue item that brings it
-(``check_servable``).  Every other layer kind raises naming the slice
-that brings it, and so does ``lm_loss`` on an MoE config (MoE training
-is a later slice).
+dense or a mixture-of-experts FFN (``models/moe.py``), and the recurrent
+blocks on the training path (``model_specs``, ``forward``, ``lm_loss``):
+RWKV-6 (``models/rwkv6.py``: time mix and channel mix) and the Griffin
+RG-LRU block (``models/rglru.py``, with a gated MLP) of recurrentgemma;
+their serving path raises ``NotImplementedError`` naming the queue item
+that brings it (``check_servable``).  Every other layer kind raises
+naming the slice that brings it, and so does ``lm_loss`` on an MoE config
+(MoE training is a later slice).
 """
 from __future__ import annotations
 
@@ -34,19 +35,21 @@ from torch.utils.checkpoint import checkpoint
 
 from ..kernels import ops as kops
 from . import attention as attn
-from .config import ModelConfig
+from .config import RECURRENT_KINDS, ModelConfig
 from .layers import (apply_mlp, apply_norm, apply_rope, embed_specs,
                      embed_tokens, lm_logits, mlp_specs, norm_specs)
 from .moe import moe_ffn, moe_specs
+from .rglru import rglru_fwd, rglru_specs
 from .rwkv6 import chan_mix_fwd, rwkv6_specs, time_mix_fwd
 
 SELF_ATTN_KINDS = ("attn", "local", "swa")
 _LATER = {
     "xattn": "slice 7 (rest of the zoo: xattn, vision)",
-    "rglru": "slice 6 (recurrentgemma: rglru_scan, the causal conv)",
 }
-RWKV6_SERVING = ("ROADMAP queue A item 9b (rwkv6 serving: time_mix_decode, "
-                 "init_rwkv_state and the chunk carries)")
+RECURRENT_SERVING = (
+    "ROADMAP queue A item 1 (recurrent serving: rwkv6's time_mix_decode and "
+    "init_rwkv_state, rglru_decode and init_rglru_state, the chunk carries "
+    "and the paged cache's recurrent rows)")
 
 
 def check_supported(cfg: ModelConfig) -> None:
@@ -56,7 +59,7 @@ def check_supported(cfg: ModelConfig) -> None:
         raise NotImplementedError(
             f"{cfg.name}: the {cfg.frontend} frontend comes with slice 7")
     for kind in set(cfg.layer_kinds):
-        if kind not in SELF_ATTN_KINDS + ("rwkv6",):
+        if kind not in SELF_ATTN_KINDS + RECURRENT_KINDS:
             raise NotImplementedError(
                 f"{cfg.name}: layer kind {kind!r} comes with "
                 f"{_LATER.get(kind, 'a later slice')}")
@@ -64,12 +67,13 @@ def check_supported(cfg: ModelConfig) -> None:
 
 def check_servable(cfg: ModelConfig) -> None:
     """``check_supported``, and the serving paths take attention layers
-    only: RWKV-6 trains, its stateful decode comes later."""
+    only: RWKV-6 and the RG-LRU train, their stateful decode comes later."""
     check_supported(cfg)
-    if "rwkv6" in cfg.layer_kinds:
-        raise NotImplementedError(
-            f"{cfg.name}: serving layer kind 'rwkv6' comes with "
-            f"{RWKV6_SERVING}")
+    for kind in RECURRENT_KINDS:
+        if kind in cfg.layer_kinds:
+            raise NotImplementedError(
+                f"{cfg.name}: serving layer kind {kind!r} comes with "
+                f"{RECURRENT_SERVING}")
 
 
 def check_trainable(cfg: ModelConfig) -> None:
@@ -94,8 +98,10 @@ def _block_specs(cfg: ModelConfig, kind: str, stack: tuple[int, ...]) -> dict:
                 "ln2": norm_specs(cfg, stack), "ffn": both["chan"]}
     ffn = (moe_specs(cfg, stack) if cfg.is_moe and kind != "xattn"
            else mlp_specs(cfg, stack))
+    mix = (rglru_specs(cfg, stack) if kind == "rglru"
+           else attn.attn_specs(cfg, kind, stack))
     return {"ln1": norm_specs(cfg, stack),
-            "mix": attn.attn_specs(cfg, kind, stack),
+            "mix": mix,
             "ln2": norm_specs(cfg, stack),
             "ffn": ffn}
 
@@ -140,6 +146,8 @@ def _apply_block(bp: dict, kind: str, x: torch.Tensor, cfg: ModelConfig,
     h = apply_norm(bp["ln1"], x, cfg)
     if kind == "rwkv6":
         x = x + time_mix_fwd(bp["mix"], h, cfg)
+    elif kind == "rglru":
+        x = x + rglru_fwd(bp["mix"], h, cfg)
     else:
         x = x + attn.attention_fwd(bp["mix"], h, cfg, kind, positions)
     h2 = apply_norm(bp["ln2"], x, cfg)

@@ -156,15 +156,21 @@ def _adamw(cfg: OptConfig) -> Optimizer:
         bc2 = 1 - torch.pow(cfg.b2, t)
 
         def upd(g, m, v, p):
+            # m = b1 m + (1 - b1) g;  v = b2 v + (1 - b2) g g;
+            # p - lr (m / bc1 / (sqrt(v / bc2) + eps) + wd p), each product
+            # and sum rounded as written, but in place on fresh
+            # temporaries: at most four leaf-sized f32 tensors are alive
+            # besides the old state (a 2.6 GB embedding would take seven)
             gf = _clipped(g, scale).float()
-            m = cfg.b1 * m + (1 - cfg.b1) * gf
-            v = cfg.b2 * v + (1 - cfg.b2) * gf * gf
-            mhat = m / bc1
-            vhat = v / bc2
+            m = torch.mul(m, cfg.b1).add_(torch.mul(gf, 1 - cfg.b1))
+            v = torch.mul(v, cfg.b2).add_(
+                torch.mul(gf, 1 - cfg.b2).mul_(gf))
+            del gf
+            step_ = torch.div(m, bc1)
+            step_.div_(torch.div(v, bc2).sqrt_().add_(cfg.eps))
             pf = p.float()
-            new_p = pf - cfg.lr * (mhat / (torch.sqrt(vhat) + cfg.eps)
-                                   + cfg.weight_decay * pf)
-            return new_p.to(p.dtype), m, v
+            step_.add_(torch.mul(pf, cfg.weight_decay)).mul_(cfg.lr)
+            return torch.sub(pf, step_).to(p.dtype), m, v
 
         triples = tree_map(upd, grads, state["m"], state["v"], params)
         new_state.update(m=tree_map(lambda t3: t3[1], triples),

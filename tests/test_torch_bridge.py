@@ -95,8 +95,8 @@ def test_configs_match_jax(arch, smoke):
 
 def test_ported_archs():
     assert sorted(tconfigs.all_arch_ids()) == [
-        "llama3.2-1b", "llama4-scout-17b-a16e", "mixtral-8x7b", "rwkv6-1.6b",
-        "smollm-360m"]
+        "llama3.2-1b", "llama4-scout-17b-a16e", "mixtral-8x7b",
+        "recurrentgemma-2b", "rwkv6-1.6b", "smollm-360m"]
     for arch in jconfigs.all_arch_ids():
         if arch not in tconfigs.all_arch_ids():
             with pytest.raises(KeyError, match="slice"):

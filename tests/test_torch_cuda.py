@@ -16,8 +16,10 @@ equal terms whose bf16 rounding (of O, dO and the outputs) is relative to
 the tensor's scale, not to each element.  The WKV recurrence's backward
 is held the same way (f32 at 1e-4, bf16 at a normalized 2e-2), its
 forward at the kernel tolerances above and its checkpointed states to
-``ref.rwkv6_stateful`` at f32 1e-4.  TF32 is off, so the plain versions'
-f32 products run in full f32.
+``ref.rwkv6_stateful`` at f32 1e-4; so is the RG-LRU recurrence (its
+backward where a < 1, where autograd of the plain version is finite; at
+a = 1 it is held to its stated value da = dh h_{t-1}, dx = 0).  TF32 is
+off, so the plain versions' f32 products run in full f32.
 """
 import os
 import subprocess
@@ -35,6 +37,8 @@ from repro_torch.kernels.flash_attention import (  # noqa: E402
 from repro_torch.kernels.moe_matmul import moe_grouped_ffn  # noqa: E402
 from repro_torch.kernels.page_gather import (  # noqa: E402
     page_gather, prefill_page_attention)
+from repro_torch.kernels.rglru_scan import (  # noqa: E402
+    RGLRUScan, rglru_scan, rglru_scan_bwd)
 from repro_torch.kernels.ring_gather import ring_gather  # noqa: E402
 from repro_torch.kernels.rwkv6_scan import (  # noqa: E402
     RWKV6Scan, chunk, rwkv6_scan, rwkv6_scan_bwd)
@@ -66,8 +70,9 @@ def _randn(gen, shape, dtype):
     (64, 4, 4, 32),       # MHA
     (96, 4, 2, 64),       # GQA, ragged tile tail
     (130, 6, 2, 16),      # GQA 3:1, head dim padded inside the kernel
-    (33, 2, 1, 128),      # short sequence, widest head
+    (33, 2, 1, 128),      # short sequence, head dim 128
     (200, 15, 5, 64),     # smollm-360m heads
+    (100, 10, 1, 256),    # recurrentgemma heads: group 10, head dim 256
 ])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("causal,window", [(True, 0), (True, 24),
@@ -161,6 +166,9 @@ def test_ops_route_by_device_and_count_launches(gen):
     wkv = [t.requires_grad_() for t in _wkv_inputs(gen, 1, 9, 2, 16,
                                                    torch.bfloat16)]
     ops.rwkv6(*wkv).float().sum().backward()
+    x, a = (t.requires_grad_() for t in _lru_inputs(gen, 1, 9, 40,
+                                                      torch.bfloat16))
+    ops.rglru(x, a).float().sum().backward()
     torch.cuda.synchronize()
     assert ops.launches == {name: 1 for name in _build.KERNELS}
     ref.attention(q, k, k)                  # the plain version never counts
@@ -208,7 +216,8 @@ def _attn_grads(q, k, v, do, causal, window, kernel):
     (96, 4, 2, 64),       # GQA, ragged tile tail
     (130, 6, 2, 16),      # GQA 3:1, head dim padded inside the kernel
     (200, 15, 5, 64),     # smollm-360m heads
-    (77, 8, 1, 128),      # group 8, widest head
+    (77, 8, 1, 128),      # group 8, head dim 128
+    (100, 10, 1, 256),    # recurrentgemma heads: 32-row backward tiles
 ])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("causal,window", [(True, 0), (True, 24),
@@ -286,6 +295,29 @@ def test_flash_attention_bwd_is_deterministic(gen, dtype):
     a = _attn_grads(q, k, k, do, True, 0, kernel=True)
     b = _attn_grads(q, k, k, do, True, 0, kernel=True)
     assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def test_flash_attention_hd256_window_bites(gen):
+    """recurrentgemma's local layers at a reduced length: head dim 256, 10
+    q heads over 1 kv head, a window of 128 over 700 positions (keys behind
+    the window masked, tiles behind it skipped), bf16; forward at 2e-2,
+    backward to a normalized 2e-2 and deterministic."""
+    q = _randn(gen, (1, 700, 10, 256), torch.bfloat16)
+    k = _randn(gen, (1, 700, 1, 256), torch.bfloat16)
+    v = _randn(gen, (1, 700, 1, 256), torch.bfloat16)
+    do = _randn(gen, (1, 700, 10, 256), torch.bfloat16)
+    got = flash_attention(q, k, v, causal=True, window=128)
+    want = ref.attention(q, k, v, causal=True, window=128)
+    torch.testing.assert_close(got.float(), want.float(), rtol=2e-2,
+                               atol=2e-2)
+    a = _attn_grads(q, k, v, do, True, 128, kernel=True)
+    b = _attn_grads(q, k, v, do, True, 128, kernel=True)
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+    want = _attn_grads(q.float(), k.float(), v.float(), do.float(), True,
+                       128, kernel=False)
+    for g, w in zip(a, want):
+        err = (g.float() - w).abs().max() / w.abs().max()
+        assert err <= 2e-2, err
 
 
 def _chunk_inputs(gen, B, C, L, H, KV, hd, start, dtype):
@@ -610,6 +642,158 @@ def test_ops_rwkv6_trains_through_the_kernels(gen):
     assert ops.launches["rwkv6_scan"] == 1
     assert ops.launches["rwkv6_scan_bwd"] == 1
     want = torch.autograd.grad((ref.rwkv6(*ins) ** 2).sum(), ins)
+    for g, w in zip(got, want):
+        assert g.abs().max() > 0
+        torch.testing.assert_close(g, w, rtol=1e-4,
+                                   atol=1e-4 * w.abs().max().item())
+
+
+# ---------------------------------------------------------------------------
+# the RG-LRU recurrence
+# ---------------------------------------------------------------------------
+
+def _lru_inputs(gen, B, T, D, dtype, draw="model"):
+    """x ~ N(0, 1) and the decay a in ``dtype``: ``model`` draws a as
+    recurrentgemma makes it, exp(-8 softplus(lam) sigmoid(z)) with lam ~
+    N(0, 0.5^2) per channel and z ~ N(0, 1); ``near1`` puts 1 - a in
+    [5e-4, 1e-3] in f32 and in [8e-3, 1.6e-2] in bf16 (whose steps below
+    1 are 2^-8: every a >= 0.998046875 rounds to 1); ``sigmoid`` is
+    sigmoid(N(0, 1))."""
+    x = torch.randn((B, T, D), generator=gen, device="cuda")
+    z = torch.randn((B, T, D), generator=gen, device="cuda")
+    if draw == "model":
+        lam = 0.5 * torch.randn((D,), generator=gen, device="cuda")
+        a = torch.exp(-8.0 * torch.nn.functional.softplus(lam)
+                      * torch.sigmoid(z))
+    elif draw == "near1":
+        gap = 1e-3 if dtype == torch.float32 else 1.6e-2
+        a = 1.0 - gap * (0.5 + 0.5 * torch.sigmoid(z))
+    else:
+        a = torch.sigmoid(z)
+    return x.to(dtype), a.to(dtype)
+
+
+def _lru_grads(x, a, dy, kernel):
+    ins = [t.detach().requires_grad_() for t in (x, a)]
+    out = RGLRUScan.apply(*ins) if kernel else ref.rglru(*ins)[0]
+    return torch.autograd.grad(out, ins, dy)
+
+
+@pytest.mark.parametrize("B,T,D", [
+    (2, 64, 256),         # whole 64-channel blocks, T a multiple of 16
+    (3, 77, 200),         # ragged T and D
+    (1, 5, 40),           # shorter than the 16 steps loaded ahead
+    (4, 512, 2560),       # recurrentgemma-2b's training shape
+])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("draw", ["model", "near1", "sigmoid"])
+def test_rglru_scan(gen, B, T, D, dtype, draw):
+    x, a = _lru_inputs(gen, B, T, D, dtype, draw)
+    got = rglru_scan(x, a)
+    want = ref.rglru(x, a)[0]
+    assert got.dtype == dtype and got.shape == want.shape
+    torch.testing.assert_close(got.float(), want.float(), **TOL[dtype])
+    y, hs = rglru_scan(x, a, with_state=True)
+    assert torch.equal(y, got) and hs.dtype == torch.float32
+    torch.testing.assert_close(hs, ref.rglru(x.float(), a.float())[0],
+                               rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.parametrize("B,T,D", [(2, 64, 256), (3, 77, 200), (1, 5, 40)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("draw", ["model", "near1", "sigmoid"])
+def test_rglru_scan_bwd(gen, B, T, D, dtype, draw):
+    x, a = _lru_inputs(gen, B, T, D, dtype, draw)
+    assert float(a.max()) < 1.0
+    dy = _randn(gen, (B, T, D), dtype)
+    got = _lru_grads(x, a, dy, kernel=True)
+    want = _lru_grads(x.float(), a.float(), dy.float(), kernel=False)
+    for g, w, t in zip(got, want, (x, a)):
+        assert g.dtype == t.dtype and g.shape == w.shape
+        assert torch.isfinite(g).all()
+        if dtype == torch.float32:
+            torch.testing.assert_close(g, w, rtol=1e-4, atol=1e-4)
+        else:
+            err = (g.float() - w).abs().max() / w.abs().max()
+            assert err <= 2e-2, err
+
+
+def test_rglru_scan_bwd_at_g_zero(gen):
+    """Where a = 1 (bf16 rounds every a >= 0.998046875 to 1) the clip is
+    saturated and g = 0: dx = 0 and da = dh h_{t-1}, finite, where autograd
+    of the plain version gives -inf or NaN; elsewhere the gradient is the
+    plain version's."""
+    x, a = _lru_inputs(gen, 2, 40, 64, torch.float32, "sigmoid")
+    a[:, 10:30:3] = 1.0                     # a band of saturated steps
+    dy = _randn(gen, (2, 40, 64), torch.float32)
+    dx, da = _lru_grads(x, a, dy, kernel=True)
+    assert torch.isfinite(dx).all() and torch.isfinite(da).all()
+    # the closed form of the stated rule, from the plain version's states
+    h = ref.rglru(x, a)[0]
+    hprev = torch.cat([torch.zeros_like(h[:, :1]), h[:, :-1]], 1)
+    g = torch.sqrt(torch.clamp(1.0 - a * a, 0.0, 1.0))
+    dh = torch.zeros_like(dy)
+    c = torch.zeros_like(dy[:, 0])
+    for t in range(39, -1, -1):
+        dh[:, t] = dy[:, t] + c
+        c = a[:, t] * dh[:, t]
+    sat = a == 1.0
+    assert torch.equal(dx[sat], torch.zeros_like(dx[sat]))
+    torch.testing.assert_close(da[sat], (dh * hprev)[sat], rtol=1e-5,
+                               atol=1e-5)
+    want_da = dh * (hprev - torch.where(g > 0, a * x / g, 0.0))
+    torch.testing.assert_close(da, want_da, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(dx, g * dh, rtol=1e-4, atol=1e-4)
+    plain = _lru_grads(x, a, dy, kernel=False)[1]
+    assert not torch.isfinite(plain[sat]).all()     # the hazard it avoids
+
+
+def test_rglru_scan_strided_and_deterministic(gen):
+    """(B, D, T)-made tensors sliced and viewed as (B, T, D) with a batch
+    stride are read through their strides; the backward gives the same bits
+    twice."""
+    x, a = _lru_inputs(gen, 3, 50, 96, torch.float32)
+    xs = torch.cat([x, x], 2)[..., 96:]              # b stride 50 * 192
+    as_ = a.transpose(0, 1).contiguous().transpose(0, 1)   # t stride 3 * 96
+    torch.testing.assert_close(rglru_scan(xs, as_), ref.rglru(x, a)[0],
+                               rtol=2e-5, atol=2e-5)
+    dy = _randn(gen, (3, 50, 96), torch.float32)
+    p = _lru_grads(xs, as_, dy, kernel=True)
+    q = _lru_grads(xs, as_, dy, kernel=True)
+    assert all(torch.equal(u, w) for u, w in zip(p, q))
+    for g, w in zip(p, _lru_grads(x, a, dy, kernel=False)):
+        torch.testing.assert_close(g, w, rtol=1e-4, atol=1e-4)
+
+
+def test_rglru_scan_refuses(gen):
+    x, a = _lru_inputs(gen, 1, 16, 64, torch.bfloat16)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        rglru_scan(x.cpu(), a.cpu())
+    with pytest.raises(ValueError, match="dtypes"):
+        rglru_scan(x, a.float())
+    with pytest.raises(ValueError, match="shapes"):
+        rglru_scan(x, a[:, :8])
+    with pytest.raises(ValueError, match="channel dim must be contiguous"):
+        rglru_scan(x.transpose(1, 2).contiguous().transpose(1, 2), a)
+    y, hs = rglru_scan(x, a, with_state=True)
+    with pytest.raises(ValueError, match="hs"):
+        rglru_scan_bwd(x, a, hs.to(torch.bfloat16), y)
+    with pytest.raises(ValueError, match="dy"):
+        rglru_scan_bwd(x, a, hs, y.float())
+
+
+def test_ops_rglru_trains_through_the_kernels(gen):
+    """Training through ``ops.rglru`` on the card launches the forward and
+    the backward once each, and both inputs get the plain version's
+    gradient."""
+    x, a = _lru_inputs(gen, 2, 40, 64, torch.float32)
+    ops.reset_launches()
+    got = torch.autograd.grad(
+        (ops.rglru(x.requires_grad_(), a.requires_grad_()) ** 2).sum(),
+        (x, a))
+    assert ops.launches["rglru_scan"] == 1
+    assert ops.launches["rglru_scan_bwd"] == 1
+    want = torch.autograd.grad((ref.rglru(x, a)[0] ** 2).sum(), (x, a))
     for g, w in zip(got, want):
         assert g.abs().max() > 0
         torch.testing.assert_close(g, w, rtol=1e-4,

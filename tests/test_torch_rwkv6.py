@@ -259,12 +259,12 @@ def test_lm_loss_and_grads_match_jax(remat):
 def test_serving_paths_raise_naming_the_queue_item():
     cfg = tconfigs.get_smoke_config(ARCH)
     tokens = torch.zeros((1, 4), dtype=torch.long)
-    with pytest.raises(NotImplementedError, match="queue A item 9b"):
+    with pytest.raises(NotImplementedError, match="queue A item 1 "):
         ttf.prefill({}, tokens, cfg)
-    with pytest.raises(NotImplementedError, match="queue A item 9b"):
+    with pytest.raises(NotImplementedError, match="queue A item 1 "):
         ttf.init_chunk_carry(cfg)
     from repro_torch.serve import ServeConfig, ServeEngine
-    with pytest.raises(NotImplementedError, match="queue A item 9b"):
+    with pytest.raises(NotImplementedError, match="queue A item 1 "):
         ServeEngine(cfg, {}, ServeConfig(batch_size=1, page_size=4,
                                          cache_len=16))
 

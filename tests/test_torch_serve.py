@@ -119,8 +119,8 @@ def test_config_validation(model):
 
 
 def test_unported_arch_names_its_slice():
-    with pytest.raises(KeyError, match="slice 6 \\(recurrentgemma"):
-        tconfigs.get_config("recurrentgemma-2b")
+    with pytest.raises(KeyError, match="slice 7 \\(rest of the zoo"):
+        tconfigs.get_config("gemma3-4b")
     with pytest.raises(KeyError, match="unknown arch"):
         tconfigs.get_config("no-such-model")
 
