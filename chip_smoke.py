@@ -12,6 +12,9 @@ Phases (any failure raises and the script exits non-zero):
 1. environment: the card's name and power limit, torch/CUDA versions, and
    the build of every kernel from ``src/repro_torch/kernels/csrc`` (one
    ``nvcc`` per source, all started together), with ptxas' register report;
+   no flash-attention instantiation may spill (ptxas' spill bytes all 0),
+   and the wrapper's ``plan`` must state the shared memory the CUDA source
+   launches with;
 2. kernels: each CUDA kernel against its plain PyTorch version on the card
    at its path's shapes, timed with CUDA events (device time, inputs
    rotated past the L2 cache) beside its roofline bound, the plain version
@@ -43,7 +46,11 @@ Phases (any failure raises and the script exits non-zero):
    T 77, D 200 and on strided inputs in f32 at 1e-4, and its backward
    against torch autograd of the plain version where a < 1 (f32 at 1e-4,
    bf16 at a normalized 2e-2), its value at a = 1 (dx = 0, da = dh
-   h_{t-1}) pinned and two runs bit for bit; no library time either;
+   h_{t-1}) pinned and two runs bit for bit; no library time either; then
+   flash attention's batch invariance in bf16 at llama3.2-1b's and
+   recurrentgemma-2b's training shapes: each batch row alone gives the
+   bits of the forward, lse and the three gradients it gives inside the
+   batch of 4;
 3. end to end, small: the serving engine on a narrow f32 model on the card
    (CUDA kernels) against the same model on the CPU (plain versions): same
    greedy tokens, prefill logits within 1e-3; on shared-prefix requests,
@@ -219,6 +226,19 @@ def nbytes(*ts) -> int:
 # recurrentgemma-2b's local attention (10 q heads over 1 kv head of 256):
 # the training shape, and one sequence past its 2048 window (B, S, window)
 FLASH_HD256 = ((4, 512, 0), (1, 4096, 2048))
+# the forward's shapes (B, S, H, KV, hd, window), all causal: llama3.2-1b's
+# prompts, smollm-360m's heads (group 3), mixtral-8x7b's head dim 128,
+# then recurrentgemma-2b's
+FLASH_CASES = [(1, S, 32, 8, 64, 0) for S in (128, 300, 512, 1024)] \
+    + [(1, 300, 15, 5, 64, 0), (1, 512, 32, 8, 128, 0)] \
+    + [(B, S, 10, 1, 256, w) for B, S, w in FLASH_HD256]
+# the backward's (B, S, H, KV, hd, causal, window): llama3.2-1b's training
+# shape first (the main row), other lengths, smollm-360m's heads, a window,
+# then recurrentgemma-2b's
+FLASH_BWD_CASES = [(4, 512, 32, 8, 64, True, 0), (4, 128, 32, 8, 64, True, 0),
+                   (4, 1024, 32, 8, 64, True, 0), (4, 300, 15, 5, 64, True, 0),
+                   (4, 512, 32, 8, 64, True, 128)] \
+    + [(B, S, 10, 1, 256, True, w) for B, S, w in FLASH_HD256]
 
 
 def window_mask(torch, S: int, window: int):
@@ -230,12 +250,8 @@ def window_mask(torch, S: int, window: int):
 
 def check_flash(torch, F, ref, gen):
     from repro_torch.kernels.flash_attention import flash_attention
-    cases = [(1, S, 32, 8, 64, 0) for S in (128, 300, 512, 1024)] \
-        + [(1, 300, 15, 5, 64, 0),       # smollm-360m heads: group 3
-           (1, 512, 32, 8, 128, 0)]      # mixtral-8x7b heads
-    cases += [(B, S, 10, 1, 256, w) for B, S, w in FLASH_HD256]
     worst, rows = 0.0, []
-    for B, S, H, KV, hd, window in cases:
+    for B, S, H, KV, hd, window in FLASH_CASES:
         mk = lambda n: torch.randn((B, S, n, hd), generator=gen,
                                    device="cuda").to(torch.bfloat16)
         q, k, v = mk(H), mk(KV), mk(KV)
@@ -430,12 +446,8 @@ def check_flash_bwd(torch, F, ref, gen):
     autograd of the plain version and SDPA's backward."""
     from repro_torch.kernels.flash_attention import (
         flash_attention, flash_attention_bwd)
-    cases = [(4, 512, 32, 8, 64, True, 0), (4, 128, 32, 8, 64, True, 0),
-             (4, 1024, 32, 8, 64, True, 0), (4, 300, 15, 5, 64, True, 0),
-             (4, 512, 32, 8, 64, True, 128)]
-    cases += [(B, S, 10, 1, 256, True, w) for B, S, w in FLASH_HD256]
     rows = []
-    for B, S, H, KV, hd, causal, window in cases:
+    for B, S, H, KV, hd, causal, window in FLASH_BWD_CASES:
         mk = lambda n: torch.randn((B, S, n, hd), generator=gen,   # noqa
                                    device="cuda")
         q32, k32, v32, do32 = mk(H), mk(KV), mk(KV), mk(H)
@@ -2036,20 +2048,80 @@ def full_width_training(torch, ops, ref, arch):
     return launches
 
 
-def print_ptxas(source: str, log: str) -> None:
+def print_ptxas(source: str, log: str) -> dict[str, tuple[int, int]]:
     """One line per compiled kernel: its entry (the mangled name without
     the anonymous-namespace prefix, so the template arguments show, e.g.
-    ``Li128E`` for head dim 128), registers, shared memory and spills."""
-    entry, spills = "?", ""
+    ``Li128E`` for head dim 128), registers, shared memory and spills.
+    Returns {entry: (spill store bytes, spill load bytes)}."""
+    entry, spills, out = "?", "", {}
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\w+)'", line)
         if m:
             entry = re.sub(r"^_ZN\w*?_cu_[0-9a-f]{8}\d*", "", m.group(1))
         elif "spill" in line:
             spills = line.strip()
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                          r"loads", line)
+            if m:
+                out[entry] = (int(m.group(1)), int(m.group(2)))
         elif "registers" in line:
             print(f"ptxas {source} {entry[:60]}: "
                   f"{line.split(':', 1)[-1].strip()}; {spills}")
+    return out
+
+
+def check_flash_build(torch, spills: dict) -> None:
+    """Gates on the built flash-attention library: no instantiation spills
+    (``spills``, ptxas' report as ``print_ptxas`` returns it), and the
+    wrapper's plan states the shared memory the CUDA source launches with,
+    at every head dim and both element types."""
+    from repro_torch.kernels.flash_attention import kernel_smem, plan
+    if not spills or any(st or ld for st, ld in spills.values()):
+        raise AssertionError(f"flash_attention spills (or no ptxas "
+                             f"report): {spills}")
+    for dt in (torch.float32, torch.bfloat16):
+        for hd in (16, 32, 64, 128, 256):
+            p = plan(512, 8, 2, hd, dt)
+            want = {k: p[k]["smem"] for k in ("fwd", "dkdv", "dq")}
+            if kernel_smem(dt, hd) != want:
+                raise AssertionError(f"flash plan vs kernel smem at {dt} hd "
+                                     f"{hd}: {want} {kernel_smem(dt, hd)}")
+    print(f"flash ptxas: {len(spills)} kernels, no spill stores or loads; "
+          "plan == kernel shared memory", flush=True)
+
+
+# (B, S, H, KV, hd) of the batch-invariance gate: llama3.2-1b's and
+# recurrentgemma-2b's training shapes
+FLASH_INVARIANCE = ((4, 512, 32, 8, 64), (4, 512, 10, 1, 256))
+
+
+def check_flash_batch_invariance(torch, gen) -> None:
+    """Each batch row alone gives the bits it gives inside the batch,
+    forward and backward, bf16: the kernels' tiles and split come from a
+    plan that never reads B, and the serving engine's continuous ==
+    static gate relies on it."""
+    from repro_torch.kernels.flash_attention import (
+        flash_attention, flash_attention_bwd)
+    for B, S, H, KV, hd in FLASH_INVARIANCE:
+        mk = lambda n: torch.randn((B, S, n, hd), generator=gen,  # noqa
+                                   device="cuda").to(torch.bfloat16)
+        q, k, v, do = mk(H), mk(KV), mk(KV), mk(H)
+        o, lse = flash_attention(q, k, v, with_lse=True)
+        grads = flash_attention_bwd(q, k, v, o, do, lse)
+        for b in range(B):
+            one = [t[b:b + 1] for t in (q, k, v, do)]
+            o1, lse1 = flash_attention(*one[:3], with_lse=True)
+            g1 = flash_attention_bwd(*one[:3], o1, one[3], lse1)
+            same = [torch.equal(o[b:b + 1], o1),
+                    torch.equal(lse[b:b + 1], lse1)]
+            same += [torch.equal(g[b:b + 1], x) for g, x in zip(grads, g1)]
+            if not all(same):
+                raise AssertionError(f"flash attention not batch-invariant "
+                                     f"at {(B, S, H, KV, hd)} row {b}: "
+                                     f"(o, lse, dq, dk, dv) {same}")
+        print("flash batch invariance:", json.dumps(dict(
+            shape=[B, S, H, KV, hd], rows=B, bit_identical=True)),
+            flush=True)
 
 
 def main() -> int:
@@ -2080,11 +2152,13 @@ def main() -> int:
     secs = _build.build_all()
     print(f"kernel build {time.perf_counter() - t0:.2f} s wall; per source "
           f"{json.dumps(secs)}", flush=True)
+    spills = {}
     for name in _build.SOURCES:
         log = _build.library_path(name).with_name(
             _build.library_path(name).name + ".log")
         if log.exists():
-            print_ptxas(name, log.read_text())
+            spills[name] = print_ptxas(name, log.read_text())
+    check_flash_build(torch, spills.get("flash_attention", {}))
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     phase_s = {}
@@ -2109,6 +2183,7 @@ def main() -> int:
         ("rwkv6_scan_bwd", check_rwkv6_scan_bwd, (torch, ref, gen)),
         ("rglru_scan", check_rglru_scan, (torch, ref, gen)),
         ("rglru_scan_bwd", check_rglru_scan_bwd, (torch, ref, gen)))}
+    timed("flash_batch_invariance", check_flash_batch_invariance, torch, gen)
     timed("small_end_to_end", small_end_to_end, torch)
     paths = timed("full_width_serving", full_width, torch, ops, ref)
     torch.cuda.empty_cache()

@@ -4,8 +4,9 @@ Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for ``sm_90a`` into its
 own shared library with a plain C interface, loaded with ``ctypes``
 (route (b): no PyTorch headers, so a build takes seconds).  Libraries go
 to ``build/torch_kernels/`` at the repository root (listed in
-``.gitignore``) under a name carrying a hash of the sources and flags, so
-an edited source is rebuilt and an unchanged one is loaded as it is.
+``.gitignore``) under a name carrying a hash of the source, every
+``csrc/*.cuh`` header and the flags, so an edited source or header is
+rebuilt and an unchanged one is loaded as it is.
 Nothing is built at import: the first launch builds what it needs, and
 ``build_all`` builds every source at once, one ``nvcc`` per source, all
 started together.
@@ -61,7 +62,9 @@ def _nvcc() -> str:
 
 def library_path(name: str) -> Path:
     h = hashlib.sha256()
-    for src in (CSRC / f"{name}.cu", CSRC / "common.cuh"):
+    # every header, since a source may include any of them
+    for src in (CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))):
+        h.update(src.name.encode())
         h.update(src.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"

@@ -6,19 +6,25 @@ Replaces the Pallas TPU kernel ``repro/kernels/flash_attention.py``
 attention with an online softmax in f32.  Bound on the H100: bytes for
 short prompts, operations for long ones (4 * hd * H * B * S(S+1)/2 FLOPs
 for a causal prefill, about 0.4*S per byte at llama3.2-1b's heads, so the
-two meet near S = 740).  The kernel runs one block per (64-row q tile,
-q head, batch row), skips tiles entirely above the diagonal or behind the
-window, re-masks dead keys' probabilities, and reads the (B, S, H, hd)
-layout through strides, so this wrapper makes no transposes.  Head dims
-up to 256 (recurrentgemma: 10 q heads over one kv head, a 2048 window);
-at 256 the backward's accumulating tiles are 32 rows, to fit shared
-memory.  Its plain version is ``ref.attention``.
+two meet near S = 740).  The kernels skip tiles entirely above the
+diagonal or behind the window, re-mask dead keys' probabilities, and read
+the (B, S, H, hd) layout through strides, so this wrapper makes no
+transposes.  Head dims up to 256 (recurrentgemma: 10 q heads over one kv
+head, a 2048 window).  Its plain version is ``ref.attention``.
+
+Two element types, two designs (the ``.cu``'s note): f32 runs on the CUDA
+cores; bf16 on the tensor cores (the forward on ``wgmma``, the backward on
+``mma.sync``), with bf16 tiles in shared memory filled by 16-byte
+``cp.async``.  So a bf16 call needs q, k, v (and o, dO) with 16-byte
+aligned base pointers and (b, s, h) strides, and a head dim that is a
+multiple of 8; anything else raises ``ValueError``.  :func:`plan` states
+the tiles, grids, shared memory and the backward's split.
 
 Training needs the gradient, which the Pallas kernel never had (the JAX
 package trains through autodiff of its plain attention).
 :class:`FlashAttention` wraps the forward, which then also writes the rows'
 log-sum-exp, and a backward kernel (``flash_attention_bwd``: dQ, dK, dV,
-the GQA group reduced into dK/dV inside the kernel, deterministic) in a
+the GQA group reduced into dK/dV without atomics, deterministic) in a
 ``torch.autograd.Function``; its oracle is torch autograd through
 ``ref.attention``.  The two are counted apart in ``_build.launches``.
 
@@ -41,9 +47,74 @@ SIGNATURES = {
     "flash_attention_fwd":
         [_P] * 5 + [_I] * 6 + [_P, ctypes.c_float, _I, _I, _P],
     "flash_attention_bwd":
-        [_P] * 10 + [_I] * 6 + [_P, ctypes.c_float, _I, _I, _P],
+        [_P] * 12 + [_I] * 7 + [_P, ctypes.c_float, _I, _I, _P],
+    "flash_attention_smem": [_I, _I, _I],
 }
 MAX_HD = 256
+SMEM_LIMIT = 232_448        # shared memory a block may opt into on sm_90
+SMS = 132                   # H100 SXM streaming multiprocessors
+TC_ROWS = 64                # bf16: q rows a forward block; backward tiles
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def plan(S: int, H: int, KV: int, hd: int, dtype: torch.dtype) -> dict:
+    """The kernels' tiles for one shape, a pure function of (S, H, KV, hd,
+    dtype), never of B: a row's result does not depend on the batch.
+
+    Returns the padded head dim ``hd_tile``; for each tiled kernel
+    (``fwd``, ``dkdv``, ``dq``) its ``rows`` x ``cols`` tile (q rows by
+    keys, or keys by q rows for ``dkdv``), ``threads``, shared-memory
+    ``smem`` bytes and ``grid`` per batch row (the launch's grid is
+    ``(*grid, B)``); and the backward's ``heads_per_block`` (q heads of one
+    kv head's group that a dK/dV block walks) and ``split`` (partial dK/dV
+    per kv head, summed in a fixed order after; f32 reduces the group
+    inside the block, split 1).  ``csrc/flash_attention.cu``'s
+    ``flash_attention_smem`` computes the same bytes (``kernel_smem``)."""
+    group = H // KV
+    t = 64 if hd <= 64 else 128 if hd <= 128 else 256
+    if dtype == torch.bfloat16:
+        keys = 32 if t > 128 else 64
+        n = _cdiv(S, TC_ROWS)
+        # q heads per dK/dV block: the largest divisor of the group that
+        # still leaves two waves of blocks per batch row, else one
+        hpb = next((d for d in range(group, 0, -1) if group % d == 0
+                    and n * KV * (group // d) >= 2 * SMS), 1)
+        return dict(
+            hd_tile=t, heads_per_block=hpb, split=group // hpb,
+            fwd=dict(rows=TC_ROWS, cols=keys, threads=128, grid=(n, H),
+                     smem=1024 + t * 128 + 2 * 2 * keys * t * 2),
+            dkdv=dict(rows=TC_ROWS, cols=TC_ROWS, threads=256,
+                      grid=(n, KV * (group // hpb)),
+                      smem=1024 + 2 * t * 128
+                      + 2 * (2 * t * 128 + 2 * TC_ROWS * 4)
+                      + 2 * TC_ROWS * TC_ROWS * 2),
+            dq=dict(rows=TC_ROWS, cols=TC_ROWS, threads=256, grid=(n, H),
+                    smem=1024 + 2 * t * 128 + 2 * 2 * t * 128
+                    + TC_ROWS * TC_ROWS * 2))
+    r = 32 if t > 128 else 64           # the backward's accumulating rows
+    f = 4                               # f32 bytes
+    return dict(
+        hd_tile=t, heads_per_block=group, split=1,
+        fwd=dict(rows=64, cols=64, threads=256, grid=(_cdiv(S, 64), H),
+                 smem=f * (64 * (t + 1) + 64 * (t + 1) + 64 * t
+                           + 64 * 65)),
+        dkdv=dict(rows=r, cols=64, threads=256, grid=(_cdiv(S, r), KV),
+                  smem=f * (2 * r * (t + 1) + 2 * 64 * (t + 1)
+                            + 2 * r * 65 + 2 * 64)),
+        dq=dict(rows=r, cols=64, threads=256, grid=(_cdiv(S, r), H),
+                smem=f * (2 * r * (t + 1) + 2 * 64 * (t + 1) + r * 65
+                          + 2 * r)))
+
+
+def kernel_smem(dtype: torch.dtype, hd: int) -> dict[str, int]:
+    """Shared-memory bytes of the built kernels at ``hd``, as the CUDA
+    source computes them: {"fwd", "dkdv", "dq"}, to hold ``plan`` to."""
+    lib = _build.load(NAME, SIGNATURES)
+    return {kind: lib.flash_attention_smem(ELEM[dtype], hd, i)
+            for i, kind in enumerate(("fwd", "dkdv", "dq"))}
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -66,6 +137,21 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"{name}: head dim {hd} > {MAX_HD}")
     if any(t.stride(-1) != 1 for t in (q, k, v)):
         raise ValueError(f"{name}: head dim must be contiguous")
+    if q.dtype == torch.bfloat16:
+        _check_aligned(name, q=q, k=k, v=v)
+
+
+def _check_aligned(name: str, **ts: torch.Tensor) -> None:
+    """bf16 tiles are copied 16 bytes at a time: base pointers, (b, s, h)
+    strides and the head dim must be multiples of 8 elements."""
+    for key, t in ts.items():
+        if t.shape[-1] % 8 or t.data_ptr() % 16 \
+                or any(st % 8 for st in t.stride()[:3]):
+            raise ValueError(
+                f"{name}: bf16 {key} must have a 16-byte aligned base, "
+                f"(b, s, h) strides and head dim that are multiples of 8; "
+                f"got strides {t.stride()}, head dim {t.shape[-1]}, "
+                f"address {t.data_ptr()}")
 
 
 def _strides(*ts: torch.Tensor) -> ctypes.Array:
@@ -106,7 +192,8 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Gradients (dq, dk, dv) of ``flash_attention`` given its inputs, its
     output ``o``, the output's gradient ``do`` and the forward's ``lse``.
-    Deterministic: no atomics, each element written once."""
+    Deterministic: no atomics, each element written once.  bf16 sums the
+    group's partial dK/dV from f32 scratch (``plan``'s split)."""
     _check(q, k, v, BWD_NAME)
     B, S, H, hd = q.shape
     KV = k.shape[2]
@@ -130,15 +217,25 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if dq.numel() == 0:
         return dq, dk.zero_(), dv.zero_()
     D = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
+    hpb, dkp, dvp = 0, None, None
+    if q.dtype == torch.bfloat16:
+        _check_aligned(BWD_NAME, o=o, do=do)
+        p = plan(S, H, KV, hd, q.dtype)
+        hpb = p["heads_per_block"]
+        dkp, dvp = (torch.empty((B, S, KV * p["split"], hd),
+                                dtype=torch.float32, device=q.device)
+                    for _ in range(2))
     lib = _build.load(NAME, SIGNATURES)
     st = _strides(q, k, v, o, do, dq, dk, dv)
     with torch.cuda.device(q.device):
         rc = lib.flash_attention_bwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
             do.data_ptr(), lse.data_ptr(), D.data_ptr(), dq.data_ptr(),
-            dk.data_ptr(), dv.data_ptr(), ELEM[q.dtype], B, S, H, KV, hd,
-            ctypes.addressof(st), hd ** -0.5, int(causal), int(window),
-            torch.cuda.current_stream(q.device).cuda_stream)
+            dk.data_ptr(), dv.data_ptr(),
+            None if dkp is None else dkp.data_ptr(),
+            None if dvp is None else dvp.data_ptr(), ELEM[q.dtype], B, S,
+            H, KV, hd, hpb, ctypes.addressof(st), hd ** -0.5, int(causal),
+            int(window), torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(lib, rc, BWD_NAME)
     _build.launches[BWD_NAME] += 1
     return dq, dk, dv

@@ -33,7 +33,7 @@ torch = pytest.importorskip("torch")
 from repro_torch.kernels import _build, ops, ref  # noqa: E402
 from repro_torch.kernels.decode_attention import decode_attention  # noqa
 from repro_torch.kernels.flash_attention import (  # noqa: E402
-    FlashAttention, flash_attention, flash_attention_bwd)
+    FlashAttention, flash_attention, flash_attention_bwd, kernel_smem, plan)
 from repro_torch.kernels.moe_matmul import moe_grouped_ffn  # noqa: E402
 from repro_torch.kernels.page_gather import (  # noqa: E402
     page_gather, prefill_page_attention)
@@ -318,6 +318,103 @@ def test_flash_attention_hd256_window_bites(gen):
     for g, w in zip(a, want):
         err = (g.float() - w).abs().max() / w.abs().max()
         assert err <= 2e-2, err
+
+
+def _bf16_grads_err(got, q, k, v, do, causal, window):
+    """Normalized max error of kernel gradients against autograd of the
+    plain version in f32 on the same bf16 inputs."""
+    want = _attn_grads(q.float(), k.float(), v.float(), do.float(), causal,
+                       window, kernel=False)
+    return max(((g.float() - w).abs().max() / w.abs().max()).item()
+               for g, w in zip(got, want))
+
+
+@pytest.mark.parametrize("hd,H,KV", [(64, 8, 2), (256, 10, 1)])
+def test_flash_attention_is_batch_invariant(gen, hd, H, KV):
+    """One batch row alone gives the bits it gives inside a batch of 4,
+    forward and backward (the plan never reads B)."""
+    S, row = 200, 2
+    q, do = (_randn(gen, (4, S, H, hd), torch.bfloat16) for _ in range(2))
+    k, v = (_randn(gen, (4, S, KV, hd), torch.bfloat16) for _ in range(2))
+    full = flash_attention(q, k, v, causal=True, window=48)
+    one = flash_attention(q[row:row + 1], k[row:row + 1], v[row:row + 1],
+                          causal=True, window=48)
+    assert torch.equal(full[row:row + 1], one)
+    g_full = _attn_grads(q, k, v, do, True, 48, kernel=True)
+    g_one = _attn_grads(q[row:row + 1], k[row:row + 1], v[row:row + 1],
+                        do[row:row + 1], True, 48, kernel=True)
+    assert all(torch.equal(a[row:row + 1], b) for a, b in zip(g_full, g_one))
+
+
+def test_flash_attention_bf16_strided_input(gen):
+    """bf16 (B, H, S, hd) tensors transposed to (B, S, H, hd): aligned
+    strides, read through them, the bits of the contiguous copies, forward
+    and backward."""
+    q, do = (_randn(gen, (2, 8, 70, 64), torch.bfloat16).transpose(1, 2)
+             for _ in range(2))
+    k, v = (_randn(gen, (2, 2, 70, 64), torch.bfloat16).transpose(1, 2)
+            for _ in range(2))
+    got = flash_attention(q, k, v)
+    torch.testing.assert_close(got.float(), ref.attention(q, k, v).float(),
+                               **TOL[torch.bfloat16])
+    dense = [t.contiguous() for t in (q, k, v, do)]
+    assert torch.equal(got, flash_attention(*dense[:3]))
+    grads = _attn_grads(q, k, v, do, True, 0, kernel=True)
+    assert all(torch.equal(a, b) for a, b in zip(
+        grads, _attn_grads(*dense, True, 0, kernel=True)))
+    assert _bf16_grads_err(grads, q, k, v, do, True, 0) <= 2e-2
+
+
+def test_flash_attention_refuses_misaligned_bf16(gen):
+    """bf16 tiles are copied 16 bytes at a time: a base pointer, a stride
+    or a head dim that is not a multiple of 8 elements is refused, forward
+    and backward; f32 takes them."""
+    q = _randn(gen, (1, 16, 4, 64), torch.bfloat16)
+    flat = _randn(gen, (1 + q.numel(),), torch.bfloat16)
+    shifted = flat[1:].view(q.shape)                 # base off by 2 bytes
+    padded = _randn(gen, (1, 16, 4, 68), torch.bfloat16)[..., :64]
+    narrow = _randn(gen, (1, 16, 4, 20), torch.bfloat16)
+    for bad in (shifted, padded):
+        for args in ((bad, q, q), (q, bad, q), (q, q, bad)):
+            with pytest.raises(ValueError, match="16-byte aligned"):
+                flash_attention(*args)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        flash_attention(narrow, narrow, narrow)
+    o, lse = flash_attention(q, q, q, with_lse=True)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        flash_attention_bwd(q, q, q, o, shifted, lse)
+    flash_attention(*(t.float() for t in (narrow, narrow, narrow)))
+
+
+@pytest.mark.parametrize("B,S,H,KV,hd", [
+    (2, 200, 4, 4, 64),      # group 1 (MHA): one partial a kv head
+    (2, 200, 15, 5, 64),     # group 3 (smollm-360m heads)
+    (2, 300, 10, 1, 256),    # group 10 (recurrentgemma heads)
+    (1, 1100, 32, 8, 64),    # group 4, walked two q heads a block
+])
+def test_flash_attention_bwd_split_and_reduce(gen, B, S, H, KV, hd):
+    """bf16 dK/dV as f32 partials per chunk of the group, summed in a fixed
+    order: right, and bit-identical run to run."""
+    p = plan(S, H, KV, hd, torch.bfloat16)
+    assert p["split"] * p["heads_per_block"] == H // KV
+    if S == 1100:
+        assert p["heads_per_block"] == 2
+    q, do = (_randn(gen, (B, S, H, hd), torch.bfloat16) for _ in range(2))
+    k, v = (_randn(gen, (B, S, KV, hd), torch.bfloat16) for _ in range(2))
+    a = _attn_grads(q, k, v, do, True, 0, kernel=True)
+    b = _attn_grads(q, k, v, do, True, 0, kernel=True)
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+    assert _bf16_grads_err(a, q, k, v, do, True, 0) <= 2e-2
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_plan_matches_the_kernels(gen, dtype):
+    """The wrapper's plan states the shared memory the CUDA source sizes
+    its launches with."""
+    for hd in (16, 32, 64, 128, 256):
+        p = plan(512, 8, 2, hd, dtype)
+        assert kernel_smem(dtype, hd) == {
+            kind: p[kind]["smem"] for kind in ("fwd", "dkdv", "dq")}
 
 
 def _chunk_inputs(gen, B, C, L, H, KV, hd, start, dtype):
