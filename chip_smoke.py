@@ -12,9 +12,9 @@ Phases (any failure raises and the script exits non-zero):
 1. environment: the card's name and power limit, torch/CUDA versions, and
    the build of every kernel from ``src/repro_torch/kernels/csrc`` (one
    ``nvcc`` per source, all started together), with ptxas' register report;
-   no flash-attention instantiation may spill (ptxas' spill bytes all 0),
-   and the wrapper's ``plan`` must state the shared memory the CUDA source
-   launches with;
+   no flash-attention, decode or chunked-prefill instantiation may spill
+   (ptxas' spill bytes all 0), and the flash wrapper's ``plan`` must state
+   the shared memory the CUDA source launches with;
 2. kernels: each CUDA kernel against its plain PyTorch version on the card
    at its path's shapes, timed with CUDA events (device time, inputs
    rotated past the L2 cache) beside its roofline bound, the plain version
@@ -24,9 +24,17 @@ Phases (any failure raises and the script exits non-zero):
    once under ``torch.cuda.set_sync_debug_mode("error")``: no host sync);
    the flash-attention backward against torch autograd of the plain
    attention, f32 at rtol/atol 1e-4, bf16 at a normalized max error of
-   2e-2; chunked-prefill attention over rings with dead slots, wrapped
-   rings and windows, bf16 at 2e-2 and f32 at 1e-4; the three attention
-   kernels also at mixtral-8x7b's head dim 128; the grouped MoE FFN at
+   2e-2; the split decode kernel also at recurrentgemma-2b's local heads
+   (10 over 1 kv head of 256, a 2048-slot ring) in bf16 and f32 (1e-4),
+   each row of a batch of 8 bit-identical to the row alone and two calls
+   bit-identical; chunked-prefill attention reading its ring in place from
+   page pools under a shuffled table (against the plain version over
+   ``ref.page_gather``; its gathered form against the plain version and
+   bit-identical to the paged one) over rings with dead slots, wrapped
+   rings and windows, bf16 at 2e-2 and f32 at 1e-4, recurrentgemma-2b's
+   local heads with its 2048 window included, timed beside the two
+   ``page_gather`` calls it replaces; the three attention kernels also at
+   mixtral-8x7b's head dim 128; the grouped MoE FFN at
    mixtral-8x7b's width (a decode batch, a 128-token chunk, prompts of 300
    and 512 tokens) in bf16 at a normalized 2e-2, its edge cases (an expert
    with no token, a token no expert takes: exactly 0, two tokens in one
@@ -72,9 +80,10 @@ Phases (any failure raises and the script exits non-zero):
    prefix-cached with nucleus sampling (launch counts reset before the
    three, read after): each run launches ``prefill_page_attention`` 16
    times per chunk (its own and the warmup's) and the paged decode
-   kernels, no plain version runs, every output is whole, the cache hits
-   more than 30 % of prompt tokens and saves chunks, sampling changes the
-   tokens; the first-token logits of the chunk plan agree with the whole
+   kernels, ``page_gather`` exactly twice per ``decode_attention`` (the
+   chunks read the pools in place), no plain version runs, every output
+   is whole, the cache hits more than 30 % of prompt tokens and saves
+   chunks, sampling changes the tokens; the first-token logits of the chunk plan agree with the whole
    prompt's within a normalized 2e-2; then a ``wall``-clock prefix-cached
    run and its profile;
 4b. MoE serving: a narrow f32 mixtral (4 experts, top-2, window 16) on the
@@ -145,6 +154,7 @@ SPIN_HZ = 2.0e9                 # at or above any H100 SM clock
 L2_BYTES = 50 * 2 ** 20
 BF16_TOL = 2e-2                 # rtol = atol, as tests/test_kernels.py
 BWD_F32_TOL = 1e-4              # f32 backward vs autograd, rtol = atol
+F32_TOL = 1e-4                  # f32 decode and chunked prefill, rtol = atol
 BWD_BF16_NORM_TOL = 2e-2        # bf16 backward: max |err| / max |ref|
 TRAIN_TOL = 1e-4                # small training run, CUDA vs CPU
 
@@ -287,21 +297,29 @@ def check_flash(torch, F, ref, gen):
     return {**main, "max_abs_err": worst, "hd128": hd128, "hd256": hd256}
 
 
-# decode shapes: the serving run's ring (cache_len 544 = 34 pages of 16)
-# and a 1024-slot ring; the first is the one the main path gives the kernels
+# decode shapes (B, L, H, KV, hd, dtype): the serving run's ring (cache_len
+# 544 = 34 pages of 16) and a 1024-slot ring at llama3.2-1b's heads,
+# mixtral-8x7b's head dim 128 on the serving ring, then recurrentgemma-2b's
+# local layers (10 q heads over 1 kv head of 256, its 2048-slot window
+# ring) in bf16 and f32; the first is the one the main path gives the kernel
 MAIN_L, RING_LENS = 544, (544, 1024)
-# (ring length, head dim) of the decode checks: llama3.2-1b's head dim 64,
-# then mixtral-8x7b's 128 on the serving ring
-DECODE_CASES = tuple((L, 64) for L in RING_LENS) + ((MAIN_L, 128),)
+DECODE_CASES = tuple((8, L, 32, 8, 64, "bfloat16") for L in RING_LENS) \
+    + ((8, MAIN_L, 32, 8, 128, "bfloat16"),
+       (8, 2048, 10, 1, 256, "bfloat16"), (8, 2048, 10, 1, 256, "float32"))
 
 
 def check_decode(torch, F, ref, gen):
-    from repro_torch.kernels.decode_attention import decode_attention
+    """The split decode kernel against its plain version on ring masks as
+    the engine makes them (bf16 2e-2, f32 1e-4); every row of the batch
+    of 8 bit-identical to the same row run alone, and two calls
+    bit-identical; timed beside its bound, the plain version and SDPA with
+    a boolean mask."""
+    from repro_torch.kernels.decode_attention import decode_attention, plan
     rows = {}
-    for L, hd in DECODE_CASES:
-        B, H, KV = 8, 32, 8
-        mk = lambda s, n: torch.randn((B, s, n, hd), generator=gen,
-                                      device="cuda").to(torch.bfloat16)
+    for B, L, H, KV, hd, dt in DECODE_CASES:
+        dtype = getattr(torch, dt)
+        mk = lambda s, n: torch.randn((B, s, n, hd), generator=gen,  # noqa
+                                      device="cuda").to(dtype)
         q, k, v = mk(1, H), mk(L, KV), mk(L, KV)
         # ring masks as the engine makes them: row b holds positions < n_b
         n_live = torch.randint(1, L + 1, (B,), generator=gen, device="cuda")
@@ -311,31 +329,47 @@ def check_decode(torch, F, ref, gen):
         got = decode_attention(q, k, v, valid)
         want = ref.attention_decode(q, k, v, valid)
         torch.cuda.synchronize()
+        tol = BF16_TOL if dt == "bfloat16" else F32_TOL
         err = (got.float() - want.float()).abs().max().item()
-        torch.testing.assert_close(got.float(), want.float(),
-                                   rtol=BF16_TOL, atol=BF16_TOL)
+        torch.testing.assert_close(got.float(), want.float(), rtol=tol,
+                                   atol=tol)
+        if not torch.equal(got, decode_attention(q, k, v, valid)):
+            raise AssertionError(f"decode_attention not deterministic at "
+                                 f"{(B, L, H, KV, hd, dt)}")
+        for b in range(B):
+            one = decode_attention(q[b:b + 1], k[b:b + 1], v[b:b + 1],
+                                   valid[b:b + 1])
+            if not torch.equal(one, got[b:b + 1]):
+                raise AssertionError(f"decode_attention row {b} at B1 "
+                                     f"differs from B{B} at "
+                                     f"{(B, L, H, KV, hd, dt)}")
         live = int(valid.sum().item())
         need = nbytes(q, got) + B * L + live * KV * hd * 2 * k.element_size()
-        b_ms, b_by = bound(need, 4.0 * hd * H * live, "bfloat16")
+        b_ms, b_by = bound(need, 4.0 * hd * H * live, dt)
         sets = rotation((q, k, v, valid))
         n = len(sets)
         lib_sets = [(q_.transpose(1, 2), k_.transpose(1, 2),
                      v_.transpose(1, 2), m_[:, None, None, :])
                     for q_, k_, v_, m_ in sets]
         ms, host_ms = time_ms(lambda i: decode_attention(*sets[i % n]), 200)
-        rows[L, hd] = dict(
-            shape=[B, L, H, KV, hd], max_abs_err=err, tolerance=BF16_TOL,
-            ms=ms, host_ms=host_ms,
+        reps = 200 if dt == "bfloat16" else 10   # f32 SDPA: ~2.5 ms a call
+        rows[L, hd, dt] = dict(
+            shape=[B, L, H, KV, hd], dtype=dt, splits=plan(L, hd,
+                                                           dtype)["splits"],
+            max_abs_err=err, tolerance=tol, batch_invariant=True,
+            deterministic=True, ms=ms, host_ms=host_ms,
             plain_ms=time_ms(lambda i: ref.attention_decode(*sets[i % n]),
-                             50)[0],
+                             reps // 4)[0],
             library_ms=time_ms(lambda i: F.scaled_dot_product_attention(
                 *lib_sets[i % n][:3], attn_mask=lib_sets[i % n][3],
-                enable_gqa=True), 200)[0],
+                enable_gqa=True), reps)[0],
             bound_ms=b_ms, bound_by=b_by)
-        print("decode_attention", json.dumps(rows[L, hd]), flush=True)
+        print("decode_attention", json.dumps(rows[L, hd, dt]), flush=True)
+        del sets, lib_sets
     worst = max(r["max_abs_err"] for r in rows.values())
-    return {**rows[MAIN_L, 64], "max_abs_err": worst,
-            "hd128": rows[MAIN_L, 128]}
+    return {**rows[MAIN_L, 64, "bfloat16"], "max_abs_err": worst,
+            "hd128": rows[MAIN_L, 128, "bfloat16"],
+            "hd256": [r for (_, hd, _), r in rows.items() if hd == 256]}
 
 
 def check_page_gather(torch, ref, gen):
@@ -538,23 +572,28 @@ def check_flash_bwd(torch, F, ref, gen):
             "hd256": [r for r in rows if r["shape"][4] == 256]}
 
 
-# chunked prefill at 32 heads over 8 kv heads (C, L, start, window, dtype,
-# head dim): an empty ring, dead slots (start < L), wrapped rings (start >
-# L), windows and one f32 case at llama3.2-1b's head dim 64, and the main
-# shape at mixtral-8x7b's 128; PREFILL_MAIN, the third chunk of a 448-token
-# prompt in the 544-slot ring, is the main path's shape
-PREFILL_CASES = [(128, 544, 0, 0, "bfloat16", 64),
-                 (128, 544, 256, 0, "bfloat16", 64),
-                 (16, 544, 320, 0, "bfloat16", 64),
-                 (128, 1024, 700, 0, "bfloat16", 64),
-                 (128, 544, 900, 0, "bfloat16", 64),
-                 (16, 1024, 1500, 128, "bfloat16", 64),
-                 (128, 544, 300, 128, "bfloat16", 64),
-                 (128, 544, 900, 0, "float32", 64),
-                 (128, 544, 256, 0, "bfloat16", 128)]
-PREFILL_MAIN = (128, 544, 256, 0, "bfloat16", 64)
-PREFILL_HD128 = (128, 544, 256, 0, "bfloat16", 128)
-F32_TOL = 1e-4
+# chunked prefill (C, L, start, window, dtype, head dim, H, KV): at
+# llama3.2-1b's 32 heads over 8 kv heads an empty ring, dead slots (start <
+# L), wrapped rings (start > L), windows and one f32 case; the main shape
+# at mixtral-8x7b's head dim 128; recurrentgemma-2b's local layers (10
+# heads over 1 kv head of 256, its 2048 window over a full 2048-slot ring)
+# in bf16 and f32.  PREFILL_MAIN, the third chunk of a 448-token prompt in
+# the 544-slot ring, is the main path's shape.  The ring lives in pools of
+# 16-slot pages under a shuffled table, as the serving cache holds it.
+PREFILL_CASES = [(128, 544, 0, 0, "bfloat16", 64, 32, 8),
+                 (128, 544, 256, 0, "bfloat16", 64, 32, 8),
+                 (16, 544, 320, 0, "bfloat16", 64, 32, 8),
+                 (128, 1024, 700, 0, "bfloat16", 64, 32, 8),
+                 (128, 544, 900, 0, "bfloat16", 64, 32, 8),
+                 (16, 1024, 1500, 128, "bfloat16", 64, 32, 8),
+                 (128, 544, 300, 128, "bfloat16", 64, 32, 8),
+                 (128, 544, 900, 0, "float32", 64, 32, 8),
+                 (128, 544, 256, 0, "bfloat16", 128, 32, 8),
+                 (128, 2048, 2176, 2048, "bfloat16", 256, 10, 1),
+                 (128, 2048, 2176, 2048, "float32", 256, 10, 1)]
+PREFILL_MAIN = (128, 544, 256, 0, "bfloat16", 64, 32, 8)
+PREFILL_HD128 = (128, 544, 256, 0, "bfloat16", 128, 32, 8)
+PAGE = 16
 
 
 def chunk_inputs(torch, gen, C, L, start, dtype, B=1, H=32, KV=8, hd=64):
@@ -570,56 +609,106 @@ def chunk_inputs(torch, gen, C, L, start, dtype, B=1, H=32, KV=8, hd=64):
             mk(B, C, KV, hd), mk(B, C, KV, hd), ctx_pos, q_pos)
 
 
+def paged(torch, gen, ins, page=PAGE):
+    """The context of ``chunk_inputs`` moved into pools of ``page``-slot
+    pages (B * n_pp + 5 of them, the rest random) under a shuffled table:
+    (q, k_pool, v_pool, table, k_new, v_new, ctx_pos, q_pos)."""
+    q, k_ctx, v_ctx, k_new, v_new, ctx_pos, q_pos = ins
+    B, L, KV, hd = k_ctx.shape
+    n_pp = L // page
+    P = B * n_pp + 5
+    table = torch.randperm(P, generator=gen, device="cuda")[:B * n_pp]
+    table = table.reshape(B, n_pp).to(torch.int32)
+    if torch.equal(table.flatten().long(), torch.arange(B * n_pp,
+                                                        device="cuda")):
+        table = table.flip(1)
+    pools = []
+    for ctx in (k_ctx, v_ctx):
+        pool = torch.randn((P, page, KV, hd), generator=gen,
+                           device="cuda").to(ctx.dtype)
+        pool[table.long()] = ctx.reshape(B, n_pp, page, KV, hd)
+        pools.append(pool)
+    return (q, pools[0], pools[1], table, k_new, v_new, ctx_pos, q_pos)
+
+
 def check_prefill_page_attention(torch, F, ref, gen):
-    """The chunked-prefill kernel against its plain version over the cases
-    above, each timed beside its bound, the plain version and SDPA with a
-    boolean mask over the concatenated keys (timed only)."""
-    from repro_torch.kernels.page_gather import prefill_page_attention
+    """The chunked-prefill kernel reading the ring in place from pools under
+    a shuffled page table, against ``ref.prefill_page_attention`` over
+    ``ref.page_gather``; its gathered form (one page of L slots a row) on
+    the same inputs against the plain version and bit-identical to the
+    paged one; each case timed (the paged form, the main path's) beside
+    its bound, the plain version (gather included), two ``page_gather``
+    calls (the copies this kernel no longer needs) and SDPA with a boolean
+    mask over the gathered keys (timed only)."""
+    from repro_torch.kernels.page_gather import (
+        page_gather, prefill_page_attention, prefill_page_attention_paged)
     rows = {}
-    for C, L, start, window, dt, hd in PREFILL_CASES:
+    for case in PREFILL_CASES:
+        C, L, start, window, dt, hd, H, KV = case
         dtype = getattr(torch, dt)
-        ins = chunk_inputs(torch, gen, C, L, start, dtype, hd=hd)
-        got = prefill_page_attention(*ins, window=window)
+        ins = chunk_inputs(torch, gen, C, L, start, dtype, H=H, KV=KV, hd=hd)
+        pins = paged(torch, gen, ins)
+        q, pk, pv, table = pins[:4]
+        got = prefill_page_attention_paged(*pins, window=window)
+        view = prefill_page_attention(*ins, window=window)
         want = ref.prefill_page_attention(*ins, window=window)
+        want_p = ref.prefill_page_attention(
+            q, ref.page_gather(pk, table), ref.page_gather(pv, table),
+            *ins[3:], window=window)
         torch.cuda.synchronize()
         tol = BF16_TOL if dt == "bfloat16" else F32_TOL
-        err = (got.float() - want.float()).abs().max().item()
-        torch.testing.assert_close(got.float(), want.float(), rtol=tol,
+        err = max((got.float() - want_p.float()).abs().max().item(),
+                  (view.float() - want.float()).abs().max().item())
+        torch.testing.assert_close(got.float(), want_p.float(), rtol=tol,
                                    atol=tol)
-        q, k_ctx, v_ctx, k_new, v_new, ctx_pos, q_pos = ins
+        torch.testing.assert_close(view.float(), want.float(), rtol=tol,
+                                   atol=tol)
+        if not torch.equal(got, view):
+            raise AssertionError(f"prefill paged != gathered form at {case}")
+        k_ctx, ctx_pos, q_pos = ins[1], ins[5], ins[6]
         mask = ref.prefill_mask(ctx_pos, q_pos, window)
-        H, hd, KV = q.shape[2], q.shape[3], k_ctx.shape[2]
         live = int(mask.sum().item())           # this run's (row, key) pairs
-        # bytes: q, out and both position arrays whole, K/V only for the
-        # key slots some row of the chunk sees (the kernel loads no other)
+        # bytes: q, out, the positions and the table whole, K/V only for
+        # the key slots some row of the chunk sees (the kernel loads no
+        # other)
         keys = int(mask.any(1).sum().item())
         kv_bytes = 2 * keys * KV * hd * k_ctx.element_size()
-        b_ms, b_by = bound(nbytes(q, got, ctx_pos, q_pos) + kv_bytes,
+        b_ms, b_by = bound(nbytes(q, got, ctx_pos, q_pos, table) + kv_bytes,
                            4.0 * hd * H * live, dt)
-        sets = rotation(ins)
+        sets = rotation(pins)
         n = len(sets)
         lib_sets = [(st[0].transpose(1, 2),
-                     torch.cat([st[1], st[3]], 1).transpose(1, 2),
-                     torch.cat([st[2], st[4]], 1).transpose(1, 2),
-                     mask[:, None]) for st in sets]
-        ms, host_ms = time_ms(lambda i: prefill_page_attention(
-            *sets[i % n], window=window), 50)
+                     torch.cat([ref.page_gather(st[1], st[3]), st[4]],
+                               1).transpose(1, 2),
+                     torch.cat([ref.page_gather(st[2], st[3]), st[5]],
+                               1).transpose(1, 2)) for st in sets]
+        reps = 50 if dt == "bfloat16" else 5
+        ms, host_ms = time_ms(lambda i: prefill_page_attention_paged(
+            *sets[i % n], window=window), reps)
+        gather_ms = time_ms(lambda i: (page_gather(sets[i % n][1],
+                                                   sets[i % n][3]),
+                                       page_gather(sets[i % n][2],
+                                                   sets[i % n][3])), reps)[0]
+        plain = lambda st: ref.prefill_page_attention(  # noqa: E731
+            st[0], ref.page_gather(st[1], st[3]),
+            ref.page_gather(st[2], st[3]), *st[4:], window=window)
         row = dict(
-            shape=[1, C, L, 32, 8, hd], start=start, window=window, dtype=dt,
-            live_pairs_per_head=live, live_keys=keys, max_abs_err=err,
-            tolerance=tol, ms=ms, host_ms=host_ms,
-            plain_ms=time_ms(lambda i: ref.prefill_page_attention(
-                *sets[i % n], window=window), 10)[0],
+            shape=[1, C, L, H, KV, hd], start=start, window=window, dtype=dt,
+            page=PAGE, live_pairs_per_head=live, live_keys=keys,
+            max_abs_err=err, tolerance=tol, ms=ms, host_ms=host_ms,
+            gather_ms=gather_ms,
+            plain_ms=time_ms(lambda i: plain(sets[i % n]), 10)[0],
             library_ms=time_ms(lambda i: F.scaled_dot_product_attention(
-                *lib_sets[i % n][:3], attn_mask=lib_sets[i % n][3],
-                enable_gqa=True), 50)[0],
+                *lib_sets[i % n], attn_mask=mask[:, None],
+                enable_gqa=True), reps)[0],
             bound_ms=b_ms, bound_by=b_by)
-        rows[C, L, start, window, dt, hd] = row
+        rows[case] = row
         print("prefill_page_attention", json.dumps(row), flush=True)
         del sets, lib_sets
     worst = max(r["max_abs_err"] for r in rows.values())
     return {**rows[PREFILL_MAIN], "max_abs_err": worst,
-            "hd128": rows[PREFILL_HD128]}
+            "hd128": rows[PREFILL_HD128],
+            "hd256": [r for c, r in rows.items() if c[5] == 256]}
 
 
 # moe_grouped_ffn at mixtral-8x7b's width (d 4096, f 14336, 8 experts,
@@ -1500,7 +1589,8 @@ def moe_serving(torch, ops, ref):
     chunked = dict(ops.launches)
     want_c = {"prefill_page_attention": n_layers * (rep.prefill_chunks + 1),
               "moe_grouped_ffn": n_layers * (rep.prefill_chunks + 1
-                                             + rep.decode_steps + 1)}
+                                             + rep.decode_steps + 1),
+              "page_gather": 2 * chunked["decode_attention"]}
     print("mixtral chunked, prefix-cached (steps clock):", json.dumps(dict(
         tokens=rep.total_tokens, decode_steps=rep.decode_steps,
         prefill_chunks=rep.prefill_chunks,
@@ -1568,6 +1658,12 @@ def chunked_serving(torch, ops, ref, cfg, params, common):
             if per_run[name]["prefill_page_attention"] != want:
                 raise AssertionError(f"{name}: prefill_page_attention "
                                      f"launched {per_run[name]}, want {want}")
+            # the chunks read the pools in place: every gather is decode's
+            if per_run[name]["page_gather"] != \
+                    2 * per_run[name]["decode_attention"]:
+                raise AssertionError(f"{name}: page_gather launched "
+                                     f"{per_run[name]}, want 2 x "
+                                     "decode_attention")
             if min(per_run[name][k] for k in CHUNKED_KERNELS) <= 0:
                 raise AssertionError(f"{name}: a kernel never launched")
     launches = dict(ops.launches)        # ... and ends here
@@ -1670,7 +1766,7 @@ def first_token_logits(torch, cfg, params, reqs, common):
 
 KERNEL_GROUPS = (("flash_attention", "flash_fwd_kernel"),
                  ("flash_attention_bwd", "flash_bwd_"),
-                 ("decode_attention", "decode_kernel"),
+                 ("decode_attention", "decode_split_kernel"),
                  ("page_gather", "page_gather_kernel"),
                  ("ring_gather", "ring_gather_kernel"),
                  ("prefill_page_attention", "prefill_page_attention_kernel"),
@@ -2090,6 +2186,16 @@ def check_flash_build(torch, spills: dict) -> None:
           "plan == kernel shared memory", flush=True)
 
 
+def check_no_spill(spills: dict, sources: tuple) -> None:
+    """Gate: ptxas reported every kernel of ``sources`` and none spills."""
+    for name in sources:
+        sp = spills.get(name, {})
+        if not sp or any(st or ld for st, ld in sp.values()):
+            raise AssertionError(f"{name} spills (or no ptxas report): {sp}")
+        print(f"{name} ptxas: {len(sp)} kernels, no spill stores or loads",
+              flush=True)
+
+
 # (B, S, H, KV, hd) of the batch-invariance gate: llama3.2-1b's and
 # recurrentgemma-2b's training shapes
 FLASH_INVARIANCE = ((4, 512, 32, 8, 64), (4, 512, 10, 1, 256))
@@ -2159,6 +2265,7 @@ def main() -> int:
         if log.exists():
             spills[name] = print_ptxas(name, log.read_text())
     check_flash_build(torch, spills.get("flash_attention", {}))
+    check_no_spill(spills, ("decode_attention", "prefill_page_attention"))
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     phase_s = {}

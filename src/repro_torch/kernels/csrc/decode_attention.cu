@@ -1,235 +1,769 @@
-// Single-token GQA decode attention over a ring / paged-view KV cache.
+// Single-token GQA decode attention over a ring / paged-view KV cache,
+// split over the ring (flash-decoding).
 //
 // Replaces the Pallas TPU kernel repro/kernels/decode_attention.py
 // (decode_attention, pallas_call at :102).  Same function: q (B,1,H,hd),
 // k/v (B,L,KV,hd), valid (B,L) -> (B,1,H,hd) in q's dtype; scale hd^-0.5;
-// probabilities of dead slots are 0 (the Pallas kernel re-masks them at
-// :56-58); at least one slot per row is valid.
+// probabilities of dead slots are exactly 0 (the Pallas kernel re-masks
+// them at :56-58); a row with no live slot writes 0.
 //
-// Bound on the H100: bytes.  Each step reads the live K and V rows once,
-// 2 * B * L * KV * hd * 2 bytes in bf16, and does 4 * H * hd FLOPs per
-// (row, slot): H/KV FLOPs per byte (4 for llama3.2-1b), far below the
-// card's ~295.
+// Bound on the H100: bytes.  A step reads the live K and V rows once,
+// 2 * B * live * KV * hd * elem bytes, and does 4 * H * hd FLOPs per (row,
+// live slot): H/KV FLOPs a byte in bf16 (4 for llama3.2-1b, 10 for
+// recurrentgemma-2b), far below the card's ~295.  What bounded the first
+// design was latency: the Pallas grid walks the ring serially per (batch
+// row, kv head), and B * KV such walks (64 at the serving shape) fill half
+// of the 132 SMs.
 //
-// Design: one block of 8 warps per (kv head, batch row), so the whole
-// query group (H/KV heads) reads each K/V row from device memory once.
-// Each key is handled by HD/VEC lanes with one 16-byte vector load each
-// (VEC elements), so a warp covers 32*VEC/HD keys per step with fully
-// used 16-byte accesses; a dead slot's row is never loaded.  Every lane
-// group keeps its own online-softmax state (m, l, acc) in f32 registers;
-// the states merge first across the warp with shuffles, then across the
-// 8 warps through shared memory.  With B*KV blocks (64 at the serving
-// shape) the card is under-filled: splitting L over more blocks
-// (flash-decoding) is a later PR's work.
+// Design, both element types:
+// * Grid (split, kv head, batch row).  A split is a fixed range of
+//   keys_per_split ring slots; the wrapper's plan picks it from (L, hd,
+//   dtype) alone, never from B or the mask, so a row's bits do not depend
+//   on the batch (the schedule-invariance claims rest on that).
+// * A block of 4 warps serves the whole query group (up to 16 heads) of
+//   its kv head, so each K/V row is read from device memory once.  q and
+//   the split's live flags sit in shared memory; K/V tiles stream through
+//   a two-stage cp.async ring of 16-byte copies, with dead slots
+//   zero-filled (never read).  A tile with no live slot skips its
+//   arithmetic.
+// * Each block writes a partial (m, l, acc) in f32 to scratch and counts
+//   itself in a per-(batch row, kv head) counter; the block that comes
+//   last merges the partials in split order (so the result does not
+//   depend on which block that is) and resets the counter to 0.  A dead
+//   split has m = NEG_INF, l = 0 and acc = 0, and merges to nothing.
+//   One split writes the output directly (finish_split).
+//
+// bf16: the tensor cores (mma.sync m16n8k16, hopper_mma.cuh).  The query
+// group is the A operand's 16 rows (zero past the group), so a group of 10
+// at head dim 256 costs what a group of 4 does; each warp takes 16 keys
+// of every 64-key tile with its own online softmax (exp2, the scale folded
+// into log2 e; P split into P_hi + P_lo bf16 operands of P V, as the
+// flash forward does), tiles 128-byte swizzled; the four warps' states
+// merge in warp order at the end.  On the CUDA cores a group of 10 at head
+// dim 256 took 0.094 ms against SDPA's 0.026 (B8 L2048): 2,560 FMAs a key
+// for each of 128 threads, one block an SM.
+//
+// f32: the CUDA cores (tensor cores take f32 only as TF32).  K/V tiles of
+// 8 KB; per tile, scores by lanes splitting the head dim into 16-byte
+// slices (a shuffle tree per query head), an online softmax by one warp
+// per query head, and P V by threads owning (query head, head-dim pairs)
+// of the f32 accumulator.
+//
+// Head dims 64, 128, 256 (16 and 32 are zero-padded to 64); groups up to
+// 16 (f32 pads them to 4, 8 or 16).  No atomics touch the result: the
+// kernel is deterministic.
+#include <type_traits>
+
 #include "common.cuh"
+#include "hopper_mma.cuh"
 
 namespace {
 
-constexpr int NW = 8;  // warps per block
+constexpr int NT = 128;           // threads a block
+constexpr int NW = NT / 32;       // warps a block
+constexpr int TILE_BYTES = 8192;  // f32: one K (or V) tile
+constexpr float LOG2E = 1.4426950408889634f;
 
-template <typename T>
-struct Vec {
-  static constexpr int N = 16 / sizeof(T);  // elements per 16-byte load
-  __device__ static void load(const T* p, float* out) {
-    const uint4 raw = *reinterpret_cast<const uint4*>(p);
-    const T* e = reinterpret_cast<const T*>(&raw);
-#pragma unroll
-    for (int i = 0; i < N; ++i) out[i] = to_f32(e[i]);
-  }
+// f32: keys a tile
+template <int HD>
+__host__ __device__ constexpr int tile_keys() {
+  return TILE_BYTES / (HD * 4);
+}
+
+// f32: K/V stages, q [GP][HD], scores [GP][TK+1], alpha/m/l [GP], flags
+template <int HD, int GP>
+size_t smem_bytes(int kps) {
+  constexpr int TK = tile_keys<HD>();
+  return 4 * TILE_BYTES + sizeof(float) * (GP * HD + GP * (TK + 1) + 3 * GP) +
+         ((kps + 15) & ~15);
+}
+
+// element strides: q (b, h), k and v (b, l, h), valid (b), o (b, h)
+struct St {
+  long long qb, qh, kb, kl, kh, vb, vl, vh, valb, ob, oh;
 };
 
-template <typename T, int HD, int GMAX>
-__global__ void __launch_bounds__(NW * 32)
-    decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                  const T* __restrict__ v, const uint8_t* __restrict__ valid,
-                  T* __restrict__ o, int L, int group, long long qsb,
-                  long long qsh, long long ksb, long long ksl, long long ksh,
-                  long long vsb, long long vsl, long long vsh,
-                  long long valsb, long long osb, long long osh,
-                  float scale) {
-  constexpr int VEC = Vec<T>::N;
-  constexpr int LPK = HD / VEC;   // lanes per key
-  constexpr int KPW = 32 / LPK;   // keys per warp step
-  static_assert(LPK >= 1 && LPK <= 32 && 32 % LPK == 0, "bad head dim");
-  __shared__ float sm_m[NW][GMAX], sm_l[NW][GMAX], sm_acc[NW][GMAX][HD];
-
-  const int kvh = blockIdx.x;
-  const int b = blockIdx.y;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int sub = lane / LPK;  // which key of the warp step
-  const int sl = lane % LPK;   // which VEC-slice of the head dim
-
-  float qv[GMAX][VEC];
+template <typename T>
+__device__ __forceinline__ void load_vec(const T* p, float* out) {
+  const uint4 raw = *reinterpret_cast<const uint4*>(p);
+  const T* e = reinterpret_cast<const T*>(&raw);
 #pragma unroll
-  for (int g = 0; g < GMAX; ++g) {
-    if (g < group) {
-      Vec<T>::load(q + b * qsb + (kvh * group + g) * qsh + sl * VEC, qv[g]);
-    } else {
+  for (int i = 0; i < (int)(16 / sizeof(T)); ++i) out[i] = to_f32(e[i]);
+}
+
+__device__ __forceinline__ float2 load2(const float* p) {
+  return *reinterpret_cast<const float2*>(p);
+}
+
+__device__ __forceinline__ void store2(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+__device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+}
+
+// the end of a block: with one split, the output; else this split's
+// partial (acc [group][HD], then m [group], l [group]) and, in the block
+// that comes last for its (batch row, kv head), the merge of every split
+// in split order and the counter's reset.  Thread (gp, tig) holds acc for
+// head dims 2 (tig + TPG e) + {0, 1} of query head gp; m_s, l_s in shared
+// memory.
+template <typename T, int HD, int GP>
+__device__ __forceinline__ void finish_split(
+    const float* acc, const float* m_s, const float* l_s, T* __restrict__ o,
+    float* __restrict__ part, unsigned* __restrict__ counters, int group,
+    int hd, const St& st, int* last_s) {
+  constexpr int TPG = NT / GP;
+  constexpr int EPT = HD / TPG;
+  const int split = blockIdx.x, kvh = blockIdx.y, b = blockIdx.z;
+  const int nsplit = gridDim.x;
+  const int tid = threadIdx.x;
+  const int gp = tid / TPG, tig = tid % TPG;
+  T* ob = o + b * st.ob + (long long)kvh * group * st.oh;
+  if (nsplit == 1) {
+    if (gp < group) {
+      const float inv = 1.f / fmaxf(l_s[gp], 1e-30f);
 #pragma unroll
-      for (int e = 0; e < VEC; ++e) qv[g][e] = 0.f;
+      for (int e = 0; e < EPT / 2; ++e) {
+        const int d = 2 * (tig + TPG * e);
+        if (d < hd)
+          store2(ob + gp * st.oh + d, acc[2 * e] * inv, acc[2 * e + 1] * inv);
+      }
+    }
+    return;
+  }
+
+  // this split's partial: acc [group][HD], then m [group], l [group]
+  const int pstride = group * (HD + 2);
+  const long long row = (long long)b * gridDim.y + kvh;
+  float* pb = part + (row * nsplit + split) * pstride;
+  if (gp < group) {
+#pragma unroll
+    for (int e = 0; e < EPT / 2; ++e)
+      store2(pb + gp * HD + 2 * (tig + TPG * e), acc[2 * e], acc[2 * e + 1]);
+  }
+  if (tid < group) {
+    pb[group * HD + tid] = m_s[tid];
+    pb[group * HD + group + tid] = l_s[tid];
+  }
+  __threadfence();
+  __syncthreads();
+  if (tid == 0)
+    *last_s = atomicAdd(counters + row, 1u) == (unsigned)(nsplit - 1);
+  __syncthreads();
+  if (!*last_s) return;
+  __threadfence();
+
+  // the last block merges every split's partial, in split order
+  const float* p0 = part + row * nsplit * pstride;
+  if (gp < group) {
+    float M = NEG_INF;
+    for (int s = 0; s < nsplit; ++s)
+      M = fmaxf(M, __ldcg(p0 + s * pstride + group * HD + gp));
+    float den = 0.f, num[EPT];
+#pragma unroll
+    for (int e = 0; e < EPT; ++e) num[e] = 0.f;
+    for (int s = 0; s < nsplit; ++s) {
+      const float* ps = p0 + s * pstride;
+      const float w = exp2f(__ldcg(ps + group * HD + gp) - M);
+      den = fmaf(__ldcg(ps + group * HD + group + gp), w, den);
+#pragma unroll
+      for (int e = 0; e < EPT / 2; ++e) {
+        const float2 a = __ldcg(reinterpret_cast<const float2*>(
+            ps + gp * HD + 2 * (tig + TPG * e)));
+        num[2 * e] = fmaf(a.x, w, num[2 * e]);
+        num[2 * e + 1] = fmaf(a.y, w, num[2 * e + 1]);
+      }
+    }
+    const float inv = 1.f / fmaxf(den, 1e-30f);
+#pragma unroll
+    for (int e = 0; e < EPT / 2; ++e) {
+      const int d = 2 * (tig + TPG * e);
+      if (d < hd)
+        store2(ob + gp * st.oh + d, num[2 * e] * inv, num[2 * e + 1] * inv);
     }
   }
-  float m[GMAX], l[GMAX], acc[GMAX][VEC];
-#pragma unroll
-  for (int g = 0; g < GMAX; ++g) {
-    m[g] = NEG_INF;
-    l[g] = 0.f;
-#pragma unroll
-    for (int e = 0; e < VEC; ++e) acc[g][e] = 0.f;
-  }
+  if (tid == 0) counters[row] = 0u;
+}
 
-  const uint8_t* vb = valid + b * valsb;
-  const T* kb = k + b * ksb + kvh * ksh + sl * VEC;
-  const T* vbase = v + b * vsb + kvh * vsh + sl * VEC;
-  for (int base = warp * KPW; base < L; base += NW * KPW) {
-    const int key = base + sub;
-    const bool live = key < L && vb[key] != 0;
-    float kf[VEC];
-    if (live) {
-      Vec<T>::load(kb + key * ksl, kf);
-    } else {
+// f32 on the CUDA cores.  (NT, 1): with NT alone ptxas kept 56-64
+// registers and spilled 4-8 bytes in two instantiations
+template <int HD, int GP>
+__global__ void __launch_bounds__(NT, 1)
+    decode_split_kernel(const float* __restrict__ q,
+                        const float* __restrict__ k,
+                        const float* __restrict__ v,
+                        const uint8_t* __restrict__ valid,
+                        float* __restrict__ o, float* __restrict__ part,
+                        unsigned* __restrict__ counters, int L, int hd,
+                        int group, int kps, St st, float scale_log2) {
+  using T = float;
+  constexpr int TK = tile_keys<HD>();
+  constexpr int VEC = 16 / sizeof(T);        // elements a 16-byte slice
+  constexpr int CPR = HD / VEC;              // slices a row
+  constexpr int LPK = CPR < 32 ? CPR : 32;   // lanes a key (scores)
+  constexpr int SPL = CPR / LPK;             // slices a lane
+  constexpr int KPW = 32 / LPK;              // keys a warp step
+  constexpr int TPG = NT / GP;               // threads a query head (P V)
+  constexpr int EPT = HD / TPG;              // head dims a thread
+  constexpr int RPW = GP / NW;               // softmax rows a warp
+  static_assert(TK * HD * (int)sizeof(T) == TILE_BYTES, "tile bytes");
+  static_assert(TK % (NW * KPW) == 0 && TK <= 64, "tile keys");
+  static_assert(EPT % 2 == 0 && RPW >= 1, "thread mapping");
+  constexpr int TILE_ELEMS = TILE_BYTES / sizeof(T);
+
+  extern __shared__ __align__(16) uint8_t smem[];
+  T* tiles = reinterpret_cast<T*>(smem);  // stage s: K at 2s, V at 2s+1
+  T* qs = reinterpret_cast<T*>(smem + 4 * TILE_BYTES);       // [GP][HD]
+  float* ss = reinterpret_cast<float*>(qs + GP * HD);        // [GP][TK+1]
+  float* alpha_s = ss + GP * (TK + 1);
+  float* m_s = alpha_s + GP;
+  float* l_s = m_s + GP;
+  uint8_t* flags = reinterpret_cast<uint8_t*>(l_s + GP);     // [kps]
+  __shared__ int last_s;
+
+  const int split = blockIdx.x, kvh = blockIdx.y, b = blockIdx.z;
+  const int nsplit = gridDim.x;
+  const int key0 = split * kps;
+  const int nkeys = min(kps, L - key0);
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+
+  // the group's q rows (zero past hd) by cp.async, the split's live flags
+  const T* qb = q + b * st.qb + (long long)kvh * group * st.qh;
+  for (int i = tid; i < group * CPR; i += NT) {
+    const int g = i / CPR, c = (i % CPR) * VEC;
+    const bool ok = c < hd;
+    cp_async16(smem_u32(qs + g * HD + c), ok ? qb + g * st.qh + c : qb, ok);
+  }
+  cp_async_commit();
+  const uint8_t* vb = valid + b * st.valb + key0;
+  for (int j0 = tid; j0 < nkeys; j0 += 4 * NT) {
+    uint8_t x[4];
 #pragma unroll
-      for (int e = 0; e < VEC; ++e) kf[e] = 0.f;
+    for (int u = 0; u < 4; ++u) {
+      const int j = j0 + u * NT;
+      x[u] = j < nkeys ? vb[j] : 0;
     }
-    float s[GMAX];
 #pragma unroll
-    for (int g = 0; g < GMAX; ++g) {
-      float part = 0.f;
-#pragma unroll
-      for (int e = 0; e < VEC; ++e) part = fmaf(qv[g][e], kf[e], part);
-#pragma unroll
-      for (int off = LPK / 2; off > 0; off >>= 1)
-        part += __shfl_xor_sync(0xffffffffu, part, off);
-      s[g] = part * scale;
+    for (int u = 0; u < 4; ++u)
+      if (j0 + u * NT < nkeys) flags[j0 + u * NT] = x[u];
+  }
+  __syncthreads();
+
+  const T* kb = k + b * st.kb + kvh * st.kh;
+  const T* vbase = v + b * st.vb + kvh * st.vh;
+  auto load_tile = [&](int t, int stage) {
+    const uint32_t kd = smem_u32(tiles + 2 * stage * TILE_ELEMS);
+    const uint32_t vd = kd + TILE_BYTES;
+#pragma unroll 1
+    for (int i = tid; i < TK * CPR; i += NT) {
+      const int r = i / CPR, c = (i % CPR) * VEC, j = t * TK + r;
+      const bool live = j < nkeys && flags[j] != 0 && c < hd;
+      const long long key = key0 + j;
+      cp_async16(kd + i * 16, live ? kb + key * st.kl + c : kb, live);
+      cp_async16(vd + i * 16, live ? vbase + key * st.vl + c : vbase, live);
     }
-    if (live) {
-      float vf[VEC];
-      Vec<T>::load(vbase + key * vsl, vf);
+  };
+
+  const int ntiles = (nkeys + TK - 1) / TK;
+  load_tile(0, 0);
+  cp_async_commit();
+
+  float mreg[RPW], lreg[RPW];
 #pragma unroll
-      for (int g = 0; g < GMAX; ++g) {
-        const float m_new = fmaxf(m[g], s[g]);
-        const float alpha = expf(m[g] - m_new);
-        const float p = expf(s[g] - m_new);
-        l[g] = l[g] * alpha + p;
+  for (int i = 0; i < RPW; ++i) {
+    mreg[i] = NEG_INF;
+    lreg[i] = 0.f;
+  }
+  const int gp = tid / TPG, tig = tid % TPG;  // P V: query head, lane
+  float acc[EPT];
 #pragma unroll
-        for (int e = 0; e < VEC; ++e) acc[g][e] = fmaf(p, vf[e], acc[g][e] * alpha);
-        m[g] = m_new;
+  for (int e = 0; e < EPT; ++e) acc[e] = 0.f;
+
+  for (int t = 0; t < ntiles; ++t) {
+    cp_async_wait<0>();
+    const int jt = t * TK + tid;
+    // tile t and q are in; every thread is done with tile t-1
+    const bool any =
+        __syncthreads_or(tid < TK && jt < nkeys && flags[jt] != 0);
+    if (t + 1 < ntiles) {
+      load_tile(t + 1, (t + 1) & 1);
+      cp_async_commit();
+    }
+    if (!any) continue;
+    const T* Kt = tiles + 2 * (t & 1) * TILE_ELEMS;
+    const T* Vt = Kt + TILE_ELEMS;
+
+    // scores: LPK lanes a key, each SPL 16-byte slices of the head dim
+#pragma unroll
+    for (int j0 = 0; j0 < TK; j0 += NW * KPW) {
+      const int jl = j0 + warp * KPW + lane / LPK;
+      const int sl = lane % LPK;
+      float part_s[GP];
+#pragma unroll
+      for (int g = 0; g < GP; ++g) part_s[g] = 0.f;
+#pragma unroll
+      for (int s = 0; s < SPL; ++s) {
+        const int c = (sl + s * LPK) * VEC;
+        float kf[VEC];
+        load_vec(Kt + jl * HD + c, kf);
+#pragma unroll
+        for (int g = 0; g < GP; ++g) {
+          if (g < group) {
+            float qf[VEC];
+            load_vec(qs + g * HD + c, qf);
+#pragma unroll
+            for (int e = 0; e < VEC; ++e)
+              part_s[g] = fmaf(qf[e], kf[e], part_s[g]);
+          }
+        }
+      }
+      const int j = t * TK + jl;
+      const bool live = j < nkeys && flags[j] != 0;
+#pragma unroll
+      for (int g = 0; g < GP; ++g) {
+        if (g < group) {
+#pragma unroll
+          for (int off = LPK / 2; off > 0; off >>= 1)
+            part_s[g] += __shfl_xor_sync(0xffffffffu, part_s[g], off);
+          if (sl == 0)
+            ss[g * (TK + 1) + jl] = live ? part_s[g] * scale_log2 : NEG_INF;
+        }
+      }
+    }
+    __syncthreads();
+
+    // online softmax, one warp a query head; dead keys get p = 0 exactly
+#pragma unroll
+    for (int i = 0; i < RPW; ++i) {
+      const int g = warp + NW * i;
+      if (g < group) {
+        float* row = ss + g * (TK + 1);
+        const float s0 = lane < TK ? row[lane] : NEG_INF;
+        const float s1 = lane + 32 < TK ? row[lane + 32] : NEG_INF;
+        float mx = fmaxf(s0, s1);
+#pragma unroll
+        for (int off = 16; off > 0; off >>= 1)
+          mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+        const float m_new = fmaxf(mreg[i], mx);
+        const float alpha = exp2f(mreg[i] - m_new);
+        const float p0 = s0 > 0.5f * NEG_INF ? exp2f(s0 - m_new) : 0.f;
+        const float p1 = s1 > 0.5f * NEG_INF ? exp2f(s1 - m_new) : 0.f;
+        float sum = p0 + p1;
+#pragma unroll
+        for (int off = 16; off > 0; off >>= 1)
+          sum += __shfl_xor_sync(0xffffffffu, sum, off);
+        lreg[i] = lreg[i] * alpha + sum;
+        mreg[i] = m_new;
+        if (lane < TK) row[lane] = p0;
+        if (lane + 32 < TK) row[lane + 32] = p1;
+        if (lane == 0) alpha_s[g] = alpha;
+      }
+    }
+    __syncthreads();
+
+    // P V: thread (gp, tig) owns head dims 2 (tig + TPG e) + {0, 1}
+    if (gp < group) {
+      const float a = alpha_s[gp];
+#pragma unroll
+      for (int e = 0; e < EPT; ++e) acc[e] *= a;
+      const float* prow = ss + gp * (TK + 1);
+#pragma unroll 4
+      for (int j = 0; j < TK; ++j) {
+        const float p = prow[j];
+#pragma unroll
+        for (int e = 0; e < EPT / 2; ++e) {
+          const float2 vv = load2(Vt + j * HD + 2 * (tig + TPG * e));
+          acc[2 * e] = fmaf(p, vv.x, acc[2 * e]);
+          acc[2 * e + 1] = fmaf(p, vv.y, acc[2 * e + 1]);
+        }
       }
     }
   }
 
-  // merge the KPW key-groups of this warp (lanes with equal sl)
+  if (lane == 0) {
 #pragma unroll
-  for (int off = LPK; off < 32; off <<= 1) {
-#pragma unroll
-    for (int g = 0; g < GMAX; ++g) {
-      const float mo = __shfl_xor_sync(0xffffffffu, m[g], off);
-      const float lo = __shfl_xor_sync(0xffffffffu, l[g], off);
-      const float mn = fmaxf(m[g], mo);
-      const float a = expf(m[g] - mn), ao = expf(mo - mn);
-      l[g] = l[g] * a + lo * ao;
-#pragma unroll
-      for (int e = 0; e < VEC; ++e) {
-        const float ac = __shfl_xor_sync(0xffffffffu, acc[g][e], off);
-        acc[g][e] = acc[g][e] * a + ac * ao;
+    for (int i = 0; i < RPW; ++i) {
+      const int g = warp + NW * i;
+      if (g < group) {
+        m_s[g] = mreg[i];
+        l_s[g] = lreg[i];
       }
-      m[g] = mn;
-    }
-  }
-  if (sub == 0) {
-#pragma unroll
-    for (int g = 0; g < GMAX; ++g) {
-      if (sl == 0) {
-        sm_m[warp][g] = m[g];
-        sm_l[warp][g] = l[g];
-      }
-#pragma unroll
-      for (int e = 0; e < VEC; ++e) sm_acc[warp][g][sl * VEC + e] = acc[g][e];
     }
   }
   __syncthreads();
 
-  // merge the warps: one output element per thread
-  for (int i = threadIdx.x; i < group * HD; i += NW * 32) {
-    const int g = i / HD, d = i % HD;
-    float mx = NEG_INF;
-#pragma unroll
-    for (int w = 0; w < NW; ++w) mx = fmaxf(mx, sm_m[w][g]);
-    float den = 0.f, num = 0.f;
-#pragma unroll
-    for (int w = 0; w < NW; ++w) {
-      const float a = expf(sm_m[w][g] - mx);
-      den = fmaf(sm_l[w][g], a, den);
-      num = fmaf(sm_acc[w][g][d], a, num);
-    }
-    o[b * osb + (kvh * group + g) * osh + d] =
-        from_f32<T>(num / fmaxf(den, 1e-30f));
-  }
+  finish_split<float, HD, GP>(acc, m_s, l_s, o, part, counters, group, hd,
+                              st, &last_s);
 }
 
-template <typename T, int HD, int GMAX>
-int launch(const void* q, const void* k, const void* v, const void* valid,
-           void* o, int B, int L, int H, int KV, const long long* st,
-           float scale, cudaStream_t stream) {
-  const dim3 grid(KV, B);
-  decode_kernel<T, HD, GMAX><<<grid, NW * 32, 0, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const uint8_t*>(valid),
-      static_cast<T*>(o), L, H / KV, st[0], st[1], st[2], st[3], st[4],
-      st[5], st[6], st[7], st[8], st[9], st[10], scale);
+// ---------------------------------------------------------------------------
+// bf16 on the tensor cores
+// ---------------------------------------------------------------------------
+
+using bf16 = __nv_bfloat16;
+constexpr int TC_TK = 64;  // keys a tile, 16 a warp
+
+// 1024 (alignment) + Q [16][HD] + two stages of (K, V) [TC_TK][HD] bf16;
+// after the walk the stages hold the warps' (m, l, O) and the merged O
+// [16][HD] in f32; then m, l [16] and the split's live flags
+template <int HD>
+size_t tc_smem_bytes(int kps) {
+  return 1024 + 16 * HD * 2 + 2 * 2 * TC_TK * HD * 2 + 2 * 16 * 4 +
+         ((kps + 15) & ~15);
+}
+
+__device__ __forceinline__ uint32_t align1024(void* p) {
+  return (smem_u32(p) + 1023u) & ~1023u;
+}
+
+// the query group as the 16 rows of mma.sync m16n8k16 (rows past the group
+// zero): each warp takes 16 keys of every 64-key tile, S = Q K^T and O +=
+// P V on its own keys with its own online softmax (P split into P_hi +
+// P_lo as the flash forward does), so no barrier is needed between the
+// products; the four warps' (m, l, O) merge through shared memory in warp
+// order at the end, then finish_split as the CUDA-core kernel
+template <int HD>
+__global__ void __launch_bounds__(NT, 1)
+    decode_split_kernel_tc(const bf16* __restrict__ q,
+                           const bf16* __restrict__ k,
+                           const bf16* __restrict__ v,
+                           const uint8_t* __restrict__ valid,
+                           bf16* __restrict__ o, float* __restrict__ part,
+                           unsigned* __restrict__ counters, int L, int hd,
+                           int group, int kps, St st, float scale_log2) {
+  constexpr int CPR = HD / 8;              // 16-byte chunks a row
+  constexpr uint32_t TILE = TC_TK * HD * 2;
+  constexpr int GP = 16;
+  constexpr int EPT = HD / (NT / GP);
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t base = align1024(smem_raw);
+  uint8_t* gbase = smem_raw + (base - smem_u32(smem_raw));
+  const uint32_t Qs = base;
+  const uint32_t Sg = Qs + 16 * HD * 2;  // stage s: K, V at Sg + 2 s TILE
+  float* stage_f = reinterpret_cast<float*>(gbase + 16 * HD * 2);
+  float* m_s = reinterpret_cast<float*>(gbase + 16 * HD * 2 + 4 * TILE);
+  float* l_s = m_s + 16;
+  uint8_t* flags = reinterpret_cast<uint8_t*>(l_s + 16);
+  __shared__ int last_s;
+
+  const int split = blockIdx.x, kvh = blockIdx.y, b = blockIdx.z;
+  const int key0 = split * kps;
+  const int nkeys = min(kps, L - key0);
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+
+  const bf16* qb = q + b * st.qb + (long long)kvh * group * st.qh;
+  for (int i = tid; i < 16 * CPR; i += NT) {
+    const int g = i / CPR, c = (i % CPR) * 8;
+    const bool ok = g < group && c < hd;
+    cp_async16(Qs + swz<16>(g, c), ok ? qb + g * st.qh + c : qb, ok);
+  }
+  cp_async_commit();
+  const uint8_t* vb = valid + b * st.valb + key0;
+  for (int j0 = tid; j0 < nkeys; j0 += 4 * NT) {
+    uint8_t x[4];
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const int j = j0 + u * NT;
+      x[u] = j < nkeys ? vb[j] : 0;
+    }
+#pragma unroll
+    for (int u = 0; u < 4; ++u)
+      if (j0 + u * NT < nkeys) flags[j0 + u * NT] = x[u];
+  }
+  __syncthreads();
+
+  const bf16* kb = k + b * st.kb + kvh * st.kh;
+  const bf16* vbase = v + b * st.vb + kvh * st.vh;
+  auto load_tile = [&](int t, int stage) {
+    const uint32_t kd = Sg + stage * 2 * TILE, vd = kd + TILE;
+#pragma unroll 1
+    for (int i = tid; i < TC_TK * CPR; i += NT) {
+      const int r = i / CPR, c = (i % CPR) * 8, j = t * TC_TK + r;
+      const bool live = j < nkeys && flags[j] != 0 && c < hd;
+      const long long key = key0 + j;
+      cp_async16(kd + swz<TC_TK>(r, c), live ? kb + key * st.kl + c : kb,
+                 live);
+      cp_async16(vd + swz<TC_TK>(r, c),
+                 live ? vbase + key * st.vl + c : vbase, live);
+    }
+  };
+
+  const int ntiles = (nkeys + TC_TK - 1) / TC_TK;
+  load_tile(0, 0);
+  cp_async_commit();
+
+  float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
+  float acc[HD / 8][4];
+#pragma unroll
+  for (int n = 0; n < HD / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+  const int k_w = 16 * warp;  // this warp's keys in a tile
+
+  for (int t = 0; t < ntiles; ++t) {
+    cp_async_wait<0>();
+    const int jt = t * TC_TK + tid;
+    // tile t and q are in; every warp is done with tile t-1
+    const bool any =
+        __syncthreads_or(tid < TC_TK && jt < nkeys && flags[jt] != 0);
+    if (t + 1 < ntiles) {
+      load_tile(t + 1, (t + 1) & 1);
+      cp_async_commit();
+    }
+    if (!any) continue;
+    const uint32_t Ks = Sg + (t & 1) * 2 * TILE, Vs = Ks + TILE;
+
+    float s[2][4];
+#pragma unroll
+    for (int n = 0; n < 2; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < HD / 16; ++kk) {
+      uint32_t af[4], bk[4];
+      frag_a<16>(af, Qs, 0, 16 * kk, lane);
+      frag_b_nk<TC_TK>(bk, Ks, k_w, 16 * kk, lane);
+      mma_bf16(s[0], af, bk);
+      mma_bf16(s[1], af, bk + 2);
+    }
+    float mx[2] = {NEG_INF, NEG_INF};
+#pragma unroll
+    for (int n = 0; n < 2; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int j = t * TC_TK + k_w + 8 * n + 2 * (lane & 3) + (e & 1);
+        const bool live = j < nkeys && flags[j] != 0;
+        s[n][e] = live ? s[n][e] * scale_log2 : NEG_INF;
+        mx[e >> 1] = fmaxf(mx[e >> 1], s[n][e]);
+      }
+    float alpha[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+      const float m_new = fmaxf(m[i], mx[i]);
+      alpha[i] = exp2f(m[i] - m_new);
+      m[i] = m_new;
+      l[i] *= alpha[i];
+    }
+    // P = P_hi + P_lo as the A fragment of one k16 step over the 16 keys
+    uint32_t p_hi[4], p_lo[4];
+#pragma unroll
+    for (int n = 0; n < 2; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; e += 2) {
+        const int i = e >> 1;
+        const float p0 = s[n][e] > 0.5f * NEG_INF ? exp2f(s[n][e] - m[i]) : 0.f;
+        const float p1 =
+            s[n][e + 1] > 0.5f * NEG_INF ? exp2f(s[n][e + 1] - m[i]) : 0.f;
+        l[i] += p0 + p1;
+        const __nv_bfloat162 hi = __floats2bfloat162_rn(p0, p1);
+        p_hi[2 * n + i] = *reinterpret_cast<const uint32_t*>(&hi);
+        p_lo[2 * n + i] =
+            pack_bf16(p0 - __low2float(hi), p1 - __high2float(hi));
+      }
+#pragma unroll
+    for (int n = 0; n < HD / 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[n][e] *= alpha[e >> 1];
+#pragma unroll
+    for (int np = 0; np < HD / 16; ++np) {
+      uint32_t bv[4];
+      frag_b_kn<TC_TK>(bv, Vs, 16 * np, k_w, lane);
+      mma_bf16(acc[2 * np], p_hi, bv);
+      mma_bf16(acc[2 * np], p_lo, bv);
+      mma_bf16(acc[2 * np + 1], p_hi, bv + 2);
+      mma_bf16(acc[2 * np + 1], p_lo, bv + 2);
+    }
+  }
+
+  // merge the warps' states in warp order: warps 1-3 hand theirs over in
+  // fragment order, warp 0 merges and lays O out as [16][HD] f32
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
+  }
+  cp_async_wait<0>();
+  __syncthreads();  // the stages are free
+  float* xo = stage_f;                     // [3][HD/8][4][32]
+  float* xm = xo + 3 * (HD / 8) * 4 * 32;  // [3][2][2][32]
+  float* fo = xm + 3 * 2 * 2 * 32;         // [16][HD]
+  if (warp > 0) {
+    const int w = warp - 1;
+#pragma unroll
+    for (int n = 0; n < HD / 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        xo[((w * (HD / 8) + n) * 4 + e) * 32 + lane] = acc[n][e];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      xm[((w * 2 + i) * 2) * 32 + lane] = m[i];
+      xm[((w * 2 + i) * 2 + 1) * 32 + lane] = l[i];
+    }
+  }
+  __syncthreads();
+  if (warp == 0) {
+    float mm[2] = {m[0], m[1]}, den[2];
+#pragma unroll
+    for (int w = 0; w < 3; ++w)
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+        mm[i] = fmaxf(mm[i], xm[((w * 2 + i) * 2) * 32 + lane]);
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const float a0 = exp2f(m[i] - mm[i]);
+      den[i] = l[i] * a0;
+#pragma unroll
+      for (int n = 0; n < HD / 8; ++n) {
+        acc[n][2 * i] *= a0;
+        acc[n][2 * i + 1] *= a0;
+      }
+    }
+#pragma unroll
+    for (int w = 0; w < 3; ++w) {
+      float a[2];
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        a[i] = exp2f(xm[((w * 2 + i) * 2) * 32 + lane] - mm[i]);
+        den[i] = fmaf(xm[((w * 2 + i) * 2 + 1) * 32 + lane], a[i], den[i]);
+      }
+#pragma unroll
+      for (int n = 0; n < HD / 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          acc[n][e] = fmaf(xo[((w * (HD / 8) + n) * 4 + e) * 32 + lane],
+                           a[e >> 1], acc[n][e]);
+    }
+#pragma unroll
+    for (int n = 0; n < HD / 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        fo[((lane >> 2) + 8 * (e >> 1)) * HD + 8 * n + 2 * (lane & 3) +
+           (e & 1)] = acc[n][e];
+    if ((lane & 3) == 0) {
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        m_s[(lane >> 2) + 8 * i] = mm[i];
+        l_s[(lane >> 2) + 8 * i] = den[i];
+      }
+    }
+  }
+  __syncthreads();
+  const int gp = tid / (NT / GP), tig = tid % (NT / GP);
+  float mine[EPT];
+#pragma unroll
+  for (int e = 0; e < EPT / 2; ++e) {
+    const float2 x = load2(fo + gp * HD + 2 * (tig + (NT / GP) * e));
+    mine[2 * e] = x.x;
+    mine[2 * e + 1] = x.y;
+  }
+  finish_split<bf16, HD, GP>(mine, m_s, l_s, o, part, counters, group, hd,
+                             st, &last_s);
+}
+
+template <typename K>
+int allow_smem(K kern, size_t bytes) {
+  if (bytes <= 48 * 1024) return 0;
+  return (int)cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+}
+
+int check_plan(int L, int kps, int nsplit, int tile, const void* part,
+               const void* counters) {
+  if (kps <= 0 || kps % tile || nsplit != (L + kps - 1) / kps ||
+      (nsplit > 1 && (part == nullptr || counters == nullptr)))
+    return (int)cudaErrorInvalidValue;
+  return 0;
+}
+
+template <int HD, int GP>
+int launch_f32(const void* q, const void* k, const void* v,
+               const void* valid, void* o, void* part, void* counters, int B,
+               int L, int KV, int hd, int group, int kps, int nsplit,
+               const St& st, float scale_log2, cudaStream_t stream) {
+  int err = check_plan(L, kps, nsplit, tile_keys<HD>(), part, counters);
+  if (err) return err;
+  auto kern = decode_split_kernel<HD, GP>;
+  const size_t smem = smem_bytes<HD, GP>(kps);
+  if ((err = allow_smem(kern, smem))) return err;
+  kern<<<dim3(nsplit, KV, B), NT, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<const uint8_t*>(valid),
+      static_cast<float*>(o), static_cast<float*>(part),
+      static_cast<unsigned*>(counters), L, hd, group, kps, st, scale_log2);
   return (int)cudaGetLastError();
 }
 
-template <typename T, int HD>
-int dispatch_group(const void* q, const void* k, const void* v,
-                   const void* valid, void* o, int B, int L, int H, int KV,
-                   const long long* st, float scale, cudaStream_t stream) {
-  const int group = H / KV;
-  if (group <= 4)
-    return launch<T, HD, 4>(q, k, v, valid, o, B, L, H, KV, st, scale,
-                            stream);
-  if (group <= 8)
-    return launch<T, HD, 8>(q, k, v, valid, o, B, L, H, KV, st, scale,
-                            stream);
+template <int HD>
+int launch_tc(const void* q, const void* k, const void* v,
+              const void* valid, void* o, void* part, void* counters, int B,
+              int L, int KV, int hd, int group, int kps, int nsplit,
+              const St& st, float scale_log2, cudaStream_t stream) {
+  int err = check_plan(L, kps, nsplit, TC_TK, part, counters);
+  if (err) return err;
+  auto kern = decode_split_kernel_tc<HD>;
+  const size_t smem = tc_smem_bytes<HD>(kps);
+  if ((err = allow_smem(kern, smem))) return err;
+  kern<<<dim3(nsplit, KV, B), NT, smem, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+      static_cast<const bf16*>(v), static_cast<const uint8_t*>(valid),
+      static_cast<bf16*>(o), static_cast<float*>(part),
+      static_cast<unsigned*>(counters), L, hd, group, kps, st, scale_log2);
+  return (int)cudaGetLastError();
+}
+
+template <typename F>
+int with_hd(int hd, F&& f) {
+  if (hd <= 64) return f(std::integral_constant<int, 64>{});
+  if (hd <= 128) return f(std::integral_constant<int, 128>{});
+  if (hd <= 256) return f(std::integral_constant<int, 256>{});
   return (int)cudaErrorInvalidValue;
 }
 
-template <typename T>
-int dispatch_hd(const void* q, const void* k, const void* v,
-                const void* valid, void* o, int B, int L, int H, int KV,
-                int hd, const long long* st, float scale,
-                cudaStream_t stream) {
-  switch (hd) {
-    case 64:
-      return dispatch_group<T, 64>(q, k, v, valid, o, B, L, H, KV, st,
-                                   scale, stream);
-    case 128:
-      return dispatch_group<T, 128>(q, k, v, valid, o, B, L, H, KV, st,
-                                    scale, stream);
-  }
+template <typename F>
+int with_group(int group, F&& f) {
+  if (group <= 4) return f(std::integral_constant<int, 4>{});
+  if (group <= 8) return f(std::integral_constant<int, 8>{});
+  if (group <= 16) return f(std::integral_constant<int, 16>{});
   return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
 
 // strides in elements: q (b, h), k (b, l, h), v (b, l, h), valid (b),
-// o (b, h); the head dim is contiguous, valid is uint8.
+// o (b, h); the head dim is contiguous, valid is uint8 with a contiguous
+// slot axis.  keys_per_split and nsplit come from the wrapper's plan
+// (keys_per_split a multiple of the tile); with nsplit > 1, part is f32
+// scratch of B * KV * nsplit * group * (hd_tile + 2) and counters B * KV
+// zeroed unsigned ints (the kernel leaves them 0).
 extern "C" int decode_attention_fwd(
     const void* q, const void* k, const void* v, const void* valid, void* o,
-    int dtype, int B, int L, int H, int KV, int hd, long long qsb,
-    long long qsh, long long ksb, long long ksl, long long ksh,
-    long long vsb, long long vsl, long long vsh, long long valsb,
-    long long osb, long long osh, float scale, void* stream) {
-  const long long st[11] = {qsb, qsh, ksb, ksl, ksh, vsb,
-                            vsl, vsh, valsb, osb, osh};
+    void* part, void* counters, int dtype, int B, int L, int H, int KV,
+    int hd, int keys_per_split, int nsplit, long long qsb, long long qsh,
+    long long ksb, long long ksl, long long ksh, long long vsb,
+    long long vsl, long long vsh, long long valsb, long long osb,
+    long long osh, float scale, void* stream) {
+  if (KV <= 0 || H % KV) return (int)cudaErrorInvalidValue;
+  const St st{qsb, qsh, ksb, ksl, ksh, vsb, vsl, vsh, valsb, osb, osh};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (dtype) {
-    case kF32:
-      return dispatch_hd<float>(q, k, v, valid, o, B, L, H, KV, hd, st,
-                                scale, s);
-    case kBF16:
-      return dispatch_hd<__nv_bfloat16>(q, k, v, valid, o, B, L, H, KV, hd,
-                                        st, scale, s);
-  }
-  return (int)cudaErrorInvalidValue;
+  const int group = H / KV;
+  const float sl = scale * LOG2E;
+  if (group > 16) return (int)cudaErrorInvalidValue;
+  if (dtype == kBF16)
+    return with_hd(hd, [&](auto hdc) {
+      constexpr int HD = decltype(hdc)::value;
+      return launch_tc<HD>(q, k, v, valid, o, part, counters, B, L, KV, hd,
+                           group, keys_per_split, nsplit, st, sl, s);
+    });
+  if (dtype != kF32) return (int)cudaErrorInvalidValue;
+  return with_hd(hd, [&](auto hdc) {
+    constexpr int HD = decltype(hdc)::value;
+    return with_group(group, [&](auto gc) {
+      constexpr int GP = decltype(gc)::value;
+      return launch_f32<HD, GP>(q, k, v, valid, o, part, counters, B, L, KV,
+                                hd, group, keys_per_split, nsplit, st, sl, s);
+    });
+  });
 }

@@ -3,10 +3,16 @@
 Replaces the Pallas TPU kernel ``repro/kernels/decode_attention.py``
 (``decode_attention``, ``pallas_call`` at :102): GQA attention of one
 query token per row over a ring / paged-view KV cache masked by ``valid``.
-Bound on the H100: bytes (the live K and V rows, read once).  One block
-per (kv head, batch row) serves the whole query group, so each K/V row is
-read once whatever the GQA ratio; warps split the cache length and merge
-their online-softmax states through shared memory.  Its plain version is
+Bound on the H100: bytes (the live K and V rows, read once); what held the
+first design back was latency, one serial walk of the ring per (batch row,
+kv head).  The kernel splits the ring (flash-decoding): a grid of (split,
+kv head, batch row) blocks, each serving the whole query group over a
+fixed range of slots and writing a partial (m, l, acc) in f32; the last
+block of each (batch row, kv head) merges the partials in split order.
+:func:`plan` picks the split from (L, hd, dtype) alone, so a row's bits
+do not depend on the batch.  bf16 runs on the tensor cores (``mma.sync``,
+the query group as the 16 rows of the product), f32 on the CUDA cores;
+both take q, k, v with 16-byte aligned rows.  Its plain version is
 ``ref.attention_decode``.
 """
 from __future__ import annotations
@@ -21,15 +27,55 @@ from .flash_attention import ELEM
 NAME = "decode_attention"
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 SIGNATURES = {"decode_attention_fwd":
-              [_P] * 5 + [_I] * 6 + [_LL] * 11 + [ctypes.c_float, _P]}
-HEAD_DIMS = (64, 128)
-MAX_GROUP = 8
+              [_P] * 7 + [_I] * 8 + [_LL] * 11 + [ctypes.c_float, _P]}
+HEAD_DIMS = (16, 32, 64, 128, 256)
+MAX_GROUP = 16
+TILE_BYTES = 8192           # f32: one K (or V) tile in shared memory
+TC_TILE = 64                # bf16: keys a tile, 16 a warp
+MIN_KEYS_PER_SPLIT = 128
+MAX_SPLITS = 64
+
+# per (device, stream): split counters of the decode and chunked-prefill
+# kernels, zero between launches (the merging block resets its own); grown
+# on demand.  One stream runs one launch at a time, so they share them.
+_counters: dict[tuple[int, int], torch.Tensor] = {}
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def plan(L: int, hd: int, dtype: torch.dtype) -> dict:
+    """The split of an L-slot ring, a pure function of (L, hd, dtype),
+    never of B or of the mask: ``hd_tile`` (the padded head dim),
+    ``tile`` (keys a shared-memory tile: 64 in bf16, 8 KB of K in f32),
+    ``keys_per_split``
+    (at least 128, a multiple of the tile; more only past 64 splits) and
+    ``splits`` = ceil(L / keys_per_split)."""
+    t = 64 if hd <= 64 else 128 if hd <= 128 else 256
+    tile = TILE_BYTES // (t * 4) if dtype == torch.float32 else TC_TILE
+    kps = max(MIN_KEYS_PER_SPLIT, _cdiv(L, MAX_SPLITS))
+    kps = _cdiv(kps, tile) * tile
+    return dict(hd_tile=t, tile=tile, keys_per_split=kps,
+                splits=_cdiv(L, kps), threads=128)
+
+
+def split_counters(device: torch.device, n: int) -> torch.Tensor:
+    """At least n zeroed int32 counters for the current stream of
+    ``device``."""
+    key = (device.index, torch.cuda.current_stream(device).cuda_stream)
+    c = _counters.get(key)
+    if c is None or c.numel() < n:
+        c = torch.zeros(max(n, 64), dtype=torch.int32, device=device)
+        _counters[key] = c
+    return c
 
 
 def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      valid: torch.Tensor) -> torch.Tensor:
     """q: (B, 1, H, hd); k, v: (B, L, KV, hd); valid: (L,) or (B, L) bool,
-    at least one live slot per row -> (B, 1, H, hd) in q's dtype."""
+    hd in ``HEAD_DIMS``, H / KV at most ``MAX_GROUP`` -> (B, 1, H, hd) in
+    q's dtype (a row with no live slot gives 0)."""
     if q.device.type != "cuda":
         raise ValueError(f"{NAME}: CUDA tensors only, got {q.device}")
     if not (q.device == k.device == v.device == valid.device):
@@ -53,13 +99,28 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                              "16-byte aligned")
     if valid.shape not in ((L,), (B, L)):
         raise ValueError(f"{NAME}: valid {tuple(valid.shape)} vs L={L}")
-    live = valid.to(torch.uint8).expand(B, L).contiguous()
+    if valid.dtype != torch.bool:
+        valid = valid != 0
+    if L > 1 and valid.stride(-1) != 1:
+        valid = valid.contiguous()
+    live = valid.view(torch.uint8).expand(B, L)   # a bool mask: no copy
     o = torch.empty((B, 1, H, hd), dtype=q.dtype, device=q.device)
+    if o.numel() == 0 or L == 0:
+        return o.zero_()
+    p = plan(L, hd, q.dtype)
+    n = p["splits"]
+    part, counters = None, None
+    if n > 1:
+        part = torch.empty(B * KV * n * (H // KV) * (p["hd_tile"] + 2),
+                           dtype=torch.float32, device=q.device)
+        counters = split_counters(q.device, B * KV)
     lib = _build.load(NAME, SIGNATURES)
     with torch.cuda.device(q.device):
         rc = lib.decode_attention_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), live.data_ptr(),
-            o.data_ptr(), ELEM[q.dtype], B, L, H, KV, hd,
+            o.data_ptr(), None if part is None else part.data_ptr(),
+            None if counters is None else counters.data_ptr(),
+            ELEM[q.dtype], B, L, H, KV, hd, p["keys_per_split"], n,
             q.stride(0), q.stride(2), *k.stride()[:3], *v.stride()[:3],
             live.stride(0), o.stride(0), o.stride(2), hd ** -0.5,
             torch.cuda.current_stream(q.device).cuda_stream)

@@ -18,13 +18,15 @@ from .flash_attention import FlashAttention
 from .moe_matmul import moe_grouped_ffn as _moe_grouped_ffn
 from .page_gather import page_gather as _page_gather
 from .page_gather import prefill_page_attention as _prefill_page_attention
+from .page_gather import prefill_page_attention_paged as _prefill_paged
 from .rglru_scan import RGLRUScan
 from .ring_gather import ring_gather as _ring_gather
 from .rwkv6_scan import RWKV6Scan
 
 __all__ = ["attention", "attention_decode", "moe_grouped_ffn", "page_gather",
-           "prefill_page_attention", "rglru", "ring_gather", "rwkv6",
-           "rwkv6_stateful", "launches", "reset_launches", "CHUNK_THRESHOLD"]
+           "prefill_page_attention", "prefill_page_attention_paged", "rglru",
+           "ring_gather", "rwkv6", "rwkv6_stateful", "launches",
+           "reset_launches", "CHUNK_THRESHOLD"]
 
 # on the CPU, sequences at or above this length take the blockwise path
 # (bounded score-matrix memory), as in repro.kernels.ops
@@ -81,6 +83,25 @@ def prefill_page_attention(q: torch.Tensor, k_ctx: torch.Tensor,
                                        ctx_pos, q_pos, window=window)
     return ref.prefill_page_attention(q, k_ctx, v_ctx, k_new, v_new,
                                       ctx_pos, q_pos, window=window)
+
+
+def prefill_page_attention_paged(q: torch.Tensor, k_pool: torch.Tensor,
+                                 v_pool: torch.Tensor,
+                                 page_table: torch.Tensor,
+                                 k_new: torch.Tensor, v_new: torch.Tensor,
+                                 ctx_pos: torch.Tensor, q_pos: torch.Tensor,
+                                 window: int = 0) -> torch.Tensor:
+    """One prompt chunk (B, C, H, hd) against its ring context read through
+    the page table (B, n_pp) from the pools (P, page, KV, hd), and its own
+    keys: on the card one kernel reading the pages in place, on the CPU
+    ``page_gather`` of both pools and ``prefill_page_attention``."""
+    if _on_cuda(q):
+        return _prefill_paged(q, k_pool, v_pool, page_table, k_new, v_new,
+                              ctx_pos, q_pos, window=window)
+    return ref.prefill_page_attention(
+        q, ref.page_gather(k_pool, page_table),
+        ref.page_gather(v_pool, page_table), k_new, v_new, ctx_pos, q_pos,
+        window=window)
 
 
 def ring_gather(hist: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:

@@ -164,12 +164,12 @@ def attention_prefill_paged(params: dict, x: torch.Tensor, cache: dict,
     cache: {"pk", "pv": (P, page, KV, hd) pools, "pt": (1, n_pp) page-table
     row of the slot being prefilled}; pos: ``chunk_positions`` of this
     chunk and row, made here when not given.  Prior chunks' K/V are read
-    through the page table (gathered *before* the chunk's own K/V are
-    scattered in, so a windowed ring that wraps within this chunk still
-    sees the pre-wrap entries it legitimately covers: ``page_gather``
-    copies them out ahead of the in-place scatter on the same stream),
-    masked by absolute position exactly like a full-sequence causal
-    prefill.  C must not exceed the ring length L (the serve engine caps
+    through the page table in place (on the card one kernel reads the
+    pools, on the CPU ``page_gather`` copies them), *before* the chunk's
+    own K/V are scattered in: the scatter follows on the same stream, so a
+    windowed ring that wraps within this chunk still sees the pre-wrap
+    entries it legitimately covers.  Keys are masked by absolute position
+    exactly like a full-sequence causal prefill.  C must not exceed the ring length L (the serve engine caps
     the chunk at the smallest page-class L so scatter slots are unique).
     The chunk's K/V are written into the pools in place; returns
     (out (1, C, d), cache).
@@ -183,11 +183,10 @@ def attention_prefill_paged(params: dict, x: torch.Tensor, cache: dict,
     q = apply_rope(q, q_pos, theta)
     k_new = apply_rope(k_new, q_pos, theta)
 
-    k_ctx = kops.page_gather(pk, pt)                            # (1, L, KV, hd)
-    v_ctx = kops.page_gather(pv, pt)
     window = cfg.window if kind in ("local", "swa") else 0
-    out = kops.prefill_page_attention(q, k_ctx, v_ctx, k_new, v_new,
-                                      pos["ctx_pos"], q_pos, window=window)
+    out = kops.prefill_page_attention_paged(q, pk, pv, pt, k_new, v_new,
+                                            pos["ctx_pos"], q_pos,
+                                            window=window)
 
     pk.index_put_((pos["phys"], pos["off"]), k_new[0].to(pk.dtype))
     pv.index_put_((pos["phys"], pos["off"]), v_new[0].to(pv.dtype))

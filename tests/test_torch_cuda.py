@@ -36,7 +36,7 @@ from repro_torch.kernels.flash_attention import (  # noqa: E402
     FlashAttention, flash_attention, flash_attention_bwd, kernel_smem, plan)
 from repro_torch.kernels.moe_matmul import moe_grouped_ffn  # noqa: E402
 from repro_torch.kernels.page_gather import (  # noqa: E402
-    page_gather, prefill_page_attention)
+    page_gather, prefill_page_attention, prefill_page_attention_paged)
 from repro_torch.kernels.rglru_scan import (  # noqa: E402
     RGLRUScan, rglru_scan, rglru_scan_bwd)
 from repro_torch.kernels.ring_gather import ring_gather  # noqa: E402
@@ -116,9 +116,12 @@ def test_flash_attention_rejects_cross_lengths(gen):
 
 @pytest.mark.parametrize("B,L,H,KV,hd", [
     (3, 40, 4, 2, 64),
-    (8, 544, 32, 8, 64),   # the serving shape of llama3.2-1b
+    (8, 544, 32, 8, 64),   # the serving shape of llama3.2-1b: 5 splits
     (2, 100, 15, 5, 64),   # smollm-360m heads: group 3
-    (2, 77, 16, 2, 128),   # group 8, widest head
+    (2, 77, 16, 2, 128),   # group 8
+    (2, 700, 10, 1, 256),  # recurrentgemma-2b's local heads: 6 splits
+    (3, 300, 4, 1, 16),    # its smoke config: head dim padded to 64
+    (2, 130, 16, 1, 32),   # group 16, a one-slot last split
 ])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_decode_attention(gen, B, L, H, KV, hd, dtype):
@@ -136,6 +139,59 @@ def test_decode_attention(gen, B, L, H, KV, hd, dtype):
     torch.testing.assert_close(decode_attention(q, k, v, shared).float(),
                                ref.attention_decode(q, k, v, shared).float(),
                                **TOL[dtype])
+
+
+@pytest.mark.parametrize("L,H,KV,hd", [(544, 32, 8, 64), (2048, 10, 1, 256),
+                                       (1024, 32, 8, 128)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_attention_is_batch_invariant(gen, L, H, KV, hd, dtype):
+    """Each row of a batch of 8 gives the bits it gives alone, and two
+    calls give the same bits: the split comes from (L, hd, dtype) alone and
+    the partials merge in split order, whichever block comes last."""
+    B = 8
+    q = _randn(gen, (B, 1, H, hd), dtype)
+    k = _randn(gen, (B, L, KV, hd), dtype)
+    v = _randn(gen, (B, L, KV, hd), dtype)
+    n_live = torch.randint(1, L + 1, (B,), generator=gen, device="cuda")
+    valid = torch.arange(L, device="cuda")[None, :] < n_live[:, None]
+    got = decode_attention(q, k, v, valid)
+    assert torch.equal(got, decode_attention(q, k, v, valid))
+    for b in range(B):
+        one = decode_attention(q[b:b + 1], k[b:b + 1], v[b:b + 1],
+                               valid[b:b + 1])
+        assert torch.equal(one, got[b:b + 1]), b
+
+
+def test_decode_attention_dead_splits_merge_to_nothing(gen):
+    """Live slots in one split of five only, or in none: finite, and a row
+    with no live slot writes 0."""
+    B, L, H, KV, hd = 3, 544, 8, 2, 64
+    q = _randn(gen, (B, 1, H, hd), torch.bfloat16)
+    k = _randn(gen, (B, L, KV, hd), torch.bfloat16)
+    v = _randn(gen, (B, L, KV, hd), torch.bfloat16)
+    valid = torch.zeros((B, L), dtype=torch.bool, device="cuda")
+    valid[0, 300:310] = True
+    valid[1, L - 1] = True
+    got = decode_attention(q, k, v, valid)
+    torch.testing.assert_close(got[:2].float(), ref.attention_decode(
+        q[:2], k[:2], v[:2], valid[:2]).float(), **TOL[torch.bfloat16])
+    assert torch.equal(got[2], torch.zeros_like(got[2]))
+
+
+def test_decode_attention_refuses(gen):
+    q = _randn(gen, (1, 1, 17, 64), torch.float32)
+    k = _randn(gen, (1, 8, 1, 64), torch.float32)
+    valid = torch.ones((8,), dtype=torch.bool, device="cuda")
+    with pytest.raises(ValueError, match="group 17"):
+        decode_attention(q, k, k, valid)
+    q = _randn(gen, (1, 1, 4, 48), torch.float32)
+    k = _randn(gen, (1, 8, 1, 48), torch.float32)
+    with pytest.raises(ValueError, match="head dim 48"):
+        decode_attention(q, k, k, valid)
+    q = _randn(gen, (1, 1, 4, 64), torch.bfloat16)
+    k = _randn(gen, (1, 8, 1, 65), torch.bfloat16)[..., 1:]
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        decode_attention(q, k, k, valid)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -159,8 +215,8 @@ def test_ops_route_by_device_and_count_launches(gen):
     ops.attention_decode(q[:, :1].detach(), k.detach(), k.detach(),
                          torch.ones((16,), dtype=torch.bool, device="cuda"))
     ops.ring_gather(hist, torch.tensor(1, dtype=torch.int32, device="cuda"))
-    ops.prefill_page_attention(*_chunk_inputs(gen, 1, 8, 16, 4, 2, 64, 5,
-                                              torch.bfloat16))
+    ops.prefill_page_attention_paged(*_paged_inputs(
+        gen, 1, 8, 4, 4, 4, 2, 64, 5, torch.bfloat16))
     ops.moe_grouped_ffn(*_moe_inputs(gen, 1, 8, 4, 4, 64, 96,
                                      torch.bfloat16))
     wkv = [t.requires_grad_() for t in _wkv_inputs(gen, 1, 9, 2, 16,
@@ -429,6 +485,24 @@ def _chunk_inputs(gen, B, C, L, H, KV, hd, start, dtype):
     return q, k_ctx, v_ctx, k_new, v_new, ctx_pos, q_pos
 
 
+def _paged_inputs(gen, B, C, n_pp, page, H, KV, hd, start, dtype):
+    """The same chunk with its ring in pools of B * n_pp + 3 pages under a
+    shuffled table: (q, k_pool, v_pool, table, k_new, v_new, ctx_pos,
+    q_pos)."""
+    L = n_pp * page
+    q, k_ctx, v_ctx, k_new, v_new, ctx_pos, q_pos = _chunk_inputs(
+        gen, B, C, L, H, KV, hd, start, dtype)
+    P = B * n_pp + 3
+    table = torch.randperm(P, generator=gen, device="cuda")[:B * n_pp]
+    table = table.reshape(B, n_pp).to(torch.int32)
+    pools = []
+    for ctx in (k_ctx, v_ctx):
+        pool = _randn(gen, (P, page, KV, hd), dtype)
+        pool[table.long()] = ctx.reshape(B, n_pp, page, KV, hd)
+        pools.append(pool)
+    return (q, pools[0], pools[1], table, k_new, v_new, ctx_pos, q_pos)
+
+
 # chip_smoke.py's cases at llama3.2-1b's heads (C, L, start, window, dtype):
 # an empty ring, dead slots, a wrapped ring, windows, one f32 case
 PREFILL_CASES = [
@@ -470,6 +544,34 @@ def test_prefill_page_attention(gen, B, C, L, H, KV, hd, start, window,
     torch.testing.assert_close(got.float(), want.float(), **TOL[dtype])
 
 
+@pytest.mark.parametrize("B,C,n_pp,page,H,KV,hd,start,window", [
+    (1, 128, 34, 16, 32, 8, 64, 256, 0),      # the chunked serving shape
+    (1, 128, 34, 16, 32, 8, 128, 900, 0),     # mixtral's heads, wrapped
+    (1, 128, 128, 16, 10, 1, 256, 2200, 2048),  # recurrentgemma-2b's local
+    (2, 24, 5, 8, 4, 1, 16, 70, 16),          # its smoke config, wrapped
+    (2, 33, 4, 16, 16, 2, 128, 100, 0),       # group 8, ragged tiles
+])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_prefill_page_attention_paged(gen, B, C, n_pp, page, H, KV, hd,
+                                      start, window, dtype):
+    """Pages read in place under a shuffled table against the plain
+    version over ``ref.page_gather``; the gathered form (one page of L
+    slots a row) gives the same bits."""
+    ins = _paged_inputs(gen, B, C, n_pp, page, H, KV, hd, start, dtype)
+    q, pk, pv, table, k_new, v_new, ctx_pos, q_pos = ins
+    got = prefill_page_attention_paged(*ins, window=window)
+    want = ref.prefill_page_attention(
+        q, ref.page_gather(pk, table), ref.page_gather(pv, table), k_new,
+        v_new, ctx_pos, q_pos, window=window)
+    tol = TOL[dtype] if dtype == torch.bfloat16 else \
+        dict(rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(got.float(), want.float(), **tol)
+    view = prefill_page_attention(q, page_gather(pk, table),
+                                  page_gather(pv, table), k_new, v_new,
+                                  ctx_pos, q_pos, window=window)
+    assert torch.equal(got, view)
+
+
 def test_prefill_page_attention_dead_rows_write_zero(gen):
     """A row with no live key writes 0, not NaN (denominator clamp)."""
     q, k_ctx, v_ctx, k_new, v_new, ctx_pos, q_pos = _chunk_inputs(
@@ -496,6 +598,23 @@ def test_prefill_page_attention_refuses(gen):
     bad[5] = bad[5].long()
     with pytest.raises(ValueError, match="ctx_pos"):
         prefill_page_attention(*bad)
+    paged = list(_paged_inputs(gen, 1, 8, 4, 4, 4, 2, 64, 5,
+                               torch.bfloat16))
+    bad = list(paged)
+    bad[3] = bad[3].long()
+    with pytest.raises(ValueError, match="page_table"):
+        prefill_page_attention_paged(*bad)
+    bad = list(paged)
+    bad[0] = _randn(gen, (1, 8, 4, 72), torch.bfloat16)[..., 4:68]
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        prefill_page_attention_paged(*bad)
+    bad = list(paged)
+    big = _randn(gen, (9, 4, 2, 264), torch.bfloat16)
+    bad[0] = _randn(gen, (1, 8, 4, 264), torch.bfloat16)
+    bad[1] = bad[2] = big
+    bad[4] = bad[5] = _randn(gen, (1, 8, 2, 264), torch.bfloat16)
+    with pytest.raises(ValueError, match="head dim 264"):
+        prefill_page_attention_paged(*bad)
 
 
 def test_prefill_page_attention_is_deterministic(gen):
@@ -503,6 +622,27 @@ def test_prefill_page_attention_is_deterministic(gen):
     a = prefill_page_attention(*ins, window=128)
     b = prefill_page_attention(*ins, window=128)
     assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("C,n_pp,H,KV,hd,start,window", [
+    (64, 8, 32, 8, 64, 100, 96),
+    (128, 128, 10, 1, 256, 2200, 2048),   # bf16: keys split over 3 blocks
+])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_prefill_page_attention_is_batch_invariant(gen, C, n_pp, H, KV, hd,
+                                                   start, window, dtype):
+    """A batch row alone gives the bits it gives inside a batch of 3, and
+    two calls give the same bits (the key split merges in split order,
+    whichever block comes last)."""
+    ins = _paged_inputs(gen, 3, C, n_pp, 16, H, KV, hd, start, dtype)
+    got = prefill_page_attention_paged(*ins, window=window)
+    assert torch.equal(got, prefill_page_attention_paged(*ins,
+                                                         window=window))
+    for b in range(3):
+        one = [t[b:b + 1] for t in ins]
+        one[1], one[2] = ins[1], ins[2]        # the pools are shared
+        assert torch.equal(prefill_page_attention_paged(*one, window=window),
+                           got[b:b + 1])
 
 
 # ---------------------------------------------------------------------------
