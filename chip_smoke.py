@@ -749,8 +749,9 @@ def check_moe_grouped_ffn(torch, F, ref, gen):
     PyTorch call computes the grouped FFN.  Only the small tensors are
     rotated past the L2 cache: the 2.8 GB of expert weights exceed it."""
     from repro_torch.configs import get_config
-    from repro_torch.kernels.moe_matmul import moe_grouped_ffn
+    from repro_torch.kernels.moe_matmul import moe_grouped_ffn, plan
     cfg = get_config("mixtral-8x7b")
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
     E, d, f, bf = cfg.n_experts, cfg.d_model, cfg.d_ff, torch.bfloat16
 
     def weight(shape, fan_in):
@@ -788,8 +789,10 @@ def check_moe_grouped_ffn(torch, F, ref, gen):
         iters = 40 if g <= 128 else 10
         ms, host_ms = time_ms(lambda i: moe_grouped_ffn(*sets[i % n], *ws),
                               iters)
+        p = plan(1, g, E, dispatch.shape[-1], d, f, bf, n_sm)
         rows[name] = dict(
-            shape=[1, g, E, dispatch.shape[-1], d, f], live_experts=experts,
+            case=name, shape=[1, g, E, dispatch.shape[-1], d, f],
+            slot_tile=p["tile"], down_splits=p["ks"], live_experts=experts,
             live_slots=slots, max_abs_err=err, normalized_err=norm,
             tolerance=BF16_TOL, ms=ms, host_ms=host_ms,
             plain_ms=time_ms(lambda i: ref.moe_grouped_ffn(
@@ -799,6 +802,10 @@ def check_moe_grouped_ffn(torch, F, ref, gen):
             bound_ms=b_ms, bound_by=b_by)
         print("moe_grouped_ffn", json.dumps(rows[name]), flush=True)
         del sets, lib_sets
+    print("moe_grouped_ffn ms by shape (kernel / bound / plain / bmm):",
+          json.dumps({n: [r[k] for k in ("ms", "bound_ms", "plain_ms",
+                                         "library_ms")]
+                      for n, r in rows.items()}), flush=True)
 
     # edge cases at the decode shape
     dispatch, combine = moe_route(torch, gen, cfg, 8)
@@ -1770,7 +1777,8 @@ KERNEL_GROUPS = (("flash_attention", "flash_fwd_kernel"),
                  ("page_gather", "page_gather_kernel"),
                  ("ring_gather", "ring_gather_kernel"),
                  ("prefill_page_attention", "prefill_page_attention_kernel"),
-                 ("moe_grouped_ffn", ("moe_dispatch_kernel", "moe_gemm_kernel",
+                 ("moe_grouped_ffn", ("moe_dispatch_kernel",
+                                      "moe_mma_kernel", "moe_gemm_kernel",
                                       "moe_combine_kernel")),
                  ("rwkv6_scan", "rwkv6_fwd_kernel"),
                  ("rwkv6_scan_bwd", ("rwkv6_bwd_kernel", "rwkv6_du_kernel")),
@@ -2186,6 +2194,24 @@ def check_flash_build(torch, spills: dict) -> None:
           "plan == kernel shared memory", flush=True)
 
 
+def check_moe_build(torch) -> None:
+    """Gate: the grouped FFN wrapper's plan states the shared memory,
+    stages and weight columns a block that the bf16 kernels are built
+    with, at every slot tile."""
+    from repro_torch.kernels.moe_matmul import SLOT_TILES, kernel_tiles, plan
+    built = kernel_tiles()
+    for nt in SLOT_TILES:
+        p = plan(1, nt, 8, nt, 4096, 14336, torch.bfloat16, 132)
+        want = {k: (p[k]["smem"], p[k]["stages"], p[k]["cols"])
+                for k in ("up", "down")}
+        got = {k: built[(nt, k)] for k in ("up", "down")}
+        if p["tile"] != nt or got != want:
+            raise AssertionError(f"moe plan vs kernels at slot tile {nt}: "
+                                 f"{want} {got}")
+    print(f"moe_grouped_ffn plan == kernel shared memory, stages and "
+          f"columns at slot tiles {list(SLOT_TILES)}", flush=True)
+
+
 def check_no_spill(spills: dict, sources: tuple) -> None:
     """Gate: ptxas reported every kernel of ``sources`` and none spills."""
     for name in sources:
@@ -2265,7 +2291,9 @@ def main() -> int:
         if log.exists():
             spills[name] = print_ptxas(name, log.read_text())
     check_flash_build(torch, spills.get("flash_attention", {}))
-    check_no_spill(spills, ("decode_attention", "prefill_page_attention"))
+    check_no_spill(spills, ("decode_attention", "prefill_page_attention",
+                            "moe_grouped_ffn"))
+    check_moe_build(torch)
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     phase_s = {}

@@ -10,8 +10,16 @@ Four launches: dispatch (slot rows and liveness read from the bool
 ``dispatch`` on the device), the gated up product, the down product
 (split over f when its tiles alone would leave SMs idle, as at decode)
 and the combine; no atomics, no host synchronisation, and experts or
-slots without a token are never loaded or computed.  The wrapper
-allocates the f32 scratch.  Its plain version is ``ref.moe_grouped_ffn``.
+slots without a token are never loaded or computed.
+
+bf16 runs its products on the tensor cores (``wgmma``, the weights'
+output columns as the M side and a tile of 8-160 slots as the N side,
+32 KB of weights a stage streamed raw through a ring of ``cp.async``
+stages); xin and H are bf16 scratch (H computed in f32 and rounded once),
+the down product's split partials and the combine f32.  f32 stays on the
+CUDA cores with f32 scratch.  :func:`plan` picks the tiles, stages and
+split from the shapes alone.  The wrapper allocates the scratch.  Its
+plain version is ``ref.moe_grouped_ffn``.
 
 No backward: MoE training, which needs one, is a later slice of the port.
 """
@@ -26,30 +34,101 @@ from .flash_attention import ELEM
 
 NAME = "moe_grouped_ffn"
 _P, _I = ctypes.c_void_p, ctypes.c_int
-SIGNATURES = {"moe_grouped_ffn_fwd": [_P] * 11 + [_I] * 10 + [_P]}
-DK = 32                 # depth of one chunk of the products
-COLS = 128              # output columns per block of the products
-WARPS = 8               # warps per block of the products
+SIGNATURES = {"moe_grouped_ffn_fwd": [_P] * 11 + [_I] * 11 + [_P],
+              "moe_grouped_ffn_tiles": [_I, _I, _I]}
 MAX_GRID = 65535
+SM_SMEM = 233_472       # shared memory of one H100 SM, 1 KB kept per block
+# f32, on the CUDA cores
+DK = 32                 # depth of one chunk of the products
+COLS = 128              # output columns per block
+WARPS = 8               # warps per block, 1, 4 or 8 slots each
+# bf16, on the tensor cores (csrc: TC_K, TC_THREADS, tc_cols, tc_stages)
+TC_K = 64               # depth of one stage
+TC_THREADS = 256        # two warpgroups
+TC_COLS = {"up": 128, "down": 256}   # weight output columns per block
+TC_WBYTES = 4 * TC_K * 64 * 2        # weight bytes of one stage
+SLOT_TILES = (8, 16, 32, 48, 64, 96, 128, 160)   # wgmma widths built
 
 
-def slots_per_warp(C: int) -> int:
-    """Slot rows per warp of the two products: WARPS x this many slots
-    make a block's slot tile (8, 32 or 64 slots)."""
-    return 1 if C <= 8 else 4 if C <= 32 else 8
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
 
 
-def down_splits(G: int, E: int, C: int, d: int, f: int,
-                n_sm: int) -> tuple[int, int]:
-    """(splits, chunks per split) of f in the down product: enough blocks
-    for about four per SM, from the shapes alone (so a token's bits never
-    depend on the data), at most 8 splits."""
-    cols, rows = -(-d // COLS), -(-C // (WARPS * slots_per_warp(C)))
-    blocks = cols * rows * G * E
-    chunks = -(-f // DK)
-    ks = min(8, chunks, max(1, -(-4 * n_sm // blocks)))
-    per = -(-chunks // ks)
-    return -(-chunks // per), per
+def _split(chunks: int, blocks: int, target: int) -> tuple[int, int]:
+    """(splits, chunks per split) of the down product's depth: at least
+    ``target`` blocks where the depth allows, at most 8 splits."""
+    ks = min(8, chunks, max(1, _cdiv(target, blocks)))
+    per = _cdiv(chunks, ks)
+    return _cdiv(chunks, per), per
+
+
+def tc_stages(nt: int) -> int:
+    """Ring depth of a tensor-core block with a slot tile of ``nt``: as
+    many stages (at most 6) as fit 220 KB, one block an SM."""
+    return min(6, (220 * 1024 - 1024) // (TC_WBYTES + nt * TC_K * 2))
+
+
+def tc_smem(nt: int) -> int:
+    """Dynamic shared-memory bytes of a tensor-core block: its ring on a
+    1024-byte boundary (a slot's liveness flag, 4 bytes, is static)."""
+    return 1024 + tc_stages(nt) * (TC_WBYTES + nt * TC_K * 2)
+
+
+def plan(G: int, g: int, E: int, C: int, d: int, f: int,
+         dtype: torch.dtype, n_sm: int) -> dict:
+    """The kernels' tiles for one shape, a pure function of (G, g, E, C,
+    d, f, dtype, n_sm), never of the data: a token's bits do not depend
+    on which slots hold tokens.
+
+    Returns ``tile`` (bf16: the slot tile, the narrowest of
+    ``SLOT_TILES`` that holds C, or C split evenly into tiles of at most
+    160; f32: slots per warp, 1/4/8), ``slots`` a block covers, the depth
+    of a chunk ``depth``, the down product's split ``ks`` into parts of
+    ``per`` chunks, and for each product (``up``, ``down``) its ``grid``
+    (slot tiles fastest for bf16, so the blocks that share a weight tile
+    run together), ``threads``, ring ``stages`` (0: the f32 kernels keep
+    one chunk ahead in registers), shared memory ``smem`` (bf16: dynamic,
+    as the source's ``moe_grouped_ffn_tiles`` gives it; f32: static) and
+    ``resident`` blocks an SM by shared memory."""
+    if dtype == torch.float32:
+        rm = 1 if C <= 8 else 4 if C <= 32 else 8
+        slots = WARPS * rm
+        ct = _cdiv(C, slots)
+        ks, per = _split(_cdiv(f, DK), _cdiv(d, COLS) * ct * G * E,
+                         4 * n_sm)
+        smem = {m: DK * (slots + 4) * 4 + m * DK * COLS * 4 + slots * 4
+                for m in (1, 2)}
+        kinds = {"up": (2, (_cdiv(f, COLS), ct, G * E)),
+                 "down": (1, (_cdiv(d, COLS), ct, G * E * ks))}
+        return dict(tile=rm, slots=slots, depth=DK, ks=ks, per=per, **{
+            k: dict(grid=grid, threads=32 * WARPS, stages=0, smem=smem[m],
+                    resident=SM_SMEM // (smem[m] + 1024), cols=COLS)
+            for k, (m, grid) in kinds.items()})
+    ct = _cdiv(C, SLOT_TILES[-1])
+    nt = next(t for t in SLOT_TILES if t >= _cdiv(C, ct))
+    ct = _cdiv(C, nt)
+    resident = SM_SMEM // (tc_smem(nt) + nt * 4 + 1024)
+    # split f until the down product has a block for every SM, two where
+    # the slots are few (decode: its f32 partials are small, and the
+    # experts without a token leave holes in the grid)
+    ks, per = _split(_cdiv(f, TC_K), ct * _cdiv(d, TC_COLS["down"]) * G * E,
+                     (2 if nt <= 32 else 1) * resident * n_sm)
+    grids = {"up": (ct, _cdiv(f, TC_COLS["up"]), G * E),
+             "down": (ct, _cdiv(d, TC_COLS["down"]), G * E * ks)}
+    return dict(tile=nt, slots=nt, depth=TC_K, ks=ks, per=per, **{
+        k: dict(grid=grid, threads=TC_THREADS, stages=tc_stages(nt),
+                smem=tc_smem(nt), resident=resident, cols=TC_COLS[k])
+        for k, grid in grids.items()})
+
+
+def kernel_tiles() -> dict:
+    """The built library's own numbers for the bf16 kernels, to hold
+    :func:`plan` to: {(slot tile, product): (shared-memory bytes, stages,
+    weight columns a block)}."""
+    lib = _build.load(NAME, SIGNATURES)
+    return {(nt, k): tuple(lib.moe_grouped_ffn_tiles(nt, int(k == "up"), w)
+                           for w in range(3))
+            for nt in SLOT_TILES for k in ("up", "down")}
 
 
 def moe_grouped_ffn(dispatch: torch.Tensor, combine: torch.Tensor,
@@ -95,15 +174,14 @@ def moe_grouped_ffn(dispatch: torch.Tensor, combine: torch.Tensor,
         return out
     if C == 0:
         return out.zero_()
-    rm = slots_per_warp(C)
-    ks, per = down_splits(G, E, C, d, f, torch.cuda.get_device_properties(
+    p = plan(G, g, E, C, d, f, xg.dtype, torch.cuda.get_device_properties(
         xg.device).multi_processor_count)
-    if G * E * ks > MAX_GRID:
+    ks = p["ks"]
+    if G * E * ks > MAX_GRID or max(p["up"]["grid"][1:]) > MAX_GRID:
         raise ValueError(f"{NAME}: {G} x {E} x {ks} exceeds the grid limit")
-    f32 = dict(dtype=torch.float32, device=xg.device)
-    xin = torch.empty((G, E, C, d), **f32)
-    h = torch.empty((G, E, C, f), **f32)
-    y = torch.empty((ks, G, E, C, d), **f32)
+    xin = torch.empty((G, E, C, d), dtype=xg.dtype, device=xg.device)
+    h = torch.empty((G, E, C, f), dtype=xg.dtype, device=xg.device)
+    y = torch.empty((ks, G, E, C, d), dtype=torch.float32, device=xg.device)
     live = torch.empty((G, E, C), dtype=torch.int32, device=xg.device)
     lib = _build.load(NAME, SIGNATURES)
     with torch.cuda.device(xg.device):
@@ -111,7 +189,8 @@ def moe_grouped_ffn(dispatch: torch.Tensor, combine: torch.Tensor,
             dispatch.data_ptr(), combine.data_ptr(), xg.data_ptr(),
             wg.data_ptr(), wu.data_ptr(), wd.data_ptr(), out.data_ptr(),
             xin.data_ptr(), h.data_ptr(), y.data_ptr(), live.data_ptr(),
-            ELEM[xg.dtype], G, g, E, C, d, f, rm, ks, per,
+            ELEM[xg.dtype], G, g, E, C, d, f, p["tile"], p["up"]["stages"],
+            ks, p["per"],
             torch.cuda.current_stream(xg.device).cuda_stream)
     _build.check(lib, rc, NAME)
     _build.launches[NAME] += 1

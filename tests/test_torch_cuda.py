@@ -34,7 +34,9 @@ from repro_torch.kernels import _build, ops, ref  # noqa: E402
 from repro_torch.kernels.decode_attention import decode_attention  # noqa
 from repro_torch.kernels.flash_attention import (  # noqa: E402
     FlashAttention, flash_attention, flash_attention_bwd, kernel_smem, plan)
-from repro_torch.kernels.moe_matmul import moe_grouped_ffn  # noqa: E402
+from repro_torch.kernels.moe_matmul import (  # noqa: E402
+    SLOT_TILES, kernel_tiles, moe_grouped_ffn)
+from repro_torch.kernels.moe_matmul import plan as moe_plan  # noqa: E402
 from repro_torch.kernels.page_gather import (  # noqa: E402
     page_gather, prefill_page_attention, prefill_page_attention_paged)
 from repro_torch.kernels.rglru_scan import (  # noqa: E402
@@ -754,6 +756,58 @@ def test_moe_grouped_ffn_is_sync_free_and_refuses(gen):
     with pytest.raises(NotImplementedError, match="no backward"):
         moe_grouped_ffn(*ins[:3], ins[3].float().requires_grad_(),
                         ins[4].float(), ins[5].float())
+
+
+def _moe_compare():
+    """``tools/moe_compare.py``, whose seeded inputs the digests below
+    were taken on."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        "moe_compare", Path(__file__).resolve().parents[1] / "tools"
+        / "moe_compare.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+# sha256 (first 16 hex digits) of the f32 route's output at each of
+# tools/moe_compare.py's F32_PARITY inputs, as the CUDA-core kernels gave
+# them on an H100 (132 SMs) before the bf16 route moved to the tensor
+# cores: the f32 kernels' source and bits are to stay as they were
+MOE_F32_DIGESTS = {
+    (1, 16, 4, 8, 32, 48, 0): "1341fd5baa9f1261",
+    (2, 24, 4, 16, 16, 64, 0): "d908ceeb25d61f16",
+    (1, 32, 8, 10, 64, 96, 0): "1e801140b8e8e60b",
+    (1, 8, 8, 3, 256, 512, 0): "98f4cb7b23613fa9",
+    (1, 128, 8, 40, 128, 256, 0): "66adb5b8c200304e",
+    (1, 300, 8, 94, 64, 128, 0): "59ca6578120f55ab",
+    (1, 16, 4, 8, 64, 96, 1): "10828771a74b355d"}
+
+
+@pytest.mark.parametrize("shape", sorted(MOE_F32_DIGESTS),
+                         ids=lambda s: "x".join(map(str, s)))
+def test_moe_grouped_ffn_f32_bits_unchanged(gen, shape):
+    """The f32 route gives, bit for bit, the outputs its CUDA-core
+    kernels gave before the bf16 redesign (its split of f depends on the
+    SM count, so the digests hold for a 132-SM card)."""
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    if n_sm != 132:
+        pytest.skip(f"digests taken on 132 SMs, this card has {n_sm}")
+    mc = _moe_compare()
+    got = moe_grouped_ffn(*mc.parity_inputs(*shape))
+    assert mc.digest(got) == MOE_F32_DIGESTS[shape]
+
+
+def test_moe_plan_matches_the_kernels(gen):
+    """The wrapper's plan states the bf16 kernels' shared memory, stages
+    and weight columns a block as the built library computes them."""
+    built = kernel_tiles()
+    for nt in SLOT_TILES:
+        p = moe_plan(1, nt, 8, nt, 256, 512, torch.bfloat16, 132)
+        assert p["tile"] == nt
+        for kind in ("up", "down"):
+            k = p[kind]
+            assert built[(nt, kind)] == (k["smem"], k["stages"], k["cols"])
 
 
 # ---------------------------------------------------------------------------

@@ -1,8 +1,8 @@
-"""The port stands alone: no file of ``src/repro_torch`` and not
-``chip_smoke.py`` imports ``jax`` or the JAX package ``repro``; importing
-the serving or the training CLI leaves ``jax`` out of ``sys.modules``; and
-``chip_smoke.py`` alone, or without a GPU, exits non-zero and prints no
-result."""
+"""The port stands alone: no file of ``src/repro_torch``, not
+``chip_smoke.py`` and no probe under ``tools/`` imports ``jax`` or the JAX
+package ``repro``; importing the serving or the training CLI leaves
+``jax`` out of ``sys.modules``; and ``chip_smoke.py`` alone, or without a
+GPU, exits non-zero and prints no result."""
 import ast
 import os
 import shutil
@@ -17,7 +17,7 @@ torch.set_num_threads(1)
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + \
-    [ROOT / "chip_smoke.py"]
+    [ROOT / "chip_smoke.py"] + sorted((ROOT / "tools").glob("*.py"))
 FORBIDDEN = ("jax", "jaxlib", "repro")
 
 

@@ -1,0 +1,222 @@
+"""The grouped MoE FFN kernels' plan and bf16 rounding, on the CPU.
+
+``moe_matmul.plan`` states the tiles, rings, grids and shared memory of
+the CUDA kernels from the shapes alone (the card's tests and
+``chip_smoke.py`` hold the built library to the same numbers); here it is
+held to the H100's limits at mixtral-8x7b's serving shapes and at the
+shapes of ``tests/test_torch_cuda.py``, to reading no data, and to
+filling the card at decode.  The bf16 kernels round xin (a slot's token,
+or the f32 sum of several) and H = silu(xin wg) * (xin wu), computed in
+f32, once to bf16, and keep the down product's split partials, their sum
+and the combine in f32.  An emulation of that rounding in plain torch,
+written here and not in the package, is held to the JAX package's Pallas
+kernel in interpret mode and to the same function in f64 at half of the
+card's gate: a normalized max error (max |emu - ref| / max |ref|) of
+1e-2, so the gate keeps a margin over what the rounding alone costs.
+"""
+import inspect
+import math
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+jax = pytest.importorskip("jax")
+import jax.numpy as jnp  # noqa: E402
+
+from repro.kernels.moe_matmul import \
+    moe_grouped_ffn as pallas_moe  # noqa: E402
+from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.kernels.flash_attention import SMEM_LIMIT, SMS  # noqa
+from repro_torch.kernels.moe_matmul import (  # noqa: E402
+    MAX_GRID, SLOT_TILES, plan)
+from repro_torch.models.moe import route  # noqa: E402
+
+torch.set_num_threads(1)
+
+DTYPES = [torch.float32, torch.bfloat16]
+NORM_TOL = 1e-2          # half of chip_smoke.py's bf16 gate (2e-2)
+MIXTRAL = get_config("mixtral-8x7b")
+
+
+def _capacity(g: int, cfg=MIXTRAL) -> int:
+    return max(math.ceil(g * cfg.top_k * cfg.capacity_factor
+                         / cfg.n_experts), 1)
+
+
+# (G, g, E, C, d, f): mixtral-8x7b's decode batch, 128-token chunk and
+# 300- and 512-token prompts, then the shapes of test_torch_cuda.py's
+# MoE tests
+MIXTRAL_SHAPES = [(1, g, MIXTRAL.n_experts, _capacity(g), MIXTRAL.d_model,
+                   MIXTRAL.d_ff) for g in (8, 128, 300, 512)]
+TEST_SHAPES = [(1, 16, 4, 8, 32, 48), (2, 24, 4, 16, 16, 64),
+               (1, 32, 8, 10, 64, 96), (1, 8, 8, 3, 256, 512),
+               (1, 128, 8, 40, 128, 256), (1, 300, 8, 94, 64, 128),
+               (1, 16, 4, 8, 64, 96), (1, 8, 8, 2, 256, 512),
+               (1, 8, 8, 2, 64, 96)]
+
+
+def test_mixtral_capacities():
+    assert [s[3] for s in MIXTRAL_SHAPES] == [3, 40, 94, 160]
+
+
+def _in_flight(p: dict, kind: str) -> int:
+    """Weight bytes a bf16 SM has in flight: the stages each block keeps
+    loading ahead of the one multiplied and the one whose wgmma group is
+    still pending, 32 KB each."""
+    return p[kind]["resident"] * (p[kind]["stages"] - 2) * 32 * 1024
+
+
+@pytest.mark.parametrize("shape", MIXTRAL_SHAPES + TEST_SHAPES,
+                         ids=lambda s: "x".join(map(str, s)))
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_plan_fits_shared_memory_and_the_grid(shape, dtype):
+    G, g, E, C, d, f = shape
+    p = plan(G, g, E, C, d, f, dtype, SMS)
+    chunks = -(-f // p["depth"])
+    assert p["ks"] * p["per"] >= chunks > (p["ks"] - 1) * p["per"]
+    bf16 = dtype == torch.bfloat16
+    slot_tiles = p["up"]["grid"][0 if bf16 else 1]
+    assert slot_tiles * p["slots"] >= C > (slot_tiles - 1) * p["slots"]
+    for kind in ("up", "down"):
+        k = p[kind]
+        if bf16:            # dynamic, plus the slots' static live flags
+            assert 0 < k["smem"] + 4 * p["slots"] <= SMEM_LIMIT, (kind, k)
+            assert _in_flight(p, kind) >= 32 * 1024, (kind, k)
+        else:               # static only
+            assert 0 < k["smem"] <= 48 * 1024, (kind, k)
+        assert k["resident"] >= 1 and k["threads"] in (128, 256)
+        x, y, z = k["grid"]
+        assert 0 < x < 2 ** 31 and 0 < y <= MAX_GRID and 0 < z <= MAX_GRID
+        cols = d if kind == "down" else f
+        assert k["cols"] * (y if bf16 else x) >= cols
+    assert p["down"]["grid"][2] == G * E * p["ks"]
+    if bf16:
+        assert p["tile"] in SLOT_TILES
+        assert p["up"]["stages"] == p["down"]["stages"] >= 3
+
+
+@pytest.mark.parametrize("C", [1, 2, 3, 8, 9, 40, 94, 160, 161, 400, 640])
+def test_bf16_slot_tile(C):
+    """The narrowest built width that holds C; past 160 slots, C is cut
+    into even tiles of at most 160."""
+    p = plan(1, 512, 8, C, 4096, 14336, torch.bfloat16, SMS)
+    tiles = p["up"]["grid"][0]
+    assert tiles == -(-C // p["tile"]) and tiles * p["tile"] >= C
+    assert p["tile"] == min(t for t in SLOT_TILES if t >= -(-C // tiles))
+    assert tiles == max(1, -(-C // SLOT_TILES[-1]))
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_plan_reads_no_data(dtype):
+    """The plan takes shapes, a dtype and the SM count, never a tensor:
+    a token's bits cannot depend on where the other tokens went.  It is
+    a pure function of them, and does not read the group's token count g
+    at all."""
+    assert list(inspect.signature(plan).parameters) == \
+        ["G", "g", "E", "C", "d", "f", "dtype", "n_sm"]
+    for G, g, E, C, d, f in MIXTRAL_SHAPES + TEST_SHAPES:
+        p = plan(G, g, E, C, d, f, dtype, SMS)
+        assert p == plan(G, g, E, C, d, f, dtype, SMS)
+        assert p == plan(G, 10 * g + 1, E, C, d, f, dtype, SMS)
+
+
+def test_plan_fills_the_card_at_decode():
+    """A mixtral decode batch (C = 3, 6 of 8 experts with a token): the
+    live experts' blocks give each product at least two blocks for every
+    SM (the down product through its split of f), and each SM keeps at
+    least 64 KB of weights in flight (one block an SM, a ring of six
+    stages: a block streams deeper than two blocks of three stages
+    could)."""
+    G, g, E, C, d, f = MIXTRAL_SHAPES[0]
+    p = plan(G, g, E, C, d, f, torch.bfloat16, SMS)
+    assert p["tile"] == 8 and p["ks"] > 1
+    live_experts = 6
+    for kind in ("up", "down"):
+        x, y, z = p[kind]["grid"]
+        assert p[kind]["resident"] >= 1, p[kind]
+        assert x * y * z * live_experts // E >= 2 * SMS, (kind, p[kind])
+        assert _in_flight(p, kind) >= 64 * 1024, (kind, p[kind])
+
+
+# ---------------------------------------------------------------------------
+# the bf16 kernels' rounding, emulated
+# ---------------------------------------------------------------------------
+
+def _bf16(x):
+    return x.to(torch.bfloat16).float()
+
+
+def _emulate(dispatch, combine, x, wg, wu, wd, ks, per, depth):
+    """The bf16 route's arithmetic in f32: xin = bf16(sum of the slot's
+    tokens), H = bf16(silu(xin wg) * (xin wu)), the down product summed
+    in f32 over each of ks parts of f (``per`` chunks of ``depth``), the
+    parts added in order, the combine in f32, the output rounded once."""
+    disp = dispatch.float()
+    xin = _bf16(torch.einsum("GgEC,Ggd->GECd", disp, x))
+    gate = torch.einsum("GECd,Edf->GECf", xin, wg)
+    up = torch.einsum("GECd,Edf->GECf", xin, wu)
+    h = _bf16(torch.nn.functional.silu(gate) * up)
+    y = 0
+    for s in range(ks):
+        lo, hi = s * per * depth, (s + 1) * per * depth
+        y = y + torch.einsum("GECf,Efd->GECd", h[..., lo:hi], wd[:, lo:hi])
+    return _bf16(torch.einsum("GgEC,GECd->Ggd", combine, y))
+
+
+def _f64(dispatch, combine, x, wg, wu, wd):
+    xin = torch.einsum("GgEC,Ggd->GECd", dispatch.double(), x)
+    h = torch.nn.functional.silu(torch.einsum("GECd,Edf->GECf", xin, wg)) \
+        * torch.einsum("GECd,Edf->GECf", xin, wu)
+    return torch.einsum("GgEC,GECd->Ggd", combine.double(),
+                        torch.einsum("GECf,Efd->GECd", h, wd))
+
+
+def _inputs(G, g, E, C, d, f, seed, two_in_one_slot):
+    """bf16 values (held as f32) from numpy: top-2 routing through the
+    port's ``route``, or a random dispatch with tokens 0 and 1 in one
+    slot and a random combine."""
+    rng = np.random.default_rng(seed)
+    if two_in_one_slot:
+        dispatch = torch.from_numpy(rng.random((G, g, E, C)) < 0.15)
+        dispatch[0, 0, 1, 3] = dispatch[0, 1, 1, 3] = True
+        combine = torch.from_numpy(rng.random((G, g, E, C)).astype(
+            np.float32))
+    else:
+        logits = torch.from_numpy(rng.standard_normal((G, g, E)).astype(
+            np.float32))
+        dispatch, combine = route(torch.softmax(logits, -1), 2, C)
+    x = _bf16(torch.from_numpy(rng.standard_normal((G, g, d)).astype(
+        np.float32)))
+    ws = [_bf16(torch.from_numpy((rng.standard_normal(s) * s[1] ** -0.5)
+                                 .astype(np.float32)))
+          for s in ((E, d, f), (E, d, f), (E, f, d))]
+    return dispatch, combine, x, *ws
+
+
+@pytest.mark.parametrize("G,g,E,C,d,f,two", [
+    (1, 16, 4, 8, 32, 48, False),
+    (2, 24, 4, 16, 16, 64, False),
+    (1, 32, 8, 10, 64, 96, False),       # capacity drops
+    (1, 8, 8, 3, 256, 512, False),       # a decode batch: C 3, f split
+    (1, 16, 4, 8, 64, 96, True),         # two tokens in one slot
+])
+def test_bf16_rounding_within_half_the_gate(G, g, E, C, d, f, two):
+    ins = _inputs(G, g, E, C, d, f, seed=19, two_in_one_slot=two)
+    p = plan(G, g, E, C, d, f, torch.bfloat16, SMS)
+    emu = _emulate(*ins, p["ks"], p["per"], p["depth"])
+    assert emu.shape == (G, g, d)
+    want64 = _f64(*(t.double() if t.is_floating_point() else t
+                    for t in ins))
+    jin = [jnp.asarray(t.numpy()) for t in ins[:2]] + \
+        [jnp.asarray(t.numpy()).astype(jnp.bfloat16) for t in ins[2:]]
+    pallas = torch.from_numpy(np.asarray(
+        pallas_moe(*jin, interpret=True), np.float32))
+    for ref in (want64, pallas.double()):
+        err = (emu.double() - ref).abs().max() / ref.abs().max()
+        assert err <= NORM_TOL, float(err)
+    if two:                              # the shared slot's xin was rounded
+        assert ins[0][0, :, 1, 3].sum() >= 2
+    if C == 3:                           # the decode shape splits f
+        assert p["ks"] > 1
+
