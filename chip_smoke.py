@@ -12,9 +12,10 @@ Phases (any failure raises and the script exits non-zero):
 1. environment: the card's name and power limit, torch/CUDA versions, and
    the build of every kernel from ``src/repro_torch/kernels/csrc`` (one
    ``nvcc`` per source, all started together), with ptxas' register report;
-   no flash-attention, decode or chunked-prefill instantiation may spill
-   (ptxas' spill bytes all 0), and the flash wrapper's ``plan`` must state
-   the shared memory the CUDA source launches with;
+   no flash-attention, decode, chunked-prefill, MoE or WKV instantiation may
+   spill (ptxas' spill bytes all 0), and the flash, MoE and WKV wrappers'
+   plans must state what the CUDA sources launch with (the WKV chunk of 64
+   steps among it);
 2. kernels: each CUDA kernel against its plain PyTorch version on the card
    at its path's shapes, timed with CUDA events (device time, inputs
    rotated past the L2 cache) beside its roofline bound, the plain version
@@ -41,11 +42,13 @@ Phases (any failure raises and the script exits non-zero):
    slot) and one f32 case at 1e-4; the RWKV-6 WKV forward at rwkv6-1.6b's
    training shape (batch 4 x 512, 32 heads of 64) in bf16 at 2e-2, with
    the decay from N(0, 1) and near 0 (N(2, 1)), at a ragged T = 77 in f32
-   at 1e-4 (head dims 16 and 64), its checkpointed states against the
-   plain stateful version at 1e-4, and its backward against torch
-   autograd of the plain version (f32 at 1e-4, bf16 at a normalized
-   2e-2), both decays; no PyTorch call computes the recurrence, so these
-   two rows have no library time; flash attention forward and backward
+   at 1e-4 (head dims 16 and 64) and at T = 513 (nine 64-step chunks),
+   its checkpointed states against the plain stateful version at 1e-4,
+   and its backward against torch autograd of the plain version (f32 at
+   1e-4, du against its f64 closed form, bf16 at a normalized 2e-2), both
+   decays, and in f32 at T = 513; no PyTorch call computes the
+   recurrence, so these two rows have no library time (they carry the
+   chunk, the blocks a pass launches and the launch plan); flash attention forward and backward
    at recurrentgemma-2b's heads (10 over 1 kv head of 256) at batch 4 x
    512 and at 4096 tokens with its 2048 window (``hd256`` entries, SDPA
    with a boolean mask as the library time); the RG-LRU forward at
@@ -850,9 +853,23 @@ def check_moe_grouped_ffn(torch, F, ref, gen):
 
 
 # the WKV recurrence at rwkv6-1.6b's width on the training path (batch 4 x
-# 512 tokens, 32 heads of 64), ragged T at the smoke and full head dims
+# 512 tokens, 32 heads of 64), ragged T at the smoke and full head dims, and
+# a ragged T past eight 64-step chunks
 WKV_MAIN = (4, 512, 32, 64)
-WKV_RAGGED = ((4, 77, 32, 16), (4, 77, 32, 64))
+WKV_RAGGED = ((4, 77, 32, 16), (4, 77, 32, 64), (4, 513, 32, 64))
+WKV_RAGGED_BWD = (4, 513, 32, 64)
+
+
+def wkv_plan_fields(B, T, H, hd, fwd: bool) -> dict:
+    """The chunk, the blocks a pass launches and the launch plan of the WKV
+    kernels of one direction, for the timing rows."""
+    from repro_torch.kernels.rwkv6_scan import plan
+    p = plan(B, T, H, hd)
+    names = ("fwd_sum", "fwd") if fwd else ("bwd_sum", "bwd_dv", "bwd",
+                                            "du")
+    return dict(chunk=p["chunk"], blocks={n: p[n]["blocks"] for n in names},
+                plan={n: {k: p[n][k] for k in ("grid", "threads", "smem")}
+                      for n in names})
 WKV_LIBRARY = "none: no single PyTorch call computes the WKV recurrence"
 WKV_PLAIN_TIMING = "events without the spin: host-bound, host gaps included"
 
@@ -871,9 +888,9 @@ def wkv_inputs(torch, gen, B, T, H, hd, dtype, decay_mean=0.0):
 def check_rwkv6_scan(torch, ref, gen):
     """The WKV forward against its plain version: at the training shape in
     bf16 (w from N(0, 1) and near 0 from N(2, 1)) at rtol/atol 2e-2, at a
-    ragged T = 77 in f32 at 1e-4 (head dims 16 and 64), and its checkpointed
-    states against ``ref.rwkv6_stateful`` over the first chunks and the
-    last, f32 at 1e-4.  Timed as the training path calls it (with its
+    ragged T = 77 in f32 at 1e-4 (head dims 16 and 64) and at T = 513 (nine
+    chunks, the last one step), and its checkpointed states against
+    ``ref.rwkv6_stateful`` over the first chunks and the last, f32 at 1e-4.  Timed as the training path calls it (with its
     checkpoints) beside its bound, the serial floor of T dependent steps
     and the plain version; there is no library call to time."""
     from repro_torch.kernels.rwkv6_scan import chunk, rwkv6_scan
@@ -925,7 +942,8 @@ def check_rwkv6_scan(torch, ref, gen):
                                 spin=False)[0],
                plain_timing=WKV_PLAIN_TIMING, library_ms=None,
                library=WKV_LIBRARY, bound_ms=b_ms, bound_by=b_by,
-               checkpoint_bytes=nbytes(ckpt))
+               checkpoint_bytes=nbytes(ckpt),
+               **wkv_plan_fields(B, T, H, hd, fwd=True))
     print("rwkv6_scan", json.dumps(row), flush=True)
     del sets, y, ckpt
     torch.cuda.empty_cache()
@@ -937,16 +955,22 @@ def check_rwkv6_scan_bwd(torch, ref, gen):
     on the same inputs (f32 at rtol/atol 1e-4, du against its closed form
     sum_{b,t} r k (v . dy) in f64; bf16 to a normalized max error of 2e-2,
     the plain version run on the bf16 inputs upcast), at the training
-    shape with w from N(0, 1) and near 0 from N(2, 1).
+    shape with w from N(0, 1) and near 0 from N(2, 1), and in f32 at
+    T = 513 (nine chunks, the last one step).
     Timed in bf16 beside its bound, the serial floor and autograd of the
     plain version; there is no library call to time."""
     from repro_torch.kernels.rwkv6_scan import rwkv6_scan, rwkv6_scan_bwd
     B, T, H, hd = WKV_MAIN
     errs = {}
-    for mean in (0.0, 2.0):
-        ins32 = wkv_inputs(torch, gen, B, T, H, hd, torch.float32, mean)
-        dy32 = torch.randn((B, T, H, hd), generator=gen, device="cuda")
-        for dt in (torch.float32, torch.bfloat16):
+    # the training shape at both decays in f32 and bf16 on one draw each,
+    # then the ragged T = 513 in f32
+    cases = [(WKV_MAIN, 0.0, (torch.float32, torch.bfloat16)),
+             (WKV_MAIN, 2.0, (torch.float32, torch.bfloat16)),
+             (WKV_RAGGED_BWD, 0.0, (torch.float32,))]
+    for shape, mean, dts in cases:
+        ins32 = wkv_inputs(torch, gen, *shape, torch.float32, mean)
+        dy32 = torch.randn(shape, generator=gen, device="cuda")
+        for dt in dts:
             ins = [x.to(dt) for x in ins32[:3]] + list(ins32[3:])
             dy = dy32.to(dt)
             leaves = [x.float().requires_grad_() for x in ins]
@@ -956,7 +980,8 @@ def check_rwkv6_scan_bwd(torch, ref, gen):
             _, ckpt = rwkv6_scan(*ins, with_state=True)
             got = rwkv6_scan_bwd(*ins, ckpt, dy)
             torch.cuda.synchronize()
-            key = f"{str(dt)[6:]}_decay_mean_{mean:g}"
+            key = f"{str(dt)[6:]}_decay_mean_{mean:g}" + (
+                "" if shape == WKV_MAIN else f"_T{shape[1]}")
             if dt == torch.float32:
                 for g, w in zip(got[:4], want[:4]):
                     torch.testing.assert_close(g, w, rtol=BWD_F32_TOL,
@@ -1011,7 +1036,8 @@ def check_rwkv6_scan_bwd(torch, ref, gen):
                serial_steps=T, ms_per_step=ms / T, plain_ms=plain_ms,
                plain_timing=WKV_PLAIN_TIMING, library_ms=None,
                library=WKV_LIBRARY, bound_ms=b_ms, bound_by=b_by,
-               checkpoint_bytes=nbytes(ckpt))
+               checkpoint_bytes=nbytes(ckpt),
+               **wkv_plan_fields(B, T, H, hd, fwd=False))
     print("rwkv6_scan_bwd", json.dumps(row), flush=True)
     del sets, leaves, out, grads, ckpt
     torch.cuda.empty_cache()
@@ -1780,8 +1806,10 @@ KERNEL_GROUPS = (("flash_attention", "flash_fwd_kernel"),
                  ("moe_grouped_ffn", ("moe_dispatch_kernel",
                                       "moe_mma_kernel", "moe_gemm_kernel",
                                       "moe_combine_kernel")),
-                 ("rwkv6_scan", "rwkv6_fwd_kernel"),
-                 ("rwkv6_scan_bwd", ("rwkv6_bwd_kernel", "rwkv6_du_kernel")),
+                 ("rwkv6_scan", ("rwkv6_fwd_sum_kernel", "rwkv6_fwd_kernel")),
+                 ("rwkv6_scan_bwd", ("rwkv6_bwd_sum_kernel",
+                                     "rwkv6_bwd_dv_kernel", "rwkv6_bwd_kernel",
+                                     "rwkv6_du_kernel")),
                  ("rglru_scan", "rglru_fwd_kernel"),
                  ("rglru_scan_bwd", "rglru_bwd_kernel"),
                  ("matmul", ("gemm", "nvjet", "cutlass", "xmma", "splitK")))
@@ -1803,6 +1831,8 @@ def device_profile(torch, prof, wall_ms: float, label: str, **extra):
                 groups[name] += dev_us(e) / 1e3
                 break
         else:
+            if "rwkv6_" in e.key:  # every WKV kernel belongs to its group
+                raise AssertionError(f"{label}: {e.key} in no kernel group")
             groups["other"] += dev_us(e) / 1e3
     print(f"{label}:", json.dumps(dict(
         **extra, wall_ms=wall_ms, device_busy_ms=busy_ms,
@@ -2212,6 +2242,22 @@ def check_moe_build(torch) -> None:
           f"columns at slot tiles {list(SLOT_TILES)}", flush=True)
 
 
+def check_wkv_build() -> None:
+    """Gate: the WKV wrapper's plan states the chunk and, for every kernel,
+    the shared memory, threads and slice width the built library has, at
+    both head dims."""
+    from repro_torch.kernels.rwkv6_scan import KERNELS, kernel_tiles, plan
+    for hd in (16, 64):
+        built, p = kernel_tiles(hd), plan(*WKV_MAIN[:3], hd)
+        want = {k: (p[k]["smem"], p[k]["threads"], p[k]["width"])
+                for k in KERNELS}
+        if built != dict(chunk=p["chunk"], **want):
+            raise AssertionError(f"rwkv6 plan vs kernels at hd {hd}: "
+                                 f"{want} chunk {p['chunk']}; {built}")
+    print(f"rwkv6_scan plan == kernels: chunk {p['chunk']}, "
+          f"{json.dumps(want)}", flush=True)
+
+
 def check_no_spill(spills: dict, sources: tuple) -> None:
     """Gate: ptxas reported every kernel of ``sources`` and none spills."""
     for name in sources:
@@ -2292,8 +2338,9 @@ def main() -> int:
             spills[name] = print_ptxas(name, log.read_text())
     check_flash_build(torch, spills.get("flash_attention", {}))
     check_no_spill(spills, ("decode_attention", "prefill_page_attention",
-                            "moe_grouped_ffn"))
+                            "moe_grouped_ffn", "rwkv6_scan"))
     check_moe_build(torch)
+    check_wkv_build()
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     phase_s = {}
