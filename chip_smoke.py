@@ -12,10 +12,10 @@ Phases (any failure raises and the script exits non-zero):
 1. environment: the card's name and power limit, torch/CUDA versions, and
    the build of every kernel from ``src/repro_torch/kernels/csrc`` (one
    ``nvcc`` per source, all started together), with ptxas' register report;
-   no flash-attention, decode, chunked-prefill, MoE or WKV instantiation may
-   spill (ptxas' spill bytes all 0), and the flash, MoE and WKV wrappers'
-   plans must state what the CUDA sources launch with (the WKV chunk of 64
-   steps among it);
+   no flash-attention, decode, chunked-prefill, MoE, WKV or RG-LRU
+   instantiation may spill (ptxas' spill bytes all 0), and the flash, MoE,
+   WKV and RG-LRU wrappers' plans must state what the CUDA sources launch
+   with (the WKV chunk of 64 steps and the RG-LRU chunk of 16 among it);
 2. kernels: each CUDA kernel against its plain PyTorch version on the card
    at its path's shapes, timed with CUDA events (device time, inputs
    rotated past the L2 cache) beside its roofline bound, the plain version
@@ -53,11 +53,14 @@ Phases (any failure raises and the script exits non-zero):
    512 and at 4096 tokens with its 2048 window (``hd256`` entries, SDPA
    with a boolean mask as the library time); the RG-LRU forward at
    recurrentgemma-2b's training shape (batch 4 x 512, 2560 channels) in
-   bf16 at 2e-2, the decay from the model's map and near 1, at a ragged
-   T 77, D 200 and on strided inputs in f32 at 1e-4, and its backward
-   against torch autograd of the plain version where a < 1 (f32 at 1e-4,
-   bf16 at a normalized 2e-2), its value at a = 1 (dx = 0, da = dh
-   h_{t-1}) pinned and two runs bit for bit; no library time either; then
+   bf16 at 2e-2, the decay from the model's map and near 1, at ragged
+   T 77 and 513, D 200 and on strided inputs in f32 at 1e-4, its
+   checkpoints (the state at each 16-step chunk's last step) against the
+   plain version's states at 1e-4, and its backward against torch
+   autograd of the plain version where a < 1 (f32 at 1e-4, also at
+   T 513; bf16 at a normalized 2e-2), its value at a = 1 (dx = 0, da = dh
+   h_{t-1}) pinned and two runs bit for bit; no library time either (these
+   rows carry the chunk and the threads a pass); then
    flash attention's batch invariance in bf16 at llama3.2-1b's and
    recurrentgemma-2b's training shapes: each batch row alone gives the
    bits of the forward, lse and the three gradients it gives inside the
@@ -1045,9 +1048,10 @@ def check_rwkv6_scan_bwd(torch, ref, gen):
 
 
 # the RG-LRU recurrence at recurrentgemma-2b's width on the training path
-# (batch 4 x 512 tokens, 2560 channels), and a ragged shape
+# (batch 4 x 512 tokens, 2560 channels), a ragged shape, and a ragged T one
+# step past the training shape's chunks
 LRU_MAIN = (4, 512, 2560)
-LRU_RAGGED = (4, 77, 200)
+LRU_RAGGED = ((4, 77, 200), (4, 513, 200))
 LRU_LIBRARY = "none: no single PyTorch call computes the RG-LRU recurrence"
 LRU_FWD_FLOPS = 6.0             # a step: a^2, 1 - a^2, sqrt, 2 products, sum
 LRU_BWD_FLOPS = 10.0            # the gate again, dh, dx, da, the carry
@@ -1069,15 +1073,34 @@ def lru_inputs(torch, gen, B, T, D, dtype, draw="model"):
     return x.to(dtype), a.to(dtype)
 
 
+def lru_plan_fields(torch, B, T, D) -> dict:
+    """The chunk (the dependent steps a thread walks), the threads a pass
+    and the launch plan of the RG-LRU kernels at bf16, for the timing
+    rows."""
+    from repro_torch.kernels.rglru_scan import plan
+    p = plan(B, T, D, torch.bfloat16)
+    return dict(chunk=p["chunk"], serial_steps=p["chunk"],
+                threads=p["threads_total"],
+                plan={k: p[k] for k in ("grid", "threads", "slots", "lanes",
+                                        "windows", "smem_fwd", "smem_bwd")})
+
+
+def lru_chunk_ends(T: int) -> list[int]:
+    """The step each RG-LRU checkpoint follows: each chunk's last."""
+    from repro_torch.kernels.rglru_scan import chunk
+    return [min(t + chunk(), T) - 1 for t in range(0, T, chunk())]
+
+
 def check_rglru_scan(torch, ref, gen):
     """The RG-LRU forward against its plain version: at the training shape
     in bf16 (a from the model's map, and a near 1, where bf16 makes it 1 and
-    g = 0) at rtol/atol 2e-2, at a ragged T 77, D 200 in f32 at 1e-4, and on
-    strided inputs (x a slice of a wider tensor, a with a transposed batch
-    layout) in f32 at 1e-4; its f32 states against the plain version in
-    f32 at 1e-4.  Timed as the training path calls it (with its states)
-    beside its bound, the serial floor of T dependent steps and the plain
-    version; there is no library call to time."""
+    g = 0) at rtol/atol 2e-2, at ragged T 77 and 513 (one step past the
+    training shape's chunks), D 200 in f32 at 1e-4, and on strided inputs
+    (x a slice of a wider tensor, a with a transposed batch layout) in f32
+    at 1e-4; its checkpoints (the f32 state at each chunk's last step)
+    against the plain version's states there in f32 at 1e-4.  Timed as the
+    training path calls it (with its checkpoints) beside its bound and the
+    plain version; there is no library call to time."""
     from repro_torch.kernels.rglru_scan import rglru_scan
     B, T, D = LRU_MAIN
     errs = {}
@@ -1092,23 +1115,28 @@ def check_rglru_scan(torch, ref, gen):
         if draw == "near1":
             errs["bfloat16_near1_saturated_share"] = \
                 (a == 1.0).float().mean().item()
-    x, a = lru_inputs(torch, gen, *LRU_RAGGED, torch.float32)
-    got, hs = rglru_scan(x, a, with_state=True)
+    for shape in LRU_RAGGED:
+        x, a = lru_inputs(torch, gen, *shape, torch.float32)
+        got, ck = rglru_scan(x, a, with_state=True)
+        want = ref.rglru(x, a)[0]
+        torch.cuda.synchronize()
+        for name, t, w in (("", got, want), ("_checkpoints", ck,
+                                             want[:, lru_chunk_ends(shape[1])])):
+            torch.testing.assert_close(t, w, rtol=F32_TOL, atol=F32_TOL)
+            errs[f"float32_T{shape[1]}_D{shape[2]}{name}"] = \
+                (t - w).abs().max().item()
+    x, a = lru_inputs(torch, gen, *LRU_RAGGED[0], torch.float32)
     want = ref.rglru(x, a)[0]
-    torch.cuda.synchronize()
-    for name, t in (("", got), ("_states", hs)):
-        torch.testing.assert_close(t, want, rtol=F32_TOL, atol=F32_TOL)
-        errs[f"float32_T77_D200{name}"] = (t - want).abs().max().item()
-    xs = torch.cat([x, x], 2)[..., LRU_RAGGED[2]:]
+    xs = torch.cat([x, x], 2)[..., LRU_RAGGED[0][2]:]
     as_ = a.transpose(0, 1).contiguous().transpose(0, 1)
     got = rglru_scan(xs, as_)
     torch.testing.assert_close(got, want, rtol=F32_TOL, atol=F32_TOL)
     errs["float32_strided"] = (got - want).abs().max().item()
-    # timing in bf16, the training path's dtype, with its states
+    # timing in bf16, the training path's dtype, with its checkpoints
     x, a = lru_inputs(torch, gen, B, T, D, torch.bfloat16)
-    y, hs = rglru_scan(x, a, with_state=True)
+    y, ck = rglru_scan(x, a, with_state=True)
     # the bound counts the function's own traffic (x, a in, h out); the f32
-    # states are this kernel's design, reported apart
+    # checkpoints are this kernel's design, reported apart
     b_ms, b_by = bound(nbytes(x, a, y), LRU_FWD_FLOPS * B * T * D,
                        "float32")
     sets = rotation((x, a))
@@ -1118,14 +1146,14 @@ def check_rglru_scan(torch, ref, gen):
     row = dict(shape=[B, T, D], dtype="bfloat16", max_abs_err=max(
                    v for k, v in errs.items() if not k.endswith("share")),
                errors=errs, tolerance=BF16_TOL, f32_tolerance=F32_TOL,
-               ms=ms, host_ms=host_ms, serial_steps=T, ms_per_step=ms / T,
+               ms=ms, host_ms=host_ms,
                plain_ms=time_ms(lambda i: ref.rglru(*sets[i % n]), 3,
                                 spin=False)[0],
                plain_timing=WKV_PLAIN_TIMING, library_ms=None,
                library=LRU_LIBRARY, bound_ms=b_ms, bound_by=b_by,
-               state_bytes=nbytes(hs))
+               state_bytes=nbytes(ck), **lru_plan_fields(torch, B, T, D))
     print("rglru_scan", json.dumps(row), flush=True)
-    del sets, y, hs
+    del sets, y, ck
     torch.cuda.empty_cache()
     return row
 
@@ -1134,33 +1162,38 @@ def check_rglru_scan_bwd(torch, ref, gen):
     """The RG-LRU backward against torch autograd of the plain version in
     f32 on the same inputs, where a < 1 (f32 at rtol/atol 1e-4; bf16 to a
     normalized max error of 2e-2, the plain version run on the bf16 inputs
-    upcast) at the training shape, a from the model's map; the value at
+    upcast) at the training shape, a from the model's map, and in f32 at
+    T 513, D 200 (one step past the training shape's chunks); the value at
     g = 0 pinned (a band of steps with a = 1: dx = 0 and da = dh h_{t-1}
     exactly as its closed form from the plain version's states, and finite
     where autograd of the plain version is not); two runs bit for bit.
-    Timed in bf16 beside its bound, the serial floor and autograd of the
-    plain version; there is no library call to time."""
+    Timed in bf16 beside its bound and autograd of the plain version; there
+    is no library call to time."""
     from repro_torch.kernels.rglru_scan import rglru_scan, rglru_scan_bwd
     B, T, D = LRU_MAIN
     errs = {}
     x32, a32 = lru_inputs(torch, gen, B, T, D, torch.float32)
     dy32 = torch.randn((B, T, D), generator=gen, device="cuda")
-    for dt in (torch.float32, torch.bfloat16):
-        x, a, dy = x32.to(dt), a32.to(dt), dy32.to(dt)
+    xr, ar = lru_inputs(torch, gen, *LRU_RAGGED[1], torch.float32)
+    dyr = torch.randn(LRU_RAGGED[1], generator=gen, device="cuda")
+    for key, (x, a, dy) in (
+            ("float32", (x32, a32, dy32)),
+            ("bfloat16", (t.to(torch.bfloat16) for t in (x32, a32, dy32))),
+            ("float32_T513", (xr, ar, dyr))):
         if not a.max().item() < 1.0:
             raise AssertionError("rglru_scan_bwd: the draw reached a = 1")
         leaves = [t.float().requires_grad_() for t in (x, a)]
         want = torch.autograd.grad(ref.rglru(*leaves)[0], leaves,
                                    dy.float())
-        _, hs = rglru_scan(x, a, with_state=True)
-        got = rglru_scan_bwd(x, a, hs, dy)
+        _, ck = rglru_scan(x, a, with_state=True)
+        got = rglru_scan_bwd(x, a, ck, dy)
         torch.cuda.synchronize()
-        if dt == torch.float32:
+        if key.startswith("float32"):
             for g, w in zip(got, want):
                 torch.testing.assert_close(g, w, rtol=BWD_F32_TOL,
                                            atol=BWD_F32_TOL)
-            errs["float32"] = max((g - w).abs().max().item()
-                                  for g, w in zip(got, want))
+            errs[key] = max((g - w).abs().max().item()
+                            for g, w in zip(got, want))
         else:
             norm = max(((g.float() - w).abs().max() / w.abs().max()).item()
                        for g, w in zip(got, want))
@@ -1168,14 +1201,14 @@ def check_rglru_scan_bwd(torch, ref, gen):
                 raise AssertionError(f"rglru_scan_bwd bf16 normalized "
                                      f"error {norm}")
             errs["bfloat16_normalized"] = norm
-        del leaves, want, got, hs
+        del leaves, want, got, ck
     # the value at g = 0, in f32 (bf16 rounds a >= 0.998046875 to 1)
     n = min(64, T)
     x, a = x32[:, :n].contiguous(), a32[:, :n].clone()
     a[:, 8:n - 8:4] = 1.0
     dy = dy32[:, :n].contiguous()
-    _, hs = rglru_scan(x, a, with_state=True)
-    dx, da = rglru_scan_bwd(x, a, hs, dy)
+    _, ck = rglru_scan(x, a, with_state=True)
+    dx, da = rglru_scan_bwd(x, a, ck, dy)
     h = ref.rglru(x, a)[0]
     hprev = torch.cat([torch.zeros_like(h[:, :1]), h[:, :-1]], 1)
     dh, c = torch.empty_like(dy), torch.zeros_like(dy[:, 0])
@@ -1198,17 +1231,17 @@ def check_rglru_scan_bwd(torch, ref, gen):
     # two runs, bit for bit
     x, a, dy = x32.to(torch.bfloat16), a32.to(torch.bfloat16), \
         dy32.to(torch.bfloat16)
-    _, hs = rglru_scan(x, a, with_state=True)
-    first = rglru_scan_bwd(x, a, hs, dy)
-    again = rglru_scan_bwd(x, a, hs, dy)
+    _, ck = rglru_scan(x, a, with_state=True)
+    first = rglru_scan_bwd(x, a, ck, dy)
+    again = rglru_scan_bwd(x, a, ck, dy)
     if not all(torch.equal(p, q) for p, q in zip(first, again)):
         raise AssertionError("rglru_scan_bwd is not deterministic")
     # timing in bf16, the training path's dtype: the function's own traffic
-    # (x, a, dy in, dx, da out); the f32 states it reads are the forward's
-    # design, reported apart
+    # (x, a, dy in, dx, da out); the f32 checkpoints it reads are the
+    # forward's design, reported apart
     b_ms, b_by = bound(nbytes(x, a, dy, *first),
                        LRU_BWD_FLOPS * B * T * D, "float32")
-    sets = rotation((x, a, hs, dy))
+    sets = rotation((x, a, ck, dy))
     n = len(sets)
     ms, host_ms = time_ms(lambda i: rglru_scan_bwd(*sets[i % n]), 20)
     leaves = [t.float().requires_grad_() for t in (x, a)]
@@ -1216,15 +1249,16 @@ def check_rglru_scan_bwd(torch, ref, gen):
     plain_ms = time_ms(lambda i: torch.autograd.grad(
         out, leaves, dy.float(), retain_graph=True), 3, spin=False)[0]
     row = dict(shape=[B, T, D], dtype="bfloat16",
-               max_abs_err=errs["float32"], errors=errs,
+               max_abs_err=max(errs["float32"], errs["float32_T513"]),
+               errors=errs,
                tolerance=BWD_F32_TOL, bf16_tolerance=BWD_BF16_NORM_TOL,
                g0_rule_pinned=pinned, deterministic=True, ms=ms,
-               host_ms=host_ms, serial_steps=T, ms_per_step=ms / T,
-               plain_ms=plain_ms, plain_timing=WKV_PLAIN_TIMING,
-               library_ms=None, library=LRU_LIBRARY, bound_ms=b_ms,
-               bound_by=b_by, state_bytes=nbytes(hs))
+               host_ms=host_ms, plain_ms=plain_ms,
+               plain_timing=WKV_PLAIN_TIMING, library_ms=None,
+               library=LRU_LIBRARY, bound_ms=b_ms, bound_by=b_by,
+               state_bytes=nbytes(ck), **lru_plan_fields(torch, B, T, D))
     print("rglru_scan_bwd", json.dumps(row), flush=True)
-    del sets, leaves, out, first, again, hs
+    del sets, leaves, out, first, again, ck
     torch.cuda.empty_cache()
     return row
 
@@ -1831,7 +1865,8 @@ def device_profile(torch, prof, wall_ms: float, label: str, **extra):
                 groups[name] += dev_us(e) / 1e3
                 break
         else:
-            if "rwkv6_" in e.key:  # every WKV kernel belongs to its group
+            if "rwkv6_" in e.key or "rglru_" in e.key:
+                # every recurrence kernel belongs to its group
                 raise AssertionError(f"{label}: {e.key} in no kernel group")
             groups["other"] += dev_us(e) / 1e3
     print(f"{label}:", json.dumps(dict(
@@ -2258,6 +2293,31 @@ def check_wkv_build() -> None:
           f"{json.dumps(want)}", flush=True)
 
 
+def check_lru_build(torch) -> None:
+    """Gate: the RG-LRU wrapper's plan states the chunk and, for each
+    direction, the shared memory, threads, chunk slots, lanes, channels a
+    thread and the backward's piece the built library launches with, at
+    the training shape (bf16), the smoke config's (f32, 96 tokens), ragged
+    T 513 and 4096 tokens (windows of the block's chunks), and prints the
+    blocks resident on an SM."""
+    from repro_torch.kernels.rglru_scan import (kernel_tiles, plan,
+                                                resident_blocks)
+    for T, dt in ((LRU_MAIN[1], torch.bfloat16), (96, torch.float32),
+                  (513, torch.float32), (4096, torch.bfloat16)):
+        p, built = plan(4, T, LRU_MAIN[2], dt), kernel_tiles(T, dt)
+        want = dict(chunk=p["chunk"], **{
+            d: dict(smem=p[f"smem_{d}"], threads=p["threads"],
+                    slots=p["slots"], lanes=p["lanes"], vec=p["vec"],
+                    sub=p["sub"]) for d in ("fwd", "bwd")})
+        if built != want:
+            raise AssertionError(f"rglru plan vs kernels at T {T} {dt}: "
+                                 f"{want}; {built}")
+    resident = resident_blocks(LRU_MAIN[1], torch.bfloat16)
+    print(f"rglru_scan plan == kernels: chunk {want['chunk']}, "
+          f"{json.dumps(want['bwd'])}; bf16 blocks resident an SM at the "
+          f"training shape (fwd, bwd) {resident}", flush=True)
+
+
 def check_no_spill(spills: dict, sources: tuple) -> None:
     """Gate: ptxas reported every kernel of ``sources`` and none spills."""
     for name in sources:
@@ -2338,9 +2398,10 @@ def main() -> int:
             spills[name] = print_ptxas(name, log.read_text())
     check_flash_build(torch, spills.get("flash_attention", {}))
     check_no_spill(spills, ("decode_attention", "prefill_page_attention",
-                            "moe_grouped_ffn", "rwkv6_scan"))
+                            "moe_grouped_ffn", "rwkv6_scan", "rglru_scan"))
     check_moe_build(torch)
     check_wkv_build()
+    check_lru_build(torch)
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     phase_s = {}
@@ -2429,7 +2490,7 @@ def main() -> int:
             host_ms=row["host_ms"], shape=row["shape"],
             **{k: row[k] for k in ("hd128", "hd256", "shapes", "edge_cases",
                                    "library", "serial_steps", "state_bytes",
-                                   "checkpoint_bytes")
+                                   "checkpoint_bytes", "chunk", "threads")
                if k in row}))
     print(smi())
     print(json.dumps({"kernels": kernels}))
