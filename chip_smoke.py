@@ -25,10 +25,16 @@ Phases (any failure raises and the script exits non-zero):
    once under ``torch.cuda.set_sync_debug_mode("error")``: no host sync);
    the flash-attention backward against torch autograd of the plain
    attention, f32 at rtol/atol 1e-4, bf16 at a normalized max error of
-   2e-2; the split decode kernel also at recurrentgemma-2b's local heads
-   (10 over 1 kv head of 256, a 2048-slot ring) in bf16 and f32 (1e-4),
-   each row of a batch of 8 bit-identical to the row alone and two calls
-   bit-identical; chunked-prefill attention reading its ring in place from
+   2e-2; the split decode kernel reading its ring in place from 16-slot
+   page pools under a shuffled table (an idle row on the junk page), bit
+   for bit its gathered form over ``ref.page_gather``'s view, also at
+   recurrentgemma-2b's local heads (10 over 1 kv head of 256, a 2048-slot
+   ring) in bf16 and f32 (1e-4), each row of a batch of 8 bit-identical
+   to the row alone and two calls bit-identical, timed beside the
+   gathered pair it replaces (two ``page_gather`` calls and the gathered
+   form); the page gather also at mixtral-8x7b's head dim 128 (no serving
+   path launches it: it is the oracle of the gathered forms);
+   chunked-prefill attention reading its ring in place from
    page pools under a shuffled table (against the plain version over
    ``ref.page_gather``; its gathered form against the plain version and
    bit-identical to the paged one) over rings with dead slots, wrapped
@@ -77,7 +83,8 @@ Phases (any failure raises and the script exits non-zero):
    generations 16/32, cache 544).  Continuous and static modes on the
    ``steps`` clock must give identical greedy tokens, and the continuous
    run (the serving path: launch counts reset just before, read just
-   after) must launch each of its kernels.  Then one continuous
+   after) must launch each of its kernels and no ``page_gather`` (decode
+   reads the pages in place).  Then one continuous
    ``wall``-clock run, and ``torch.profiler`` over a continuous run of 8
    requests arriving together: device time by kernel group and the
    device's idle share.  Then the chunked path on the same weights: 16
@@ -86,8 +93,8 @@ Phases (any failure raises and the script exits non-zero):
    prefix-cached with nucleus sampling (launch counts reset before the
    three, read after): each run launches ``prefill_page_attention`` 16
    times per chunk (its own and the warmup's) and the paged decode
-   kernels, ``page_gather`` exactly twice per ``decode_attention`` (the
-   chunks read the pools in place), no plain version runs, every output
+   kernel, ``page_gather`` never (the chunks and decode read the pools in
+   place), no plain version runs, every output
    is whole, the cache hits more than 30 % of prompt tokens and saves
    chunks, sampling changes the tokens; the first-token logits of the chunk plan agree with the whole
    prompt's within a normalized 2e-2; then a ``wall``-clock prefix-cached
@@ -100,11 +107,11 @@ Phases (any failure raises and the script exits non-zero):
    seed 0 built leaf by leaf, batch 8, page 16, cache 544, the traffic of
    phase 4: continuous and static runs on the steps clock (the MoE serving
    path: exact launch counts of the grouped FFN and the attention kernels,
-   no plain version; continuous-vs-static agreement reported, not gated,
-   since capacity drops depend on the batch), the first-token logits of
-   the kernels against the plain versions on the card, a ``wall``-clock
-   run, a chunked (128) prefix-cached run on shared-prefix traffic, and a
-   profile;
+   0 of ``page_gather``, no plain version; continuous-vs-static agreement
+   reported, not gated, since capacity drops depend on the batch), the
+   first-token logits of the kernels against the plain versions on the
+   card, a ``wall``-clock run, a chunked (128) prefix-cached run on
+   shared-prefix traffic, and a profile;
 5. training, small: a narrow f32 model trained 4 steps through the train
    engine at delta 2 on the packed ring, on the card (CUDA kernels)
    against the CPU (plain versions): losses and parameters within 1e-4.
@@ -314,13 +321,44 @@ DECODE_CASES = tuple((8, L, 32, 8, 64, "bfloat16") for L in RING_LENS) \
        (8, 2048, 10, 1, 256, "bfloat16"), (8, 2048, 10, 1, 256, "float32"))
 
 
+def decode_pools(torch, gen, k, v):
+    """The rings k, v (B, L, KV, hd) moved into pools of ``PAGE``-slot
+    pages (B * n_pp + 1 of them, the last the junk page) under a shuffled
+    table: (k_pool, v_pool, table).  Row 0 is idle as the engine makes it:
+    its whole table on the junk page."""
+    B, L, KV, hd = k.shape
+    n_pp = L // PAGE
+    P = B * n_pp + 1
+    table = torch.randperm(P - 1, generator=gen, device="cuda")[:B * n_pp]
+    table = table.reshape(B, n_pp).to(torch.int32)
+    pools = []
+    for ring in (k, v):
+        pool = torch.randn((P, PAGE, KV, hd), generator=gen,
+                           device="cuda").to(ring.dtype)
+        pool[table.long()] = ring.reshape(B, n_pp, PAGE, KV, hd)
+        pools.append(pool)
+    table[0] = P - 1
+    return pools[0], pools[1], table
+
+
 def check_decode(torch, F, ref, gen):
-    """The split decode kernel against its plain version on ring masks as
-    the engine makes them (bf16 2e-2, f32 1e-4); every row of the batch
-    of 8 bit-identical to the same row run alone, and two calls
-    bit-identical; timed beside its bound, the plain version and SDPA with
-    a boolean mask."""
-    from repro_torch.kernels.decode_attention import decode_attention, plan
+    """The split decode kernel reading the ring in place from 16-slot page
+    pools under a shuffled table (row 0 idle on the junk page), on ring
+    masks as the engine makes them: bit for bit its gathered form over
+    ``ref.page_gather``'s view, and the plain version within tolerance
+    (bf16 2e-2, f32 1e-4); every row of the batch of 8 bit-identical to
+    the same row run alone, in both forms, and two calls bit-identical.
+    Timed (the paged form, the main path's) beside its bound, the gathered
+    form alone, the gathered pair (two ``page_gather`` calls and the
+    gathered form: what a layer's decode launched before the fold), the
+    plain version (gathers included) and SDPA with a boolean mask over the
+    gathered keys."""
+    from repro_torch.kernels.decode_attention import (
+        decode_attention, decode_attention_paged, plan)
+    from repro_torch.kernels.page_gather import page_gather
+    # the pools draw from their own generator, so the phases after this
+    # one see the numbers they saw before the pools were added
+    pool_gen = torch.Generator(device="cuda").manual_seed(1)
     rows = {}
     for B, L, H, KV, hd, dt in DECODE_CASES:
         dtype = getattr(torch, dt)
@@ -329,65 +367,102 @@ def check_decode(torch, F, ref, gen):
         q, k, v = mk(1, H), mk(L, KV), mk(L, KV)
         # ring masks as the engine makes them: row b holds positions < n_b
         n_live = torch.randint(1, L + 1, (B,), generator=gen, device="cuda")
-        n_live[0] = 1
+        n_live[0] = 1                          # the idle row: slot 0 live
         n_live[1] = L
         valid = torch.arange(L, device="cuda")[None, :] < n_live[:, None]
-        got = decode_attention(q, k, v, valid)
+        pk, pv, table = decode_pools(torch, pool_gen, k, v)
+        k, v = ref.page_gather(pk, table), ref.page_gather(pv, table)
+        got = decode_attention_paged(q, pk, pv, table, valid)
+        view = decode_attention(q, k, v, valid)
         want = ref.attention_decode(q, k, v, valid)
         torch.cuda.synchronize()
+        case = (B, L, H, KV, hd, dt)
+        if not torch.equal(got, view):
+            raise AssertionError(f"decode paged != gathered form at {case}")
         tol = BF16_TOL if dt == "bfloat16" else F32_TOL
         err = (got.float() - want.float()).abs().max().item()
         torch.testing.assert_close(got.float(), want.float(), rtol=tol,
                                    atol=tol)
-        if not torch.equal(got, decode_attention(q, k, v, valid)):
+        if not torch.equal(got, decode_attention_paged(q, pk, pv, table,
+                                                       valid)):
             raise AssertionError(f"decode_attention not deterministic at "
-                                 f"{(B, L, H, KV, hd, dt)}")
+                                 f"{case}")
         for b in range(B):
-            one = decode_attention(q[b:b + 1], k[b:b + 1], v[b:b + 1],
-                                   valid[b:b + 1])
-            if not torch.equal(one, got[b:b + 1]):
+            one = decode_attention_paged(q[b:b + 1], pk, pv, table[b:b + 1],
+                                         valid[b:b + 1])
+            one_view = decode_attention(q[b:b + 1], k[b:b + 1], v[b:b + 1],
+                                        valid[b:b + 1])
+            if not (torch.equal(one, got[b:b + 1])
+                    and torch.equal(one_view, got[b:b + 1])):
                 raise AssertionError(f"decode_attention row {b} at B1 "
-                                     f"differs from B{B} at "
-                                     f"{(B, L, H, KV, hd, dt)}")
+                                     f"differs from B{B} at {case}")
         live = int(valid.sum().item())
-        need = nbytes(q, got) + B * L + live * KV * hd * 2 * k.element_size()
+        need = nbytes(q, got, table) + B * L \
+            + live * KV * hd * 2 * k.element_size()
         b_ms, b_by = bound(need, 4.0 * hd * H * live, dt)
-        sets = rotation((q, k, v, valid))
+        del k, v
+        sets = rotation((q, pk, pv, table, valid))
         n = len(sets)
+        gsets = [(q_, ref.page_gather(pk_, t_), ref.page_gather(pv_, t_), m_)
+                 for q_, pk_, pv_, t_, m_ in sets]
         lib_sets = [(q_.transpose(1, 2), k_.transpose(1, 2),
                      v_.transpose(1, 2), m_[:, None, None, :])
-                    for q_, k_, v_, m_ in sets]
-        ms, host_ms = time_ms(lambda i: decode_attention(*sets[i % n]), 200)
+                    for q_, k_, v_, m_ in gsets]
+        ms, host_ms = time_ms(lambda i: decode_attention_paged(
+            *sets[i % n]), 200)
+        g_ms, g_host = time_ms(lambda i: decode_attention(*gsets[i % n]),
+                               200)
+        pair = lambda st: decode_attention(  # noqa: E731
+            st[0], page_gather(st[1], st[3]), page_gather(st[2], st[3]),
+            st[4])
+        pair_ms, pair_host = time_ms(lambda i: pair(sets[i % n]), 200)
+        plain = lambda st: ref.attention_decode(  # noqa: E731
+            st[0], ref.page_gather(st[1], st[3]),
+            ref.page_gather(st[2], st[3]), st[4])
         reps = 200 if dt == "bfloat16" else 10   # f32 SDPA: ~2.5 ms a call
         rows[L, hd, dt] = dict(
-            shape=[B, L, H, KV, hd], dtype=dt, splits=plan(L, hd,
-                                                           dtype)["splits"],
-            max_abs_err=err, tolerance=tol, batch_invariant=True,
-            deterministic=True, ms=ms, host_ms=host_ms,
-            plain_ms=time_ms(lambda i: ref.attention_decode(*sets[i % n]),
-                             reps // 4)[0],
+            shape=[B, L, H, KV, hd], dtype=dt, page=PAGE,
+            splits=plan(L, hd, dtype)["splits"], max_abs_err=err,
+            tolerance=tol, paged_equals_gathered=True,
+            batch_invariant=True, deterministic=True, ms=ms, paged_ms=ms,
+            host_ms=host_ms, gathered_ms=g_ms, gathered_host_ms=g_host,
+            gathered_pair_ms=pair_ms, gathered_pair_host_ms=pair_host,
+            plain_ms=time_ms(lambda i: plain(sets[i % n]), reps // 4)[0],
             library_ms=time_ms(lambda i: F.scaled_dot_product_attention(
                 *lib_sets[i % n][:3], attn_mask=lib_sets[i % n][3],
                 enable_gqa=True), reps)[0],
             bound_ms=b_ms, bound_by=b_by)
         print("decode_attention", json.dumps(rows[L, hd, dt]), flush=True)
-        del sets, lib_sets
+        del sets, gsets, lib_sets
     worst = max(r["max_abs_err"] for r in rows.values())
     return {**rows[MAIN_L, 64, "bfloat16"], "max_abs_err": worst,
             "hd128": rows[MAIN_L, 128, "bfloat16"],
             "hd256": [r for (_, hd, _), r in rows.items() if hd == 256]}
 
 
+# page_gather's shapes (L, hd) at 8 kv heads, B8, page 16: the serving
+# ring and a 1024-slot ring at llama3.2-1b's head dim, the serving ring at
+# mixtral-8x7b's
+GATHER_CASES = tuple((L, 64) for L in RING_LENS) + ((MAIN_L, 128),)
+
+
 def check_page_gather(torch, ref, gen):
+    """The gather bit for bit against ``ref.page_gather`` (it is the
+    oracle of the gathered forms the in-place kernels are held to), timed
+    beside its bound, the plain version and ``pool[idx]``.  No serving
+    path launches it since decode reads the pages in place."""
     from repro_torch.kernels.page_gather import page_gather
+    # the hd-128 case draws from its own generator, so the phases after
+    # this one see the numbers they saw before it was added
+    gens = {64: gen, 128: torch.Generator(device="cuda").manual_seed(2)}
     rows = {}
-    for L in RING_LENS:
-        B, page, KV, hd = 8, 16, 8, 64
+    for L, hd in GATHER_CASES:
+        B, page, KV = 8, PAGE, 8
         n_pp = L // page
         P = B * n_pp + 1
-        pool = torch.randn((P, page, KV, hd), generator=gen,
+        pool = torch.randn((P, page, KV, hd), generator=gens[hd],
                            device="cuda").to(torch.bfloat16)
-        table = torch.randperm(P - 1, generator=gen, device="cuda")
+        table = torch.randperm(P - 1, generator=gens[hd], device="cuda")
         table = table[:B * n_pp].reshape(B, n_pp).to(torch.int32)
         table[0, -1] = P - 1                   # an idle row's junk page
         got = page_gather(pool, table)
@@ -400,7 +475,7 @@ def check_page_gather(torch, ref, gen):
         n = len(sets)
         idx = [t.long() for _, t in sets]
         ms, host_ms = time_ms(lambda i: page_gather(*sets[i % n]), 200)
-        rows[L] = dict(
+        rows[L, hd] = dict(
             shape=[P, page, KV, hd, B, n_pp], max_abs_err=0.0,
             tolerance=0.0, ms=ms, host_ms=host_ms,
             plain_ms=time_ms(lambda i: ref.page_gather(*sets[i % n]),
@@ -408,8 +483,8 @@ def check_page_gather(torch, ref, gen):
             library_ms=time_ms(lambda i: sets[i % n][0][idx[i % n]],
                                200)[0],
             bound_ms=b_ms, bound_by=b_by)
-        print("page_gather", json.dumps(rows[L]), flush=True)
-    return rows[MAIN_L]
+        print("page_gather", json.dumps(rows[L, hd]), flush=True)
+    return {**rows[MAIN_L, 64], "hd128": rows[MAIN_L, 128]}
 
 
 # the full-width packed ring row of llama3.2-1b: 1,235,814,400 f32 parameters,
@@ -1363,7 +1438,7 @@ def _to(tree, dev):
             for k, v in tree.items()}
 
 
-SERVING_KERNELS = ("flash_attention", "page_gather", "decode_attention")
+SERVING_KERNELS = ("flash_attention", "decode_attention")
 
 
 def full_width(torch, ops, ref):
@@ -1425,6 +1500,9 @@ def full_width(torch, ops, ref):
     for cont, counts in launches.items():
         if min(counts[k] for k in SERVING_KERNELS) <= 0:
             raise AssertionError(f"a kernel never launched: {counts}")
+        # decode reads the pages in place: no gather on the path
+        if counts["page_gather"] != 0:
+            raise AssertionError(f"page_gather launched: {counts}")
 
     eng = ServeEngine(cfg, params, ServeConfig(continuous=True, clock="wall",
                                                **common))
@@ -1506,8 +1584,6 @@ def small_moe(torch):
 # mixtral-8x7b at full width, cut from 32 layers to MOE_DEPTH so its bf16
 # weights (23.7 GB) fit one 80 GB card beside their f32 draw
 MOE_DEPTH = 8
-MOE_KERNELS = ("moe_grouped_ffn", "flash_attention", "page_gather",
-               "decode_attention")
 
 
 @contextlib.contextmanager
@@ -1611,7 +1687,7 @@ def moe_serving(torch, ops, ref):
         want_l = {"moe_grouped_ffn": n_layers * (n_prefills + steps),
                   "flash_attention": n_layers * n_prefills,
                   "decode_attention": n_layers * steps,
-                  "page_gather": 2 * n_layers * steps}
+                  "page_gather": 0}
         print(f"mixtral {rep.mode} (steps clock): {rep.total_tokens} tokens, "
               f"{rep.decode_steps} decode steps, utilization "
               f"{rep.utilization:.3f}, {dt:.2f} s host time; launches "
@@ -1657,7 +1733,7 @@ def moe_serving(torch, ops, ref):
     want_c = {"prefill_page_attention": n_layers * (rep.prefill_chunks + 1),
               "moe_grouped_ffn": n_layers * (rep.prefill_chunks + 1
                                              + rep.decode_steps + 1),
-              "page_gather": 2 * chunked["decode_attention"]}
+              "page_gather": 0}
     print("mixtral chunked, prefix-cached (steps clock):", json.dumps(dict(
         tokens=rep.total_tokens, decode_steps=rep.decode_steps,
         prefill_chunks=rep.prefill_chunks,
@@ -1679,8 +1755,7 @@ def moe_serving(torch, ops, ref):
 
 
 CHUNK = 128
-CHUNKED_KERNELS = ("prefill_page_attention", "page_gather",
-                   "decode_attention")
+CHUNKED_KERNELS = ("prefill_page_attention", "decode_attention")
 LOGITS_NORM_TOL = 2e-2          # bf16 first-token logits: max |d| / max |l|
 
 
@@ -1725,12 +1800,10 @@ def chunked_serving(torch, ops, ref, cfg, params, common):
             if per_run[name]["prefill_page_attention"] != want:
                 raise AssertionError(f"{name}: prefill_page_attention "
                                      f"launched {per_run[name]}, want {want}")
-            # the chunks read the pools in place: every gather is decode's
-            if per_run[name]["page_gather"] != \
-                    2 * per_run[name]["decode_attention"]:
+            # the chunks and decode read the pools in place: no gather
+            if per_run[name]["page_gather"] != 0:
                 raise AssertionError(f"{name}: page_gather launched "
-                                     f"{per_run[name]}, want 2 x "
-                                     "decode_attention")
+                                     f"{per_run[name]}, want 0")
             if min(per_run[name][k] for k in CHUNKED_KERNELS) <= 0:
                 raise AssertionError(f"{name}: a kernel never launched")
     launches = dict(ops.launches)        # ... and ends here
@@ -2448,6 +2521,8 @@ def main() -> int:
 
     replaces = {"flash_attention": "src/repro/kernels/flash_attention.py:86",
                 "page_gather": "src/repro/kernels/page_gather.py:35",
+                # with the two page_gather calls before it
+                # (src/repro/kernels/page_gather.py:35), read in place
                 "decode_attention": "src/repro/kernels/decode_attention.py:70",
                 "ring_gather": "src/repro/kernels/ring_gather.py:36",
                 # the gradient of the kernel above: the TPU package has
@@ -2465,7 +2540,9 @@ def main() -> int:
                 # the gradient of the kernel above: the TPU package has
                 # none and trains through autodiff of its plain recurrence
                 "rglru_scan_bwd": "src/repro/kernels/rglru_scan.py:44"}
-    own_path = {"flash_attention": "serving", "page_gather": "serving",
+    # page_gather is on no path since decode reads the pages in place:
+    # its row stays, with 0 launches
+    own_path = {"flash_attention": "serving", "page_gather": None,
                 "decode_attention": "serving", "ring_gather": "training",
                 "flash_attention_bwd": "training",
                 "prefill_page_attention": "chunked_serving",
@@ -2481,7 +2558,7 @@ def main() -> int:
             name=name, route="cuda",
             source=f"src/repro_torch/kernels/csrc/{source}.cu",
             replaces=replaces[name], path=own_path[name],
-            launches=paths[own_path[name]][name],
+            launches=paths[own_path[name]][name] if own_path[name] else 0,
             launches_by_path={p: c[name] for p, c in paths.items()},
             max_abs_err=row["max_abs_err"], tolerance=row["tolerance"],
             ms=row["ms"],
@@ -2490,7 +2567,8 @@ def main() -> int:
             host_ms=row["host_ms"], shape=row["shape"],
             **{k: row[k] for k in ("hd128", "hd256", "shapes", "edge_cases",
                                    "library", "serial_steps", "state_bytes",
-                                   "checkpoint_bytes", "chunk", "threads")
+                                   "checkpoint_bytes", "chunk", "threads",
+                                   "gathered_ms", "gathered_pair_ms")
                if k in row}))
     print(smi())
     print(json.dumps({"kernels": kernels}))

@@ -1,11 +1,22 @@
-// Single-token GQA decode attention over a ring / paged-view KV cache,
+// Single-token GQA decode attention over a paged KV cache, reading the
+// ring's K/V rows in place from the page pools through the page table,
 // split over the ring (flash-decoding).
 //
 // Replaces the Pallas TPU kernel repro/kernels/decode_attention.py
-// (decode_attention, pallas_call at :102).  Same function: q (B,1,H,hd),
-// k/v (B,L,KV,hd), valid (B,L) -> (B,1,H,hd) in q's dtype; scale hd^-0.5;
-// probabilities of dead slots are exactly 0 (the Pallas kernel re-masks
-// them at :56-58); a row with no live slot writes 0.
+// (decode_attention, pallas_call at :102) together with the two
+// page_gather calls before it (repro/kernels/page_gather.py, pallas_call
+// at :57), as repro/models/attention.py pairs them.  Same function:
+// q (B,1,H,hd); the pools k_pool/v_pool (P,page,KV,hd) and page_table
+// (B,n_pp) int32, whose logical view pool[page_table] is the ring
+// (B,L,KV,hd), L = n_pp * page; valid (B,L) -> (B,1,H,hd) in q's dtype;
+// scale hd^-0.5; probabilities of dead slots are exactly 0 (the Pallas
+// kernel re-masks them at :56-58); a row with no live slot writes 0.  Ring
+// slot j of row b sits at pool[page_table[b, j / page], j % page]; a page
+// id of the split outside [0, P) traps, as page_gather's does.  The
+// gathered form, decode_attention(q, k, v, valid) over a materialized ring
+// (B,L,KV,hd), is the same kernel with one page of L slots a row and no
+// table (row b reads page b): the two forms share every instruction but
+// the address of a row, so they give the same bits.
 //
 // Bound on the H100: bytes.  A step reads the live K and V rows once,
 // 2 * B * live * KV * hd * elem bytes, and does 4 * H * hd FLOPs per (row,
@@ -21,11 +32,19 @@
 //   dtype) alone, never from B or the mask, so a row's bits do not depend
 //   on the batch (the schedule-invariance claims rest on that).
 // * A block of 4 warps serves the whole query group (up to 16 heads) of
-//   its kv head, so each K/V row is read from device memory once.  q and
-//   the split's live flags sit in shared memory; K/V tiles stream through
-//   a two-stage cp.async ring of 16-byte copies, with dead slots
-//   zero-filled (never read).  A tile with no live slot skips its
-//   arithmetic.
+//   its kv head, so each K/V row is read from device memory once.  q sits
+//   in shared memory, and so, for each key of the split, its live flag and
+//   the offsets of its K and V rows in the pools: one thread a key reads
+//   the flag and its page's id (the table row's id of key / page) with
+//   the two loads in flight together, and computes the offsets once, so
+//   the tile loads never divide by the page.  K/V tiles stream through a
+//   two-stage cp.async ring of 16-byte copies straight from the pages (a
+//   64-key bf16 tile spans 4 pages of 16; an f32 tile at head dim 256, 8
+//   keys, half a page); dead slots are zero-filled (never read).  A tile
+//   with no live slot skips its arithmetic.  No view of the ring is
+//   written: at llama3.2-1b's serving shape (B8 L544 KV8 hd64 bf16) the
+//   page_gather pair this replaces copied 2 x 4.46 MB a layer a step,
+//   which decode then read back.
 // * Each block writes a partial (m, l, acc) in f32 to scratch and counts
 //   itself in a per-(batch row, kv head) counter; the block that comes
 //   last merges the partials in split order (so the result does not
@@ -70,18 +89,66 @@ __host__ __device__ constexpr int tile_keys() {
   return TILE_BYTES / (HD * 4);
 }
 
-// f32: K/V stages, q [GP][HD], scores [GP][TK+1], alpha/m/l [GP], flags
+// the split's K and V row offsets [kps] (64-bit) and live flags [kps],
+// after the arithmetic's scratch
+size_t split_bytes(int kps) { return 16 * (size_t)kps + ((kps + 15) & ~15); }
+
+// f32: K/V stages, q [GP][HD], scores [GP][TK+1], alpha/m/l [GP], then
+// the split's row offsets and flags
 template <int HD, int GP>
 size_t smem_bytes(int kps) {
   constexpr int TK = tile_keys<HD>();
   return 4 * TILE_BYTES + sizeof(float) * (GP * HD + GP * (TK + 1) + 3 * GP) +
-         ((kps + 15) & ~15);
+         split_bytes(kps);
 }
 
-// element strides: q (b, h), k and v (b, l, h), valid (b), o (b, h)
+// element strides: q (b, h); the pools (page, slot, h), for the gathered
+// form (b, l, h); the table (b); valid (b); o (b, h)
 struct St {
-  long long qb, qh, kb, kl, kh, vb, vl, vh, valb, ob, oh;
+  long long qb, qh, kp, ks, kh, vp, vs, vh, pt, valb, ob, oh;
 };
+
+// the split's keys into shared memory, one thread a key: its live flag
+// and the offsets of its K and V rows in the pools (page id from the
+// table row, slot key % page; no table: the gathered form, row b is page
+// b), the flag and id loads issued together so their latencies overlap.
+// The tile loads then read a row's offset instead of dividing by the page
+// (a thread issues 4 to 16 row copies a tile, with 4 warps an SM to hide
+// their latency).  A page id outside [0, P) traps.
+template <int NTH>
+__device__ __forceinline__ void load_split(
+    const uint8_t* __restrict__ valid, const int* __restrict__ table, int P,
+    int page, const St& st, int key0, int nkeys, uint8_t* flags,
+    long long* koff, long long* voff) {
+  const int b = blockIdx.z, tid = threadIdx.x;
+  const int* tb = table != nullptr ? table + b * st.pt : nullptr;
+  const uint8_t* vb = valid + b * st.valb + key0;
+  for (int j0 = tid; j0 < nkeys; j0 += 4 * NTH) {
+    uint8_t x[4];
+    int id[4], slot[4];
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const int j = j0 + u * NTH, key = key0 + j, pg = key / page;
+      x[u] = 0;
+      id[u] = b;
+      slot[u] = key - pg * page;
+      if (j < nkeys) {
+        x[u] = vb[j];
+        if (tb != nullptr) id[u] = tb[pg];
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const int j = j0 + u * NTH;
+      if (j < nkeys) {
+        if (id[u] < 0 || id[u] >= P) __trap();
+        flags[j] = x[u];
+        koff[j] = id[u] * st.kp + slot[u] * st.ks;
+        voff[j] = id[u] * st.vp + slot[u] * st.vs;
+      }
+    }
+  }
+}
 
 template <typename T>
 __device__ __forceinline__ void load_vec(const T* p, float* out) {
@@ -193,10 +260,12 @@ __global__ void __launch_bounds__(NT, 1)
     decode_split_kernel(const float* __restrict__ q,
                         const float* __restrict__ k,
                         const float* __restrict__ v,
+                        const int* __restrict__ table,
                         const uint8_t* __restrict__ valid,
                         float* __restrict__ o, float* __restrict__ part,
-                        unsigned* __restrict__ counters, int L, int hd,
-                        int group, int kps, St st, float scale_log2) {
+                        unsigned* __restrict__ counters, int L, int page,
+                        int P, int hd, int group, int kps, St st,
+                        float scale_log2) {
   using T = float;
   constexpr int TK = tile_keys<HD>();
   constexpr int VEC = 16 / sizeof(T);        // elements a 16-byte slice
@@ -219,16 +288,17 @@ __global__ void __launch_bounds__(NT, 1)
   float* alpha_s = ss + GP * (TK + 1);
   float* m_s = alpha_s + GP;
   float* l_s = m_s + GP;
-  uint8_t* flags = reinterpret_cast<uint8_t*>(l_s + GP);     // [kps]
+  long long* koff = reinterpret_cast<long long*>(l_s + GP);   // [kps]
+  long long* voff = koff + kps;                                // [kps]
+  uint8_t* flags = reinterpret_cast<uint8_t*>(voff + kps);    // [kps]
   __shared__ int last_s;
 
-  const int split = blockIdx.x, kvh = blockIdx.y, b = blockIdx.z;
-  const int nsplit = gridDim.x;
-  const int key0 = split * kps;
+  const int kvh = blockIdx.y, b = blockIdx.z;
+  const int key0 = blockIdx.x * kps;
   const int nkeys = min(kps, L - key0);
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
 
-  // the group's q rows (zero past hd) by cp.async, the split's live flags
+  // the group's q rows (zero past hd) by cp.async, the split's keys
   const T* qb = q + b * st.qb + (long long)kvh * group * st.qh;
   for (int i = tid; i < group * CPR; i += NT) {
     const int g = i / CPR, c = (i % CPR) * VEC;
@@ -236,22 +306,11 @@ __global__ void __launch_bounds__(NT, 1)
     cp_async16(smem_u32(qs + g * HD + c), ok ? qb + g * st.qh + c : qb, ok);
   }
   cp_async_commit();
-  const uint8_t* vb = valid + b * st.valb + key0;
-  for (int j0 = tid; j0 < nkeys; j0 += 4 * NT) {
-    uint8_t x[4];
-#pragma unroll
-    for (int u = 0; u < 4; ++u) {
-      const int j = j0 + u * NT;
-      x[u] = j < nkeys ? vb[j] : 0;
-    }
-#pragma unroll
-    for (int u = 0; u < 4; ++u)
-      if (j0 + u * NT < nkeys) flags[j0 + u * NT] = x[u];
-  }
+  load_split<NT>(valid, table, P, page, st, key0, nkeys, flags, koff, voff);
   __syncthreads();
 
-  const T* kb = k + b * st.kb + kvh * st.kh;
-  const T* vbase = v + b * st.vb + kvh * st.vh;
+  const T* kb = k + kvh * st.kh;
+  const T* vbase = v + kvh * st.vh;
   auto load_tile = [&](int t, int stage) {
     const uint32_t kd = smem_u32(tiles + 2 * stage * TILE_ELEMS);
     const uint32_t vd = kd + TILE_BYTES;
@@ -259,9 +318,8 @@ __global__ void __launch_bounds__(NT, 1)
     for (int i = tid; i < TK * CPR; i += NT) {
       const int r = i / CPR, c = (i % CPR) * VEC, j = t * TK + r;
       const bool live = j < nkeys && flags[j] != 0 && c < hd;
-      const long long key = key0 + j;
-      cp_async16(kd + i * 16, live ? kb + key * st.kl + c : kb, live);
-      cp_async16(vd + i * 16, live ? vbase + key * st.vl + c : vbase, live);
+      cp_async16(kd + i * 16, live ? kb + koff[j] + c : kb, live);
+      cp_async16(vd + i * 16, live ? vbase + voff[j] + c : vbase, live);
     }
   };
 
@@ -406,11 +464,11 @@ constexpr int TC_TK = 64;  // keys a tile, 16 a warp
 
 // 1024 (alignment) + Q [16][HD] + two stages of (K, V) [TC_TK][HD] bf16;
 // after the walk the stages hold the warps' (m, l, O) and the merged O
-// [16][HD] in f32; then m, l [16] and the split's live flags
+// [16][HD] in f32; then m, l [16], the split's row offsets and flags
 template <int HD>
 size_t tc_smem_bytes(int kps) {
   return 1024 + 16 * HD * 2 + 2 * 2 * TC_TK * HD * 2 + 2 * 16 * 4 +
-         ((kps + 15) & ~15);
+         split_bytes(kps);
 }
 
 __device__ __forceinline__ uint32_t align1024(void* p) {
@@ -428,10 +486,12 @@ __global__ void __launch_bounds__(NT, 1)
     decode_split_kernel_tc(const bf16* __restrict__ q,
                            const bf16* __restrict__ k,
                            const bf16* __restrict__ v,
+                           const int* __restrict__ table,
                            const uint8_t* __restrict__ valid,
                            bf16* __restrict__ o, float* __restrict__ part,
-                           unsigned* __restrict__ counters, int L, int hd,
-                           int group, int kps, St st, float scale_log2) {
+                           unsigned* __restrict__ counters, int L, int page,
+                           int P, int hd, int group, int kps, St st,
+                           float scale_log2) {
   constexpr int CPR = HD / 8;              // 16-byte chunks a row
   constexpr uint32_t TILE = TC_TK * HD * 2;
   constexpr int GP = 16;
@@ -444,11 +504,13 @@ __global__ void __launch_bounds__(NT, 1)
   float* stage_f = reinterpret_cast<float*>(gbase + 16 * HD * 2);
   float* m_s = reinterpret_cast<float*>(gbase + 16 * HD * 2 + 4 * TILE);
   float* l_s = m_s + 16;
-  uint8_t* flags = reinterpret_cast<uint8_t*>(l_s + 16);
+  long long* koff = reinterpret_cast<long long*>(l_s + 16);  // [kps]
+  long long* voff = koff + kps;                               // [kps]
+  uint8_t* flags = reinterpret_cast<uint8_t*>(voff + kps);   // [kps]
   __shared__ int last_s;
 
-  const int split = blockIdx.x, kvh = blockIdx.y, b = blockIdx.z;
-  const int key0 = split * kps;
+  const int kvh = blockIdx.y, b = blockIdx.z;
+  const int key0 = blockIdx.x * kps;
   const int nkeys = min(kps, L - key0);
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
 
@@ -459,33 +521,21 @@ __global__ void __launch_bounds__(NT, 1)
     cp_async16(Qs + swz<16>(g, c), ok ? qb + g * st.qh + c : qb, ok);
   }
   cp_async_commit();
-  const uint8_t* vb = valid + b * st.valb + key0;
-  for (int j0 = tid; j0 < nkeys; j0 += 4 * NT) {
-    uint8_t x[4];
-#pragma unroll
-    for (int u = 0; u < 4; ++u) {
-      const int j = j0 + u * NT;
-      x[u] = j < nkeys ? vb[j] : 0;
-    }
-#pragma unroll
-    for (int u = 0; u < 4; ++u)
-      if (j0 + u * NT < nkeys) flags[j0 + u * NT] = x[u];
-  }
+  load_split<NT>(valid, table, P, page, st, key0, nkeys, flags, koff, voff);
   __syncthreads();
 
-  const bf16* kb = k + b * st.kb + kvh * st.kh;
-  const bf16* vbase = v + b * st.vb + kvh * st.vh;
+  const bf16* kb = k + kvh * st.kh;
+  const bf16* vbase = v + kvh * st.vh;
   auto load_tile = [&](int t, int stage) {
     const uint32_t kd = Sg + stage * 2 * TILE, vd = kd + TILE;
 #pragma unroll 1
     for (int i = tid; i < TC_TK * CPR; i += NT) {
       const int r = i / CPR, c = (i % CPR) * 8, j = t * TC_TK + r;
       const bool live = j < nkeys && flags[j] != 0 && c < hd;
-      const long long key = key0 + j;
-      cp_async16(kd + swz<TC_TK>(r, c), live ? kb + key * st.kl + c : kb,
+      cp_async16(kd + swz<TC_TK>(r, c), live ? kb + koff[j] + c : kb,
                  live);
-      cp_async16(vd + swz<TC_TK>(r, c),
-                 live ? vbase + key * st.vl + c : vbase, live);
+      cp_async16(vd + swz<TC_TK>(r, c), live ? vbase + voff[j] + c : vbase,
+                 live);
     }
   };
 
@@ -678,39 +728,46 @@ int check_plan(int L, int kps, int nsplit, int tile, const void* part,
   return 0;
 }
 
+// the launch's arguments, whichever instantiation takes them
+struct Args {
+  const void *q, *k, *v, *table, *valid;
+  void *o, *part, *counters;
+  int B, L, page, P, KV, hd, group, kps, nsplit;
+  St st;
+  float scale_log2;
+  cudaStream_t stream;
+};
+
 template <int HD, int GP>
-int launch_f32(const void* q, const void* k, const void* v,
-               const void* valid, void* o, void* part, void* counters, int B,
-               int L, int KV, int hd, int group, int kps, int nsplit,
-               const St& st, float scale_log2, cudaStream_t stream) {
-  int err = check_plan(L, kps, nsplit, tile_keys<HD>(), part, counters);
+int launch_f32(const Args& a) {
+  int err = check_plan(a.L, a.kps, a.nsplit, tile_keys<HD>(), a.part,
+                       a.counters);
   if (err) return err;
   auto kern = decode_split_kernel<HD, GP>;
-  const size_t smem = smem_bytes<HD, GP>(kps);
+  const size_t smem = smem_bytes<HD, GP>(a.kps);
   if ((err = allow_smem(kern, smem))) return err;
-  kern<<<dim3(nsplit, KV, B), NT, smem, stream>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<const uint8_t*>(valid),
-      static_cast<float*>(o), static_cast<float*>(part),
-      static_cast<unsigned*>(counters), L, hd, group, kps, st, scale_log2);
+  kern<<<dim3(a.nsplit, a.KV, a.B), NT, smem, a.stream>>>(
+      static_cast<const float*>(a.q), static_cast<const float*>(a.k),
+      static_cast<const float*>(a.v), static_cast<const int*>(a.table),
+      static_cast<const uint8_t*>(a.valid), static_cast<float*>(a.o),
+      static_cast<float*>(a.part), static_cast<unsigned*>(a.counters), a.L,
+      a.page, a.P, a.hd, a.group, a.kps, a.st, a.scale_log2);
   return (int)cudaGetLastError();
 }
 
 template <int HD>
-int launch_tc(const void* q, const void* k, const void* v,
-              const void* valid, void* o, void* part, void* counters, int B,
-              int L, int KV, int hd, int group, int kps, int nsplit,
-              const St& st, float scale_log2, cudaStream_t stream) {
-  int err = check_plan(L, kps, nsplit, TC_TK, part, counters);
+int launch_tc(const Args& a) {
+  int err = check_plan(a.L, a.kps, a.nsplit, TC_TK, a.part, a.counters);
   if (err) return err;
   auto kern = decode_split_kernel_tc<HD>;
-  const size_t smem = tc_smem_bytes<HD>(kps);
+  const size_t smem = tc_smem_bytes<HD>(a.kps);
   if ((err = allow_smem(kern, smem))) return err;
-  kern<<<dim3(nsplit, KV, B), NT, smem, stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<const uint8_t*>(valid),
-      static_cast<bf16*>(o), static_cast<float*>(part),
-      static_cast<unsigned*>(counters), L, hd, group, kps, st, scale_log2);
+  kern<<<dim3(a.nsplit, a.KV, a.B), NT, smem, a.stream>>>(
+      static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
+      static_cast<const bf16*>(a.v), static_cast<const int*>(a.table),
+      static_cast<const uint8_t*>(a.valid), static_cast<bf16*>(a.o),
+      static_cast<float*>(a.part), static_cast<unsigned*>(a.counters), a.L,
+      a.page, a.P, a.hd, a.group, a.kps, a.st, a.scale_log2);
   return (int)cudaGetLastError();
 }
 
@@ -732,38 +789,40 @@ int with_group(int group, F&& f) {
 
 }  // namespace
 
-// strides in elements: q (b, h), k (b, l, h), v (b, l, h), valid (b),
-// o (b, h); the head dim is contiguous, valid is uint8 with a contiguous
-// slot axis.  keys_per_split and nsplit come from the wrapper's plan
-// (keys_per_split a multiple of the tile); with nsplit > 1, part is f32
-// scratch of B * KV * nsplit * group * (hd_tile + 2) and counters B * KV
-// zeroed unsigned ints (the kernel leaves them 0).
+// k, v: the pools (P, page, KV, hd), page_table (B, L / page) int32 ids
+// in [0, P) with a contiguous page axis; or, with no table (nullptr), the
+// gathered form: k, v (B, L, KV, hd) as B pages of L slots, page == L and
+// P == B.  Strides in elements: q (b, h), k (page, slot, h), v (page,
+// slot, h), page_table (b), valid (b), o (b, h); the head dim is
+// contiguous, valid is uint8 with a contiguous slot axis.  keys_per_split
+// and nsplit come from the wrapper's plan (keys_per_split a multiple of
+// the tile); with nsplit > 1, part is f32 scratch of B * KV * nsplit *
+// group * (hd_tile + 2) and counters B * KV zeroed unsigned ints (the
+// kernel leaves them 0).
 extern "C" int decode_attention_fwd(
-    const void* q, const void* k, const void* v, const void* valid, void* o,
-    void* part, void* counters, int dtype, int B, int L, int H, int KV,
-    int hd, int keys_per_split, int nsplit, long long qsb, long long qsh,
-    long long ksb, long long ksl, long long ksh, long long vsb,
-    long long vsl, long long vsh, long long valsb, long long osb,
-    long long osh, float scale, void* stream) {
-  if (KV <= 0 || H % KV) return (int)cudaErrorInvalidValue;
-  const St st{qsb, qsh, ksb, ksl, ksh, vsb, vsl, vsh, valsb, osb, osh};
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int group = H / KV;
-  const float sl = scale * LOG2E;
-  if (group > 16) return (int)cudaErrorInvalidValue;
+    const void* q, const void* k, const void* v, const void* page_table,
+    const void* valid, void* o, void* part, void* counters, int dtype, int B,
+    int L, int H, int KV, int hd, int page, int P, int keys_per_split,
+    int nsplit, long long qsb, long long qsh, long long ksp, long long kss,
+    long long ksh, long long vsp, long long vss, long long vsh,
+    long long ptsb, long long valsb, long long osb, long long osh,
+    float scale, void* stream) {
+  if (KV <= 0 || H % KV || H / KV > 16 || page <= 0 || L % page || P <= 0 ||
+      (page_table == nullptr && (page != L || P != B)))
+    return (int)cudaErrorInvalidValue;
+  const Args a{q, k, v, page_table, valid, o, part, counters, B, L, page, P,
+               KV, hd, H / KV, keys_per_split, nsplit,
+               St{qsb, qsh, ksp, kss, ksh, vsp, vss, vsh, ptsb, valsb, osb,
+                  osh},
+               scale * LOG2E, static_cast<cudaStream_t>(stream)};
   if (dtype == kBF16)
     return with_hd(hd, [&](auto hdc) {
-      constexpr int HD = decltype(hdc)::value;
-      return launch_tc<HD>(q, k, v, valid, o, part, counters, B, L, KV, hd,
-                           group, keys_per_split, nsplit, st, sl, s);
+      return launch_tc<decltype(hdc)::value>(a);
     });
   if (dtype != kF32) return (int)cudaErrorInvalidValue;
   return with_hd(hd, [&](auto hdc) {
-    constexpr int HD = decltype(hdc)::value;
-    return with_group(group, [&](auto gc) {
-      constexpr int GP = decltype(gc)::value;
-      return launch_f32<HD, GP>(q, k, v, valid, o, part, counters, B, L, KV,
-                                hd, group, keys_per_split, nsplit, st, sl, s);
+    return with_group(a.group, [&](auto gc) {
+      return launch_f32<decltype(hdc)::value, decltype(gc)::value>(a);
     });
   });
 }

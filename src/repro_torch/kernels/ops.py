@@ -14,6 +14,7 @@ import torch
 from . import ref
 from ._build import launches, reset_launches
 from .decode_attention import decode_attention as _decode_attention
+from .decode_attention import decode_attention_paged as _decode_paged
 from .flash_attention import FlashAttention
 from .moe_matmul import moe_grouped_ffn as _moe_grouped_ffn
 from .page_gather import page_gather as _page_gather
@@ -23,7 +24,8 @@ from .rglru_scan import RGLRUScan
 from .ring_gather import ring_gather as _ring_gather
 from .rwkv6_scan import RWKV6Scan
 
-__all__ = ["attention", "attention_decode", "moe_grouped_ffn", "page_gather",
+__all__ = ["attention", "attention_decode", "attention_decode_paged",
+           "moe_grouped_ffn", "page_gather",
            "prefill_page_attention", "prefill_page_attention_paged", "rglru",
            "ring_gather", "rwkv6", "rwkv6_stateful", "launches",
            "reset_launches", "CHUNK_THRESHOLD"]
@@ -60,6 +62,19 @@ def attention_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if _on_cuda(q):
         return _decode_attention(q, k, v, valid)
     return ref.attention_decode(q, k, v, valid)
+
+
+def attention_decode_paged(q: torch.Tensor, k_pool: torch.Tensor,
+                           v_pool: torch.Tensor, page_table: torch.Tensor,
+                           valid: torch.Tensor) -> torch.Tensor:
+    """One query token a row (B, 1, H, hd) against the ring read through
+    the page table (B, n_pp) from the pools (P, page, KV, hd), masked by
+    ``valid``: on the card one kernel reading the pages in place, on the
+    CPU ``page_gather`` of both pools and ``attention_decode``."""
+    if _on_cuda(q):
+        return _decode_paged(q, k_pool, v_pool, page_table, valid)
+    return ref.attention_decode(q, ref.page_gather(k_pool, page_table),
+                                ref.page_gather(v_pool, page_table), valid)
 
 
 def page_gather(pool: torch.Tensor, page_table: torch.Tensor

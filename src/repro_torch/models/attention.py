@@ -101,7 +101,10 @@ def attention_decode_paged(params: dict, x: torch.Tensor, cache: dict,
     the junk page, so their write lands there).  The new K/V entry is
     written into the pools **in place** (``index_put_``); the returned
     cache is the same dict.  Idle rows all write pos 0 of the junk page:
-    duplicate indices there are harmless, nothing reads junk content.
+    duplicate indices there are harmless, and what an idle row reads back
+    from it is discarded.  The ring is then read through the page table in
+    place (on the card one kernel reads the pools, on the CPU
+    ``page_gather`` copies them), after the write on the same stream.
     """
     q, k_new, v_new = _qkv(params, x, cfg)
     theta = _rope_theta(cfg, kind)
@@ -119,10 +122,8 @@ def attention_decode_paged(params: dict, x: torch.Tensor, cache: dict,
     pk.index_put_((phys, off), k_new[:, 0].to(pk.dtype))
     pv.index_put_((phys, off), v_new[:, 0].to(pv.dtype))
 
-    k = kops.page_gather(pk, pt)                                 # (B, L, KV, hd)
-    v = kops.page_gather(pv, pt)
     valid = _ring_valid(posb, L, cfg, kind)
-    out = kops.attention_decode(q, k, v, valid)
+    out = kops.attention_decode_paged(q, pk, pv, pt, valid)
     out = _merge_heads(out) @ params["wo"].to(x.dtype)
     return out, cache
 

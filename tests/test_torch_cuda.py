@@ -31,7 +31,8 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.kernels import _build, ops, ref  # noqa: E402
-from repro_torch.kernels.decode_attention import decode_attention  # noqa
+from repro_torch.kernels.decode_attention import (  # noqa: E402
+    decode_attention, decode_attention_paged)
 from repro_torch.kernels.flash_attention import (  # noqa: E402
     FlashAttention, flash_attention, flash_attention_bwd, kernel_smem, plan)
 from repro_torch.kernels.moe_matmul import (  # noqa: E402
@@ -199,6 +200,114 @@ def test_decode_attention_refuses(gen):
     k = _randn(gen, (1, 8, 1, 65), torch.bfloat16)[..., 1:]
     with pytest.raises(ValueError, match="16-byte aligned"):
         decode_attention(q, k, k, valid)
+
+
+def _decode_pools(gen, B, n_pp, page, H, KV, hd, dtype):
+    """q and pools of B * n_pp + 1 pages (the last the junk page) under a
+    shuffled table, and ring masks: row 0 idle (its whole table on the
+    junk page, pos 0: slot 0 live), row 1 with no live slot, the others
+    random with their last slot live."""
+    P = B * n_pp + 1
+    q = _randn(gen, (B, 1, H, hd), dtype)
+    pk, pv = (_randn(gen, (P, page, KV, hd), dtype) for _ in range(2))
+    table = torch.randperm(P - 1, generator=gen, device="cuda")[:B * n_pp]
+    table = table.reshape(B, n_pp).to(torch.int32)
+    table[0] = P - 1
+    L = n_pp * page
+    valid = torch.rand((B, L), generator=gen, device="cuda") < 0.6
+    valid[:, L - 1] = True
+    valid[0] = False
+    valid[0, 0] = True
+    valid[1] = False
+    return q, pk, pv, table, valid
+
+
+@pytest.mark.parametrize("n_pp,page", [
+    (4, 16),     # one split
+    (34, 16),    # the serving ring: 5 splits, L not a multiple of a split
+    (13, 20),    # splits starting mid-page
+])
+@pytest.mark.parametrize("hd,H,KV", [(64, 16, 4), (64, 10, 1),
+                                     (128, 8, 2), (128, 20, 2),
+                                     (256, 4, 1), (256, 10, 1)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_attention_paged(gen, n_pp, page, hd, H, KV, dtype):
+    """Pages read in place under a shuffled table give the bits of
+    ``decode_attention`` over ``page_gather``'s view, and the plain
+    version's result within tolerance; an idle row reads the junk page as
+    the gathered form does, and a row with no live slot gives 0."""
+    B = 5
+    q, pk, pv, table, valid = _decode_pools(gen, B, n_pp, page, H, KV, hd,
+                                            dtype)
+    got = decode_attention_paged(q, pk, pv, table, valid)
+    k, v = page_gather(pk, table), page_gather(pv, table)
+    assert torch.equal(got, decode_attention(q, k, v, valid))
+    live = [0] + list(range(2, B))
+    torch.testing.assert_close(
+        got[live].float(),
+        ref.attention_decode(q[live], k[live], v[live], valid[live]).float(),
+        **TOL[dtype])
+    assert torch.equal(got[1], torch.zeros_like(got[1]))
+
+
+@pytest.mark.parametrize("n_pp,H,KV,hd", [(34, 32, 8, 64),
+                                          (128, 10, 1, 256)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_attention_paged_is_batch_invariant(gen, n_pp, H, KV, hd,
+                                                   dtype):
+    """Each row of a batch of 8 gives alone (its own table row, the same
+    pools) the bits it gives inside the batch, and two calls give the same
+    bits."""
+    B = 8
+    q, pk, pv, table, valid = _decode_pools(gen, B, n_pp, 16, H, KV, hd,
+                                            dtype)
+    got = decode_attention_paged(q, pk, pv, table, valid)
+    assert torch.equal(got, decode_attention_paged(q, pk, pv, table, valid))
+    for b in range(B):
+        one = decode_attention_paged(q[b:b + 1], pk, pv, table[b:b + 1],
+                                     valid[b:b + 1])
+        assert torch.equal(one, got[b:b + 1]), b
+
+
+def test_decode_attention_paged_refuses(gen):
+    q, pk, pv, table, valid = _decode_pools(gen, 2, 4, 16, 8, 2, 64,
+                                            torch.bfloat16)
+    ok = (q, pk, pv, table, valid)
+
+    def refused(match, **kw):
+        args = dict(zip(("q", "k_pool", "v_pool", "page_table", "valid"),
+                        ok), **kw)
+        with pytest.raises(ValueError, match=match):
+            decode_attention_paged(*args.values())
+    refused("page_table", page_table=table.long())
+    refused("page_table", page_table=table[:1])
+    refused("page_table", page_table=table.t().contiguous().t())
+    refused("page_table", page_table=table[0])
+    refused("dtypes", v_pool=pv.float())
+    refused("shapes", v_pool=pv[:-1])
+    refused("vs k", q=q[:, :, :, :32])
+    refused("valid", valid=valid[:, :-1])
+    refused("group 17", q=_randn(gen, (2, 1, 34, 64), torch.bfloat16))
+    refused("16-byte aligned",
+            k_pool=_randn(gen, pk.shape[:3] + (65,), torch.bfloat16)[..., 1:],
+            v_pool=_randn(gen, pk.shape[:3] + (65,), torch.bfloat16)[..., 1:])
+    refused("CUDA tensors", page_table=table.cpu())
+
+
+def test_decode_attention_paged_traps_on_a_page_outside_the_pool(gen):
+    """A page id outside [0, P) is a fault of the caller's tables: the
+    kernel traps (in a child process: a trap ends the CUDA context)."""
+    code = ("import torch; from repro_torch.kernels.decode_attention import "
+            "decode_attention_paged as d; p = torch.zeros((3, 16, 1, 64), "
+            "device='cuda'); t = torch.tensor([[0, 3]], dtype=torch.int32, "
+            "device='cuda'); d(torch.zeros((1, 1, 4, 64), device='cuda'), "
+            "p, p, t, torch.ones(32, dtype=torch.bool, device='cuda')); "
+            "torch.cuda.synchronize(); print('no trap')")
+    env = {**os.environ,
+           "PYTHONPATH": str(Path(__file__).resolve().parents[1] / "src")}
+    res = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode != 0 and "no trap" not in res.stdout
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

@@ -10,6 +10,13 @@ at recurrent serving's shapes, and the paged prefill entry, on the CPU.
   one kernel reading the pools through the page table) equals JAX's
   ``page_gather`` of both pools followed by its Pallas prefill kernel,
   under a shuffled page table.
+* ``ops.attention_decode_paged`` (the decode path's entry: on the card one
+  kernel reading the pools through the page table) equals JAX's
+  ``page_gather`` of both pools followed by its Pallas decode kernel, under
+  a shuffled table with an idle row on the junk page, at llama3.2-1b's
+  heads and recurrentgemma-2b's local heads; the CPU route launches no
+  kernel; the decode kernel's splits, walked over the pages as the kernel
+  walks them, read exactly the gathered ring.
 * The decode kernel's split plan is a function of (L, hd, dtype) alone,
   and the split-and-merge it plans (partial (m, l, acc) per split, merged
   in split order) gives the plain version's result, with dead splits
@@ -262,3 +269,98 @@ def test_prefill_plan_reads_no_batch_and_splits_only_few_blocks():
         assert 1 <= p["splits"] <= max(1, p["key_tiles"] // 4)
         assert p["splits"] == 1 or \
             p["row_tiles"] * KV * p["splits"] <= 128
+
+
+def _paged_decode_inputs(rng, B, n_pp, page, H, KV, hd):
+    """Pools of B * n_pp + 1 pages (the last one the junk page) under a
+    shuffled table; row 0 idle (its whole table on the junk page, pos 0:
+    slot 0 live), the other rows at ring positions that have wrapped or
+    not, with a window of L - 3 slots."""
+    L, P = n_pp * page, B * n_pp + 1
+    pools = [rng.standard_normal((P, page, KV, hd)).astype(np.float32)
+             for _ in range(2)]
+    table = rng.permutation(P - 1)[:B * n_pp].reshape(B, n_pp)
+    table = table.astype(np.int32)
+    table[0] = P - 1
+    q = rng.standard_normal((B, 1, H, hd)).astype(np.float32)
+    pos = np.array([0] + [int(x) for x in rng.integers(1, 3 * L, B - 1)])
+    idx = np.arange(L)[None]
+    abs_pos = pos[:, None] - np.mod(pos[:, None] - idx, L)
+    valid = (abs_pos >= 0) & (abs_pos > pos[:, None] - (L - 3))
+    return q, pools, table, valid
+
+
+@pytest.mark.parametrize("H,KV,hd", [(32, 8, 64), (10, 1, 256)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_paged_decode_matches_jax_gather_then_pallas(H, KV, hd, dtype):
+    """Four rows over pools of 4-slot pages (a ring of 24): the CPU route
+    of the paged entry against JAX's ``page_gather`` of both pools and
+    its Pallas decode kernel, both in interpret mode."""
+    B, n_pp, page = 4, 6, 4
+    q, pools, table, valid = _paged_decode_inputs(
+        np.random.default_rng(5), B, n_pp, page, H, KV, hd)
+    assert not np.array_equal(table[1:].ravel() % (B * n_pp),
+                              np.arange(B * n_pp)[n_pp:])
+    (tq, jq), (pk, jpk), (pv, jpv) = (_pair(a, dtype) for a in (q, *pools))
+    tt, jt = torch.from_numpy(table), jnp.asarray(table)
+    got = ops.attention_decode_paged(tq, pk, pv, tt,
+                                     torch.from_numpy(valid))
+    jk = pallas_gather(jpk, jt, interpret=True)
+    jv = pallas_gather(jpv, jt, interpret=True)
+    want = pallas_decode(jq, jk, jv, jnp.asarray(valid), block_k=8,
+                         interpret=True)
+    assert got.shape == (B, 1, H, hd) and got.dtype == tq.dtype
+    _close(got, want, dtype)
+    # the gathered form on the same inputs gives the same bits
+    same = ops.attention_decode(tq, ref.page_gather(pk, tt),
+                                ref.page_gather(pv, tt),
+                                torch.from_numpy(valid))
+    assert torch.equal(got, same)
+
+
+def test_paged_decode_runs_no_kernel_on_the_cpu():
+    q, pools, table, valid = _paged_decode_inputs(
+        np.random.default_rng(6), 2, 3, 4, 4, 1, 16)
+    before = dict(ops.launches)
+    out = ops.attention_decode_paged(
+        torch.from_numpy(q), *(torch.from_numpy(p) for p in pools),
+        torch.from_numpy(table), torch.from_numpy(valid))
+    assert ops.launches == before and torch.isfinite(out).all()
+
+
+@pytest.mark.parametrize("L,page,hd,dtype", [
+    (544, 16, 64, torch.bfloat16),     # llama3.2-1b's serving ring
+    (2048, 16, 256, torch.float32),    # f32 tiles of 8 keys: half a page
+    (300, 20, 64, torch.bfloat16),     # splits starting mid-page
+    (300, 1, 32, torch.float32),       # one slot a page
+    (544, 544, 64, torch.bfloat16),    # the gathered form: one page a row
+])
+def test_paged_decode_splits_read_the_gathered_ring(L, page, hd, dtype):
+    """Each split of the plan, walked as ``csrc/decode_attention.cu`` walks
+    it (the ids of pages key0 // page .. (key0 + nkeys - 1) // page loaded
+    once, at most (kps - 1) // page + 2 of them; a key's page id and slot
+    from key // page), reads exactly the rows of ``ref.page_gather``'s
+    view; the plan reads neither the page nor the table."""
+    B, KV = 2, 2
+    rng = np.random.default_rng(7)
+    n_pp = L // page
+    P = B * n_pp + 1
+    pool = torch.from_numpy(rng.standard_normal((P, page, KV, 8),
+                                                np.float32))
+    table = torch.from_numpy(rng.permutation(P)[:B * n_pp].reshape(
+        B, n_pp).astype(np.int32))
+    view = ref.page_gather(pool, table)
+    p = dec.plan(L, hd, dtype)
+    kps = p["keys_per_split"]
+    for b in range(B):
+        rows = []
+        for s in range(p["splits"]):
+            key0 = s * kps
+            nkeys = min(kps, L - key0)
+            p0 = key0 // page
+            ids = table[b, p0:(key0 + nkeys - 1) // page + 1]
+            assert len(ids) <= (kps - 1) // page + 2
+            for key in range(key0, key0 + nkeys):
+                pg = key // page
+                rows.append(pool[ids[pg - p0], key - pg * page])
+        assert torch.equal(torch.stack(rows), view[b])

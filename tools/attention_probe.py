@@ -9,7 +9,10 @@ times them), with its max abs error against the plain version.
 
 Decode: B8 over the 544-slot serving ring at head dims 64 and 128 (32 q
 heads over 8 kv heads), and recurrentgemma-2b's local layers (10 over 1 of
-256, a 2048-slot ring) in bf16 and f32.  Chunked prefill: B1 C128 over a
+256, a 2048-slot ring) in bf16 and f32; each also read in place from
+16-slot page pools under a shuffled table (``paged==view``: bit-equal to
+the gathered form) and timed so, beside the gathered pair (two
+``page_gather`` calls and the gathered form).  Chunked prefill: B1 C128 over a
 544-slot ring with 256 live slots at head dims 64 and 128, recurrentgemma-2b's
 local layers with the 2048 window, a wrapped f32 ring; each also read in
 place from 16-slot page pools under a shuffled table (``paged==view``:
@@ -31,7 +34,8 @@ import torch.nn.functional as F  # noqa: E402
 
 import chip_smoke as cs  # noqa: E402
 from repro_torch.kernels import _build, ref  # noqa: E402
-from repro_torch.kernels.decode_attention import decode_attention  # noqa
+from repro_torch.kernels.decode_attention import (  # noqa: E402
+    decode_attention, decode_attention_paged)
 from repro_torch.kernels.page_gather import (  # noqa: E402
     page_gather, prefill_page_attention, prefill_page_attention_paged)
 
@@ -67,18 +71,33 @@ def main() -> int:
         q, k, v = mk(1, H), mk(L, KV), mk(L, KV)
         n_live = torch.randint(1, L + 1, (B,), generator=gen, device="cuda")
         valid = torch.arange(L, device="cuda")[None, :] < n_live[:, None]
-        err = (decode_attention(q, k, v, valid).float()
+        view = decode_attention(q, k, v, valid)
+        err = (view.float()
                - ref.attention_decode(q, k, v, valid).float()).abs().max()
+        pk, pv, table = cs.decode_pools(torch, gen, k, v)
+        same = torch.equal(
+            decode_attention_paged(q, pk, pv, table, valid),
+            decode_attention(q, page_gather(pk, table),
+                             page_gather(pv, table), valid))
         sets = cs.rotation((q, k, v, valid))
         n = len(sets)
+        psets = cs.rotation((q, pk, pv, table, valid))
+        npg = len(psets)
         lib = [(a.transpose(1, 2), b.transpose(1, 2), c.transpose(1, 2),
                 m[:, None, None, :]) for a, b, c, m in sets]
         ms = cs.time_ms(lambda i: decode_attention(*sets[i % n]), 200)[0]
+        paged_ms = cs.time_ms(lambda i: decode_attention_paged(
+            *psets[i % npg]), 200)[0]
+        pair_ms = cs.time_ms(lambda i: decode_attention(
+            psets[i % npg][0], page_gather(*psets[i % npg][1:4:2]),
+            page_gather(*psets[i % npg][2:4]), psets[i % npg][4]), 200)[0]
         sdpa = cs.time_ms(lambda i: F.scaled_dot_product_attention(
             *lib[i % n][:3], attn_mask=lib[i % n][3], enable_gqa=True),
             200 if dt == torch.bfloat16 else 10)[0]
-        print("decode", B, L, H, KV, hd, dt, "err", err.item(), "ms", ms,
-              "sdpa", sdpa, flush=True)
+        print("decode", B, L, H, KV, hd, dt, "err", err.item(),
+              "paged==view", same, "ms", ms, "paged", paged_ms,
+              "gathered pair", pair_ms, "sdpa", sdpa, flush=True)
+        del sets, psets, lib
     for C, L, start, window, dt, hd, H, KV in PREFILL:
         ins = cs.chunk_inputs(torch, gen, C, L, start, dt, H=H, KV=KV, hd=hd)
         view = prefill_page_attention(*ins, window=window)
