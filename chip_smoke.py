@@ -66,7 +66,16 @@ Phases (any failure raises and the script exits non-zero):
    autograd of the plain version where a < 1 (f32 at 1e-4, also at
    T 513; bf16 at a normalized 2e-2), its value at a = 1 (dx = 0, da = dh
    h_{t-1}) pinned and two runs bit for bit; no library time either (these
-   rows carry the chunk and the threads a pass); then
+   rows carry the chunk and the threads a pass); serving's forms of both
+   recurrences from a carried state (the RG-LRU from h0, the WKV from S0
+   with its final state out) at B1 T 1, 37, 128, 512 and B8 T1, in bf16 at
+   2e-2 and f32 at 1e-4 against ``ref.rglru(x, a, h0)`` and
+   ``ref.rwkv6_stateful`` (output and final state), a null and a zero
+   state bit for bit the stateless call (output and every checkpoint),
+   timed beside their bounds and plain versions (the ``stateful`` lists
+   of the two rows); the three attention kernels also at
+   recurrentgemma-2b's serving shapes (flash prefills of 128, 300 and 512
+   tokens, decode and chunked prefill on the 544-slot ring); then
    flash attention's batch invariance in bf16 at llama3.2-1b's and
    recurrentgemma-2b's training shapes: each batch row alone gives the
    bits of the forward, lse and the three gradients it gives inside the
@@ -112,6 +121,26 @@ Phases (any failure raises and the script exits non-zero):
    first-token logits of the kernels against the plain versions on the
    card, a ``wall``-clock run, a chunked (128) prefix-cached run on
    shared-prefix traffic, and a profile;
+4c. recurrent serving: recurrentgemma-2b's smoke config in f32 on the card
+   against the CPU (greedy tokens equal whole-prompt, chunked,
+   prefix-cached with hit rate 0, static and sampled); then
+   ``recurrentgemma-2b`` at full width and full depth (26 layers, bf16,
+   random weights from seed 0), batch 8, page 16, cache 544, phase 4's
+   whole-prompt draw: continuous, static and chunked (128) runs on the
+   steps clock, each with exact launch counts of flash, decode and
+   chunked-prefill attention and the RG-LRU forward (reset just before,
+   read just after) and no plain version; continuous == static; the chunk
+   plan's first-token logits (chunks, then the tail through decode)
+   within a normalized 2e-2 of the whole prompt's; a wall-clock run and a
+   profile.  Then ``rwkv6-1.6b`` at full width and full depth through the
+   model-level serving functions (its engine refuses an attention-free
+   model): in bf16, 4 prompts prefilled and joined, 16 decode steps at
+   batch 4, a 512-token prompt in 4 chunks of 128 with the carry (the WKV
+   forward's launches exact, no plain version); the chunks against the
+   whole prefill at f32 compute on the same weights (first-token logits
+   within a normalized 2e-2, final states within 1e-3 relative; the bf16
+   differences, which random weights carry from layer to layer as far as
+   the kernels' own difference from the plain versions, reported);
 5. training, small: a narrow f32 model trained 4 steps through the train
    engine at delta 2 on the packed ring, on the card (CUDA kernels)
    against the CPU (plain versions): losses and parameters within 1e-4.
@@ -143,7 +172,9 @@ Phases (any failure raises and the script exits non-zero):
    ``wi``, ``lam``, ``conv_w`` (slot 0) and ``wq``, ``wk``, ``wv`` (slot 2)
    get non-zero gradients.
 
-The last two lines are the ``kernels`` JSON object (eleven rows) and
+The last two lines are the ``kernels`` JSON object (eleven rows; each
+row's ``launches_by_path`` counts its launches on every path, the
+recurrent serving paths' included) and
 ``{"ok": true, "device": {...}}``.  float32 matmuls and convolutions run in
 full f32 (TF32 off) throughout.
 """
@@ -251,10 +282,12 @@ def nbytes(*ts) -> int:
 FLASH_HD256 = ((4, 512, 0), (1, 4096, 2048))
 # the forward's shapes (B, S, H, KV, hd, window), all causal: llama3.2-1b's
 # prompts, smollm-360m's heads (group 3), mixtral-8x7b's head dim 128,
-# then recurrentgemma-2b's
+# then recurrentgemma-2b's (training, past the window, and its serving
+# prefills of 128, 300 and 512 tokens)
 FLASH_CASES = [(1, S, 32, 8, 64, 0) for S in (128, 300, 512, 1024)] \
     + [(1, 300, 15, 5, 64, 0), (1, 512, 32, 8, 128, 0)] \
-    + [(B, S, 10, 1, 256, w) for B, S, w in FLASH_HD256]
+    + [(B, S, 10, 1, 256, w) for B, S, w in FLASH_HD256] \
+    + [(1, S, 10, 1, 256, 2048) for S in (128, 300, 512)]
 # the backward's (B, S, H, KV, hd, causal, window): llama3.2-1b's training
 # shape first (the main row), other lengths, smollm-360m's heads, a window,
 # then recurrentgemma-2b's
@@ -314,11 +347,13 @@ def check_flash(torch, F, ref, gen):
 # 544 = 34 pages of 16) and a 1024-slot ring at llama3.2-1b's heads,
 # mixtral-8x7b's head dim 128 on the serving ring, then recurrentgemma-2b's
 # local layers (10 q heads over 1 kv head of 256, its 2048-slot window
-# ring) in bf16 and f32; the first is the one the main path gives the kernel
+# ring) in bf16 and f32 and its serving ring (544 slots); the first is the
+# one the main path gives the kernel
 MAIN_L, RING_LENS = 544, (544, 1024)
 DECODE_CASES = tuple((8, L, 32, 8, 64, "bfloat16") for L in RING_LENS) \
     + ((8, MAIN_L, 32, 8, 128, "bfloat16"),
-       (8, 2048, 10, 1, 256, "bfloat16"), (8, 2048, 10, 1, 256, "float32"))
+       (8, 2048, 10, 1, 256, "bfloat16"), (8, 2048, 10, 1, 256, "float32"),
+       (8, MAIN_L, 10, 1, 256, "bfloat16"))
 
 
 def decode_pools(torch, gen, k, v):
@@ -658,9 +693,11 @@ def check_flash_bwd(torch, F, ref, gen):
 # L), wrapped rings (start > L), windows and one f32 case; the main shape
 # at mixtral-8x7b's head dim 128; recurrentgemma-2b's local layers (10
 # heads over 1 kv head of 256, its 2048 window over a full 2048-slot ring)
-# in bf16 and f32.  PREFILL_MAIN, the third chunk of a 448-token prompt in
-# the 544-slot ring, is the main path's shape.  The ring lives in pools of
-# 16-slot pages under a shuffled table, as the serving cache holds it.
+# in bf16 and f32, and its serving ring of 544 slots (the third chunk of a
+# 512-token prompt) in bf16.  PREFILL_MAIN, the third chunk of a 448-token
+# prompt in the 544-slot ring, is the main path's shape.  The ring lives
+# in pools of 16-slot pages under a shuffled table, as the serving cache
+# holds it.
 PREFILL_CASES = [(128, 544, 0, 0, "bfloat16", 64, 32, 8),
                  (128, 544, 256, 0, "bfloat16", 64, 32, 8),
                  (16, 544, 320, 0, "bfloat16", 64, 32, 8),
@@ -671,7 +708,8 @@ PREFILL_CASES = [(128, 544, 0, 0, "bfloat16", 64, 32, 8),
                  (128, 544, 900, 0, "float32", 64, 32, 8),
                  (128, 544, 256, 0, "bfloat16", 128, 32, 8),
                  (128, 2048, 2176, 2048, "bfloat16", 256, 10, 1),
-                 (128, 2048, 2176, 2048, "float32", 256, 10, 1)]
+                 (128, 2048, 2176, 2048, "float32", 256, 10, 1),
+                 (128, 544, 256, 2048, "bfloat16", 256, 10, 1)]
 PREFILL_MAIN = (128, 544, 256, 0, "bfloat16", 64, 32, 8)
 PREFILL_HD128 = (128, 544, 256, 0, "bfloat16", 128, 32, 8)
 PAGE = 16
@@ -1338,6 +1376,128 @@ def check_rglru_scan_bwd(torch, ref, gen):
     return row
 
 
+# serving's stateful recurrences (prefill, 128-token chunks, decode steps)
+# from a carried state: recurrentgemma-2b's width (D 2560) and rwkv6-1.6b's
+# heads (32 of 64), B1 at T 1, 37, 128, 300 (the serving phases' ragged
+# prompt) and 512, recurrentgemma's B8 decode steps and rwkv6's B4 (the
+# serving phase's batch) and B8
+STATE_TS = (1, 37, 128, 300, 512)
+LRU_STATE_SHAPES = tuple((1, T, LRU_MAIN[2]) for T in STATE_TS) \
+    + ((8, 1, LRU_MAIN[2]),)
+WKV_STATE_SHAPES = tuple((1, T, 32, 64) for T in STATE_TS) \
+    + ((4, 1, 32, 64), (8, 1, 32, 64))
+
+
+def _state_row(shape, errs, ms, host_ms, plain_ms, b):
+    """A timing row of a stateful recurrence (bf16, its errors in both
+    dtypes)."""
+    return dict(shape=list(shape), dtype="bfloat16", errors=errs,
+                max_abs_err=max(errs.values()), tolerance=BF16_TOL,
+                f32_tolerance=F32_TOL, null_state_bits=True, ms=ms,
+                host_ms=host_ms, plain_ms=plain_ms,
+                plain_timing=WKV_PLAIN_TIMING, library_ms=None,
+                bound_ms=b[0], bound_by=b[1])
+
+
+def check_rglru_stateful(torch, ref, gen):
+    """The RG-LRU forward from a carried state h0, as serving runs it
+    (``ops.rglru_stateful``): at each of ``LRU_STATE_SHAPES`` in bf16 and
+    f32 against ``ref.rglru(x, a, h0)``, the output and the final state
+    (the last checkpoint; f32 at 1e-4, bf16 at 2e-2); h0 = None and h0 =
+    zeros bit for bit the call without a state, output and every
+    checkpoint (the training path's bits).  Timed in bf16 beside its bound
+    (x, a, h0 in, h and the final state out) and the plain version; no
+    library call computes the recurrence."""
+    from repro_torch.kernels.rglru_scan import rglru_scan
+    rows = []
+    for B, T, D in LRU_STATE_SHAPES:
+        errs = {}
+        for dt in (torch.float32, torch.bfloat16):
+            x, a = lru_inputs(torch, gen, B, T, D, dt)
+            h0 = torch.randn((B, D), generator=gen, device="cuda")
+            y, ck = rglru_scan(x, a, h0=h0, with_state=True)
+            want, hT = ref.rglru(x, a, h0)
+            torch.cuda.synchronize()
+            tol = F32_TOL if dt == torch.float32 else BF16_TOL
+            torch.testing.assert_close(y.float(), want.float(), rtol=tol,
+                                       atol=tol)
+            torch.testing.assert_close(ck[:, -1], hT, rtol=tol, atol=tol)
+            key = str(dt)[6:]
+            errs[key] = (y.float() - want.float()).abs().max().item()
+            errs[key + "_final_state"] = (ck[:, -1] - hT).abs().max().item()
+        y0, ck0 = rglru_scan(x, a, with_state=True)
+        for s0 in (None, torch.zeros_like(h0)):
+            y1, ck1 = rglru_scan(x, a, h0=s0, with_state=True)
+            if not (torch.equal(y0, y1) and torch.equal(ck0, ck1)):
+                raise AssertionError(f"rglru_scan: a null state changes the "
+                                     f"bits at {(B, T, D)}")
+        b = bound(nbytes(x, a, y, h0, hT), LRU_FWD_FLOPS * B * T * D,
+                  "float32")
+        sets = rotation((x, a, h0))
+        n = len(sets)
+        ms, host_ms = time_ms(lambda i: rglru_scan(
+            sets[i % n][0], sets[i % n][1], h0=sets[i % n][2],
+            with_state=True), 50)
+        plain_ms = time_ms(lambda i: ref.rglru(*sets[i % n]), 3,
+                           spin=False)[0]
+        row = _state_row((B, T, D), errs, ms, host_ms, plain_ms, b)
+        rows.append(row)
+        print("rglru_scan stateful", json.dumps(row), flush=True)
+        del sets
+    return rows
+
+
+def check_rwkv6_stateful(torch, ref, gen):
+    """The WKV forward from a carried state S0 with the final state out,
+    as serving runs it (``ops.rwkv6_stateful``): at each of
+    ``WKV_STATE_SHAPES`` in bf16 and f32 against ``ref.rwkv6_stateful``, y
+    and the final state (f32 at 1e-4, bf16 at 2e-2), checkpoint 0 equal
+    to S0; S0 = None and S0 = zeros bit for bit the call without a state,
+    y and every checkpoint (the training path's bits).  Timed in bf16
+    beside its bound (r, k, v, w, u, S0 in, y and the final state out,
+    5 hd^2 FLOPs a step) and the plain version; no library call computes
+    the recurrence."""
+    from repro_torch.kernels.rwkv6_scan import rwkv6_scan
+    rows = []
+    for B, T, H, hd in WKV_STATE_SHAPES:
+        errs = {}
+        for dt in (torch.float32, torch.bfloat16):
+            ins = wkv_inputs(torch, gen, B, T, H, hd, dt)
+            S0 = 0.5 * torch.randn((B, H, hd, hd), generator=gen,
+                                   device="cuda")
+            y, ck, ST = rwkv6_scan(*ins, S0=S0, with_state=True)
+            want, wT = ref.rwkv6_stateful(*ins, S0)
+            torch.cuda.synchronize()
+            tol = F32_TOL if dt == torch.float32 else BF16_TOL
+            torch.testing.assert_close(y.float(), want.float(), rtol=tol,
+                                       atol=tol)
+            torch.testing.assert_close(ST, wT, rtol=tol, atol=tol)
+            if not torch.equal(ck[:, :, 0], S0):
+                raise AssertionError("rwkv6_scan: checkpoint 0 is not S0")
+            key = str(dt)[6:]
+            errs[key] = (y.float() - want.float()).abs().max().item()
+            errs[key + "_final_state"] = (ST - wT).abs().max().item()
+        y0, ck0 = rwkv6_scan(*ins, with_state=True)
+        for s0 in (None, torch.zeros_like(S0)):
+            y1, ck1 = rwkv6_scan(*ins, S0=s0, with_state=True)[:2]
+            if not (torch.equal(y0, y1) and torch.equal(ck0, ck1)):
+                raise AssertionError(f"rwkv6_scan: a null state changes the "
+                                     f"bits at {(B, T, H, hd)}")
+        b = bound(nbytes(*ins, y, S0, ST), 5.0 * hd * hd * B * T * H,
+                  "float32")
+        sets = rotation((*ins, S0))
+        n = len(sets)
+        ms, host_ms = time_ms(lambda i: rwkv6_scan(
+            *sets[i % n][:5], S0=sets[i % n][5]), 50)
+        plain_ms = time_ms(lambda i: ref.rwkv6_stateful(*sets[i % n]), 3,
+                           spin=False)[0]
+        row = _state_row((B, T, H, hd), errs, ms, host_ms, plain_ms, b)
+        rows.append(row)
+        print("rwkv6_scan stateful", json.dumps(row), flush=True)
+        del sets
+    return rows
+
+
 # ---------------------------------------------------------------------------
 # phases 3 and 4: serving
 # ---------------------------------------------------------------------------
@@ -1637,7 +1797,8 @@ def moe_serving(torch, ops, ref):
     t0 = time.perf_counter()
     params = paramlib.init_tree(
         model_specs(cfg), torch.Generator(device="cuda").manual_seed(0),
-        dtype=cfg.param_dtype, leaf_fn=lambda k, t: serving_leaf(k, t, cfg))
+        dtype=cfg.param_dtype,
+        leaf_fn=lambda k, t, spec: serving_leaf(k, t, cfg, spec))
     torch.cuda.synchronize()
     print(f"mixtral-8x7b depth {MOE_DEPTH} of {len(full.layer_kinds)}: "
           f"{paramlib.param_count(model_specs(cfg))} params (bf16 serving "
@@ -1996,6 +2157,393 @@ def where_time_goes(torch, cfg, params, common, label="profile"):
         wall_ms = (time.perf_counter() - t0) * 1e3
     device_profile(torch, prof, wall_ms, label, requests=len(reqs),
                    decode_steps=rep.decode_steps, tokens=rep.total_tokens)
+
+
+# ---------------------------------------------------------------------------
+# phase 4c: recurrent serving
+# ---------------------------------------------------------------------------
+
+def small_recurrent(torch):
+    """recurrentgemma-2b's smoke config in f32 through the serving engine
+    on the card (CUDA kernels: the stateful RG-LRU forward, flash, decode
+    and chunked-prefill attention) against the CPU (plain versions), same
+    params and requests: greedy tokens equal whole-prompt, chunked (chunk
+    8: non-overlapping chunks and a teacher-forced tail), prefix-cached
+    (which adopts nothing: hit rate 0), static and sampled; and on the
+    card whole == chunked == prefix-cached == static."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import paramlib
+    from repro_torch.models.transformer import model_specs
+    from repro_torch.serve import ServeConfig, ServeEngine, open_loop_requests
+    cfg = dataclasses.replace(get_smoke_config("recurrentgemma-2b"),
+                              dtype=torch.float32)
+    params = paramlib.init_tree(model_specs(cfg),
+                                torch.Generator().manual_seed(1))
+    reqs = open_loop_requests(8, 1.0, cfg.vocab_size, prompt_lens=(6, 13, 20),
+                              gen_lens=(4, 9), seed=1)
+    base = dict(batch_size=3, page_size=8, cache_len=32, clock="steps")
+    runs = {"whole": {}, "chunked": dict(prefill_chunk=8),
+            "prefix": dict(prefix_cache=True),
+            "static": dict(continuous=False),
+            "sampled": dict(temperature=0.8, top_p=0.9, sample_seed=7)}
+    reps = {(name, dev): ServeEngine(cfg, _to(params, dev), ServeConfig(
+        **kw, **base)).run(reqs) for dev in ("cpu", "cuda")
+        for name, kw in runs.items()}
+    out = {k: r.outputs for k, r in reps.items()}
+    checks = {
+        "cuda_eq_cpu": all(out[n, "cuda"] == out[n, "cpu"] for n in runs),
+        "whole_eq_chunked_eq_prefix_eq_static": out["whole", "cuda"]
+        == out["chunked", "cuda"] == out["prefix", "cuda"]
+        == out["static", "cuda"],
+        "sampled_ne_greedy": out["sampled", "cuda"] != out["whole", "cuda"],
+        "prefix_hit_rate_0": reps["prefix", "cuda"].prefix_hit_rate == 0.0,
+        "chunks_ran": reps["chunked", "cuda"].prefill_chunks > 0}
+    print("small f32 recurrentgemma serving, CUDA vs CPU:", json.dumps(dict(
+        **checks, prefill_chunks={n: reps[n, "cuda"].prefill_chunks
+                                  for n in runs})), flush=True)
+    if not all(checks.values()):
+        raise AssertionError(f"small recurrentgemma serving: {checks}")
+
+
+def _rg_expected(cfg, rep, n_prefills: int, n_chunks: int) -> dict:
+    """Exact launches of a recurrentgemma serving run: each local layer one
+    flash forward a whole-prompt prefill, one chunked-prefill attention a
+    chunk, one decode attention a decode step; each rglru layer one RG-LRU
+    forward a prefill, a chunk and a decode step; the warmup's prefills,
+    chunk and decode step included."""
+    n_local = cfg.layer_kinds.count("local")
+    n_lru = cfg.layer_kinds.count("rglru")
+    steps = rep.decode_steps + 1              # + the warmup's decode step
+    return {"flash_attention": n_local * n_prefills,
+            "prefill_page_attention": n_local * n_chunks,
+            "decode_attention": n_local * steps,
+            "rglru_scan": n_lru * (n_prefills + n_chunks + steps),
+            "page_gather": 0}
+
+
+def recurrent_serving(torch, ops, ref):
+    """recurrentgemma-2b at full width and full depth (26 layers) in bf16,
+    random weights from seed 0 built leaf by leaf, batch 8, page 16, cache
+    544, on llama3.2-1b's whole-prompt draw (16 requests, prompts 128 / 300
+    / 512, generations 16 / 32): continuous and static whole-prompt runs
+    and a chunked (128) run on the steps clock, each with launch counts
+    reset just before it and read just after, exact for every kernel of
+    the path, no plain version; continuous == static; the chunk plan's
+    first-token logits against the whole prompt's; a wall-clock run and a
+    profile."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import paramlib
+    from repro_torch.models.transformer import model_specs, prefill
+    from repro_torch.serve import (ServeConfig, ServeEngine,
+                                   open_loop_requests, serving_leaf)
+    cfg = get_config("recurrentgemma-2b")
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    params = paramlib.init_tree(
+        model_specs(cfg), torch.Generator(device="cuda").manual_seed(0),
+        dtype=cfg.param_dtype,
+        leaf_fn=lambda k, t, spec: serving_leaf(k, t, cfg, spec))
+    torch.cuda.synchronize()
+    print(f"recurrentgemma-2b, {len(cfg.layer_kinds)} layers: "
+          f"{paramlib.param_count(model_specs(cfg))} params (bf16 serving "
+          f"copy, RG-LRU gates and norms f32) in "
+          f"{time.perf_counter() - t0:.2f} s, "
+          f"{torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB allocated",
+          flush=True)
+    V = cfg.vocab_size
+    common = dict(batch_size=8, page_size=16, cache_len=MAIN_L)
+    reqs = open_loop_requests(16, 0.5, V, prompt_lens=(128, 300, 512),
+                              gen_lens=(16, 32), seed=0)
+    n_prefills = len(reqs) + len({len(r.prompt) for r in reqs})  # + warmup
+    runs = {"continuous": (dict(continuous=True), n_prefills, 0),
+            "static": (dict(continuous=False), n_prefills, 0),
+            "chunked": (dict(prefill_chunk=CHUNK), 0, None)}
+    reports, launches = {}, {}
+    for name, (kw, n_pre, n_chunks) in runs.items():
+        eng = ServeEngine(cfg, params, ServeConfig(clock="steps", **kw,
+                                                   **common))
+        ops.reset_launches()                 # the path starts here
+        t1 = time.perf_counter()
+        with plain_versions_counted(ref) as plain_calls:
+            rep = eng.run(reqs)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t1
+        launches[name] = dict(ops.launches)  # ... and ends here
+        reports[name] = rep
+        if n_chunks is None:                 # + the warmup's chunk
+            n_chunks = rep.prefill_chunks + 1
+        want = _rg_expected(cfg, rep, n_pre, n_chunks)
+        print(f"recurrentgemma {name} (steps clock): {rep.total_tokens} "
+              f"tokens, {rep.decode_steps} decode steps, "
+              f"{rep.prefill_chunks} prefill chunks, prefix hit rate "
+              f"{rep.prefix_hit_rate}, {dt:.2f} s host time; launches "
+              f"{launches[name]}; expected {want}; plain version calls "
+              f"{plain_calls}", flush=True)
+        if any(launches[name][k] != v for k, v in want.items()):
+            raise AssertionError(f"{name}: launches {launches[name]}, "
+                                 f"want {want}")
+        if any(plain_calls.values()):
+            raise AssertionError(f"{name}: plain versions ran: "
+                                 f"{plain_calls}")
+        for r in reqs:
+            toks = rep.outputs[r.rid]
+            if len(toks) != r.gen_len or not all(0 <= t < V for t in toks):
+                raise AssertionError(f"{name} request {r.rid}: bad output "
+                                     f"{toks}")
+    if reports["continuous"].outputs != reports["static"].outputs:
+        raise AssertionError("recurrentgemma: continuous and static greedy "
+                             "tokens differ")
+    share = sum(reports["chunked"].outputs[r.rid]
+                == reports["continuous"].outputs[r.rid]
+                for r in reqs) / len(reqs)
+    print("recurrentgemma continuous == static greedy tokens: True; chunked "
+          f"requests equal to whole-prompt (bf16, not gated): {share}",
+          flush=True)
+    chunk_plan_logits(torch, cfg, params, reqs, common)
+
+    wreqs = open_loop_requests(16, 50.0, V, prompt_lens=(128, 300, 512),
+                               gen_lens=(16, 32), seed=0)
+    rep = ServeEngine(cfg, params, ServeConfig(
+        continuous=True, clock="wall", **common)).run(wreqs)
+    print("recurrentgemma wall clock continuous:", json.dumps(dict(
+        tokens=rep.total_tokens, duration_s=rep.duration,
+        tok_per_s=rep.tokens_per_sec, latency_p50_s=rep.latency_p50,
+        latency_p99_s=rep.latency_p99, ttft_p50_s=rep.ttft_p50,
+        ttft_p99_s=rep.ttft_p99, decode_steps=rep.decode_steps,
+        utilization=rep.utilization,
+        peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30)),
+        flush=True)
+    where_time_goes(torch, cfg, params, common,
+                    label="recurrentgemma profile")
+    del params
+    torch.cuda.empty_cache()
+    return {"recurrentgemma_serving": launches["continuous"],
+            "recurrentgemma_chunked": launches["chunked"]}
+
+
+def chunk_plan_logits(torch, cfg, params, reqs, common):
+    """For one prompt of each length, the first-token logits of the
+    engine's chunk plan for a recurrent model (non-overlapping 128-token
+    chunks with the carry, activation, then the remainder teacher-forced
+    through ``decode_step`` one token at a time) against the whole-prompt
+    ``prefill``'s: max |d| / max |logit|."""
+    from repro_torch.models.transformer import (decode_step,
+                                                init_chunk_carry, prefill,
+                                                prefill_chunk)
+    from repro_torch.serve import (PageAllocator, init_paged_cache,
+                                   make_activate_fn)
+    L, page = common["cache_len"], common["page_size"]
+    errs = {}
+    for r in reqs:
+        S = len(r.prompt)
+        if S in errs:
+            continue
+        alloc = PageAllocator(cfg, 1, L, page)
+        cache = init_paged_cache(cfg, 1, L, page, device="cuda")
+        rows = {k: torch.from_numpy(v).cuda()
+                for k, v in alloc.alloc(0).items()}
+        carry = init_chunk_carry(cfg, device="cuda")
+        for s0 in range(0, S - CHUNK + 1, CHUNK):
+            toks = torch.tensor([r.prompt[s0:s0 + CHUNK]], device="cuda")
+            got, cache, carry = prefill_chunk(params, cache, toks, s0, rows,
+                                              carry, cfg, L)
+        cache = make_activate_fn(cfg, L, page)(cache, 0, rows, carry)
+        for p in range(S // CHUNK * CHUNK, S):      # the tail
+            got, cache = decode_step(
+                params, cache, torch.tensor([[r.prompt[p]]], device="cuda"),
+                torch.tensor([p], device="cuda"), cfg)
+            got = got[:, -1]
+        want, _ = prefill(params, torch.tensor([r.prompt], device="cuda"),
+                          cfg, cache_len=L)
+        errs[S] = ((got.float() - want.float()).abs().max()
+                   / want.float().abs().max()).item()
+        del cache
+    print("recurrentgemma first-token logits, chunk plan vs whole prompt:",
+          json.dumps(dict(normalized_err=errs, tolerance=LOGITS_NORM_TOL)),
+          flush=True)
+    if len(errs) != 3 or not max(errs.values()) <= LOGITS_NORM_TOL:
+        raise AssertionError(f"first-token logits differ: {errs}")
+
+
+RWKV_SERVE_B = 4
+RWKV_STATE_TOL = 1e-3           # final f32 states, chunks vs whole, relative
+
+
+def _rel(a, b) -> float:
+    """max |a - b| / max |b|."""
+    return ((a.float() - b.float()).abs().max()
+            / b.float().abs().max()).item()
+
+
+def _rwkv_chunks_vs_whole(torch, cfg, params, prompt):
+    """A prompt through ``prefill_chunk`` in chunks of ``CHUNK`` with the
+    carry and through one whole ``prefill``: the first-token logits' max
+    |d| / max |logit|, and each final state leaf's relative max error,
+    layer by layer."""
+    from repro_torch.models.transformer import (init_chunk_carry, prefill,
+                                                prefill_chunk)
+    from repro_torch.serve import init_paged_cache
+    cache = init_paged_cache(cfg, 1, MAIN_L, 16, device="cuda")
+    carry = init_chunk_carry(cfg, device="cuda")
+    for s0 in range(0, prompt.shape[1], CHUNK):
+        got, cache, carry = prefill_chunk(params, cache,
+                                          prompt[:, s0:s0 + CHUNK], s0, {},
+                                          carry, cfg, MAIN_L)
+    want, dense = prefill(params, prompt, cfg, cache_len=MAIN_L)
+    return _rel(got, want), {
+        name: [_rel(a, b) for a, b in zip(carry["g0"]["s0"][name],
+                                          dense["g0"]["s0"][name])]
+        for name in ("S", "x_last", "cx_last")}
+
+
+@contextlib.contextmanager
+def held_to_plain(ops, name, plain):
+    """While the block runs, hold every call of ``ops.<name>`` (a stateful
+    recurrence, -> (y, final state)) against ``plain`` on the same inputs:
+    yields the list of (y, state) relative max errors, one a call."""
+    errs, saved = [], getattr(ops, name)
+
+    def spy(*args):
+        y, S = saved(*args)
+        want_y, want_S = plain(*args)
+        errs.append((_rel(y, want_y), _rel(S, want_S)))
+        return y, S
+    setattr(ops, name, spy)
+    try:
+        yield errs
+    finally:
+        setattr(ops, name, saved)
+
+
+def rwkv6_serving(torch, ops, ref):
+    """rwkv6-1.6b at full width and full depth (24 layers) through the
+    model-level serving functions (its engine refuses an attention-free
+    model, as the JAX reference's fails on it), random weights from seed 0
+    built leaf by leaf.  In bf16 (the serving path; launch counts reset
+    just before and read just after: one WKV forward a layer a prefill, a
+    decode step and a chunk, no plain version): 4 prompts (128, 300, 512,
+    512 tokens) prefilled and joined into rows of a batch-4 cache, 16
+    greedy decode steps, then the last prompt in 4 chunks of 128 with the
+    carry.  Gated in bf16: one more decode step, the chunks and the whole
+    prefill with every layer's WKV call held against the plain version on
+    the same inputs (y and the final state within 2e-2 relative), and the
+    chunks' layer-0 states against the whole prefill's (2e-2 relative).
+    The chunks' logits and the states of later layers are held to the
+    whole prefill in f32, the same weights at f32 compute (logits within a
+    normalized 2e-2, states within 1e-3 relative): in bf16 these random
+    weights carry a one-ulp difference of a layer's output into every
+    layer after it (the kernels against the plain versions on one whole
+    prefill differ as much as the chunks do), so the bf16 differences past
+    layer 0 are reported beside, not gated."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import paramlib
+    from repro_torch.models.transformer import (decode_step, model_specs,
+                                                prefill)
+    from repro_torch.serve import init_paged_cache, make_join_fn, serving_leaf
+
+    def weights(cfg):
+        return paramlib.init_tree(
+            model_specs(cfg), torch.Generator(device="cuda").manual_seed(0),
+            dtype=cfg.param_dtype,
+            leaf_fn=lambda k, t, spec: serving_leaf(k, t, cfg, spec))
+
+    cfg = get_config("rwkv6-1.6b")
+    t0 = time.perf_counter()
+    params = weights(cfg)
+    torch.cuda.synchronize()
+    print(f"rwkv6-1.6b, {len(cfg.layer_kinds)} layers: "
+          f"{paramlib.param_count(model_specs(cfg))} params in "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    L, V = MAIN_L, cfg.vocab_size
+    n_layers, steps = len(cfg.layer_kinds), 16
+    g = torch.Generator().manual_seed(0)
+    prompts = [tuple(torch.randint(0, V, (S,), generator=g).tolist())
+               for S in (128, 300, 512, 512)]
+    prompt = torch.tensor([prompts[3]], device="cuda")
+    cache = init_paged_cache(cfg, RWKV_SERVE_B, L, 16, device="cuda")
+    join = make_join_fn(cfg, L, 16)
+    ops.reset_launches()                 # the path starts here
+    with plain_versions_counted(ref) as plain_calls:
+        tok = torch.empty((RWKV_SERVE_B, 1), dtype=torch.int64,
+                          device="cuda")
+        for b, p in enumerate(prompts):
+            logits, dense = prefill(params, torch.tensor([p], device="cuda"),
+                                    cfg, cache_len=L)
+            cache = join(cache, dense, b, {})
+            tok[b, 0] = torch.argmax(logits[0])
+        pos = torch.tensor([len(p) for p in prompts], device="cuda")
+        step_s = []
+        for _ in range(steps):
+            t1 = time.perf_counter()
+            logits, cache = decode_step(params, cache, tok, pos, cfg)
+            tok = torch.argmax(logits[:, -1], dim=-1, keepdim=True)
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t1)
+            pos = pos + 1
+        bf16_logits, bf16_states = _rwkv_chunks_vs_whole(torch, cfg, params,
+                                                         prompt)
+    launches = dict(ops.launches)        # ... and ends here
+    n_pre, n_chunks = len(prompts) + 1, prompt.shape[1] // CHUNK
+    expected = {"rwkv6_scan": n_layers * (n_pre + steps + n_chunks)}
+    finite = bool(torch.isfinite(logits).all()) and bool(
+        torch.isfinite(cache["g0"]["s0"]["S"]).all())
+    with held_to_plain(ops, "rwkv6_stateful", ref.rwkv6_stateful) as held:
+        decode_step(params, cache, tok, pos, cfg)
+        n_step = len(held)
+        _rwkv_chunks_vs_whole(torch, cfg, params, prompt)
+    held_max = dict(decode_step=[max(e) for e in zip(*held[:n_step])],
+                    chunks_and_whole=[max(e) for e in zip(*held[n_step:])])
+    layer0 = {k: v[0] for k, v in bf16_states.items()}
+    with plain_route(ops):
+        plain, _ = prefill(params, prompt, cfg, cache_len=L)
+    kernel, _ = prefill(params, prompt, cfg, cache_len=L)
+    bf16_plain = _rel(kernel, plain)
+    del params, cache
+    torch.cuda.empty_cache()
+    cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
+    params = weights(cfg32)
+    norm, state_err = _rwkv_chunks_vs_whole(torch, cfg32, params, prompt)
+    state_err = {k: max(v) for k, v in state_err.items()}
+    del params
+    torch.cuda.empty_cache()
+    step_p50 = sorted(step_s)[len(step_s) // 2]
+    print("rwkv6 model-level serving:", json.dumps(dict(
+        arch=cfg.name, layers=n_layers, batch=RWKV_SERVE_B,
+        prompt_lens=[len(p) for p in prompts], decode_steps=steps,
+        decode_step_p50_ms=step_p50 * 1e3, chunks=n_chunks, chunk=CHUNK,
+        bfloat16_wkv_vs_plain_y_state=held_max,
+        bfloat16_wkv_calls_held=len(held),
+        bfloat16_layer0_chunks_vs_whole_states=layer0,
+        bfloat16_tolerance=BF16_TOL,
+        float32_first_token_logits_normalized_err=norm,
+        logits_tolerance=LOGITS_NORM_TOL,
+        float32_final_state_relative_err=state_err,
+        state_tolerance=RWKV_STATE_TOL,
+        bfloat16_not_gated=dict(
+            chunks_vs_whole_logits=bf16_logits,
+            chunks_vs_whole_states={k: max(v)
+                                    for k, v in bf16_states.items()},
+            kernels_vs_plain_whole_logits=bf16_plain),
+        finite=finite, launches=launches, expected_launches=expected,
+        plain_version_calls=plain_calls)), flush=True)
+    if any(launches[k] != v for k, v in expected.items()) or \
+            sum(launches.values()) != expected["rwkv6_scan"]:
+        raise AssertionError(f"rwkv6 serving launches {launches}, want "
+                             f"{expected}")
+    if any(plain_calls.values()):
+        raise AssertionError(f"plain versions ran: {plain_calls}")
+    if len(held) != n_layers * (2 + n_chunks) or not max(
+            max(e) for e in held) <= BF16_TOL:
+        raise AssertionError(f"rwkv6 bf16 WKV calls vs plain: {held_max} "
+                             f"over {len(held)} calls")
+    if not max(layer0.values()) <= BF16_TOL:
+        raise AssertionError(f"rwkv6 bf16 layer-0 states, chunks vs whole: "
+                             f"{layer0}")
+    if not (finite and norm <= LOGITS_NORM_TOL
+            and max(state_err.values()) <= RWKV_STATE_TOL):
+        raise AssertionError(f"rwkv6 chunks vs whole (f32): logits {norm}, "
+                             f"states {state_err}, finite {finite}")
+    return launches
 
 
 # ---------------------------------------------------------------------------
@@ -2499,12 +3047,22 @@ def main() -> int:
         ("rwkv6_scan_bwd", check_rwkv6_scan_bwd, (torch, ref, gen)),
         ("rglru_scan", check_rglru_scan, (torch, ref, gen)),
         ("rglru_scan_bwd", check_rglru_scan_bwd, (torch, ref, gen)))}
+    # serving's forms of the recurrences, from a carried state
+    stateful = {"rwkv6_scan": timed("rwkv6_stateful", check_rwkv6_stateful,
+                                    torch, ref, gen),
+                "rglru_scan": timed("rglru_stateful", check_rglru_stateful,
+                                    torch, ref, gen)}
     timed("flash_batch_invariance", check_flash_batch_invariance, torch, gen)
     timed("small_end_to_end", small_end_to_end, torch)
     paths = timed("full_width_serving", full_width, torch, ops, ref)
     torch.cuda.empty_cache()
     timed("small_moe", small_moe, torch)
     paths["moe_serving"] = timed("moe_serving", moe_serving, torch, ops, ref)
+    timed("small_recurrentgemma_serving", small_recurrent, torch)
+    paths.update(timed("recurrentgemma_serving", recurrent_serving, torch,
+                       ops, ref))
+    paths["rwkv6_serving"] = timed("rwkv6_serving", rwkv6_serving, torch,
+                                   ops, ref)
     timed("small_training", small_training, torch, "llama3.2-1b")
     paths["training"] = timed("full_width_training", full_width_training,
                               torch, ops, ref, "llama3.2-1b")
@@ -2569,7 +3127,8 @@ def main() -> int:
                                    "library", "serial_steps", "state_bytes",
                                    "checkpoint_bytes", "chunk", "threads",
                                    "gathered_ms", "gathered_pair_ms")
-               if k in row}))
+               if k in row},
+            **({"stateful": stateful[name]} if name in stateful else {})))
     print(smi())
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -10,7 +10,12 @@
 // dtype.  Any T and any D: the TPU kernel pads both to its tile, this one
 // stops at T and masks the channel tail.  On request it also writes the
 // f32 state at the end of every CK-step chunk, ck (B, ceil(T/CK), D),
-// which the backward restarts from.
+// which the backward restarts from; the last one is the state after step
+// T - 1.  Serving starts it from a carried state: an optional h0 (B, D)
+// f32 takes the place of the zero state (the first chunk's walk and the
+// fold of the chunk pairs start from it; the JAX package runs this
+// stateful form through its plain lax.scan).  A null h0 is the zero state
+// with the same bits, y and every checkpoint; so is an h0 of zeros.
 //
 // Backward: the TPU package has none (it trains through autodiff of the
 // lax.scan in its plain version); this is the gradient of the forward,
@@ -56,7 +61,8 @@
 //                     one barrier; fold the earlier chunks' pairs of the
 //                     window into the start state (at most slots - 1
 //                     multiply-adds, in chunk order, from the carry of the
-//                     window before), write the end state P h + H as
+//                     window before, h0 or zero for the first), write the
+//                     end state P h + H as
 //                     checkpoint c, walk the chunk again and write h;
 //   rglru_bwd_kernel  rebuild the states at the chunk's SUB-step
 //                     boundaries forward from checkpoint c - 1 (zero for
@@ -254,8 +260,9 @@ constexpr int bwd_min_blocks() {
 template <typename T>
 __global__ void __launch_bounds__(MAX_THREADS, fwd_min_blocks<T>())
     rglru_fwd_kernel(const T* __restrict__ x, const T* __restrict__ a,
-                     T* __restrict__ y, float* __restrict__ ck, int T_,
-                     int D, Strides sx, Strides sa, int lanes, int slots,
+                     T* __restrict__ y, float* __restrict__ ck,
+                     const float* __restrict__ h0, int T_, int D,
+                     Strides sx, Strides sa, int lanes, int slots,
                      int flags) {
   constexpr int V = Unit<T>::V;
   extern __shared__ uint32_t smem[];
@@ -306,11 +313,14 @@ __global__ void __launch_bounds__(MAX_THREADS, fwd_min_blocks<T>())
     }
     __syncthreads();
     if (n > 0) {
-      // the start state: the window's carry, then the earlier chunks folded
+      // the start state: the window's carry (h0 or zero before the first
+      // window), then the earlier chunks folded
       float h[V];
 #pragma unroll
       for (int v = 0; v < V; ++v)
-        h[v] = w ? carry[((w & 1) * V + v) * lanes + lane] : 0.f;
+        h[v] = w ? carry[((w & 1) * V + v) * lanes + lane]
+               : (h0 != nullptr && v < nd) ? h0[(long long)b * D + d0 + v]
+                                           : 0.f;
       for (int j = 0; j < slot; ++j) {
 #pragma unroll
         for (int v = 0; v < V; ++v)
@@ -589,11 +599,13 @@ extern "C" int rglru_scan_tiles(int dir, int dtype, int T, int what) {
 
 // strides: 4 values, (b, t) in elements for x and a; the channel dim is
 // contiguous in both.  y (B, T, D) contiguous in x's dtype; ck (B,
-// ceil(T / chunk), D) contiguous f32 or null.  chunk must equal
+// ceil(T / chunk), D) contiguous f32 or null; h0 (B, D) contiguous f32,
+// the state before step 0, or null for zero.  chunk must equal
 // rglru_scan_ck().
 extern "C" int rglru_scan_fwd(const void* x, const void* a, void* y,
-                              float* ck, int dtype, int B, int T, int D,
-                              int chunk, const long long* st, void* stream) {
+                              float* ck, const float* h0, int dtype, int B,
+                              int T, int D, int chunk, const long long* st,
+                              void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (bad_shape(B, T, D, chunk)) return (int)cudaErrorInvalidValue;
   return with_elem(dtype, [&](auto tag) {
@@ -607,7 +619,7 @@ extern "C" int rglru_scan_fwd(const void* x, const void* a, void* y,
     if (int err = launchable(kern, c.smem)) return err;
     kern<<<dim3(cdiv(cdiv(D, vec), c.lanes), B), c.threads, c.smem, s>>>(
         static_cast<const E*>(x), static_cast<const E*>(a),
-        static_cast<E*>(y), ck, T, D, sx, sa, c.lanes, c.slots, flags);
+        static_cast<E*>(y), ck, h0, T, D, sx, sa, c.lanes, c.slots, flags);
     return (int)cudaGetLastError();
   });
 }

@@ -12,6 +12,13 @@
 // dtype.  Any T: the TPU kernel pads T with w = 1, this one stops at T.
 // On request it also writes the state S_t at every CK-th step, t = 0, CK,
 // 2 CK, ... (B,H,ceil(T/CK),hd,hd) f32, which the backward restarts from.
+// Serving runs it from a carried state: an optional S0 (B,H,hd,hd) f32
+// takes the place of the zero state (the first chunk's start, the fold of
+// the chunk summaries starts from it, and checkpoint 0 is S0), and an
+// optional S_T (B,H,hd,hd) f32 receives the state after step T-1, which
+// the last chunk's walk holds when it ends.  The JAX package runs this
+// stateful form through its plain lax.scan.  A null S0 is the zero state
+// with the same bits, y and every checkpoint; so is an S0 of zeros.
 //
 // Backward: the TPU package has none (it trains through autodiff of the
 // lax.scan in its plain version).  With G_t = dL/dS_t, G_T = 0,
@@ -38,10 +45,14 @@
 //   rwkv6_fwd_sum_kernel  (a_c, dS_c) of every chunk to scratch, one warp
 //                         per 16-column slice;
 //   rwkv6_fwd_kernel      each chunk folds the summaries before it into its
-//                         start state (at most nc-1 elementwise steps),
-//                         writes it as checkpoint c, walks its CK steps and
-//                         emits y; one warp holds a slice of 16 columns and
-//                         every row, so y (a sum over rows) is whole in it.
+//                         start state (at most nc-1 elementwise steps, from
+//                         S0 or zero), writes it as checkpoint c, walks its
+//                         CK steps and emits y, and the last chunk writes
+//                         its end state to S_T; one warp holds a slice of
+//                         16 columns and every row, so y (a sum over rows)
+//                         is whole in it.  With one chunk (T <= CK: a
+//                         decode step) there is nothing to fold and the
+//                         summary pass is skipped.
 // The backward is the same in reverse time on G (G -> A_c (.) G + dG_c):
 //   rwkv6_bwd_sum_kernel  each chunk's (A_c, dG_c) walked backward from 0;
 //   rwkv6_bwd_dv_kernel   the forward's walk run backward on G in column
@@ -321,16 +332,19 @@ __device__ __forceinline__ void chunk_summary(
 //   out_t[j] = sum_i av_t[i] X[i,j] + (sum_i av_t[i] u[i] bv_t[i]) cv_t[j]
 //   X       <- diag(w_t) X + bv_t cv_t^T
 // Forward: (av, bv, cv) = (r, k, v), out y, X = S (checkpoint written when
-// ckpt is given).  Backward: (k, r, dy), out dv, X = G.  Lane = (column
-// quad cq, row group g of HD/8 rows); out is summed over the 8 row groups.
+// ckpt is given; the fold starts from s0 when given, and the last chunk
+// writes its end state to sT when given).  Backward: (k, r, dy), out dv,
+// X = G, from zero.  Lane = (column quad cq, row group g of HD/8 rows); out
+// is summed over the 8 row groups.
 // ---------------------------------------------------------------------------
 template <typename T, int HD, bool REV>
 __device__ __forceinline__ void chunk_walk(
     const T* __restrict__ av, const T* __restrict__ bv,
     const T* __restrict__ cv, const float* __restrict__ w,
     const float* __restrict__ u, const float* __restrict__ summ,
-    T* __restrict__ out, float* __restrict__ ckpt, int T_, int H, int nc,
-    Strides sa, Strides sb, Strides sc, Strides sw, Strides so) {
+    T* __restrict__ out, float* __restrict__ ckpt,
+    const float* __restrict__ s0, float* __restrict__ sT, int T_, int H,
+    int nc, Strides sa, Strides sb, Strides sc, Strides sw, Strides so) {
   constexpr int R = HD / 8, LEN = row_len<HD, R>(), NSL = HD / WALK_COLS,
                 NQ = HD / 8, IT = (TS * NQ + 31) / 32;
   __shared__ __align__(16) float as[TS][LEN];
@@ -369,6 +383,15 @@ __device__ __forceinline__ void chunk_walk(
   for (int e = 0; e < R; ++e)
 #pragma unroll
     for (int j = 0; j < 4; ++j) X[e][j] = 0.f;
+  if constexpr (!REV) {
+    if (s0) {  // the carried start state's elements of this lane
+      const float* src = s0 + (long long)(b * H + h) * HD * HD;
+#pragma unroll
+      for (int e = 0; e < R; ++e)
+        unpack(*reinterpret_cast<const float4*>(src + (g * R + e) * HD + col),
+               X[e]);
+    }
+  }
   const long long bh = (long long)(b * H + h) * nc;
   const int nfold = REV ? nc - 1 - c : c;
 #pragma unroll 2
@@ -451,6 +474,15 @@ __device__ __forceinline__ void chunk_walk(
       }
     }
   }
+  if constexpr (!REV) {
+    if (sT && c == nc - 1) {  // the state after step T - 1
+      float* dst = sT + (long long)(b * H + h) * HD * HD;
+#pragma unroll
+      for (int e = 0; e < R; ++e)
+        *reinterpret_cast<float4*>(dst + (g * R + e) * HD + col) =
+            make_float4(X[e][0], X[e][1], X[e][2], X[e][3]);
+    }
+  }
 }
 
 template <typename T, int HD>
@@ -468,11 +500,12 @@ __global__ void __launch_bounds__(32, WALK_BLOCKS<T>)
                      const T* __restrict__ v, const float* __restrict__ w,
                      const float* __restrict__ u,
                      const float* __restrict__ summ, T* __restrict__ y,
-                     float* __restrict__ ckpt, int T_, int H, int nc,
+                     float* __restrict__ ckpt, const float* __restrict__ s0,
+                     float* __restrict__ sT, int T_, int H, int nc,
                      Strides sr, Strides sk, Strides sv, Strides sw,
                      Strides sy) {
-  chunk_walk<T, HD, false>(r, k, v, w, u, summ, y, ckpt, T_, H, nc, sr, sk,
-                           sv, sw, sy);
+  chunk_walk<T, HD, false>(r, k, v, w, u, summ, y, ckpt, s0, sT, T_, H, nc,
+                           sr, sk, sv, sw, sy);
 }
 
 template <typename T, int HD>
@@ -492,8 +525,8 @@ __global__ void __launch_bounds__(32, WALK_BLOCKS<T>)
                         const float* __restrict__ summ, T* __restrict__ dv,
                         int T_, int H, int nc, Strides sr, Strides sk,
                         Strides sdy, Strides sw, Strides sdv) {
-  chunk_walk<T, HD, true>(k, r, dy, w, u, summ, dv, nullptr, T_, H, nc, sk,
-                          sr, sdy, sw, sdv);
+  chunk_walk<T, HD, true>(k, r, dy, w, u, summ, dv, nullptr, nullptr,
+                          nullptr, T_, H, nc, sk, sr, sdy, sw, sdv);
 }
 
 // ---------------------------------------------------------------------------
@@ -843,12 +876,15 @@ extern "C" int rwkv6_scan_tiles(int kernel, int hd, int what) {
 // order; the head dim is contiguous and every row 16-byte aligned.  u:
 // (H, hd) f32 contiguous; ckpt: (B, H, ceil(T/CK), hd, hd) f32 or null;
 // summ: f32 scratch of B*H*ceil(T/CK)*hd*(hd+1) floats (unused when T <=
-// CK); chunk: the wrapper's plan's chunk, which must be CK.
+// CK); s0: the state before step 0, sT: the state after step T - 1, each
+// (B, H, hd, hd) contiguous f32 or null (zero start, no final state), not
+// overlapping; chunk: the wrapper's plan's chunk, which must be CK.
 extern "C" int rwkv6_scan_fwd(const void* r, const void* k, const void* v,
                               const float* w, const float* u, void* y,
-                              float* ckpt, float* summ, int dtype, int B,
-                              int T, int H, int hd, int chunk,
-                              const long long* st, void* stream) {
+                              float* ckpt, float* summ, const float* s0,
+                              float* sT, int dtype, int B, int T, int H,
+                              int hd, int chunk, const long long* st,
+                              void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (bad_shape(B, T, H, chunk)) return (int)cudaErrorInvalidValue;
   const int nc = (T + CK - 1) / CK;
@@ -867,7 +903,7 @@ extern "C" int rwkv6_scan_fwd(const void* r, const void* k, const void* v,
         if (err) return err;
       }
       rwkv6_fwd_kernel<E, HD><<<dim3(nc * (HD / WALK_COLS), H, B), 32, 0, s>>>(
-          er, ek, ev, w, u, summ, static_cast<E*>(y), ckpt, T, H, nc,
+          er, ek, ev, w, u, summ, static_cast<E*>(y), ckpt, s0, sT, T, H, nc,
           strides_at(st, 0), strides_at(st, 1), strides_at(st, 2),
           strides_at(st, 3), strides_at(st, 4));
       return (int)cudaGetLastError();

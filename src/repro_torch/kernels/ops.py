@@ -20,14 +20,15 @@ from .moe_matmul import moe_grouped_ffn as _moe_grouped_ffn
 from .page_gather import page_gather as _page_gather
 from .page_gather import prefill_page_attention as _prefill_page_attention
 from .page_gather import prefill_page_attention_paged as _prefill_paged
-from .rglru_scan import RGLRUScan
+from .rglru_scan import RGLRUScan, rglru_scan
 from .ring_gather import ring_gather as _ring_gather
-from .rwkv6_scan import RWKV6Scan
+from .rwkv6_scan import RWKV6Scan, rwkv6_scan
 
 __all__ = ["attention", "attention_decode", "attention_decode_paged",
            "moe_grouped_ffn", "page_gather",
            "prefill_page_attention", "prefill_page_attention_paged", "rglru",
-           "ring_gather", "rwkv6", "rwkv6_stateful", "launches",
+           "rglru_stateful", "ring_gather", "rwkv6", "rwkv6_stateful",
+           "launches",
            "reset_launches", "CHUNK_THRESHOLD"]
 
 # on the CPU, sequences at or above this length take the blockwise path
@@ -154,9 +155,13 @@ def rwkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
 def rwkv6_stateful(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                    w: torch.Tensor, u: torch.Tensor, S0: torch.Tensor
                    ) -> tuple[torch.Tensor, torch.Tensor]:
-    """The recurrence from the state S0 (B, H, hd, hd) -> (y, final f32
-    state).  The plain version on every device, as in the JAX package,
-    where the stateful (decode) path never reaches the kernel."""
+    """The recurrence from the state S0 (B, H, hd, hd) f32 -> (y in r's
+    dtype, the state after the last step in f32): serving's prefill, its
+    chunks and its decode steps (T = 1).  On the card the WKV forward
+    kernel from S0 at every T, on the CPU the plain version (the JAX
+    package runs the plain version on every device).  No gradient."""
+    if _on_cuda(r):
+        return rwkv6_scan(r, k, v, w, u.float(), S0=S0.float())
     return ref.rwkv6_stateful(r, k, v, w, u, S0)
 
 
@@ -169,3 +174,17 @@ def rglru(x: torch.Tensor, a: torch.Tensor) -> torch.Tensor:
     if _on_cuda(x):
         return RGLRUScan.apply(x, a)
     return ref.rglru(x, a)[0]
+
+
+def rglru_stateful(x: torch.Tensor, a: torch.Tensor, h0: torch.Tensor
+                   ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The RG-LRU recurrence from the state h0 (B, D) f32 -> (h (B, T, D)
+    in x's dtype, the state after the last step (B, D) f32): serving's
+    prefill, its chunks and its decode steps (T = 1).  On the card the
+    forward kernel from h0 at every T (the final state is its last
+    checkpoint), on the CPU the plain version, as the JAX package's
+    ``rglru_stateful``.  No gradient."""
+    if _on_cuda(x):
+        h, ck = rglru_scan(x, a, h0=h0.float(), with_state=True)
+        return h, ck[:, -1]
+    return ref.rglru(x, a, h0)

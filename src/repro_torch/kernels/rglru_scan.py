@@ -1,4 +1,4 @@
-"""CUDA RG-LRU recurrence of recurrentgemma for training
+"""CUDA RG-LRU recurrence of recurrentgemma for training and serving
 (``csrc/rglru_scan.cu``).
 
 Replaces the Pallas TPU kernel ``repro/kernels/rglru_scan.py``
@@ -7,7 +7,10 @@ h_t = a_t h_{t-1} + sqrt(clip(1 - a_t^2, 0, 1)) x_t with the state in f32
 from zero.  x and a (B, T, D) in the compute dtype (f32 or bf16), h in x's
 dtype; any T and D, read through (b, t) strides with the channel dim
 contiguous.  Bound on the H100: bytes (~1 FLOP per byte).  Its plain
-version is ``ref.rglru``.
+version is ``ref.rglru``.  Serving starts the forward from a carried
+state ``h0`` (B, D) f32 (``ops.rglru_stateful``; the JAX package runs that
+stateful form through its plain version), and reads the final state as
+the last checkpoint; a null ``h0`` gives the zero state's bits.
 
 Chunk-parallel: a chunk of ``CHUNK`` steps acts on the state as
 h -> P h + H (P the product of its a, H its walk from zero), so each
@@ -46,7 +49,7 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 SIGNATURES = {
     "rglru_scan_ck": [],
     "rglru_scan_tiles": [_I] * 4,
-    "rglru_scan_fwd": [_P] * 4 + [_I] * 5 + [_P, _P],
+    "rglru_scan_fwd": [_P] * 5 + [_I] * 5 + [_P, _P],
     "rglru_scan_bwd": [_P] * 6 + [_I] * 5 + [_P, _P],
 }
 # csrc/rglru_scan.cu: CK, SUB, MAX_SLOTS
@@ -145,13 +148,22 @@ def _lib() -> ctypes.CDLL:
     return _build.load(NAME, SIGNATURES)
 
 
-def rglru_scan(x: torch.Tensor, a: torch.Tensor, with_state: bool = False):
-    """x, a (B, T, D) CUDA tensors of one dtype -> h (B, T, D) in x's dtype,
-    or with ``with_state`` the pair (h, ck) where ck (B, ceil(T / chunk()),
-    D) f32 holds the state at the end of each chunk (after steps
-    chunk() - 1, 2 chunk() - 1, ..., T - 1)."""
+def rglru_scan(x: torch.Tensor, a: torch.Tensor,
+               h0: torch.Tensor | None = None, with_state: bool = False):
+    """x, a (B, T, D) CUDA tensors of one dtype, from the state ``h0`` (B,
+    D) f32 (zero when None) -> h (B, T, D) in x's dtype, or with
+    ``with_state`` the pair (h, ck) where ck (B, ceil(T / chunk()), D) f32
+    holds the state at the end of each chunk (after steps chunk() - 1,
+    2 chunk() - 1, ..., T - 1: the last is the final state)."""
     _check(x, a, NAME)
     B, T, D = x.shape
+    if h0 is not None:
+        if h0.shape != (B, D) or h0.dtype != torch.float32 \
+                or h0.device != x.device:
+            raise ValueError(f"{NAME}: h0 must be ({B}, {D}) float32 on "
+                             f"{x.device}, got {tuple(h0.shape)} {h0.dtype} "
+                             f"{h0.device}")
+        h0 = h0.contiguous()
     y = torch.empty((B, T, D), dtype=x.dtype, device=x.device)
     ck = torch.empty((B, n_checkpoints(T), D), dtype=torch.float32,
                      device=x.device) if with_state else None
@@ -161,7 +173,8 @@ def rglru_scan(x: torch.Tensor, a: torch.Tensor, with_state: bool = False):
         with torch.cuda.device(x.device):
             rc = lib.rglru_scan_fwd(
                 x.data_ptr(), a.data_ptr(), y.data_ptr(),
-                None if ck is None else ck.data_ptr(), ELEM[x.dtype], B, T,
+                None if ck is None else ck.data_ptr(),
+                None if h0 is None else h0.data_ptr(), ELEM[x.dtype], B, T,
                 D, CHUNK, ctypes.addressof(st),
                 torch.cuda.current_stream(x.device).cuda_stream)
         _build.check(lib, rc, NAME)

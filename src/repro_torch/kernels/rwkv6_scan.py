@@ -1,4 +1,5 @@
-"""CUDA WKV recurrence of RWKV-6 for training (``csrc/rwkv6_scan.cu``).
+"""CUDA WKV recurrence of RWKV-6 for training and serving
+(``csrc/rwkv6_scan.cu``).
 
 Replaces the Pallas TPU kernel ``repro/kernels/rwkv6_scan.py``
 (``rwkv6_scan``, ``pallas_call`` at :73): per (batch, head) an (hd, hd) f32
@@ -8,6 +9,12 @@ makes it), u (H, hd) in f32; y in r's dtype.  Any T, read through strides
 in the (B, T, H, hd) layout (rows 16-byte aligned; others are copied
 first), head dims 16 (the smoke config) and 64.  Bound on the H100:
 operations (5 hd^2 f32 FLOPs a step).  Its plain version is ``ref.rwkv6``.
+Serving runs the forward from a carried state ``S0`` (B, H, hd, hd) f32
+and takes the state after step T - 1 out (``ops.rwkv6_stateful``, whose
+plain version is ``ref.rwkv6_stateful``; the JAX package runs that
+stateful form through its plain version); a null ``S0`` gives the zero
+state's bits.  The final state comes back in a fresh tensor, never in
+``S0``'s storage.
 
 Chunk-parallel: a chunk of ``CHUNK`` steps acts on the state as S ->
 a (.) S + dS (a the product of its decays), so one kernel writes each
@@ -46,7 +53,7 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 SIGNATURES = {
     "rwkv6_scan_ck": [],
     "rwkv6_scan_tiles": [_I, _I, _I],
-    "rwkv6_scan_fwd": [_P] * 8 + [_I] * 6 + [_P, _P],
+    "rwkv6_scan_fwd": [_P] * 10 + [_I] * 6 + [_P, _P],
     "rwkv6_scan_bwd": [_P] * 14 + [_I] * 6 + [_P, _P],
 }
 # csrc/rwkv6_scan.cu: CK, SEG, SUB, TS, SUM_COLS, WALK_COLS, BWD_ROWS
@@ -180,16 +187,30 @@ def _scratch(p: dict, device) -> torch.Tensor | None:
 
 
 def rwkv6_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-               w: torch.Tensor, u: torch.Tensor, with_state: bool = False):
+               w: torch.Tensor, u: torch.Tensor,
+               S0: torch.Tensor | None = None, with_state: bool = False):
     """r, k, v (B, T, H, hd) CUDA tensors of one dtype, w (B, T, H, hd) f32,
-    u (H, hd) f32 -> y (B, T, H, hd) in r's dtype, or with ``with_state``
-    the pair (y, ckpt) where ckpt (B, H, ceil(T / chunk()), hd, hd) f32
-    holds the state before steps 0, chunk(), 2 chunk(), ..."""
+    u (H, hd) f32, from the state ``S0`` (B, H, hd, hd) f32 (zero when
+    None) -> y (B, T, H, hd) in r's dtype; with ``with_state`` also ckpt
+    (B, H, ceil(T / chunk()), hd, hd) f32, the state before steps 0,
+    chunk(), 2 chunk(), ...; with ``S0`` given also the state after step
+    T - 1 (B, H, hd, hd) f32, a new tensor.  Returns y alone, or the tuple
+    (y, [ckpt], [final])."""
     _check(r, k, v, w, u, NAME)
     B, T, H, hd = r.shape
+    if S0 is not None:
+        if S0.shape != (B, H, hd, hd) or S0.dtype != torch.float32 \
+                or S0.device != r.device or T < 1:
+            raise ValueError(f"{NAME}: S0 must be ({B}, {H}, {hd}, {hd}) "
+                             f"float32 on {r.device} with T >= 1, got "
+                             f"{tuple(S0.shape)} {S0.dtype} {S0.device}, "
+                             f"T {T}")
+        S0 = S0.contiguous()
     y = torch.empty((B, T, H, hd), dtype=r.dtype, device=r.device)
     ckpt = torch.empty((B, H, n_checkpoints(T), hd, hd), dtype=torch.float32,
                        device=r.device) if with_state else None
+    final = torch.empty((B, H, hd, hd), dtype=torch.float32,
+                        device=r.device) if S0 is not None else None
     if y.numel():
         r, k, v, w = (_aligned(t) for t in (r, k, v, w))
         p = plan(B, T, H, hd)
@@ -201,12 +222,16 @@ def rwkv6_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                 r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
                 u.data_ptr(), y.data_ptr(),
                 None if ckpt is None else ckpt.data_ptr(),
-                None if summ is None else summ.data_ptr(), ELEM[r.dtype], B,
-                T, H, hd, p["chunk"], ctypes.addressof(st),
+                None if summ is None else summ.data_ptr(),
+                None if S0 is None else S0.data_ptr(),
+                None if final is None else final.data_ptr(), ELEM[r.dtype],
+                B, T, H, hd, p["chunk"], ctypes.addressof(st),
                 torch.cuda.current_stream(r.device).cuda_stream)
         _build.check(lib, rc, NAME)
         _build.launches[NAME] += 1
-    return (y, ckpt) if with_state else y
+    out = (y,) + ((ckpt,) if with_state else ()) \
+        + ((final,) if final is not None else ())
+    return out if len(out) > 1 else y
 
 
 def rwkv6_scan_bwd(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

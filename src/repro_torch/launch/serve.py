@@ -11,7 +11,11 @@ the drain-the-batch baseline).  Arrivals follow a Poisson process at
 system prompts plus unique suffixes.  Weights are random, drawn from
 ``--seed`` (which also seeds the workload).  The kernels are picked by
 device: ``--device cuda`` (the default) runs the hand-written CUDA
-kernels, ``--device cpu`` their plain PyTorch versions.
+kernels, ``--device cpu`` their plain PyTorch versions.  Every servable
+arch runs: the dense and MoE configs and recurrentgemma-2b (RG-LRU layers
+with local attention); an attention-free model (rwkv6-1.6b) is refused by
+the engine, as the JAX reference's engine fails on it, and serves through
+the model-level functions of ``models.transformer``.
 
 Examples:
   PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3.2-1b \\
@@ -19,6 +23,8 @@ Examples:
   PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3.2-1b \\
       --smoke --device cpu --shared-prefix --prefix-cache \\
       --temperature 0.8 --top-p 0.9
+  PYTHONPATH=src python -m repro_torch.launch.serve \\
+      --arch recurrentgemma-2b --smoke --device cpu --prefill-chunk 8
 """
 from __future__ import annotations
 

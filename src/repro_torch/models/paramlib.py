@@ -25,6 +25,7 @@ class P:
     scale: float | None = None              # stddev; default 1/sqrt(fan_in)
     fan_in_dim: int = -2                    # which dim is fan-in for scaling
     dtype: Any = None                       # override model dtype
+    keep_f32: bool = False                  # read in f32: serving keeps f32
 
     def __post_init__(self):
         if len(self.shape) != len(self.axes):
@@ -50,13 +51,13 @@ def leaves(specs, prefix: str = ""):
 
 
 def init_tree(specs, generator: torch.Generator, dtype=torch.float32,
-              leaf_fn: Callable[[str, torch.Tensor], torch.Tensor] | None
+              leaf_fn: Callable[[str, torch.Tensor, P], torch.Tensor] | None
               = None):
     """Materialize parameters on the generator's device, leaf by leaf in
     path order (one draw per normal leaf from ``generator``).  ``leaf_fn
-    (name, leaf)``, when given, maps each leaf as soon as it is made (a
-    serving cast, say), so only one leaf of the master tree is alive at a
-    time; the draws are the same with or without it."""
+    (name, leaf, spec)``, when given, maps each leaf as soon as it is made
+    (a serving cast, say), so only one leaf of the master tree is alive at
+    a time; the draws are the same with or without it."""
     dev = generator.device
 
     def make(spec: P) -> torch.Tensor:
@@ -70,7 +71,8 @@ def init_tree(specs, generator: torch.Generator, dtype=torch.float32,
         return x.mul_(_std(spec)).to(dt)
 
     def leaf(k: str, spec: P) -> torch.Tensor:
-        return make(spec) if leaf_fn is None else leaf_fn(k, make(spec))
+        return make(spec) if leaf_fn is None else leaf_fn(k, make(spec),
+                                                          spec)
 
     def walk(node):
         return {k: leaf(k, node[k]) if isinstance(node[k], P)

@@ -13,8 +13,12 @@ In the JAX package's order of operations: the conv as the same
 ``conv_width``-step loop, the gates in f32 (products by ``wa`` and ``wi``
 included), a and i cast to the compute dtype, the tanh GeLU.  The
 full-sequence forward goes through ``ops.rglru`` (the CUDA kernels on the
-card, autograd of the plain version on the CPU).  The stateful decode path
-(``rglru_decode``, ``init_rglru_state``) comes with recurrent serving.
+card, autograd of the plain version on the CPU).  Serving carries a state
+per sequence (``init_rglru_state``: the f32 recurrence state and the last
+``conv_width - 1`` conv inputs): ``rglru_decode`` runs a prompt (from the
+zero state), a prompt chunk or a decode step from it through
+``ops.rglru_stateful`` (the forward kernel from the carried state on the
+card).
 """
 from __future__ import annotations
 
@@ -36,21 +40,25 @@ def rglru_specs(cfg: ModelConfig, stack: tuple[int, ...] = ()) -> dict:
         "wx": P(stack + (d, dr), lead + ("embed", "ffn")),
         "conv_w": P(stack + (cw, dr), lead + (None, "ffn"), scale=0.1),
         "conv_b": P(stack + (dr,), lead + ("ffn",), init="zeros"),
-        "wa": P(stack + (dr, dr), lead + ("ffn", "ffn2"), scale=0.01),
+        "wa": P(stack + (dr, dr), lead + ("ffn", "ffn2"), scale=0.01,
+                keep_f32=True),
         "ba": P(stack + (dr,), lead + ("ffn",), init="zeros"),
-        "wi": P(stack + (dr, dr), lead + ("ffn", "ffn2"), scale=0.01),
+        "wi": P(stack + (dr, dr), lead + ("ffn", "ffn2"), scale=0.01,
+                keep_f32=True),
         "bi": P(stack + (dr,), lead + ("ffn",), init="zeros"),
         "lam": P(stack + (dr,), lead + ("ffn",), scale=0.5),
         "wo": P(stack + (dr, d), lead + ("ffn", "embed")),
     }
 
 
-def _causal_conv(u: torch.Tensor, w: torch.Tensor,
-                 b: torch.Tensor) -> torch.Tensor:
-    """Depthwise causal conv over time from zero history.  u: (B, T, dr);
-    w: (cw, dr); b: (dr,)."""
+def _causal_conv(u: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+                 carry: torch.Tensor | None = None) -> torch.Tensor:
+    """Depthwise causal conv over time.  u: (B, T, dr); w: (cw, dr); b:
+    (dr,); carry: (B, cw-1, dr) the previous inputs (decode, a prompt
+    chunk), or None for zero history."""
     cw, T = w.shape[0], u.shape[1]
-    up = F.pad(u, (0, 0, cw - 1, 0))
+    up = (F.pad(u, (0, 0, cw - 1, 0)) if carry is None
+          else torch.cat([carry.to(u.dtype), u], dim=1))
     out = torch.zeros_like(u)
     for i in range(cw):
         out = out + up[:, i:i + T] * w[i].to(u.dtype)
@@ -73,3 +81,35 @@ def rglru_fwd(p: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     a, i = _gates(p, u)
     h = kops.rglru(i * u, a)
     return (y * h) @ p["wo"].to(dt)
+
+
+def rglru_decode(p: dict, x: torch.Tensor, state: dict,
+                 cfg: ModelConfig) -> tuple[torch.Tensor, dict]:
+    """The block from a carried state.  x: (B, T, d) (T = 1 a decode step,
+    T > 1 a prompt or a chunk); state: {"h": (B, dr) f32, "conv": (B, cw-1, dr)
+    the last conv inputs}.  Returns (out (B, T, d), the new state: the
+    recurrence's final state and the last cw-1 inputs across the carry and
+    the chunk), new tensors."""
+    dt = x.dtype
+    y = F.gelu(x @ p["wy"].to(dt), approximate="tanh")
+    u_in = x @ p["wx"].to(dt)
+    u = _causal_conv(u_in, p["conv_w"], p["conv_b"], state["conv"])
+    a, i = _gates(p, u)
+    h_seq, hT = kops.rglru_stateful(i * u, a, state["h"])
+    out = (y * h_seq) @ p["wo"].to(dt)
+    conv = state["conv"]
+    new_conv = torch.cat([conv, u_in.to(conv.dtype)],
+                         dim=1)[:, -conv.shape[1]:]
+    return out, {"h": hT, "conv": new_conv}
+
+
+def init_rglru_state(cfg: ModelConfig, batch: int,
+                     stack: tuple[int, ...] = (),
+                     device: str | torch.device = "cpu") -> dict:
+    """Zero serving state: {"h": stack + (batch, dr) f32, "conv": stack +
+    (batch, cw-1, dr) in the compute dtype}."""
+    dr, cw = cfg.rnn_width, cfg.conv_width
+    return {"h": torch.zeros(stack + (batch, dr), dtype=torch.float32,
+                             device=device),
+            "conv": torch.zeros(stack + (batch, cw - 1, dr),
+                                dtype=cfg.dtype, device=device)}

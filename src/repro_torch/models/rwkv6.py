@@ -6,8 +6,12 @@ As in the JAX package: the decay w_t = exp(-exp(base + LoRA(x_t))) keeps
 its data dependence, the token-shift mixing coefficients are static per
 channel (RWKV-5 style), the output is a per-head group norm, silu-gated.
 The full-sequence forward goes through ``ops.rwkv6`` (the CUDA kernels on
-the card, autograd of the plain version on the CPU).  The stateful decode
-path (``time_mix_decode``, ``init_rwkv_state``) comes with rwkv6 serving.
+the card, autograd of the plain version on the CPU).  Serving carries a
+state per sequence (``init_rwkv_state``: the f32 WKV state and the last
+token of each token shift): ``time_mix_decode`` and ``chan_mix_fwd(...,
+x_last=)`` run a prompt (from the zero state), a prompt chunk or a decode
+step from it, the WKV through ``ops.rwkv6_stateful`` (the forward kernel
+from the carried state on the card).
 """
 from __future__ import annotations
 
@@ -56,29 +60,36 @@ def rwkv6_specs(cfg: ModelConfig, stack: tuple[int, ...] = ()) -> dict:
     return {"time": tm, "chan": cm}
 
 
-def _token_shift(x: torch.Tensor, mu: torch.Tensor) -> torch.Tensor:
-    """lerp(x_t, x_{t-1}, sigmoid(mu)) with x_{-1} = 0.  x: (B, T, d).
-    (The JAX version also takes the previous chunk's last token, for
-    decode; that carry comes with rwkv6 serving.)"""
-    prev = F.pad(x, (0, 0, 1, 0))[:, :-1]
+def _token_shift(x: torch.Tensor, x_prev_last: torch.Tensor | None,
+                 mu: torch.Tensor) -> torch.Tensor:
+    """lerp(x_t, x_{t-1}, sigmoid(mu)).  x: (B, T, d); x_prev_last: (B, d)
+    the previous chunk's last token (decode, a prompt chunk), or None for
+    x_{-1} = 0."""
+    if x_prev_last is None:
+        prev = F.pad(x, (0, 0, 1, 0))[:, :-1]
+    else:
+        prev = torch.cat([x_prev_last[:, None].to(x.dtype), x[:, :-1]],
+                         dim=1)
     m = torch.sigmoid(mu.float()).to(x.dtype)
     return x + m * (prev - x)
 
 
-def _time_mix_inputs(tp: dict, x: torch.Tensor, cfg: ModelConfig):
-    """r, k, v, g (B, T, H, hd) in the compute dtype; the decay w in f32."""
+def _time_mix_inputs(tp: dict, x: torch.Tensor, cfg: ModelConfig,
+                     x_last: torch.Tensor | None = None):
+    """r, k, v, g (B, T, H, hd) in the compute dtype; the decay w in f32.
+    ``x_last``: the token shifts' carry (``_token_shift``)."""
     B, T, _ = x.shape
     H, hd = cfg.n_heads, cfg.hd
     dt = x.dtype
 
     def proj(mu, w):
-        return (_token_shift(x, mu) @ w.to(dt)).reshape(B, T, H, hd)
+        return (_token_shift(x, x_last, mu) @ w.to(dt)).reshape(B, T, H, hd)
 
     r = proj(tp["mu_r"], tp["wr"])
     k = proj(tp["mu_k"], tp["wk"])
     v = proj(tp["mu_v"], tp["wv"])
     g = proj(tp["mu_g"], tp["wg"])
-    xw = _token_shift(x, tp["mu_w"])
+    xw = _token_shift(x, x_last, tp["mu_w"])
     dlo = (xw @ tp["decay_w1"].to(dt)) @ tp["decay_w2"].to(dt)
     dlog = tp["decay_base"].float()[None, None] \
         + dlo.reshape(B, T, H, hd).float()
@@ -100,10 +111,39 @@ def time_mix_fwd(tp: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     return _finish(tp, y, g, x.dtype)
 
 
-def chan_mix_fwd(cp: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+def time_mix_decode(tp: dict, x: torch.Tensor, state: dict,
+                    cfg: ModelConfig) -> tuple[torch.Tensor, dict]:
+    """The time mix from a carried state.  x: (B, T, d) (T = 1 a decode
+    step, T > 1 a prompt or a chunk); state: {"S": (B, H, hd, hd) f32,
+    "x_last": (B, d)}.  Returns (out (B, T, d), {"S": the final state,
+    "x_last": x's last token})."""
+    r, k, v, g, w = _time_mix_inputs(tp, x, cfg, state["x_last"])
+    y, S1 = kops.rwkv6_stateful(r, k, v, w, tp["bonus_u"], state["S"])
+    out = _finish(tp, y, g, x.dtype)
+    return out, {"S": S1, "x_last": x[:, -1]}
+
+
+def chan_mix_fwd(cp: dict, x: torch.Tensor, cfg: ModelConfig,
+                 x_last: torch.Tensor | None = None) -> torch.Tensor:
+    """The squared-ReLU channel mix; ``x_last`` (B, d): the token shifts'
+    carry from the previous chunk, or None for zero."""
     dt = x.dtype
-    xk = _token_shift(x, cp["mu_ck"])
-    xr = _token_shift(x, cp["mu_cr"])
+    xk = _token_shift(x, x_last, cp["mu_ck"])
+    xr = _token_shift(x, x_last, cp["mu_cr"])
     kk = torch.square(F.relu(xk @ cp["ck"].to(dt)))
     return torch.sigmoid((xr @ cp["cr"].to(dt)).float()).to(dt) \
         * (kk @ cp["cv"].to(dt))
+
+
+def init_rwkv_state(cfg: ModelConfig, batch: int,
+                    stack: tuple[int, ...] = (),
+                    device: str | torch.device = "cpu") -> dict:
+    """Zero serving state: {"S": stack + (batch, H, hd, hd) f32, "x_last",
+    "cx_last": stack + (batch, d) in the compute dtype}."""
+    H, hd, d = cfg.n_heads, cfg.hd, cfg.d_model
+    return {"S": torch.zeros(stack + (batch, H, hd, hd), dtype=torch.float32,
+                             device=device),
+            "x_last": torch.zeros(stack + (batch, d), dtype=cfg.dtype,
+                                  device=device),
+            "cx_last": torch.zeros(stack + (batch, d), dtype=cfg.dtype,
+                                   device=device)}

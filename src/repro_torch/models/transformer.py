@@ -18,13 +18,15 @@ per-layer gradients once instead of scattering each layer's into a zero
 tensor of the whole stack.  The port carries the self-attention kinds
 (``attn``, and ``local``/``swa`` windows through the same code) with a
 dense or a mixture-of-experts FFN (``models/moe.py``), and the recurrent
-blocks on the training path (``model_specs``, ``forward``, ``lm_loss``):
-RWKV-6 (``models/rwkv6.py``: time mix and channel mix) and the Griffin
-RG-LRU block (``models/rglru.py``, with a gated MLP) of recurrentgemma;
-their serving path raises ``NotImplementedError`` naming the queue item
-that brings it (``check_servable``).  Every other layer kind raises
-naming the slice that brings it, and so does ``lm_loss`` on an MoE config
-(MoE training is a later slice).
+blocks: RWKV-6 (``models/rwkv6.py``: time mix and channel mix) and the
+Griffin RG-LRU block (``models/rglru.py``, with a gated MLP) of
+recurrentgemma, on the training and the serving paths.  A recurrent
+layer's serving cache is its state, one dense row per sequence slot
+(rwkv6: ``S``, ``x_last``, ``cx_last``; rglru: ``h``, ``conv``), written
+in place by ``decode_step``; ``prefill_chunk`` carries it outside the
+cache (``init_chunk_carry``) until the slot goes live.  Every other layer
+kind raises naming the slice that brings it, and so does ``lm_loss`` on
+an MoE config (MoE training is a later slice).
 """
 from __future__ import annotations
 
@@ -33,23 +35,21 @@ from typing import Any
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from ..device import resolve_device
 from ..kernels import ops as kops
 from . import attention as attn
 from .config import RECURRENT_KINDS, ModelConfig
 from .layers import (apply_mlp, apply_norm, apply_rope, embed_specs,
                      embed_tokens, lm_logits, mlp_specs, norm_specs)
 from .moe import moe_ffn, moe_specs
-from .rglru import rglru_fwd, rglru_specs
-from .rwkv6 import chan_mix_fwd, rwkv6_specs, time_mix_fwd
+from .rglru import init_rglru_state, rglru_decode, rglru_fwd, rglru_specs
+from .rwkv6 import (chan_mix_fwd, init_rwkv_state, rwkv6_specs,
+                    time_mix_decode, time_mix_fwd)
 
 SELF_ATTN_KINDS = ("attn", "local", "swa")
 _LATER = {
     "xattn": "slice 7 (rest of the zoo: xattn, vision)",
 }
-RECURRENT_SERVING = (
-    "ROADMAP queue A item 1 (recurrent serving: rwkv6's time_mix_decode and "
-    "init_rwkv_state, rglru_decode and init_rglru_state, the chunk carries "
-    "and the paged cache's recurrent rows)")
 
 
 def check_supported(cfg: ModelConfig) -> None:
@@ -63,17 +63,6 @@ def check_supported(cfg: ModelConfig) -> None:
             raise NotImplementedError(
                 f"{cfg.name}: layer kind {kind!r} comes with "
                 f"{_LATER.get(kind, 'a later slice')}")
-
-
-def check_servable(cfg: ModelConfig) -> None:
-    """``check_supported``, and the serving paths take attention layers
-    only: RWKV-6 and the RG-LRU train, their stateful decode comes later."""
-    check_supported(cfg)
-    for kind in RECURRENT_KINDS:
-        if kind in cfg.layer_kinds:
-            raise NotImplementedError(
-                f"{cfg.name}: serving layer kind {kind!r} comes with "
-                f"{RECURRENT_SERVING}")
 
 
 def check_trainable(cfg: ModelConfig) -> None:
@@ -213,6 +202,41 @@ def lm_loss(params: dict, batch: dict, cfg: ModelConfig,
 
 
 # ---------------------------------------------------------------------------
+# Recurrent layers on the serving paths
+# ---------------------------------------------------------------------------
+
+def init_recurrent_state(cfg: ModelConfig, kind: str, batch: int,
+                         stack: tuple[int, ...] = (),
+                         device: str | torch.device = "cpu") -> dict:
+    """The zero serving state of a recurrent layer kind: rwkv6's {"S",
+    "x_last", "cx_last"}, rglru's {"h", "conv"}, each stack + (batch,
+    ...)."""
+    init = init_rwkv_state if kind == "rwkv6" else init_rglru_state
+    return init(cfg, batch, stack, device)
+
+
+def _recurrent_block(bp: dict, kind: str, x: torch.Tensor, state: dict,
+                     cfg: ModelConfig) -> tuple[torch.Tensor, dict]:
+    """A recurrent layer over x (B, T, d) from its serving state: a
+    prompt from the zero state (prefill), a chunk from the carry, a decode
+    step from the cache rows.  Returns (x, the state after the last
+    token, new tensors)."""
+    h = apply_norm(bp["ln1"], x, cfg)
+    if kind == "rwkv6":
+        mix, new = time_mix_decode(bp["mix"], h, state, cfg)
+    else:
+        mix, new = rglru_decode(bp["mix"], h, state, cfg)
+    x = x + mix
+    h2 = apply_norm(bp["ln2"], x, cfg)
+    if kind == "rwkv6":
+        f = chan_mix_fwd(bp["ffn"], h2, cfg, x_last=state["cx_last"])
+        new["cx_last"] = h2[:, -1]
+    else:
+        f = _apply_ffn(bp, kind, h2, cfg)
+    return x + f, new
+
+
+# ---------------------------------------------------------------------------
 # Prefill (forward + dense ring cache construction)
 # ---------------------------------------------------------------------------
 
@@ -236,6 +260,13 @@ def _fill_kv(cfg: ModelConfig, kind: str, k: torch.Tensor, v: torch.Tensor,
 def _prefill_block(bp: dict, kind: str, x: torch.Tensor, cfg: ModelConfig,
                    positions: torch.Tensor,
                    cache_len: int) -> tuple[torch.Tensor, dict]:
+    """One layer of the whole-prompt prefill and its serving cache: the
+    ring's K/V for attention; for a recurrence, its state after the prompt
+    (run from the zero state through its stateful form, as in the JAX
+    package)."""
+    if kind in RECURRENT_KINDS:
+        zero = init_recurrent_state(cfg, kind, x.shape[0], device=x.device)
+        return _recurrent_block(bp, kind, x, zero, cfg)
     h = apply_norm(bp["ln1"], x, cfg)
     q, kk, vv = attn._qkv(bp["mix"], h, cfg)
     theta = attn._rope_theta(cfg, kind)
@@ -250,11 +281,20 @@ def _prefill_block(bp: dict, kind: str, x: torch.Tensor, cfg: ModelConfig,
     return x + _apply_ffn(bp, kind, h2, cfg), c
 
 
+def _stack_layers(per_layer: dict[str, list[dict]]) -> dict:
+    """{slot: [layer dicts]} -> {slot: {name: (n, ...) stacked}}."""
+    return {skey: {name: torch.stack([c[name] for c in cs])
+                   for name in cs[0]}
+            for skey, cs in per_layer.items()}
+
+
 def prefill(params: dict, tokens: torch.Tensor, cfg: ModelConfig,
             cache_len: int | None = None) -> tuple[torch.Tensor, dict]:
     """Process a prompt: tokens (B, S) -> (last-position logits (B, V) f32,
-    dense ring cache {g: {s: {"k", "v": (n, B, L, KV, hd)}}})."""
-    check_servable(cfg)
+    dense cache {g: {s: stacked (n, B, ...) leaves}}: the ring's "k", "v"
+    (n, B, L, KV, hd) for attention, "S", "x_last", "cx_last" for rwkv6,
+    "h", "conv" for rglru)."""
+    check_supported(cfg)
     B, S = tokens.shape
     cache_len = cache_len or S
     x = embed_tokens(params, tokens, cfg)
@@ -270,10 +310,7 @@ def prefill(params: dict, tokens: torch.Tensor, cfg: ModelConfig,
                 x, c = _prefill_block(lp[f"s{si}"], kind, x, cfg,
                                       positions, cache_len)
                 per_layer[f"s{si}"].append(c)
-        cache[f"g{gi}"] = {
-            skey: {name: torch.stack([c[name] for c in cs])
-                   for name in ("k", "v")}
-            for skey, cs in per_layer.items()}
+        cache[f"g{gi}"] = _stack_layers(per_layer)
 
     x = apply_norm(params["final_norm"], x[:, -1:], cfg)
     return lm_logits(params, x, cfg)[:, 0], cache
@@ -285,6 +322,14 @@ def prefill(params: dict, tokens: torch.Tensor, cfg: ModelConfig,
 
 def _decode_block(bp: dict, kind: str, x: torch.Tensor, c: dict,
                   cfg: ModelConfig, pos: torch.Tensor) -> torch.Tensor:
+    """One layer of a decode step.  An attention layer writes its new K/V
+    into the page pools, a recurrent one its new state into its rows of
+    ``c`` (views of the stacked cache), in place."""
+    if kind in RECURRENT_KINDS:
+        x, new = _recurrent_block(bp, kind, x, c, cfg)
+        for name, t in new.items():
+            c[name].copy_(t)
+        return x
     if "pk" not in c:
         raise NotImplementedError(
             "dense ring decode caches are not ported; decode through the "
@@ -301,8 +346,10 @@ def decode_step(params: dict, cache: dict, tokens: torch.Tensor,
                 ) -> tuple[torch.Tensor, dict]:
     """One decode step against a paged cache.  tokens: (B, 1); pos: (B,)
     per-sequence positions (or a scalar for all rows).  Returns (logits
-    (B, 1, V) f32, cache); the cache's pools are updated in place."""
-    check_servable(cfg)
+    (B, 1, V) f32, cache); the cache's pools and recurrent rows are
+    updated in place (every row's, idle ones included, as in the JAX
+    package: a row's state never reaches another row)."""
+    check_supported(cfg)
     x = embed_tokens(params, tokens, cfg)
     for gi, g in enumerate(cfg.groups):
         gp, gc = params["groups"][f"g{gi}"], cache[f"g{gi}"]
@@ -318,20 +365,33 @@ def decode_step(params: dict, cache: dict, tokens: torch.Tensor,
 # Chunked prefill (repro_torch.serve): one prompt chunk against the paged cache
 # ---------------------------------------------------------------------------
 
-def init_chunk_carry(cfg: ModelConfig) -> dict:
+def init_chunk_carry(cfg: ModelConfig,
+                     device: str | torch.device | None = None) -> dict:
     """Per-slot recurrent carry for chunked prefill (B=1 per prefilling
     sequence), in the JAX package's tree shape.  Attention layers carry
-    nothing — their state lives in the page pools — and they are the only
-    kinds served (``check_servable``), so every leaf is empty here; the
-    recurrent kinds' carries come with rwkv6 serving."""
-    check_servable(cfg)
-    return {f"g{gi}": {f"s{si}": {} for si in range(len(g.pattern))}
-            for gi, g in enumerate(cfg.groups)}
+    nothing — their state lives in the page pools; recurrent layers carry
+    their zero serving state (``init_recurrent_state``) *outside* the
+    batch cache, on ``device`` (default ``cuda``), so that interleaved
+    decode steps cannot touch it (it is written into the cache row at
+    activation)."""
+    check_supported(cfg)
+    recurrent = any(k in RECURRENT_KINDS for k in cfg.layer_kinds)
+    dev = resolve_device(device) if recurrent else None
+    return {f"g{gi}": {
+        f"s{si}": (init_recurrent_state(cfg, kind, 1, (g.n,), dev)
+                   if kind in RECURRENT_KINDS else {})
+        for si, kind in enumerate(g.pattern)}
+        for gi, g in enumerate(cfg.groups)}
 
 
-def _chunk_block(bp: dict, kind: str, x: torch.Tensor, c: dict,
+def _chunk_block(bp: dict, kind: str, x: torch.Tensor, c: dict, car: dict,
                  cfg: ModelConfig, rows: dict, start: int, cache_len: int,
-                 pos: dict) -> torch.Tensor:
+                 pos: dict) -> tuple[torch.Tensor, dict]:
+    """One layer of a prompt chunk: attention against the paged context
+    (its K/V written into the pools in place), a recurrence from its carry.
+    Returns (x, the layer's new carry)."""
+    if kind in RECURRENT_KINDS:
+        return _recurrent_block(bp, kind, x, car, cfg)
     h = apply_norm(bp["ln1"], x, cfg)
     L = cfg.kv_cache_len(kind, cache_len)
     tmp = {"pk": c["pk"], "pv": c["pv"], "pt": rows[L][None]}
@@ -342,7 +402,7 @@ def _chunk_block(bp: dict, kind: str, x: torch.Tensor, c: dict,
                                           start, pos[L])
     x = x + mix
     h2 = apply_norm(bp["ln2"], x, cfg)
-    return x + _apply_ffn(bp, kind, h2, cfg)
+    return x + _apply_ffn(bp, kind, h2, cfg), car
 
 
 def prefill_chunk(params: dict, cache: dict, tokens: torch.Tensor,
@@ -352,18 +412,25 @@ def prefill_chunk(params: dict, cache: dict, tokens: torch.Tensor,
     cache.  tokens: (1, C) at absolute positions start..start+C-1; rows:
     {L: (n_pp,) int32 tensor} the slot's physical pages per page class
     (the batch page table stays on the junk page until activation, so
-    decode steps interleave freely); carry: ``init_chunk_carry`` tree,
-    returned as it came (attention layers carry nothing).  The chunk's K/V
-    are written into the pools in place.  Returns (last-position logits
-    (1, V) f32, cache, carry)."""
-    check_servable(cfg)
+    decode steps interleave freely); carry: ``init_chunk_carry`` tree.
+    The chunk's K/V are written into the pools in place.  Returns
+    (last-position logits (1, V) f32, cache, the new carry: new tensors,
+    the given carry is left as it was)."""
+    check_supported(cfg)
     x = embed_tokens(params, tokens, cfg)
     pos: dict = {}
+    new_carry: dict[str, Any] = {}
     for gi, g in enumerate(cfg.groups):
         gp, gc = params["groups"][f"g{gi}"], cache[f"g{gi}"]
-        for lp, lc in zip(_unstack(gp, g.n), _unstack(gc, g.n)):
+        per_layer: dict[str, list] = {f"s{si}": [] for si in
+                                      range(len(g.pattern))}
+        for lp, lc, lcar in zip(_unstack(gp, g.n), _unstack(gc, g.n),
+                                _unstack(carry[f"g{gi}"], g.n)):
             for si, kind in enumerate(g.pattern):
-                x = _chunk_block(lp[f"s{si}"], kind, x, lc[f"s{si}"], cfg,
-                                 rows, start, cache_len, pos)
+                x, car = _chunk_block(lp[f"s{si}"], kind, x, lc[f"s{si}"],
+                                      lcar[f"s{si}"], cfg, rows, start,
+                                      cache_len, pos)
+                per_layer[f"s{si}"].append(car)
+        new_carry[f"g{gi}"] = _stack_layers(per_layer)
     x = apply_norm(params["final_norm"], x[:, -1:], cfg)
-    return lm_logits(params, x, cfg)[:, 0], cache, carry
+    return lm_logits(params, x, cfg)[:, 0], cache, new_carry

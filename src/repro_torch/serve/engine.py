@@ -20,20 +20,24 @@ Two prompt paths:
   batch (through the ``prefill_page_attention`` kernel on the card).  A
   prefilling slot keeps its device page table on the junk page until
   *activation* (``make_activate_fn``), so interleaved decode steps cannot
-  touch it.  Chunks are end-aligned when the prompt fits the smallest
-  ring: the final chunk starts at ``S - C``, overlapping its predecessor
-  by recomputing a few positions into the slot's private pages, so the
-  first token comes straight from the final chunk's logits.  Otherwise
-  (a prompt longer than a ring, or a near-complete prefix hit) the
-  sub-chunk remainder is teacher-forced through the decode path one token
-  per tick (the "tail" phase).
+  touch it; a recurrent layer carries its state outside the batch cache
+  until then.  Chunks are end-aligned when sound (an attention-only
+  model, a prompt within the smallest ring): the final chunk starts at
+  ``S - C``, overlapping its predecessor by recomputing a few positions
+  into the slot's private pages, so the first token comes straight from
+  the final chunk's logits.  Otherwise (a recurrent carry, which would
+  take the overlapped tokens twice; a prompt longer than a ring; a
+  near-complete prefix hit) the sub-chunk remainder is teacher-forced
+  through the decode path one token per tick (the "tail" phase).
 
 With ``prefix_cache=True`` a radix trie over prompt tokens
 (:mod:`repro_torch.serve.prefix_cache`) lets a new request adopt the
 physical pages of its longest already-computed prefix: full page matches
 are shared read-only under refcounts, a partially matched page is adopted
 by copy, and a live slot about to overwrite a page it still shares (ring
-wrap) gets a copy-on-write page first.  Finished prefills publish their
+wrap) gets a copy-on-write page first.  A model with a recurrent layer
+neither adopts nor publishes prefixes: its state at a prefix's end is not
+kept.  Finished prefills publish their
 full pages back into the trie; LRU eviction of unreferenced trie leaves
 feeds the allocator's free list under pressure.  Page copies and
 page-table writes are in place on the pools.
@@ -67,8 +71,9 @@ import numpy as np
 import torch
 
 from ..models.config import ModelConfig
-from ..models.transformer import (check_servable, decode_step,
-                                  init_chunk_carry, prefill, prefill_chunk)
+from ..models.transformer import (SELF_ATTN_KINDS, check_supported,
+                                  decode_step, init_chunk_carry, prefill,
+                                  prefill_chunk)
 from .live_db import StaticParams, serving_params
 from .paged_cache import (PageAllocator, init_paged_cache, make_activate_fn,
                           make_copy_page_fn, make_evict_fn, make_join_fn)
@@ -232,7 +237,7 @@ class ServeEngine:
     """
 
     def __init__(self, cfg: ModelConfig, params: Any, scfg: ServeConfig):
-        check_servable(cfg)
+        check_supported(cfg)
         self.cfg, self.scfg = cfg, scfg
         if isinstance(params, Mapping):
             self.db = StaticParams(serving_params(params, cfg))
@@ -241,6 +246,14 @@ class ServeEngine:
         else:
             raise TypeError("params: a parameter tree or a handle with get()")
         self.device = self.db.get()["embedding"].device
+        if not any(k in SELF_ATTN_KINDS for k in cfg.layer_kinds):
+            raise ValueError(
+                f"{cfg.name}: an attention-free model has no page class, "
+                "and the JAX reference engine fails on it (min() of an "
+                "empty page-class dict, repro/serve/engine.py:202, "
+                "ROADMAP C); it is served through the model-level "
+                "functions (prefill, decode_step, init_chunk_carry, "
+                "prefill_chunk) until the reference is repaired")
         B = scfg.batch_size
         extra = 0
         if scfg.prefix_cache:
@@ -255,8 +268,12 @@ class ServeEngine:
                 f"prefill_chunk {scfg.prefill_chunk} exceeds the smallest "
                 f"page-class ring ({self._min_L}); chunk scatter slots "
                 "must stay unique within a chunk")
-        # every servable layer kind is attention (check_servable), so
-        # prefix adoption and end-aligned chunks are always sound here
+        # prefix adoption shares raw K/V pages: a recurrent layer would
+        # also need its state at the prefix's end, which is not kept; and
+        # an overlapping final chunk would feed a recurrent carry the
+        # overlapped tokens twice
+        self._all_attn = all(k in SELF_ATTN_KINDS for k in cfg.layer_kinds)
+        self._can_adopt = scfg.prefix_cache and self._all_attn
         self.prefix = (PrefixCache(self.alloc, scfg.page_size)
                        if scfg.prefix_cache else None)
         self._join = make_join_fn(cfg, scfg.cache_len, scfg.page_size)
@@ -264,7 +281,7 @@ class ServeEngine:
         self._activate = make_activate_fn(cfg, scfg.cache_len,
                                           scfg.page_size)
         self._copy = make_copy_page_fn(cfg, scfg.cache_len, scfg.page_size)
-        self._carry0 = init_chunk_carry(cfg)
+        self._carry0 = init_chunk_carry(cfg, device=self.device)
         self._tok = np.zeros((B, 1), np.int64)
         self._pos = np.zeros((B,), np.int64)
         self._rid = np.zeros((B,), np.int64)
@@ -400,7 +417,7 @@ class ServeEngine:
         C = self.scfg.prefill_chunk
 
         full, partial = [], None
-        if self.prefix is not None and S <= self._min_L:
+        if self._can_adopt and S <= self._min_L:
             full, partial = self.prefix.lookup(prompt)
         a_pg = len(full)
         adopt = a_pg * page + (partial[1] if partial else 0)
@@ -409,12 +426,14 @@ class ServeEngine:
         # the first generated token directly; the final chunk may overlap
         # the one before it (or the adopted prefix), recomputing a few
         # positions into the slot's private pages.  Overlap is only sound
-        # when no ring wraps during the prompt (S <= the smallest ring).
-        # Otherwise: non-overlapping chunks from the adoption point, with
-        # the sub-chunk remainder teacher-forced one token per tick through
-        # the decode path ("tail" phase) — for a near-complete prefix hit
-        # that tail IS the fast path.
-        overlap = S <= self._min_L and S >= C and S - adopt > 2
+        # when no ring wraps during the prompt (S <= the smallest ring) and
+        # no layer carries recurrent state (the carry would take the
+        # overlapped tokens twice).  Otherwise: non-overlapping chunks from
+        # the adoption point, with the sub-chunk remainder teacher-forced
+        # one token per tick through the decode path ("tail" phase) — for
+        # a near-complete prefix hit that tail IS the fast path.
+        overlap = (self._all_attn and S <= self._min_L and S >= C
+                   and S - adopt > 2)
         if overlap:
             # chunks must only ever write the slot's private pages: cap
             # adoption at the last page boundary <= the final chunk start
@@ -531,7 +550,7 @@ class ServeEngine:
     def _insert_prefix(self, b: int) -> None:
         """Publish a freshly prefilled prompt's full pages to the trie."""
         s = self.slots[b]
-        if self.prefix is None or len(s.req.prompt) > self._min_L:
+        if not self._can_adopt or len(s.req.prompt) > self._min_L:
             return
         path, new_idx = self.prefix.insert(s.req.prompt, s.rows_host)
         s.nodes += path

@@ -1,5 +1,5 @@
 """Paged per-sequence decode caches: fixed-size pages + a free-list
-allocator (port of ``repro.serve.paged_cache`` for attention layers).
+allocator (port of ``repro.serve.paged_cache``).
 
 The serving engine holds ``batch`` sequence *slots*.  Every attention
 layer shares one pool of fixed-size pages, and each slot owns a page table
@@ -20,6 +20,12 @@ refcounts (``incref``/``install``), with ``extra_seqs`` sequences' worth
 of pool headroom for the pages it retains, and ``copy_page`` gives a slot
 a private copy of a shared page (copy-on-write).
 
+Recurrent state (rwkv6, rglru) is O(1) per sequence and stays a dense
+``batch``-row tensor per leaf, as in the JAX package: ``join`` and
+``activate`` overwrite row ``b`` whole; ``evict`` and ``copy_page`` touch
+attention layers only (a freed row keeps its stale state, which no live
+row reads).
+
 Unlike the JAX package, the device side is updated **in place**: ``join``,
 ``evict``, ``activate`` and ``copy_page`` write the pools and tables with
 indexed assignment and return the same cache dict, and so do the decode
@@ -33,8 +39,8 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
-from ..models.config import ModelConfig
-from ..models.transformer import SELF_ATTN_KINDS
+from ..models.config import RECURRENT_KINDS, ModelConfig
+from ..models.transformer import SELF_ATTN_KINDS, init_recurrent_state
 
 
 def page_classes(cfg: ModelConfig, cache_len: int,
@@ -159,11 +165,17 @@ def init_paged_cache(cfg: ModelConfig, batch: int, cache_len: int,
     tables starting at the junk page ``P - 1``.  ``pk`` and ``pv`` are
     separate tensors, since both are written in place.  ``extra_seqs``
     adds that many sequences' worth of pool headroom per class (it must
-    match the PageAllocator's)."""
+    match the PageAllocator's).  Recurrent slots get their dense per-row
+    state (``transformer.init_recurrent_state``, (n, B, ...)) on the same
+    device."""
     dev = resolve_device(device)
     classes = page_classes(cfg, cache_len, page_size)
     cache: dict[str, Any] = {}
     for gkey, skey, kind, n in _walk_slots(cfg):
+        if kind in RECURRENT_KINDS:
+            cache.setdefault(gkey, {})[skey] = init_recurrent_state(
+                cfg, kind, batch, (n,), dev)
+            continue
         if kind not in SELF_ATTN_KINDS:
             raise NotImplementedError(
                 f"paged cache for layer kind {kind!r} comes with a later "
@@ -180,17 +192,28 @@ def init_paged_cache(cfg: ModelConfig, batch: int, cache_len: int,
     return cache
 
 
+def _set_row(pc: dict, src: dict, b: int) -> None:
+    """Row ``b`` of every leaf of a recurrent layer's stacked state (n, B,
+    ...) := the B=1 state ``src`` (n, 1, ...), in place."""
+    for name, t in pc.items():
+        t[:, b] = src[name][:, 0].to(t.dtype)
+
+
 def make_join_fn(cfg: ModelConfig, cache_len: int,
                  page_size: int) -> Callable:
     """Build ``join(cache, dense, b, rows) -> cache``: scatter one
     sequence's dense prefill cache (``prefill(..., cache_len)`` with B=1)
-    into paged slot ``b``, in place.  ``rows``: {L: (n_pp,) page ids}
-    from ``PageAllocator.alloc``, as tensors on the cache's device."""
+    into paged slot ``b``, in place: the K/V into the slot's pages, a
+    recurrent layer's state into row ``b``.  ``rows``: {L: (n_pp,) page
+    ids} from ``PageAllocator.alloc``, as tensors on the cache's device."""
 
     def join(cache: dict, dense: dict, b: int,
              rows: dict[int, torch.Tensor]) -> dict:
         for gkey, skey, kind, n in _walk_slots(cfg):
             pc, dc = cache[gkey][skey], dense[gkey][skey]
+            if kind not in SELF_ATTN_KINDS:
+                _set_row(pc, dc, b)
+                continue
             ids = rows[cfg.kv_cache_len(kind, cache_len)].long()
             npp = ids.shape[0]
             for name, src in (("pk", dc["k"]), ("pv", dc["v"])):
@@ -211,6 +234,8 @@ def make_evict_fn(cfg: ModelConfig, cache_len: int,
 
     def evict(cache: dict, b: int) -> dict:
         for gkey, skey, kind, n in _walk_slots(cfg):
+            if kind not in SELF_ATTN_KINDS:
+                continue
             pc = cache[gkey][skey]
             pc["pt"][:, b] = pc["pk"].shape[1] - 1      # junk page id P - 1
         return cache
@@ -222,15 +247,18 @@ def make_activate_fn(cfg: ModelConfig, cache_len: int,
                      page_size: int) -> Callable:
     """Build ``activate(cache, b, rows, carry) -> cache``: flip a slot from
     prefilling to live by pointing slot ``b``'s page-table rows at its
-    physical pages (``rows``: {L: (n_pp,) int32 tensors}), in place.
-    Until this runs the slot's tables sit on the junk page, so the
-    interleaved decode steps of other slots cannot touch an in-flight
-    prefill.  ``carry`` (``transformer.init_chunk_carry``) holds no state
-    for the attention layers, the only kinds ported."""
+    physical pages (``rows``: {L: (n_pp,) int32 tensors}) and writing the
+    chunked prefill's recurrent carry (``transformer.init_chunk_carry``
+    tree, B=1) into row ``b`` of the recurrent layers, in place.  Until
+    this runs the slot's tables sit on the junk page and its recurrent
+    rows are dead, so the interleaved decode steps of other slots cannot
+    touch an in-flight prefill."""
 
     def activate(cache: dict, b: int, rows: dict, carry: dict) -> dict:
-        del carry
         for gkey, skey, kind, n in _walk_slots(cfg):
+            if kind not in SELF_ATTN_KINDS:
+                _set_row(cache[gkey][skey], carry[gkey][skey], b)
+                continue
             L = cfg.kv_cache_len(kind, cache_len)
             cache[gkey][skey]["pt"][:, b] = rows[L]
         return cache
@@ -252,7 +280,8 @@ def make_copy_page_fn(cfg: ModelConfig, cache_len: int,
     def copy_page(cache: dict, src: int, dst: int, L: int, set_pt: bool,
                   b: int, idx: int) -> dict:
         for gkey, skey, kind, n in _walk_slots(cfg):
-            if cfg.kv_cache_len(kind, cache_len) != L:
+            if kind not in SELF_ATTN_KINDS \
+                    or cfg.kv_cache_len(kind, cache_len) != L:
                 continue
             pc = cache[gkey][skey]
             pc["pk"][:, dst] = pc["pk"][:, src]

@@ -18,8 +18,12 @@ is held the same way (f32 at 1e-4, bf16 at a normalized 2e-2), its
 forward at the kernel tolerances above and its checkpointed states to
 ``ref.rwkv6_stateful`` at f32 1e-4; so is the RG-LRU recurrence (its
 backward where a < 1, where autograd of the plain version is finite; at
-a = 1 it is held to its stated value da = dh h_{t-1}, dx = 0).  TF32 is
-off, so the plain versions' f32 products run in full f32.
+a = 1 it is held to its stated value da = dh h_{t-1}, dx = 0).  Serving's
+forms of both recurrences, from a carried state (h0, S0) with the final
+state out, are held to ``ref.rglru(x, a, h0)`` and ``ref.rwkv6_stateful``
+at f32 1e-4 and bf16 2e-2, at T = 1 included, and a null or zero state to
+the stateless call's bits.  TF32 is off, so the plain versions' f32
+products run in full f32.
 """
 import os
 import subprocess
@@ -1129,6 +1133,69 @@ def test_ops_rwkv6_trains_through_the_kernels(gen):
                                    atol=1e-4 * w.abs().max().item())
 
 
+# serving's shapes: decode steps of 8 rows at rwkv6-1.6b's heads and the
+# smoke heads (T = 1: one partial chunk, no summary pass), a ragged prompt
+# tail, one whole chunk, four chunks the last ragged, nine the last one
+# step
+WKV_STATE_CASES = [(8, 1, 32, 64), (2, 1, 4, 16), (1, 37, 32, 64),
+                   (2, 64, 3, 64), (1, 200, 3, 16), (2, 513, 2, 64)]
+
+
+@pytest.mark.parametrize("B,T,H,hd", WKV_STATE_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rwkv6_scan_from_a_state(gen, B, T, H, hd, dtype):
+    """From a random S0: y and the state after step T - 1 against
+    ``ref.rwkv6_stateful`` (f32 at 1e-4, bf16 at 2e-2), checkpoint 0 is S0
+    bit for bit, and the final state is a new tensor, never S0's
+    storage."""
+    r, k, v, w, u = _wkv_inputs(gen, B, T, H, hd, dtype)
+    S0 = torch.randn((B, H, hd, hd), generator=gen, device="cuda") * 0.5
+    S0_before = S0.clone()
+    y, ckpt, ST = rwkv6_scan(r, k, v, w, u, S0=S0, with_state=True)
+    want_y, want_S = ref.rwkv6_stateful(r, k, v, w, u, S0)
+    tol = dict(rtol=1e-4, atol=1e-4) if dtype == torch.float32 \
+        else TOL[torch.bfloat16]
+    torch.testing.assert_close(y.float(), want_y.float(), **tol)
+    torch.testing.assert_close(ST, want_S, **tol)
+    assert torch.equal(ckpt[:, :, 0], S0) and torch.equal(S0, S0_before)
+    assert ST.data_ptr() != S0.data_ptr() and ST.dtype == torch.float32
+
+
+@pytest.mark.parametrize("T", [1, 77, 200])
+def test_rwkv6_scan_null_state_bits(gen, T):
+    """S0 = None and S0 = zeros give the bits of the call without a state,
+    y and every checkpoint; the final state from zeros is the stateful
+    plain version's."""
+    ins = _wkv_inputs(gen, 2, T, 3, 64, torch.bfloat16)
+    y, ck = rwkv6_scan(*ins, with_state=True)
+    zero = torch.zeros((2, 3, 64, 64), device="cuda")
+    y1, ck1 = rwkv6_scan(*ins, S0=None, with_state=True)
+    y2, ck2, ST = rwkv6_scan(*ins, S0=zero, with_state=True)
+    for yy, cc in ((y1, ck1), (y2, ck2)):
+        assert torch.equal(y, yy) and torch.equal(ck, cc)
+    torch.testing.assert_close(ST, ref.rwkv6_stateful(*ins, zero)[1],
+                               **TOL[torch.bfloat16])
+
+
+def test_ops_rwkv6_stateful_launches_the_kernel(gen):
+    """``ops.rwkv6_stateful`` on the card launches the WKV forward once a
+    call at every T, 1 included, runs no plain version, and a prompt fed
+    in two calls (the state carried) equals it fed in one."""
+    r, k, v, w, u = _wkv_inputs(gen, 2, 70, 4, 16, torch.float32)
+    S0 = torch.randn((2, 4, 16, 16), generator=gen, device="cuda")
+    ops.reset_launches()
+    y, S = ops.rwkv6_stateful(r, k, v, w, u, S0)
+    y1, S1 = ops.rwkv6_stateful(*(t[:, :69] for t in (r, k, v, w)), u, S0)
+    y2, S2 = ops.rwkv6_stateful(*(t[:, 69:] for t in (r, k, v, w)), u, S1)
+    assert ops.launches["rwkv6_scan"] == 3
+    assert sum(ops.launches.values()) == 3
+    torch.testing.assert_close(torch.cat([y1, y2], 1), y, rtol=1e-4,
+                               atol=1e-4)
+    torch.testing.assert_close(S2, S, rtol=1e-4, atol=1e-4)
+    with pytest.raises(ValueError, match="S0"):
+        rwkv6_scan(r, k, v, w, u, S0=S0[:, :2])
+
+
 # ---------------------------------------------------------------------------
 # the RG-LRU recurrence
 # ---------------------------------------------------------------------------
@@ -1402,3 +1469,54 @@ def test_ops_rglru_trains_through_the_kernels(gen):
         assert g.abs().max() > 0
         torch.testing.assert_close(g, w, rtol=1e-4,
                                    atol=1e-4 * w.abs().max().item())
+
+
+# serving's shapes: a decode step of 8 rows at recurrentgemma-2b's width,
+# a ragged prompt at that width, a ragged T and D, and two windows of
+# chunks
+LRU_STATE_CASES = [(8, 1, 2560), (1, 37, 2560), (3, 77, 200), (2, 513, 40)]
+
+
+@pytest.mark.parametrize("B,T,D", LRU_STATE_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rglru_scan_from_a_state(gen, B, T, D, dtype):
+    """From a random h0: h and the final state (the last checkpoint)
+    against ``ref.rglru(x, a, h0)`` (f32 at 1e-4, bf16 at 2e-2)."""
+    x, a = _lru_inputs(gen, B, T, D, dtype)
+    h0 = torch.randn((B, D), generator=gen, device="cuda")
+    y, ck = rglru_scan(x, a, h0=h0, with_state=True)
+    want, hT = ref.rglru(x, a, h0)
+    tol = dict(rtol=1e-4, atol=1e-4) if dtype == torch.float32 \
+        else TOL[torch.bfloat16]
+    torch.testing.assert_close(y.float(), want.float(), **tol)
+    torch.testing.assert_close(ck[:, -1], hT, **tol)
+
+
+@pytest.mark.parametrize("T", [1, 77, 513])
+def test_rglru_scan_null_state_bits(gen, T):
+    """h0 = None and h0 = zeros give the bits of the call without a state:
+    h and every checkpoint."""
+    x, a = _lru_inputs(gen, 2, T, 200, torch.bfloat16)
+    y, ck = rglru_scan(x, a, with_state=True)
+    for h0 in (None, torch.zeros((2, 200), device="cuda")):
+        y2, ck2 = rglru_scan(x, a, h0=h0, with_state=True)
+        assert torch.equal(y, y2) and torch.equal(ck, ck2)
+
+
+def test_ops_rglru_stateful_launches_the_kernel(gen):
+    """``ops.rglru_stateful`` on the card launches the forward once a call
+    at every T, 1 included, runs no plain version, and a prompt fed in two
+    calls (the state carried) equals it fed in one."""
+    x, a = _lru_inputs(gen, 2, 40, 64, torch.float32)
+    h0 = torch.randn((2, 64), generator=gen, device="cuda")
+    ops.reset_launches()
+    y, h = ops.rglru_stateful(x, a, h0)
+    y1, h1 = ops.rglru_stateful(x[:, :39], a[:, :39], h0)
+    y2, h2 = ops.rglru_stateful(x[:, 39:], a[:, 39:], h1)
+    assert ops.launches["rglru_scan"] == 3
+    assert sum(ops.launches.values()) == 3
+    torch.testing.assert_close(torch.cat([y1, y2], 1), y, rtol=1e-5,
+                               atol=1e-5)
+    torch.testing.assert_close(h2, h, rtol=1e-5, atol=1e-5)
+    with pytest.raises(ValueError, match="h0"):
+        rglru_scan(x, a, h0=h0.to(torch.bfloat16))

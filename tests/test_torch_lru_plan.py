@@ -26,8 +26,13 @@ plain version (da off ``jnp.clip``'s ties, ROADMAP C), on inputs drawn
 from a numpy seed.  Cases: T below, at and past one chunk, T 77 and 513,
 D 200, a window past ``MAX_SLOTS`` chunks; a = 0 exactly at a chunk's
 first and last step (which cuts the past: nothing is divided by a); a
-band of a = 1 (g = 0, where the backward's rule applies).  Then
-``plan()``'s numbers at the training and smoke shapes.
+band of a = 1 (g = 0, where the backward's rule applies).  Serving's
+forward from a carried state h0 (the first window's carry) with the
+final state as the last checkpoint: in f64 against the sequential
+recurrence from h0, in f32 against ``ref.rglru(x, a, h0)`` and JAX's
+stateful plain version, at T 1 (a decode step) and the cases above; a
+zero h0 gives the null state's bits.  Then ``plan()``'s numbers at the
+training and smoke shapes.
 """
 import numpy as np
 import pytest
@@ -63,9 +68,9 @@ def _fold(P, H, h):
     return P * h + H
 
 
-def chunked_forward(x, a):
+def chunked_forward(x, a, h0=None):
     """h (B, T, D) and the checkpoints ck (B, nc, D) as the forward kernel
-    computes them."""
+    computes them, from the state h0 (B, D) (zero when None)."""
     B, T, D = x.shape
     g = _gate(a)
     chunks = _chunks(T)
@@ -78,7 +83,7 @@ def chunked_forward(x, a):
         pairs.append((P, H))
     y = torch.empty_like(x)
     ck = x.new_empty((B, len(chunks), D))
-    carry = x.new_zeros((B, D))
+    carry = x.new_zeros((B, D)) if h0 is None else h0
     for c0 in range(0, len(chunks), SLOTS):
         window = range(c0, min(c0 + SLOTS, len(chunks)))
         for c in window:
@@ -136,11 +141,12 @@ def chunked_backward(x, a, ck, dy):
     return dx, da
 
 
-def sequential(x, a):
-    """The recurrence step by step from zero, in the inputs' dtype."""
+def sequential(x, a, h0=None):
+    """The recurrence step by step from h0 (zero when None), in the inputs'
+    dtype."""
     B, T, D = x.shape
     g = _gate(a)
-    h = x.new_zeros((B, D))
+    h = x.new_zeros((B, D)) if h0 is None else h0
     hs = []
     for t in range(T):
         h = a[:, t] * h + g[:, t] * x[:, t]
@@ -312,6 +318,39 @@ def test_chunked_a_zero_cuts_the_past(t):
     assert torch.equal(dx[:, :t], dx2[:, :t])
     assert torch.equal(da[:, :t], da2[:, :t])
     assert torch.isfinite(ck2).all() and torch.isfinite(da).all()
+
+
+# serving's shapes: a decode step (T = 1), and the cases above with a = 0
+# and a = 1 bands, all from a carried state
+STATE_CASES = [(3, 1, 24, "model", (), ())] + [CASES[i] for i in (0, 2, 3, 5)]
+STATE_IDS = [f"T{c[1]}-D{c[2]}-{c[3]}" for c in STATE_CASES]
+
+
+@pytest.mark.parametrize("case", STATE_CASES, ids=STATE_IDS)
+def test_chunked_from_a_state(case):
+    """From a random h0: in f64 the output and the final state (the last
+    checkpoint) against the sequential recurrence from h0 to 1e-12, and
+    every checkpoint against its states; in f32 against ``ref.rglru(x, a,
+    h0)`` and JAX's ``ref.rglru(x, a, h0)`` (its ``rglru_stateful``) to
+    2e-5; an h0 of zeros gives the null state's bits."""
+    B, T, D, draw, zeros, ones = case
+    arrays = _inputs(4, B, T, D, draw, zeros, ones)
+    h0 = np.random.default_rng(5).standard_normal((B, D))
+    x, a, _, h064 = _torch(arrays + (h0,), torch.float64)
+    y, ck = chunked_forward(x, a, h064)
+    hs = sequential(x, a, h064)
+    _close([y, ck, ck[:, -1]], [hs, hs[:, _chunk_ends(T)], hs[:, -1]], 1e-12)
+    x, a, _, h032 = _torch(arrays + (h0,), torch.float32)
+    y, ck = chunked_forward(x, a, h032)
+    want, hT = ref.rglru(x, a, h032)
+    _close([y, ck[:, -1]], [want, hT], 2e-5)
+    jy, jhT = jref.rglru(*(jnp.asarray(t.numpy()) for t in (x, a, h032)))
+    for got, jw in ((y, jy), (ck[:, -1], jhT)):
+        np.testing.assert_allclose(got.numpy(), np.asarray(jw), rtol=2e-5,
+                                   atol=2e-5)
+    y0, ck0 = chunked_forward(x, a, torch.zeros_like(h032))
+    yn, ckn = chunked_forward(x, a)
+    assert torch.equal(y0, yn) and torch.equal(ck0, ckn)
 
 
 # ---------------------------------------------------------------------------

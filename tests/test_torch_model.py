@@ -143,10 +143,20 @@ def test_unported_layer_kinds_raise():
     bad = dataclasses.replace(cfg, groups=(BlockGroup(("xattn",), 1),))
     with pytest.raises(NotImplementedError, match="slice 7"):
         ttf.model_specs(bad)
-    # the recurrent kinds train (model_specs builds them) but do not serve
-    # yet
+    # the recurrent kinds train and serve: prefill gives finite logits and
+    # each layer's serving state under its own names
+    names = {"rwkv6": {"S", "x_last", "cx_last"}, "rglru": {"h", "conv"},
+             "local": {"k", "v"}}
     for arch in ("rwkv6-1.6b", "recurrentgemma-2b"):
         rec = tconfigs.get_smoke_config(arch)
-        ttf.model_specs(rec)
-        with pytest.raises(NotImplementedError, match="queue A item 1 "):
-            ttf.prefill({}, torch.zeros((1, 4), dtype=torch.long), rec)
+        params = tparamlib.init_tree(ttf.model_specs(rec),
+                                     torch.Generator().manual_seed(0))
+        logits, cache = ttf.prefill(params,
+                                    torch.zeros((1, 4), dtype=torch.long), rec)
+        assert logits.shape == (1, rec.vocab_size)
+        assert torch.isfinite(logits).all()
+        for gi, g in enumerate(rec.groups):
+            for si, kind in enumerate(g.pattern):
+                c = cache[f"g{gi}"][f"s{si}"]
+                assert set(c) == names[kind]
+                assert all(t.shape[:2] == (g.n, 1) for t in c.values())

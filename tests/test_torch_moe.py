@@ -268,7 +268,8 @@ def test_leaf_by_leaf_serving_tree_equals_serving_params():
         specs, torch.Generator().manual_seed(3)), cfg)
     got = tparamlib.init_tree(
         specs, torch.Generator().manual_seed(3),
-        leaf_fn=lambda k, t: tserve.serving_leaf(k, t, cfg))
+        leaf_fn=lambda k, t, spec: tserve.serving_leaf(k, t, cfg,
+                                                       spec))
     flat = dict(tparamlib.leaves(specs))
     for path in flat:
         a, b = got, want

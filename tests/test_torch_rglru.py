@@ -313,17 +313,32 @@ def test_lm_loss_and_grads_match_jax(remat):
 
 
 def test_serving_refuses_recurrentgemma_naming_the_queue_item():
-    cfg = tconfigs.get_smoke_config(ARCH)
-    tokens = torch.zeros((1, 4), dtype=torch.long)
-    with pytest.raises(NotImplementedError, match="'rglru' comes with "
-                       "ROADMAP queue A item 1 "):
-        ttf.prefill({}, tokens, cfg)
-    with pytest.raises(NotImplementedError, match="queue A item 1 "):
-        ttf.init_chunk_carry(cfg)
+    """Recurrent serving (ROADMAP queue A item 1) is in: recurrentgemma's
+    prefill gives the rglru layers' state, the chunk carry is their zero
+    state, and the engine serves it (parity with JAX's engine:
+    tests/test_torch_recurrent_serve.py)."""
+    _, tcfg, _, tp = _models()
+    tokens = torch.zeros((1, 2), dtype=torch.long)
+    logits, cache = ttf.prefill(tp, tokens, tcfg, cache_len=16)
+    assert logits.shape == (1, tcfg.vocab_size)
+    c = cache["g0"]["s0"]
+    assert c["h"].shape == (1, 1, tcfg.rnn_width)
+    assert c["h"].dtype == torch.float32
+    # a 2-token prompt leaves the conv carry's first slot at zero
+    assert c["conv"].shape == (1, 1, tcfg.conv_width - 1, tcfg.rnn_width)
+    head = c["conv"][:, :, 0]
+    assert torch.equal(head, torch.zeros_like(head))
+    carry = ttf.init_chunk_carry(tcfg, device="cpu")
+    assert carry["g0"]["s2"] == {}
+    assert set(carry["g0"]["s0"]) == {"h", "conv"}
+    assert not carry["g0"]["s1"]["h"].any()
     from repro_torch.serve import ServeConfig, ServeEngine
-    with pytest.raises(NotImplementedError, match="queue A item 1 "):
-        ServeEngine(cfg, {}, ServeConfig(batch_size=1, page_size=4,
-                                         cache_len=16))
+    from repro_torch.serve import open_loop_requests
+    rep = ServeEngine(tcfg, tp, ServeConfig(
+        batch_size=1, page_size=4, cache_len=16, clock="steps")).run(
+        open_loop_requests(2, 10.0, tcfg.vocab_size, prompt_lens=(5,),
+                           gen_lens=(3,), seed=0))
+    assert rep.total_tokens == 6
 
 
 @pytest.mark.parametrize("source", ["checkpoint", "numpy"])

@@ -46,6 +46,7 @@ from repro_torch.data import LMBatchSpec, make_lm_batch  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
 from repro_torch.launch import steps as tsteps  # noqa: E402
 from repro_torch.launch import train as ttrain  # noqa: E402
+from repro_torch.models import paramlib as tparamlib  # noqa: E402
 from repro_torch.models import rwkv6 as trwkv  # noqa: E402
 from repro_torch.models import transformer as ttf  # noqa: E402
 from repro_torch.optim import optimizers as topt  # noqa: E402
@@ -257,16 +258,28 @@ def test_lm_loss_and_grads_match_jax(remat):
 
 
 def test_serving_paths_raise_naming_the_queue_item():
+    """rwkv6 serves at the model level (ROADMAP queue A item 1; parity
+    with JAX: tests/test_torch_recurrent_serve.py): prefill gives its
+    layers' states and the chunk carry is their zero state.  The engine
+    refuses it with a ValueError naming the JAX reference's fault on an
+    attention-free model (ROADMAP C)."""
     cfg = tconfigs.get_smoke_config(ARCH)
+    params = tparamlib.init_tree(ttf.model_specs(cfg),
+                                 torch.Generator().manual_seed(0))
     tokens = torch.zeros((1, 4), dtype=torch.long)
-    with pytest.raises(NotImplementedError, match="queue A item 1 "):
-        ttf.prefill({}, tokens, cfg)
-    with pytest.raises(NotImplementedError, match="queue A item 1 "):
-        ttf.init_chunk_carry(cfg)
+    logits, cache = ttf.prefill(params, tokens, cfg)
+    assert logits.shape == (1, cfg.vocab_size)
+    c = cache["g0"]["s0"]
+    assert c["S"].shape == (2, 1, cfg.n_heads, cfg.hd, cfg.hd)
+    assert c["x_last"].shape == c["cx_last"].shape == (2, 1, cfg.d_model)
+    carry = ttf.init_chunk_carry(cfg, device="cpu")
+    assert set(carry["g0"]["s0"]) == {"S", "x_last", "cx_last"}
+    assert not carry["g0"]["s0"]["S"].any()
     from repro_torch.serve import ServeConfig, ServeEngine
-    with pytest.raises(NotImplementedError, match="queue A item 1 "):
-        ServeEngine(cfg, {}, ServeConfig(batch_size=1, page_size=4,
-                                         cache_len=16))
+    with pytest.raises(ValueError, match="attention-free.*min\\(\\) of "
+                       "an empty page-class dict.*ROADMAP C"):
+        ServeEngine(cfg, params, ServeConfig(batch_size=1, page_size=4,
+                                             cache_len=16))
 
 
 # ---------------------------------------------------------------------------

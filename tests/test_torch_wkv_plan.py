@@ -20,8 +20,13 @@ to JAX: ``repro.kernels.ref.rwkv6`` and the Pallas kernel in interpret mode
 from a numpy seed.  Cases cross the chunk edges: T below, at and above one
 chunk, ragged tails; head dims 16 and 64; the decay near 0 (mean 2) and
 exactly 0 at a chunk's first and last step and inside a chunk.  Nothing in
-it divides by w.  Then ``plan()``'s numbers at the training and smoke
-shapes.
+it divides by w.  Serving's forward from a carried state S0 (the fold
+starts from it; checkpoint 0 is S0) with the state after the last step
+out (the last chunk's walk ends on it): in f64 against the sequential
+recurrence from S0, in f32 against ``ref.rwkv6_stateful`` and JAX's, at
+T 1 (a decode step, one partial chunk and no summary) and across chunk
+edges; a zero S0 gives the null state's bits.  Then ``plan()``'s numbers
+at the training and smoke shapes.
 """
 import numpy as np
 import pytest
@@ -74,23 +79,28 @@ def _chunks(T):
     return [(c * C, min(C, T - c * C)) for c in range(-(-T // C))]
 
 
-def chunked_forward(r, k, v, w, u):
+def chunked_forward(r, k, v, w, u, S0=None, with_final=False):
     """y and the checkpoints (B, H, nc, hd, hd) as the forward kernels
-    compute them."""
+    compute them, from the state S0 (zero when None); with ``with_final``
+    also the state after the last step, where the last chunk's walk
+    ends."""
     B, T, H, hd = r.shape
     chunks = _chunks(T)
-    summ = [_summary(k, v, w, t0, n, False) for t0, n in chunks]
+    # one chunk has nothing to fold: the summary pass is skipped
+    summ = [_summary(k, v, w, t0, n, False) for t0, n in chunks] \
+        if len(chunks) > 1 else []
+    start = r.new_zeros((B, H, hd, hd)) if S0 is None else S0
     y = torch.empty_like(r)
     ckpt = r.new_empty((B, H, len(chunks), hd, hd))
     for c, (t0, n) in enumerate(chunks):
-        S = _fold(summ, range(c), r.new_zeros((B, H, hd, hd)))
+        S = _fold(summ, range(c), start)
         ckpt[:, :, c] = S
         for t in range(t0, t0 + n):
             bonus = (r[:, t] * u * k[:, t]).sum(-1, keepdim=True)
             y[:, t] = torch.einsum("bhi,bhij->bhj", r[:, t], S) \
                 + bonus * v[:, t]
             S = _step(S, w[:, t], k[:, t], v[:, t])
-    return y, ckpt
+    return (y, ckpt, S) if with_final else (y, ckpt)
 
 
 def chunked_backward(r, k, v, w, u, ckpt, dy):
@@ -149,17 +159,19 @@ def chunked_backward(r, k, v, w, u, ckpt, dy):
     return dr, dk, dv, dw, du.to(r.dtype)
 
 
-def sequential(r, k, v, w, u):
-    """The recurrence step by step from zero, in the inputs' dtype."""
+def sequential(r, k, v, w, u, S0=None, with_final=False):
+    """The recurrence step by step from S0 (zero when None), in the inputs'
+    dtype; with ``with_final`` also the state after the last step."""
     B, T, H, hd = r.shape
-    S = r.new_zeros((B, H, hd, hd))
+    S = r.new_zeros((B, H, hd, hd)) if S0 is None else S0
     ys = []
     for t in range(T):
         bonus = (r[:, t] * u * k[:, t]).sum(-1, keepdim=True)
         ys.append(torch.einsum("bhi,bhij->bhj", r[:, t], S)
                   + bonus * v[:, t])
         S = _step(S, w[:, t], k[:, t], v[:, t])
-    return torch.stack(ys, 1)
+    y = torch.stack(ys, 1)
+    return (y, S) if with_final else y
 
 
 # ---------------------------------------------------------------------------
@@ -279,6 +291,44 @@ def test_chunked_w_zero_cuts_the_past():
     y2, ckpt2 = chunked_forward(r, k2, v, w, u)
     assert torch.equal(y[:, C + 1:], y2[:, C + 1:])
     assert torch.isfinite(ckpt2).all()
+
+
+# serving's shapes: a decode step (T = 1) and a ragged one-chunk tail, then
+# chunk edges with w = 0 and the decay near 0, all from a carried state
+STATE_CASES = [(3, 1, 2, 16, 0.0, ()), (2, 37, 2, 64, 0.0, ()),
+               CASES[2], CASES[4], CASES[5]]
+STATE_IDS = [f"T{c[1]}-hd{c[3]}-mean{c[4]:g}" for c in STATE_CASES]
+
+
+@pytest.mark.parametrize("case", STATE_CASES, ids=STATE_IDS)
+def test_chunked_from_a_state(case):
+    """From a random S0: in f64 y, the checkpoints (checkpoint 0 is S0) and
+    the final state against the sequential recurrence from S0 to 1e-10; in
+    f32 y and the final state against ``ref.rwkv6_stateful`` and JAX's to
+    1e-5; an S0 of zeros gives the null state's bits."""
+    B, T, H, hd, mean, zeros = case
+    arrays = _inputs(4, B, T, H, hd, mean, zeros)
+    S0 = np.random.default_rng(6).standard_normal((B, H, hd, hd)) * 0.5
+    r, k, v, w, u, _, S064 = _torch(arrays + (S0,), torch.float64)
+    y, ckpt, ST = chunked_forward(r, k, v, w, u, S064, with_final=True)
+    want, wT = sequential(r, k, v, w, u, S064, with_final=True)
+    _close([y, ST, ckpt[:, :, 0]], [want, wT, S064], 1e-10)
+    for c in range(1, ckpt.shape[2]):
+        _, Sc = sequential(*(x[:, :c * C] for x in (r, k, v, w)), u, S064,
+                           with_final=True)
+        _close([ckpt[:, :, c]], [Sc], 1e-10)
+    r, k, v, w, u, _, S032 = _torch(arrays + (S0,), torch.float32)
+    y, _, ST = chunked_forward(r, k, v, w, u, S032, with_final=True)
+    _close([y, ST], ref.rwkv6_stateful(r, k, v, w, u, S032), 1e-5)
+    jy, jT = jref.rwkv6_stateful(*(jnp.asarray(t.numpy())
+                                   for t in (r, k, v, w, u, S032)))
+    for got, jw in ((y, jy), (ST, jT)):
+        np.testing.assert_allclose(got.numpy(), np.asarray(jw), rtol=1e-5,
+                                   atol=1e-5)
+    zero = chunked_forward(r, k, v, w, u, torch.zeros_like(S032),
+                           with_final=True)
+    null = chunked_forward(r, k, v, w, u, with_final=True)
+    assert all(torch.equal(a, b) for a, b in zip(zero, null))
 
 
 # ---------------------------------------------------------------------------
