@@ -48,3 +48,10 @@ class SyncConfig:
             if s.startswith(prefix) and len(prefix) > best_len:
                 best, best_len = d, len(prefix)
         return best
+
+    def to_policy(self, n_workers: int, n_chunks: int | None = None):
+        """The ParameterDB consistency policy equivalent of this sync mode
+        (host-side backends: threads, in-process replay, simulator)."""
+        from ..pdb.policies import make_policy
+        name = {BSP: "bsp", DATACENTRIC: "dc", SSP: "ssp"}[self.mode]
+        return make_policy(name, n_workers, self.delta, n_chunks)

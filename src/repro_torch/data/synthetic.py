@@ -1,6 +1,6 @@
-"""Synthetic token streams for the LM zoo (port of
-``repro.data.synthetic``'s LM part; the frontends' media stub comes with
-the slice that ports them).
+"""Synthetic data (port of ``repro.data.synthetic``): token streams for the
+LM zoo, dense and sparse regression sets for the paper's Sec-6 experiments
+(the frontends' media stub comes with the slice that ports them).
 
 Determinism contract, as in the JAX package: batch t of a stream depends
 only on (seed, t) — any restart regenerates identical data, which is what
@@ -8,6 +8,12 @@ makes checkpoint-resume exactly reproducible.  The draws come from a CPU
 ``torch.Generator`` seeded from (seed, t), so a batch is the same on every
 device; its bits differ from ``jax.random``'s, and tests that compare the
 two packages hand both the same numpy batch instead.
+
+The regression sets draw from ``np.random.default_rng(seed)`` in the JAX
+package's order, so their coordinates and values are its bits; the
+tensors (f64) are built on the requested device, the sparse set's dense
+matrix scattered there from the drawn coordinates (at the real-dataset
+shape it is 19.35 GB, never built on the host).
 """
 from __future__ import annotations
 
@@ -52,3 +58,53 @@ def make_lm_batch(spec: LMBatchSpec, step: int,
     mask[:, -1] = 0.0
     batch = {"tokens": tokens, "labels": labels, "mask": mask}
     return {k: v.to(dev) for k, v in batch.items()}
+
+
+def regression_dataset(n_examples: int, n_features: int, seed: int = 0,
+                       noise: float = 0.01,
+                       device: str | torch.device | None = None
+                       ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Dense f64 ``(X, y)``: X ~ N(0, 1/n_features), y = X w + noise."""
+    dev = resolve_device(device)
+    rng = np.random.default_rng(seed)
+    X = torch.from_numpy(rng.normal(size=(n_examples, n_features))
+                         / np.sqrt(n_features)).to(dev)
+    w = torch.from_numpy(rng.normal(size=n_features)).to(dev)
+    e = torch.from_numpy(rng.normal(size=n_examples)).to(dev)
+    return X, X @ w + noise * e
+
+
+def sparse_regression_coords(n_examples: int, n_features: int,
+                             density: float = 0.003, seed: int = 0
+                             ) -> tuple[np.ndarray, np.ndarray, np.ndarray,
+                                        np.ndarray]:
+    """The draws of :func:`sparse_regression_dataset` on the host:
+    ``(cols, vals, w, noise)``, ``cols`` and ``vals`` of shape
+    (n_examples, nnz) — row i's non-zero columns and values."""
+    rng = np.random.default_rng(seed)
+    nnz = max(int(n_features * density), 1)
+    w = rng.normal(size=n_features)
+    cols = np.empty((n_examples, nnz), np.int64)
+    vals = np.empty((n_examples, nnz))
+    for i in range(n_examples):
+        cols[i] = rng.choice(n_features, size=nnz, replace=False)
+        vals[i] = rng.normal(size=nnz)
+    return cols, vals, w, rng.normal(size=n_examples)
+
+
+def sparse_regression_dataset(n_examples: int, n_features: int,
+                              density: float = 0.003, seed: int = 0,
+                              device: str | torch.device | None = None
+                              ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Shape-proxy for the Kogan et al. real dataset (150,360 features,
+    16,087 examples, highly sparse), dense f64 on ``device``; ``density``
+    sets the non-zeros a row."""
+    dev = resolve_device(device)
+    cols, vals, w, e = sparse_regression_coords(n_examples, n_features,
+                                                density, seed)
+    X = torch.zeros((n_examples, n_features), dtype=torch.float64,
+                    device=dev)
+    rows = torch.arange(n_examples, device=dev)[:, None]
+    X[rows, torch.from_numpy(cols).to(dev)] = torch.from_numpy(vals).to(dev)
+    y = X @ torch.from_numpy(w).to(dev) + 0.01 * torch.from_numpy(e).to(dev)
+    return X, y

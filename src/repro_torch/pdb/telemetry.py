@@ -1,24 +1,35 @@
 """Op-history recording and staleness telemetry (own copy of
-``repro.pdb.telemetry``'s single-process part).
+``repro.pdb.telemetry``, without its Lamport stamps: no backend of the
+port crosses a process).
 
-The training engine funnels every committed step's operations through one
+The training engine, the stores of :mod:`repro_torch.pdb.db` and
+``serve.live_db.LiveParamDB`` funnel their operations through one
 :class:`Telemetry` object, so
 
   * ``history`` is a :class:`repro_torch.core.history.Op` sequence, and
     ``history.is_sequentially_correct`` is its semantic oracle;
   * staleness is measured uniformly: a read of chunk ``j`` at iteration
     ``alpha`` that observed version ``v`` has staleness ``(alpha - 1) - v``
-    (0 under exact RC/WC; positive when reading stale values);
+    (0 under exact RC/WC; positive when reading stale values; negative when
+    a racy policy such as SSP or Hogwild read *ahead* of the sequential
+    schedule);
   * the fault-handling layer (``repro_torch.runtime.fault``) reports
     retries and skipped steps into the same object, so one summary
     describes a run.
 
-Mutation is locked: the fault layer may report from another thread.
+Mutation is locked: the threaded store calls in under its own lock, and
+the fault layer may report from another thread.
+
+:func:`merge_timed_histories` and :func:`merge_stats` reassemble one
+global history and one set of counters from per-shard parts (a sharded
+store keeps one Telemetry per shard), as in the JAX package.
 """
 from __future__ import annotations
 
 import dataclasses
+import heapq
 import threading
+from typing import Iterable, Sequence
 
 from ..core.history import READ, WRITE, Op
 
@@ -97,3 +108,45 @@ def summarize(s: StalenessStats) -> dict:
         "retried_steps": s.retried_steps,
         "skipped_steps": s.skipped_steps,
     }
+
+
+# ---------------------------------------------------------------------------
+# Cross-shard merging (the distributed backend's telemetry reassembly)
+# ---------------------------------------------------------------------------
+
+def merge_timed_histories(
+        parts: Sequence[Sequence[tuple[int, object]]]) -> list:
+    """Reassemble one global Op history from per-shard Lamport-stamped
+    histories.
+
+    Ops are totally ordered by ``(lamport, shard_index, arrival_index)``.
+    Lamport stamps are strictly increasing within a shard, so the merge
+    preserves every shard's local order — and since each chunk is owned by
+    exactly one shard, every per-chunk projection of the merged history
+    equals its shard-local projection.  That makes the merge *sound* for
+    ``repro_torch.core.history.is_sequentially_correct``, whose conditions are
+    per-chunk; the Lamport order additionally respects cross-shard
+    causality carried by the RPC clock exchange.
+    """
+    streams = [
+        [(ts, shard_idx, seq, op) for seq, (ts, op) in enumerate(part)]
+        for shard_idx, part in enumerate(parts)
+    ]
+    return [op for _, _, _, op in heapq.merge(*streams)]
+
+
+def merge_stats(parts: Iterable[StalenessStats]) -> StalenessStats:
+    """Fold per-shard staleness counters into one global StalenessStats."""
+    out = StalenessStats()
+    for s in parts:
+        out.reads += s.reads
+        out.writes += s.writes
+        out.observed_reads += s.observed_reads
+        out.stale_reads += s.stale_reads
+        out.ahead_reads += s.ahead_reads
+        out.max_staleness = max(out.max_staleness, s.max_staleness)
+        out.min_staleness = min(out.min_staleness, s.min_staleness)
+        out.sum_staleness += s.sum_staleness
+        out.retried_steps += s.retried_steps
+        out.skipped_steps += s.skipped_steps
+    return out

@@ -233,7 +233,11 @@ class ServeEngine:
 
     ``params`` is a parameter tree (wrapped in :class:`StaticParams` as a
     serving copy, see ``live_db.serving_params``) or a handle with
-    ``get()``.  The device is the one the parameters live on.
+    ``get()`` and ``device`` (:class:`StaticParams`, ``LiveParamDB``).
+    The device is the one the parameters live on, taken from the handle
+    without a ``get()``: the engine reads its weights where the JAX
+    engine does (warmup, admission, each scheduler tick) and nowhere
+    else, so a live handle records the same reads.
     """
 
     def __init__(self, cfg: ModelConfig, params: Any, scfg: ServeConfig):
@@ -241,11 +245,12 @@ class ServeEngine:
         self.cfg, self.scfg = cfg, scfg
         if isinstance(params, Mapping):
             self.db = StaticParams(serving_params(params, cfg))
-        elif hasattr(params, "get"):
+        elif hasattr(params, "get") and hasattr(params, "device"):
             self.db = params
         else:
-            raise TypeError("params: a parameter tree or a handle with get()")
-        self.device = self.db.get()["embedding"].device
+            raise TypeError("params: a parameter tree or a handle with "
+                            "get() and device")
+        self.device = self.db.device
         if not any(k in SELF_ATTN_KINDS for k in cfg.layer_kinds):
             raise ValueError(
                 f"{cfg.name}: an attention-free model has no page class, "
