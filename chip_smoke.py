@@ -196,11 +196,40 @@ Phases (any failure raises and the script exits non-zero):
    served read within its group's delay, some stale, both delays seen,
    the Op history sequentially correct, staleness at most 4, launches
    exactly phase 4's plus the training steps', no plain version; a
-   handle that never gets a publish serves phase 4's tokens.
+   handle that never gets a publish serves phase 4's tokens;
+11. the sharded parameter server (``repro_torch.pdb.server``): shard
+   processes storing on the CPU, worker threads computing on the card.
+   The card's free memory falls by less than 64 MiB across the first
+   ``cluster.start()`` (no shard opens a CUDA context).  Phase 9's
+   regression through the shards in f64 under deterministic algorithms
+   (run right after phase 9, on its real-shape matrix): the synthetic set
+   at 4 workers on 2 shards, GD, where dc, dc-array and bsp at delta 0 on
+   both RPC paths and the kill-and-restart drill (shard 1 at iteration 4,
+   from its snapshot, with retries) give theta bit for bit
+   ``run_sequential``'s with complete, sequentially-correct merged
+   histories, and SSP (slack 2) keeps its bound; the real shape at 8
+   workers on 4 shards, GD at 20 iterations, dc and bsp bit for bit, dc
+   at delta 2 to phase 9's gates, the walls of sequential, DC and BSP
+   printed.  Then ``--backend server`` training: phase 5's narrow f32
+   model on the card bit for bit its one-thread sequential replay
+   (deterministic, both RPC paths; delta 1 within its bound), and
+   ``llama3.2-1b`` at full width (f32 master, bf16 compute) with 2
+   workers, 8 shards and 64 chunks (MAX_FRAME's 1 GiB forces the layout:
+   a shard's read_batch carries 617.9 MB), batch 4 x 512, lr 1e-3, dc at
+   delta 0, 3 steps (the server training path: launch counts reset just
+   before, read just after; flash forward and backward exactly 96 each,
+   nothing else, no plain version): finite losses, a complete and
+   sequentially correct history at staleness 0, no frame near MAX_FRAME,
+   worker 0's first loss within 1e-6 of phase 6's step 0; per step the
+   wall and its parts (settle, read, copies, gradient, write) on the host
+   clock, peak device memory, the host's peak RSS and the shards' RSS.
+   Last, the clusters' forkserver and resource tracker are stopped and no
+   shard and no child of this script may be left running.
 
 The last two lines are the ``kernels`` JSON object (eleven rows; each
 row's ``launches_by_path`` counts its launches on every path, the
-recurrent serving and serve-while-train paths' included) and
+recurrent serving, serve-while-train and server training paths' included)
+and
 ``{"ok": true, "device": {...}}``.  float32 matmuls and convolutions run in
 full f32 (TF32 off) throughout.
 """
@@ -2862,7 +2891,7 @@ def full_width_training(torch, ops, ref, arch):
                    steps=2, tokens=2 * TRAIN_B * TRAIN_S)
     del state, eng, batches
     torch.cuda.empty_cache()
-    return launches
+    return launches, losses
 
 
 # ---------------------------------------------------------------------------
@@ -3047,9 +3076,8 @@ def paper_regression(torch):
     if not res["runs_peak_above_x"] < PAPER_PEAK_ABOVE_X:
         raise AssertionError("the runs held more than X: a column slice "
                              "was copied")
-    del X, y, theta
-    torch.cuda.empty_cache()
-    return out | res
+    del theta
+    return out | res, (X, y)       # the real shape's set, for phase 11
 
 
 # ---------------------------------------------------------------------------
@@ -3168,6 +3196,302 @@ def serve_while_train(torch, ops, ref, static_outputs, static_launches):
     if any(plain_calls.values()):
         raise AssertionError(f"plain versions ran: {plain_calls}")
     del state, trainer, db, eng
+    torch.cuda.empty_cache()
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# phase 11: the sharded parameter server
+# ---------------------------------------------------------------------------
+
+SERVER_SYN = (4, 2)             # the synthetic set: workers, shards
+SERVER_REAL = (8, 4)            # the real shape: workers, shards
+SERVER_KILL = (4, 1)            # the drill: iteration, shard
+SERVER_CONTEXT_MIB = 64         # the card's free memory across start()
+SERVER_DRILL_RETRIES = 30       # 53 s of backoff around the restart
+SERVER_LOSS_REL = 1e-6          # worker 0's first loss vs phase 6's step 0
+# llama3.2-1b through the server at full width: 1,235,814,400 f32 in 64
+# chunks of 77.2 MB over 8 shards.  shard_of(c, 8) is c mod 8, so a shard
+# owns 8 chunks and a read_batch response carries 617,907,200 bytes, under
+# MAX_FRAME (1 GiB); the CLI's 2 shards x 4 chunks would send 2.47 GB
+SERVER_LM = ["--arch", "llama3.2-1b", "--steps", "3", "--batch", "4",
+             "--seq", "512", "--lr", "1e-3", "--backend", "server",
+             "--shards", "8", "--workers", "2", "--param-chunks", "64",
+             "--delta", "0", "--log-every", "1"]
+# phase 5's narrow f32 model through the same path, on the card
+SERVER_NARROW = ["--arch", "llama3.2-1b", "--smoke", "--steps", "3",
+                 "--batch", "2", "--seq", "96", "--lr", "0.05", "--backend",
+                 "server", "--shards", "2", "--workers", "2", "--log-every",
+                 "100"]
+
+
+@contextlib.contextmanager
+def patched(obj, name, value):
+    saved = getattr(obj, name)
+    setattr(obj, name, value)
+    try:
+        yield
+    finally:
+        setattr(obj, name, saved)
+
+
+def _delta0_gates(torch, H, res, seq, workers, n_iters, what):
+    if not torch.equal(res.theta, seq.cpu()):
+        raise AssertionError(f"{what}: theta differs from sequential")
+    if not (H.is_complete(res.history, workers, n_iters)
+            and H.is_sequentially_correct(res.history, workers)
+            and res.staleness["max_staleness"] == 0):
+        raise AssertionError(f"{what}: history not complete and "
+                             f"sequentially correct: {res.staleness}")
+
+
+def server_regression(torch, X, y):
+    """The Sec-6 regression through shard processes (CPU storage), the
+    workers on the card in f64 under deterministic algorithms: the
+    synthetic set at 4 workers on 2 shards (GD; dc, dc-array, bsp at delta
+    0 on both RPC paths, SSP, the kill-and-restart drill), then phase 9's
+    real-shape ``X``, ``y`` at 8 workers on 4 shards (GD, 20 iterations:
+    dc and bsp at delta 0, dc at delta 2 to phase 9's gates)."""
+    import tempfile
+    from repro_torch.configs import paper_lr
+    from repro_torch.core import history as H
+    from repro_torch.core import threaded as T
+    from repro_torch.data.synthetic import regression_dataset
+    from repro_torch.pdb import ssp_clock_bound_violations
+    from repro_torch.pdb.server import ShardCluster, run_distributed_lr
+    from repro_torch.runtime.fault import Backoff, ShardDeathPlan
+    out = {}
+    # the first start (the forkserver's too): no shard opens a context
+    torch.cuda.synchronize()
+    free0 = torch.cuda.mem_get_info()[0]
+    t0 = time.perf_counter()
+    cluster = ShardCluster([torch.zeros(240, dtype=torch.float64)] * 4,
+                           4, 2).start()
+    out["first_start_s"] = time.perf_counter() - t0
+    free1 = torch.cuda.mem_get_info()[0]
+    cluster.shutdown()
+    out["start_free_drop_mib"] = (free0 - free1) / 2 ** 20
+    if not out["start_free_drop_mib"] < SERVER_CONTEXT_MIB:
+        raise AssertionError(f"the card lost {out['start_free_drop_mib']} "
+                             "MiB across cluster.start(): a shard opened "
+                             "a CUDA context")
+
+    syn = paper_lr.synthetic()
+    Xs, ys = regression_dataset(syn.n_examples, syn.n_features,
+                                seed=syn.seed, device="cuda")
+    task = T.LRTask(Xs, ys, lr=syn.lr, n_iters=syn.n_iters, mode="gd")
+    W, S = SERVER_SYN
+    kw = dict(timeout=PAPER_TIMEOUT)
+    torch.use_deterministic_algorithms(True)
+    try:
+        seq, seq_s = _wall(torch, lambda: T.run_sequential(task, W))
+        walls = {"sequential": seq_s}
+        for batched in (False, True):
+            rpc = "batched" if batched else "per-op"
+            for policy in ("dc", "dc-array", "bsp"):
+                res = run_distributed_lr(task, W, S, policy=policy, delta=0,
+                                         batched=batched, **kw)
+                _delta0_gates(torch, H, res, seq, W, syn.n_iters,
+                              f"synthetic {policy} {rpc}")
+                walls[f"{policy}_{rpc}"] = res.wall_time
+        ssp = run_distributed_lr(task, W, S, policy="ssp", delta=PAPER_DELTA,
+                                 **kw)
+        bad = ssp_clock_bound_violations(ssp.history, W, PAPER_DELTA)
+        if bad or not H.is_complete(ssp.history, W, syn.n_iters):
+            raise AssertionError(f"server SSP clock bound: {bad[:4]}")
+        plan = ShardDeathPlan(kill_at_step=SERVER_KILL[0],
+                              shard=SERVER_KILL[1])
+        with tempfile.TemporaryDirectory() as snap:
+            drill = run_distributed_lr(
+                task, W, S, policy="dc", delta=0, snapshot_dir=snap,
+                death_plan=plan,
+                backoff=Backoff(max_retries=SERVER_DRILL_RETRIES), **kw)
+        _delta0_gates(torch, H, drill, seq, W, syn.n_iters, "drill")
+        if not (plan.fired and drill.retries > 0
+                and drill.staleness["retried_steps"] >= drill.retries):
+            raise AssertionError(f"drill: fired {plan.fired}, retries "
+                                 f"{drill.retries}")
+        out["synthetic"] = dict(
+            workers=W, shards=S, iters=syn.n_iters, wall_s=walls,
+            ssp=dict(wall_s=ssp.wall_time, staleness=ssp.staleness),
+            drill=dict(wall_s=drill.wall_time, retries=drill.retries))
+        del Xs, ys, task
+
+        W, S = SERVER_REAL
+        real = paper_lr.real_shape()
+        task = T.LRTask(X, y, lr=real.lr, n_iters=REAL_GD_ITERS, mode="gd",
+                        seed=real.seed)
+        seq, seq_s = _wall(torch, lambda: T.run_sequential(task, W))
+        walls = {"sequential": seq_s}
+        for policy in ("dc", "bsp"):
+            res = run_distributed_lr(task, W, S, policy=policy, delta=0,
+                                     **kw)
+            _delta0_gates(torch, H, res, seq, W, REAL_GD_ITERS,
+                          f"real shape {policy}")
+            walls[policy] = res.wall_time
+        rel = run_distributed_lr(task, W, S, policy="dc", delta=PAPER_DELTA,
+                                 **kw)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    gd = dict(loss=T.loss(task, rel.theta.cuda()),
+              sequential_loss=T.loss(task, seq),
+              loss_at_zero=T.loss(task, torch.zeros_like(seq)),
+              wall_s=rel.wall_time, staleness=rel.staleness,
+              cache=rel.cache)
+    out["real_shape"] = dict(workers=W, shards=S, iters=REAL_GD_ITERS,
+                             wall_s=walls, dc_delta2=gd)
+    print(f"server regression (shards: CPU processes; workers on the card, "
+          f"f64, deterministic; {smi()}): delta 0 bit-identical (dc, "
+          "dc-array, bsp x per-op, batched; the drill), histories complete "
+          "and sequentially correct, SSP bound held:", json.dumps(out),
+          flush=True)
+    seq_loss, st = gd["sequential_loss"], gd["staleness"]
+    if not (math.isfinite(gd["loss"]) and seq_loss / PAPER_LOSS_RATIO
+            <= gd["loss"] <= seq_loss * PAPER_LOSS_RATIO
+            and seq_loss < gd["loss_at_zero"]
+            and abs(gd["loss"] - seq_loss)
+            <= PAPER_PROGRESS * (gd["loss_at_zero"] - seq_loss)
+            and st["stale_reads"] > 0
+            and 0 <= st["max_staleness"] <= PAPER_DELTA):
+        raise AssertionError(f"server GD, dc at delta {PAPER_DELTA}: {gd}")
+    return out
+
+
+def _frames_recorded(P):
+    """Patch the parent's ``send_msg``/``recv_msg`` (the clients' side of
+    every frame) to record the largest header and payload each way."""
+    seen = dict(sent=0, received=0, header=0)
+    send, recv = P.send_msg, P.recv_msg
+
+    def send_msg(sock, header, payload=b""):
+        seen["sent"] = max(seen["sent"], len(payload))
+        seen["header"] = max(seen["header"], len(json.dumps(header)))
+        return send(sock, header, payload)
+
+    def recv_msg(sock):
+        header, payload = recv(sock)
+        seen["received"] = max(seen["received"], len(payload))
+        return header, payload
+    return seen, send_msg, recv_msg
+
+
+def _rss_gib(pid) -> dict:
+    """A process's peak (VmHWM) and present (VmRSS) resident set in GiB;
+    None where /proc does not report it (some container kernels give no
+    VmHWM)."""
+    out = {"VmHWM": None, "VmRSS": None}
+    for line in Path(f"/proc/{pid}/status").read_text().splitlines():
+        key = line.split(":")[0]
+        if key in out:
+            out[key] = int(line.split()[1]) / 2 ** 20
+    return out
+
+
+def server_training(torch, ops, ref, phase6_loss0):
+    """``python -m repro_torch.launch.train --backend server`` on the card:
+    phase 5's narrow f32 model bit for bit its one-thread sequential replay
+    (deterministic algorithms, both RPC paths; delta 1 within its bound),
+    then llama3.2-1b at full width through 8 shard processes (the server
+    training path: launch counts reset just before, read just after)."""
+    import resource
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train
+    from repro_torch.pdb.server import ShardCluster
+    from repro_torch.pdb.server import protocol as P
+    pulls = []
+
+    def pull(self):
+        pulls.append((real_pull(self), {
+            s: _rss_gib(p.pid) for s, p in enumerate(self.procs)}))
+        return pulls[-1][0]
+    real_pull = ShardCluster.pull
+    narrow = {}
+    with patched(ShardCluster, "pull", pull), \
+            patched(train, "get_smoke_config",
+                    lambda arch: small_train_config(torch, arch)):
+        torch.use_deterministic_algorithms(True)
+        try:
+            for rpc in ("batched", "per-op"):
+                flags = SERVER_NARROW + ["--rpc", rpc, "--delta", "0"]
+                r = train.main(flags)
+                theta, losses = train.server_replay(train.parse_args(flags))
+                narrow[rpc] = dict(
+                    bit_identical=torch.equal(pulls[-1][0].theta(), theta),
+                    losses=losses, telemetry=r["telemetry"],
+                    seq_correct=r["sequentially_correct"])
+            r = train.main(SERVER_NARROW + ["--delta", "1"])
+            narrow["delta1"] = dict(telemetry=r["telemetry"],
+                                    seq_correct=r["sequentially_correct"])
+        finally:
+            torch.use_deterministic_algorithms(False)
+    print("server training, narrow f32 on the card (deterministic):",
+          json.dumps(narrow), flush=True)
+    for rpc in ("batched", "per-op"):
+        n = narrow[rpc]
+        if not (n["bit_identical"] and n["seq_correct"]
+                and n["telemetry"]["max_staleness"] == 0):
+            raise AssertionError(f"narrow server training ({rpc}): {n}")
+    if not narrow["delta1"]["telemetry"]["max_staleness"] <= 1:
+        raise AssertionError(f"narrow server training at delta 1: "
+                             f"{narrow['delta1']}")
+
+    seen, send_msg, recv_msg = _frames_recorded(P)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    with patched(ShardCluster, "pull", pull), \
+            patched(P, "send_msg", send_msg), \
+            patched(P, "recv_msg", recv_msg):
+        ops.reset_launches()                 # the path starts here
+        with plain_versions_counted(ref) as plain_calls:
+            t0 = time.perf_counter()
+            r = train.main(SERVER_LM)
+            wall = time.perf_counter() - t0
+        launches = dict(ops.launches)        # ... and ends here
+    steps = r["steps"]
+    a = train.parse_args(SERVER_LM)
+    want = dict.fromkeys(launches, 0)
+    n_attn = get_config(a.arch).layer_kinds.count("attn")
+    for k in FLASH:                          # layers x workers x steps
+        want[k] = n_attn * a.workers * a.steps
+    loss0 = next(s["loss"] for s in steps if s["worker"] == 0
+                 and s["itr"] == 1)
+    rel = abs(loss0 - phase6_loss0) / abs(phase6_loss0)
+    per_step = {}
+    for s in sorted(steps, key=lambda s: (s["itr"], s["worker"])):
+        per_step.setdefault(s["itr"], []).append(
+            {k: v for k, v in s.items() if k not in ("itr",)})
+    res = dict(
+        arch=a.arch, shards=a.shards, workers=a.workers,
+        chunks=a.param_chunks, steps=a.steps, batch=a.batch, seq=a.seq,
+        lr=a.lr, wall_s=wall, per_step=per_step,
+        first_loss=r["first_loss"], final_loss=r["final_loss"],
+        phase6_step0_loss=phase6_loss0, first_loss_rel=rel,
+        first_loss_bit_identical=loss0 == phase6_loss0,
+        telemetry=r["telemetry"], seq_correct=r["sequentially_correct"],
+        max_payload_sent=seen["sent"], max_payload_received=seen["received"],
+        max_header=seen["header"], max_frame=P.MAX_FRAME,
+        peak_device_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+        host_peak_rss_gib=resource.getrusage(
+            resource.RUSAGE_SELF).ru_maxrss / 2 ** 20,
+        shard_rss_gib_at_pull=pulls[-1][1], launches=launches,
+        expected_launches=want, plain_version_calls=plain_calls)
+    print(f"server training at full width ({smi()}):", json.dumps(res),
+          flush=True)
+    if launches != want:
+        raise AssertionError(f"launches {launches}, expected {want}")
+    if any(plain_calls.values()):
+        raise AssertionError(f"plain versions ran: {plain_calls}")
+    if not all(math.isfinite(s["loss"]) for s in steps) \
+            or len(steps) != a.workers * a.steps:
+        raise AssertionError(f"server training steps: {steps}")
+    if not (r["sequentially_correct"]
+            and r["telemetry"]["max_staleness"] == 0):
+        raise AssertionError(f"server history: {r['telemetry']}")
+    if not max(seen["sent"], seen["received"], seen["header"]) < P.MAX_FRAME:
+        raise AssertionError(f"a frame reached MAX_FRAME: {seen}")
+    if not rel <= SERVER_LOSS_REL:
+        raise AssertionError(f"worker 0's first loss {loss0} vs phase 6's "
+                             f"step 0 {phase6_loss0}")
     torch.cuda.empty_cache()
     return launches
 
@@ -3317,6 +3641,30 @@ def check_flash_batch_invariance(torch, gen) -> None:
             flush=True)
 
 
+def server_processes_stopped() -> None:
+    """Phase 11's last gate: with the server phases done, the shard
+    clusters' forkserver and resource tracker stop (``stop_forkserver``,
+    which also runs at exit) and no process this script started is left:
+    no shard alive and no child of this process in the process table."""
+    from repro_torch.pdb.server import cluster
+    cluster.stop_forkserver()
+    shards = [p.pid for p in cluster._shards if p.is_alive()]
+    me = str(os.getpid())
+    children = []
+    for stat in Path("/proc").glob("[0-9]*/stat"):
+        try:
+            fields = stat.read_text().rsplit(")", 1)[1].split()
+        except OSError:
+            continue
+        if fields[1] == me and fields[0] != "Z":
+            children.append(int(stat.parent.name))
+    if shards or children:
+        raise AssertionError(f"processes left after the server phases: "
+                             f"shards {shards}, children {children}")
+    print("server processes stopped:", json.dumps(dict(
+        shards_alive=0, children_alive=0)), flush=True)
+
+
 def main() -> int:
     # deterministic cuBLAS for the engine's bit-identity checks: read when
     # the first cuBLAS handle is made, so it is set before CUDA starts
@@ -3399,20 +3747,28 @@ def main() -> int:
     paths["rwkv6_serving"] = timed("rwkv6_serving", rwkv6_serving, torch,
                                    ops, ref)
     timed("small_training", small_training, torch, "llama3.2-1b")
-    paths["training"] = timed("full_width_training", full_width_training,
-                              torch, ops, ref, "llama3.2-1b")
+    paths["training"], train_losses = timed(
+        "full_width_training", full_width_training, torch, ops, ref,
+        "llama3.2-1b")
     timed("small_rwkv6_training", small_training, torch, "rwkv6-1.6b")
-    paths["rwkv6_training"] = timed("rwkv6_training", full_width_training,
-                                    torch, ops, ref, "rwkv6-1.6b")
+    paths["rwkv6_training"], _ = timed("rwkv6_training", full_width_training,
+                                       torch, ops, ref, "rwkv6-1.6b")
     timed("small_recurrentgemma_training", small_training, torch,
           "recurrentgemma-2b")
-    paths["recurrentgemma_training"] = timed(
+    paths["recurrentgemma_training"], _ = timed(
         "recurrentgemma_training", full_width_training, torch, ops, ref,
         "recurrentgemma-2b")
-    timed("paper_regression", paper_regression, torch)
+    _, real_xy = timed("paper_regression", paper_regression, torch)
+    timed("server_regression", server_regression, torch, *real_xy)
+    del real_xy
+    torch.cuda.empty_cache()
     paths["serve_while_train"] = timed(
         "serve_while_train", serve_while_train, torch, ops, ref,
         static_outputs, paths["serving"])
+    paths["server_training"] = timed(
+        "server_training", server_training, torch, ops, ref,
+        train_losses[0])
+    timed("server_processes_stopped", server_processes_stopped)
     print("phase seconds:", json.dumps(dict(
         phase_s, total=time.perf_counter() - t0)), flush=True)
 

@@ -12,7 +12,8 @@ Ported so far, on the dense GQA configs: serving
 batching, greedy decoding, static parameters) and training
 (``python -m repro_torch.launch.train``: the ParameterDB train engine,
 synchronous or delta-stale on a ring of parameter versions, with
-checkpoints and restart drills).
+checkpoints and restart drills; or ``--backend server``, the sharded
+parameter server of ``repro_torch.pdb.server``).
 """
 from .device import resolve_device
 

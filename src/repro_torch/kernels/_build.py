@@ -15,7 +15,9 @@ Each C entry point returns ``cudaGetLastError()`` after its launch;
 ``check`` raises on anything but 0.  ``launches`` counts kernel launches
 per kernel (``KERNELS``: the flash-attention, the WKV and the RG-LRU
 sources hold two each, the forward and the backward); each wrapper adds one right after
-its launch and nowhere else.
+its launch and nowhere else, through ``count``, under a lock: worker threads
+(the parameter server's) launch at once, and ``+= 1`` on a dict entry is
+not atomic.
 """
 from __future__ import annotations
 
@@ -45,11 +47,19 @@ launches: dict[str, int] = dict.fromkeys(KERNELS, 0)
 
 _libs: dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
+_count_lock = threading.Lock()
+
+
+def count(name: str) -> None:
+    """One launch of kernel ``name`` (thread-safe)."""
+    with _count_lock:
+        launches[name] += 1
 
 
 def reset_launches() -> None:
-    for name in launches:
-        launches[name] = 0
+    with _count_lock:
+        for name in launches:
+            launches[name] = 0
 
 
 def _nvcc() -> str:

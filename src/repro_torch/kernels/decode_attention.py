@@ -149,7 +149,7 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             o.stride(0), o.stride(2), hd ** -0.5,
             torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(lib, rc, name)
-    _build.launches[NAME] += 1
+    _build.count(NAME)
     return o
 
 

@@ -182,7 +182,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                 S, H, KV, hd, ctypes.addressof(st), hd ** -0.5, int(causal),
                 int(window), torch.cuda.current_stream(q.device).cuda_stream)
         _build.check(lib, rc, NAME)
-        _build.launches[NAME] += 1
+        _build.count(NAME)
     return (o, lse) if with_lse else o
 
 
@@ -237,7 +237,7 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             H, KV, hd, hpb, ctypes.addressof(st), hd ** -0.5, int(causal),
             int(window), torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(lib, rc, BWD_NAME)
-    _build.launches[BWD_NAME] += 1
+    _build.count(BWD_NAME)
     return dq, dk, dv
 
 

@@ -193,5 +193,5 @@ def moe_grouped_ffn(dispatch: torch.Tensor, combine: torch.Tensor,
             ks, p["per"],
             torch.cuda.current_stream(xg.device).cuda_stream)
     _build.check(lib, rc, NAME)
-    _build.launches[NAME] += 1
+    _build.count(NAME)
     return out

@@ -79,7 +79,7 @@ def page_gather(pool: torch.Tensor, page_table: torch.Tensor
             pool.data_ptr(), table.data_ptr(), out.data_ptr(), B * n_pp, P,
             row_bytes, torch.cuda.current_stream(pool.device).cuda_stream)
     _build.check(lib, rc, NAME)
-    _build.launches[NAME] += 1
+    _build.count(NAME)
     return out
 
 
@@ -187,7 +187,7 @@ def prefill_page_attention_paged(q: torch.Tensor, k_pool: torch.Tensor,
             ctypes.addressof(st), hd ** -0.5, int(window),
             torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(lib, rc, name)
-    _build.launches[name] += 1
+    _build.count(name)
     return o
 
 

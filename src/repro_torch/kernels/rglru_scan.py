@@ -178,7 +178,7 @@ def rglru_scan(x: torch.Tensor, a: torch.Tensor,
                 D, CHUNK, ctypes.addressof(st),
                 torch.cuda.current_stream(x.device).cuda_stream)
         _build.check(lib, rc, NAME)
-        _build.launches[NAME] += 1
+        _build.count(NAME)
     return (y, ck) if with_state else y
 
 
@@ -212,7 +212,7 @@ def rglru_scan_bwd(x: torch.Tensor, a: torch.Tensor, ck: torch.Tensor,
             ctypes.addressof(st),
             torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(lib, rc, BWD_NAME)
-    _build.launches[BWD_NAME] += 1
+    _build.count(BWD_NAME)
     return dx, da
 
 

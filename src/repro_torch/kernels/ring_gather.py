@@ -48,5 +48,5 @@ def ring_gather(hist: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
             hist.data_ptr(), idx.data_ptr(), out.data_ptr(), size, row_bytes,
             torch.cuda.current_stream(hist.device).cuda_stream)
     _build.check(lib, rc, NAME)
-    _build.launches[NAME] += 1
+    _build.count(NAME)
     return out

@@ -228,7 +228,7 @@ def rwkv6_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                 B, T, H, hd, p["chunk"], ctypes.addressof(st),
                 torch.cuda.current_stream(r.device).cuda_stream)
         _build.check(lib, rc, NAME)
-        _build.launches[NAME] += 1
+        _build.count(NAME)
     out = (y,) + ((ckpt,) if with_state else ()) \
         + ((final,) if final is not None else ())
     return out if len(out) > 1 else y
@@ -276,7 +276,7 @@ def rwkv6_scan_bwd(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             ctypes.addressof(st),
             torch.cuda.current_stream(r.device).cuda_stream)
     _build.check(lib, rc, BWD_NAME)
-    _build.launches[BWD_NAME] += 1
+    _build.count(BWD_NAME)
     return (*grads, dw, du)
 
 

@@ -1,21 +1,34 @@
-"""Training driver (port of ``repro.launch.train``'s ``engine`` backend).
+"""Training driver (port of ``repro.launch.train``).
 
 Runs the training loop of the ported archs, at full width or reduced
-(``--smoke``), through the ParameterDB train engine
-(:mod:`repro_torch.pdb.torch_backend`): the synchronous step at
-``--delta 0``, the delta-stale ring buffer above it, with Op/staleness
-telemetry, atomic checkpointing + resume (``--resume``), failure-injection
-drills (``--fail-at-step``, exit code 17) and deterministic data (batch t
-depends only on (seed, t)).  The kernels are picked by device: ``--device
-cuda`` (the default) runs the hand-written CUDA kernels (flash attention,
-the WKV and RG-LRU recurrences, forward and backward; the ring gather) and
-ends with the peak device memory, ``--device cpu`` their plain versions.
-Weights are random, drawn from ``--seed``.
+(``--smoke``), with:
+  * the ParameterDB train engine (:mod:`repro_torch.pdb.torch_backend`,
+    ``--backend engine``, the default): the synchronous step at
+    ``--delta 0``, the delta-stale ring buffer above it, with Op/staleness
+    telemetry, atomic checkpointing + resume (``--resume``) and
+    failure-injection drills (``--fail-at-step``, exit code 17);
+  * the multi-process sharded parameter server (``--backend server``,
+    :mod:`repro_torch.pdb.server`): the raveled parameter vector is split
+    into ``--param-chunks`` chunks, hash-sharded over ``--shards`` shard
+    processes (CPU storage), and trained by ``--workers`` client threads
+    that compute on the device under the same consistency policies (Def-3
+    partitioned SGD: each worker reads all chunks, updates its own chunk
+    group); ``--kill-shard-at-step`` is a shard death + snapshot-restart
+    drill;
+  * deterministic data (batch t depends only on (seed, t)).
+The kernels are picked by device: ``--device cuda`` (the default) runs the
+hand-written CUDA kernels (flash attention, the WKV and RG-LRU
+recurrences, forward and backward; the ring gather) and ends with the peak
+device memory, ``--device cpu`` their plain versions.  Weights are random,
+drawn from ``--seed``.
 
-Example:
+Examples:
   PYTHONPATH=src python -m repro_torch.launch.train --arch llama3.2-1b \\
       --smoke --device cpu --steps 8 --batch 2 --seq 32 --lr 3e-3 \\
       --delta 2 --log-every 4
+  PYTHONPATH=src python -m repro_torch.launch.train --arch llama3.2-1b \\
+      --smoke --device cpu --backend server --shards 2 --workers 2 \\
+      --steps 4
 """
 from __future__ import annotations
 
@@ -34,7 +47,7 @@ from ..models.transformer import model_specs
 from ..optim import OptConfig, make_optimizer
 from ..runtime.fault import (FailureInjector, InjectedFailure, RetryPolicy,
                              run_with_recovery)
-from .steps import make_train_engine
+from .steps import make_lm_grad_fn, make_train_engine
 
 
 def build(args, device: torch.device):
@@ -52,7 +65,192 @@ def build(args, device: torch.device):
     return cfg, params, opt, sync, spec
 
 
-def main(argv=None) -> dict:
+def _server_layout(args, n: int):
+    """JAX's layout of the raveled vector: ``m`` chunks with ``np.linspace``
+    bounds, chunk c owned by worker ``c % p``."""
+    import numpy as np
+    p = args.workers
+    m = args.param_chunks if args.param_chunks > 0 else 2 * p
+    bounds = [int(b) for b in np.linspace(0, n, m + 1).astype(int)]
+    owned = {k: [c for c in range(m) if c % p == k] for k in range(p)}
+    return p, m, bounds, owned
+
+
+def run_server_backend(args) -> dict:
+    """Train against the multi-process sharded ParameterDB
+    (:mod:`repro_torch.pdb.server`): parameter-server-style SGD on the
+    raveled parameter vector.  Worker ``k`` reads every chunk
+    (policy-admitted, cache-served when admissible), moves them to the
+    device, computes LM grads on its own deterministic batch stream, and
+    writes ``theta - lr * g`` for its owned chunk group — the Def-3 program
+    with one logical worker owning many chunks.  Returns JAX's keys plus
+    ``steps``: per worker and step, its loss and the host-clock seconds of
+    the step and of its parts (``settle`` of the previous write, ``read``,
+    ``h2d``, ``grad``, ``update`` with its device-to-host copy,
+    ``write``)."""
+    import threading
+
+    from ..core.history import is_sequentially_correct
+    from ..pdb.server import ShardCluster
+    from ..runtime.fault import Backoff, ShardDeathPlan
+    from ..tree import ravel
+
+    device = resolve_device(args.device)
+    cfg, params, _opt, sync, spec = build(args, device)
+    grad_fn = make_lm_grad_fn(cfg, sync)
+    flat, unravel = ravel(params)
+    del params
+    n, dtype = flat.numel(), flat.dtype
+    p, m, bounds, owned = _server_layout(args, n)
+    theta0 = flat.cpu()
+    del flat
+    policy = {"datacentric": "dc", "bsp": "bsp", "ssp": "ssp"}[args.mode]
+
+    plan = None
+    snapshot_dir = args.snapshot_dir or None
+    scratch = None                      # a snapshot directory of our own
+    if args.kill_shard_at_step >= 0:
+        plan = ShardDeathPlan(kill_at_step=args.kill_shard_at_step,
+                              shard=args.shards - 1, restart=True)
+        if snapshot_dir is None:
+            import tempfile
+            scratch = tempfile.TemporaryDirectory(prefix="pdb-shards-")
+            snapshot_dir = scratch.name
+
+    cluster = ShardCluster([theta0[a:b] for a, b in zip(bounds[:-1],
+                                                         bounds[1:])],
+                           p, args.shards, policy=policy, delta=args.delta,
+                           record=True, snapshot_dir=snapshot_dir,
+                           batched=args.rpc != "per-op")
+    del theta0
+    losses: list[float] = []
+    steps: list[dict] = []
+    errors: list[BaseException] = []
+    n_threads = torch.get_num_threads()   # see core.threaded.run_parallel
+    sync_dev = (lambda: torch.cuda.synchronize(device)) \
+        if device.type == "cuda" else (lambda: None)
+    t0 = time.time()
+
+    def worker(k: int, db) -> None:
+        try:
+            torch.set_num_threads(n_threads)
+            for itr in range(1, args.steps + 1):
+                if k == 0 and plan is not None:
+                    plan.maybe_kill(itr, cluster)
+                ts = [time.perf_counter()]
+                db.settle()
+                ts.append(time.perf_counter())
+                vals = db.read_all(k, itr)
+                ts.append(time.perf_counter())
+                theta = torch.empty(n, dtype=dtype, device=device)
+                for c, v in enumerate(vals):
+                    theta[bounds[c]:bounds[c + 1]].copy_(v)
+                del vals
+                sync_dev()
+                ts.append(time.perf_counter())
+                batch = make_lm_batch(spec, (itr - 1) * p + k, device)
+                loss, grads = grad_fn(unravel(theta), batch)
+                g, _ = ravel(grads)
+                del grads
+                sync_dev()
+                ts.append(time.perf_counter())
+                # two roundings, as numpy's theta - lr * g: the product,
+                # then the difference (no fused multiply-add)
+                new = [(c, itr, (theta[bounds[c]:bounds[c + 1]]
+                                 - args.lr * g[bounds[c]:bounds[c + 1]])
+                        .cpu()) for c in owned[k]]
+                del theta, g
+                ts.append(time.perf_counter())
+                # one write_batch per owner shard for the whole owned group
+                # (per-chunk round-trips on the per-op path)
+                db.write_many(k, new)
+                ts.append(time.perf_counter())
+                steps.append(dict(worker=k, itr=itr, loss=float(loss),
+                                  step=ts[-1] - ts[0], **{
+                    name: b - a for name, a, b in zip(
+                        ("settle", "read", "h2d", "grad", "update", "write"),
+                        ts, ts[1:])}))
+                if k == 0:
+                    losses.append(float(loss))
+                    if (itr - 1) % args.log_every == 0 or itr == args.steps:
+                        print(f"step {itr - 1:5d} loss {float(loss):.4f} "
+                              f"[server] {(time.time() - t0):.1f}s",
+                              flush=True)
+        except BaseException as e:
+            errors.append(e)
+            raise
+
+    # the drill's clients wait out a shard's restart: a fork of the
+    # cluster's forkserver, ~0.05 s, against 15 s of retries
+    backoff = Backoff(max_retries=12)
+    with cluster:
+        clients = [cluster.make_client(k, backoff=backoff)
+                   for k in range(p)]
+        threads = [threading.Thread(target=worker, args=(k, clients[k]),
+                                    daemon=True) for k in range(p)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        if errors:
+            raise errors[0]
+        for c in clients:     # drain in-flight fire-and-forget broadcasts
+            c.flush()         # so pull() sees fully-settled shard state
+        pulled = cluster.pull()
+        retries = sum(c.telemetry.stats.retried_steps for c in clients)
+        cache_hits = sum(c.stats["cache_hits"] + c.stats["cache_validated"]
+                         for c in clients)
+        for c in clients:
+            c.close()
+    if scratch is not None:
+        scratch.cleanup()
+    tele = pulled.summary()
+    tele["retried_steps"] += retries
+    seq_ok = is_sequentially_correct(pulled.history, p)
+    print(f"final loss {losses[-1]:.4f} (first {losses[0]:.4f}) "
+          f"[server: {args.shards} shards x {p} workers, {m} chunks, "
+          f"{tele['reads']}r/{tele['writes']}w "
+          f"max_staleness={tele['max_staleness']:.0f} "
+          f"cache_served={cache_hits} rpc_retries={retries} "
+          f"seq_correct={seq_ok}]")
+    if device.type == "cuda":
+        print(f"peak device memory "
+              f"{torch.cuda.max_memory_allocated(device) / 2 ** 30:.2f} GiB")
+    return {"first_loss": losses[0], "final_loss": losses[-1],
+            "telemetry": tele, "sequentially_correct": seq_ok,
+            "rpc_retries": retries, "steps": steps}
+
+
+def server_replay(args) -> tuple[torch.Tensor, list[float]]:
+    """The one-thread sequential replay of ``--backend server`` at delta 0:
+    at each iteration every worker reads theta_{itr-1} and writes its
+    owned chunks, with ``run_server_backend``'s layout, batches and update.
+    Returns the final raveled theta (on the CPU) and worker 0's losses."""
+    from ..tree import ravel
+    device = resolve_device(args.device)
+    cfg, params, _opt, sync, spec = build(args, device)
+    grad_fn = make_lm_grad_fn(cfg, sync)
+    theta, unravel = ravel(params)
+    del params
+    p, _m, bounds, owned = _server_layout(args, theta.numel())
+    losses = []
+    for itr in range(1, args.steps + 1):
+        new = theta.clone()
+        for k in range(p):
+            loss, grads = grad_fn(unravel(theta),
+                                  make_lm_batch(spec, (itr - 1) * p + k,
+                                                device))
+            g, _ = ravel(grads)
+            for c in owned[k]:
+                a, b = bounds[c], bounds[c + 1]
+                new[a:b] = theta[a:b] - args.lr * g[a:b]
+            if k == 0:
+                losses.append(float(loss))
+        theta = new
+    return theta.cpu(), losses
+
+
+def parse_args(argv=None) -> argparse.Namespace:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True)
     ap.add_argument("--smoke", action="store_true",
@@ -77,16 +275,35 @@ def main(argv=None) -> dict:
     ap.add_argument("--backend", choices=["engine", "server"],
                     default="engine",
                     help="engine: in-process ParameterDB train engine; "
-                         "server: multi-process sharded parameter server")
+                         "server: multi-process sharded parameter server "
+                         "(shards store on the CPU, workers compute on "
+                         "--device)")
+    ap.add_argument("--shards", type=int, default=2,
+                    help="server backend: number of shard processes")
+    ap.add_argument("--workers", type=int, default=2,
+                    help="server backend: number of client worker threads")
+    ap.add_argument("--param-chunks", type=int, default=0,
+                    help="server backend: chunks the raveled parameter "
+                         "vector is split into (0 = 2*workers)")
+    ap.add_argument("--kill-shard-at-step", type=int, default=-1,
+                    help="server backend: kill+restart the last shard at "
+                         "this step (shard-death drill)")
+    ap.add_argument("--rpc", choices=["batched", "per-op"], default="batched",
+                    help="server backend: protocol-v2 batched/pipelined "
+                         "RPC (default) or per-chunk v1 round-trips")
+    ap.add_argument("--snapshot-dir", default="",
+                    help="server backend: shard snapshot directory "
+                         "(crash-restart survival)")
     ap.add_argument("--device", default="cuda",
                     help="cuda (hand-written kernels) or cpu (plain "
                          "versions)")
-    args = ap.parse_args(argv)
+    return ap.parse_args(argv)
 
+
+def main(argv=None) -> dict:
+    args = parse_args(argv)
     if args.backend == "server":
-        raise NotImplementedError(
-            "--backend server (the multi-process sharded parameter server) "
-            "comes with a later slice of the port")
+        return run_server_backend(args)
 
     device = resolve_device(args.device)
     cfg, params, opt, sync, spec = build(args, device)

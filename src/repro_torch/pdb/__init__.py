@@ -1,5 +1,5 @@
 """The parameter database of the port (own copy of ``repro.pdb``): one
-consistency layer, three backends.
+consistency layer, four backends.
 
   policies       — BSP barriers (Alg 2a), Sec-5 RC/WC bit vector, Sec-7.1
                    delta admissible delay (uniform or per-chunk), SSP and
@@ -10,12 +10,14 @@ consistency layer, three backends.
   torch_backend  — device ring buffer of the last delta+1 parameter
                    versions + the TrainEngine behind repro_torch.launch.train
   telemetry      — shared Op-history recording and staleness statistics;
-                   per-shard history and counter merges
+                   Lamport stamps, per-shard history and counter merges
+  server         — the multi-process sharded store (:mod:`.server`): shard
+                   processes holding CPU chunks, worker clients with
+                   caches, clock gossip and retries; JAX's wire protocol
 
 Every backend emits the same :class:`repro_torch.core.history.Op` history,
 so ``repro_torch.core.history.is_sequentially_correct`` is the semantic
-oracle for all of them.  The JAX package's multi-process sharded backend
-(``repro.pdb.server``) has no counterpart here yet.
+oracle for all of them.
 """
 from .db import (InProcessParameterDB, InadmissibleOp, ParameterDB,  # noqa: F401
                  ThreadedParameterDB, WaitTimeout, run_interleaved,

@@ -1,10 +1,9 @@
 """Op-history recording and staleness telemetry (own copy of
-``repro.pdb.telemetry``, without its Lamport stamps: no backend of the
-port crosses a process).
+``repro.pdb.telemetry``).
 
-The training engine, the stores of :mod:`repro_torch.pdb.db` and
-``serve.live_db.LiveParamDB`` funnel their operations through one
-:class:`Telemetry` object, so
+The training engine, the stores of :mod:`repro_torch.pdb.db`, the shards
+of :mod:`repro_torch.pdb.server` and ``serve.live_db.LiveParamDB`` funnel
+their operations through one :class:`Telemetry` object, so
 
   * ``history`` is a :class:`repro_torch.core.history.Op` sequence, and
     ``history.is_sequentially_correct`` is its semantic oracle;
@@ -20,9 +19,14 @@ The training engine, the stores of :mod:`repro_torch.pdb.db` and
 Mutation is locked: the threaded store calls in under its own lock, and
 the fault layer may report from another thread.
 
-:func:`merge_timed_histories` and :func:`merge_stats` reassemble one
-global history and one set of counters from per-shard parts (a sharded
-store keeps one Telemetry per shard), as in the JAX package.
+Distributed runs produce *one Telemetry per shard*.  Each shard stamps its
+ops with a Lamport clock (monotone per shard, merged across processes via
+the RPC layer), and :func:`merge_timed_histories` reassembles the global Op
+history by a causality-consistent total order — per-shard order is
+preserved, so per-chunk projections (what
+``repro_torch.core.history.is_sequentially_correct`` inspects) are exactly
+the shard-local orders.  :func:`merge_stats` folds the per-shard staleness
+counters into one :class:`StalenessStats`.
 """
 from __future__ import annotations
 
@@ -59,10 +63,23 @@ class Telemetry:
     def __init__(self, record_history: bool = False):
         self._lock = threading.Lock()
         self.history: list | None = [] if record_history else None
+        self.lamports: list[int] | None = [] if record_history else None
         self.stats = StalenessStats()
 
+    # Telemetry objects cross process boundaries in the sharded backend
+    # (snapshot/restore); locks don't pickle.
+    def __getstate__(self) -> dict:
+        state = self.__dict__.copy()
+        del state["_lock"]
+        return state
+
+    def __setstate__(self, state: dict) -> None:
+        self.__dict__.update(state)
+        self._lock = threading.Lock()
+
     def on_read(self, worker: int, chunk: int, itr: int,
-                version: int | None = None) -> None:
+                version: int | None = None,
+                lamport: int | None = None) -> None:
         with self._lock:
             s = self.stats
             s.reads += 1
@@ -78,12 +95,24 @@ class Telemetry:
                     s.ahead_reads += 1
             if self.history is not None:
                 self.history.append(Op(READ, worker, chunk, itr))
+                self.lamports.append(lamport if lamport is not None
+                                     else len(self.lamports))
 
-    def on_write(self, worker: int, chunk: int, itr: int) -> None:
+    def on_write(self, worker: int, chunk: int, itr: int,
+                 lamport: int | None = None) -> None:
         with self._lock:
             self.stats.writes += 1
             if self.history is not None:
                 self.history.append(Op(WRITE, worker, chunk, itr))
+                self.lamports.append(lamport if lamport is not None
+                                     else len(self.lamports))
+
+    def timed_history(self) -> list[tuple[int, object]]:
+        """``[(lamport, Op), ...]`` in recording order (for merging)."""
+        if self.history is None:
+            return []
+        with self._lock:
+            return list(zip(self.lamports, self.history))
 
     def on_retry(self, step: int) -> None:
         with self._lock:

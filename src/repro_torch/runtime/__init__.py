@@ -1,2 +1,2 @@
-"""Failure handling of the port's training loop (own copy of
-``repro.runtime.fault``'s single-process part)."""
+"""Failure handling of the port (own copy of ``repro.runtime.fault``):
+step recovery, and the parameter server's retry and shard-death drills."""

@@ -8,7 +8,10 @@ package's.  A path is the tuple of dict keys from the root to a leaf.
 """
 from __future__ import annotations
 
+import functools
 from typing import Any, Callable
+
+import torch
 
 Path = tuple[str, ...]
 
@@ -47,3 +50,24 @@ def tree_map(fn: Callable, tree: Any, *rest: Any) -> Any:
         return {k: tree_map(fn, tree[k], *(r[k] for r in rest))
                 for k in sorted(tree)}
     return fn(tree, *rest)
+
+
+def ravel(tree: Any) -> tuple[torch.Tensor, Callable[[torch.Tensor], Any]]:
+    """The counterpart of ``jax.flatten_util.ravel_pytree``: the leaves in
+    JAX's order, each flattened C-order, concatenated into one vector of
+    their common dtype; and ``unravel(vec)``, the tree of ``vec``'s pieces
+    in the leaves' shapes and dtypes (views of ``vec`` where the dtype is
+    the vector's)."""
+    lv = leaves_with_path(tree)
+    paths = [p for p, _ in lv]
+    metas = [(t.shape, t.dtype, t.numel()) for _, t in lv]
+    dtype = functools.reduce(torch.promote_types, [d for _, d, _ in metas])
+    flat = torch.cat([t.reshape(-1).to(dtype) for _, t in lv])
+
+    def unravel(vec: torch.Tensor) -> Any:
+        out, off = [], 0
+        for shape, dt, n in metas:
+            out.append(vec[off:off + n].view(shape).to(dt))
+            off += n
+        return unflatten(paths, out)
+    return flat, unravel

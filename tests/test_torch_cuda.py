@@ -1520,3 +1520,56 @@ def test_ops_rglru_stateful_launches_the_kernel(gen):
     torch.testing.assert_close(h2, h, rtol=1e-5, atol=1e-5)
     with pytest.raises(ValueError, match="h0"):
         rglru_scan(x, a, h0=h0.to(torch.bfloat16))
+
+
+# ---------------------------------------------------------------------------
+# the sharded parameter server: shards store on the CPU, workers compute on
+# the card
+# ---------------------------------------------------------------------------
+
+def test_server_lr_on_card_is_sequential_bit_for_bit(gen, monkeypatch):
+    """``run_distributed_lr`` with its workers on the card (f64, under
+    deterministic algorithms) gives ``run_sequential``'s theta on the card
+    bit for bit, on both RPC paths, with a sequentially-correct history."""
+    from repro_torch.core import history as H
+    from repro_torch.core import threaded as T
+    from repro_torch.pdb.server import run_distributed_lr
+    monkeypatch.setenv("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    X, y = T.make_synthetic_lr(2000, 480, seed=0, device="cuda")
+    task = T.LRTask(X, y, n_iters=20, mode="gd")
+    torch.use_deterministic_algorithms(True)
+    try:
+        seq = T.run_sequential(task, 4)
+        for batched in (False, True):
+            res = run_distributed_lr(task, 4, n_shards=2, policy="dc",
+                                     batched=batched, timeout=60.0)
+            assert torch.equal(res.theta, seq.cpu())
+            assert H.is_complete(res.history, 4, task.n_iters)
+            assert H.is_sequentially_correct(res.history, 4)
+    finally:
+        torch.use_deterministic_algorithms(False)
+
+
+def test_server_update_on_card_is_numpys(gen):
+    """The server worker's update ``theta - lr * g`` on the card rounds as
+    numpy's does on the host: the product, then the difference (two
+    kernels, no fused multiply-add)."""
+    import numpy as np
+    theta = torch.randn(1 << 20, generator=gen, device="cuda")
+    g = torch.randn(1 << 20, generator=gen, device="cuda")
+    for lr in (1e-3, 0.05, 3e-4):
+        got = (theta - lr * g).cpu().numpy()
+        want = theta.cpu().numpy() - lr * g.cpu().numpy()
+        assert got.dtype == want.dtype == np.float32
+        assert np.array_equal(got, want)
+
+
+def test_server_shards_open_no_cuda_context(gen):
+    """Eight shard processes start without opening a CUDA context: the
+    card's free memory falls by less than 64 MiB across the start."""
+    from repro_torch.pdb.server import ShardCluster
+    torch.cuda.synchronize()
+    free0 = torch.cuda.mem_get_info()[0]
+    with ShardCluster([torch.zeros(64) for _ in range(16)], 2, 8):
+        free1 = torch.cuda.mem_get_info()[0]
+    assert free0 - free1 < 64 * 2 ** 20

@@ -325,8 +325,3 @@ def test_train_cli_crash_and_resume(tmp_path, delta):
     resumed = ttrain.main(base + ["--ckpt-dir", ck, "--ckpt-every", "2",
                                   "--resume"])
     assert resumed["final_loss"] == full["final_loss"]
-
-
-def test_train_cli_server_backend_is_a_later_slice():
-    with pytest.raises(NotImplementedError, match="later slice"):
-        ttrain.main(CLI + ["--backend", "server"])
