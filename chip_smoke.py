@@ -41,11 +41,17 @@ Phases (any failure raises and the script exits non-zero):
    rings and windows, bf16 at 2e-2 and f32 at 1e-4, recurrentgemma-2b's
    local heads with its 2048 window included, timed beside the two
    ``page_gather`` calls it replaces; the three attention kernels also at
-   mixtral-8x7b's head dim 128; the grouped MoE FFN at
+   mixtral-8x7b's head dim 128 (the backward at its training shape, batch
+   4 x 512 with its 4096 window); the grouped MoE FFN at
    mixtral-8x7b's width (a decode batch, a 128-token chunk, prompts of 300
-   and 512 tokens) in bf16 at a normalized 2e-2, its edge cases (an expert
+   and 512 tokens, the training shape: 2 groups of 1024, C 320) in bf16
+   at a normalized 2e-2, its edge cases (an expert
    with no token, a token no expert takes: exactly 0, two tokens in one
-   slot) and one f32 case at 1e-4; the RWKV-6 WKV forward at rwkv6-1.6b's
+   slot) and one f32 case at 1e-4; its backward against torch autograd of
+   the plain version at the training shape (dx, dcombine, dwg, dwu, dwd
+   each at a normalized 2e-2, two calls bit for bit), the same edge cases
+   (an idle expert's weight gradients and a dropped token's dx exactly 0)
+   and one f32 case at 1e-4; the RWKV-6 WKV forward at rwkv6-1.6b's
    training shape (batch 4 x 512, 32 heads of 64) in bf16 at 2e-2, with
    the decay from N(0, 1) and near 0 (N(2, 1)), at a ragged T = 77 in f32
    at 1e-4 (head dims 16 and 64) and at T = 513 (nine 64-step chunks),
@@ -171,6 +177,16 @@ Phases (any failure raises and the script exits non-zero):
    group and step, no plain version runs, and layer 0's ``wx``, ``wa``,
    ``wi``, ``lam``, ``conv_w`` (slot 0) and ``wq``, ``wk``, ``wv`` (slot 2)
    get non-zero gradients;
+8b. MoE training: phase 5 on the mixtral-8x7b smoke config (f32, 2
+   layers, d 64, 4 experts top-2, window 16), then phase 6 on
+   ``mixtral-8x7b`` at full width (d 4096, 32 heads over 8 of 128, window
+   4096, 8 experts of d_ff 14336, vocab 32000), depth cut to 1 of 32
+   layers (``reduced``): flash forward and backward and the grouped FFN's
+   forward and backward kernels once per layer and step, the ring gather
+   once per group and step, no plain version; each step's loss (with the
+   router's losses) finite and ``lm_loss``'s total, its ``lb_loss`` and
+   ``router_entropy`` finite, and layer 0's ``wq``, ``wk``, ``wv``, ``router``,
+   ``wg``, ``wu`` and ``wd`` get non-zero gradients;
 9. the paper's Sec-6 regression (``repro_torch.core.threaded``) in f64 on
    the card, under deterministic algorithms: the synthetic set (960
    features x 5,000 examples, 100 iterations, 4 threads) in GD, SGD and
@@ -226,7 +242,7 @@ Phases (any failure raises and the script exits non-zero):
    Last, the clusters' forkserver and resource tracker are stopped and no
    shard and no child of this script may be left running.
 
-The last two lines are the ``kernels`` JSON object (eleven rows; each
+The last two lines are the ``kernels`` JSON object (twelve rows; each
 row's ``launches_by_path`` counts its launches on every path, the
 recurrent serving, serve-while-train and server training paths' included)
 and
@@ -346,10 +362,12 @@ FLASH_CASES = [(1, S, 32, 8, 64, 0) for S in (128, 300, 512, 1024)] \
     + [(1, S, 10, 1, 256, 2048) for S in (128, 300, 512)]
 # the backward's (B, S, H, KV, hd, causal, window): llama3.2-1b's training
 # shape first (the main row), other lengths, smollm-360m's heads, a window,
-# then recurrentgemma-2b's
+# mixtral-8x7b's training shape (head dim 128, its 4096 window longer than
+# the sequence), then recurrentgemma-2b's
 FLASH_BWD_CASES = [(4, 512, 32, 8, 64, True, 0), (4, 128, 32, 8, 64, True, 0),
                    (4, 1024, 32, 8, 64, True, 0), (4, 300, 15, 5, 64, True, 0),
-                   (4, 512, 32, 8, 64, True, 128)] \
+                   (4, 512, 32, 8, 64, True, 128),
+                   (4, 512, 32, 8, 128, True, 4096)] \
     + [(B, S, 10, 1, 256, True, w) for B, S, w in FLASH_HD256]
 
 
@@ -741,6 +759,7 @@ def check_flash_bwd(torch, F, ref, gen):
     torch.cuda.empty_cache()
     main = rows[0]                  # the training shape, causal
     return {**main, "max_abs_err": max(r["max_abs_err"] for r in rows),
+            "hd128": [r for r in rows if r["shape"][4] == 128],
             "hd256": [r for r in rows if r["shape"][4] == 256]}
 
 
@@ -887,22 +906,23 @@ def check_prefill_page_attention(torch, F, ref, gen):
 
 
 # moe_grouped_ffn at mixtral-8x7b's width (d 4096, f 14336, 8 experts,
-# top-2, capacity factor 1.25), one routing group of g tokens each: a decode
+# top-2, capacity factor 1.25), G routing groups of g tokens each: a decode
 # batch (the shape the serving path launches most, so the main row), a
-# 128-token chunk and whole prompts of 300 and 512 tokens
-MOE_SHAPES = (("decode", 8), ("chunk", 128), ("prompt300", 300),
-              ("prompt512", 512))
+# 128-token chunk, whole prompts of 300 and 512 tokens, and the training
+# shape (batch 4 x 512 in two groups of 1024: C 320, two slot tiles of 160)
+MOE_SHAPES = (("decode", 1, 8), ("chunk", 1, 128), ("prompt300", 1, 300),
+              ("prompt512", 1, 512), ("train", 2, 1024))
 MOE_F32_TOL = 1e-4
 
 
-def moe_route(torch, gen, cfg, g):
-    """dispatch and combine for one group of g tokens from random router
+def moe_route(torch, gen, cfg, g, G=1):
+    """dispatch and combine for G groups of g tokens from random router
     logits, through the model's own routing (``models.moe.route``)."""
     import math
     from repro_torch.models.moe import route
     E = cfg.n_experts
     C = max(math.ceil(g * cfg.top_k * cfg.capacity_factor / E), 1)
-    probs = torch.softmax(torch.randn((1, g, E), generator=gen,
+    probs = torch.softmax(torch.randn((G, g, E), generator=gen,
                                       device="cuda"), -1)
     return route(probs, cfg.top_k, C)
 
@@ -936,17 +956,18 @@ def check_moe_grouped_ffn(torch, F, ref, gen):
     ws = (weight((E, d, f), d), weight((E, d, f), d), weight((E, f, d), f))
     torch.cuda.empty_cache()
 
-    def gathered(dispatch, x):          # (E, C, d): the bmm yardstick's input
-        return torch.einsum("GgEC,Ggd->ECd", dispatch.to(bf), x).contiguous()
+    def gathered(dispatch, x):  # (E, G C, d): the bmm yardstick's input
+        return torch.einsum("GgEC,Ggd->EGCd", dispatch.to(bf), x).flatten(
+            1, 2).contiguous()
 
     def library(xin):
         h = F.silu(torch.bmm(xin, ws[0])) * torch.bmm(xin, ws[1])
         return torch.bmm(h, ws[2])
 
     rows = {}
-    for name, g in MOE_SHAPES:
-        dispatch, combine = moe_route(torch, gen, cfg, g)
-        x = torch.randn((1, g, d), generator=gen, device="cuda").to(bf)
+    for name, G, g in MOE_SHAPES:
+        dispatch, combine = moe_route(torch, gen, cfg, g, G)
+        x = torch.randn((G, g, d), generator=gen, device="cuda").to(bf)
         got = moe_grouped_ffn(dispatch, combine, x, *ws)
         want = ref.moe_grouped_ffn(dispatch, combine, x, *ws)
         torch.cuda.synchronize()
@@ -955,7 +976,7 @@ def check_moe_grouped_ffn(torch, F, ref, gen):
             raise AssertionError(f"moe_grouped_ffn {name}: normalized error "
                                  f"{norm}")
         slots = int(dispatch.any(1).sum().item())          # live (e, c)
-        experts = int(dispatch.any(3).any(1).sum().item())
+        experts = int(dispatch.any(3).any(1).any(0).sum().item())
         need = experts * 3 * d * f * 2 + nbytes(dispatch, combine, x, got)
         b_ms, b_by = bound(need, 6.0 * d * f * slots, "bfloat16")
         sets = rotation((dispatch, combine, x))
@@ -964,9 +985,9 @@ def check_moe_grouped_ffn(torch, F, ref, gen):
         iters = 40 if g <= 128 else 10
         ms, host_ms = time_ms(lambda i: moe_grouped_ffn(*sets[i % n], *ws),
                               iters)
-        p = plan(1, g, E, dispatch.shape[-1], d, f, bf, n_sm)
+        p = plan(G, g, E, dispatch.shape[-1], d, f, bf, n_sm)
         rows[name] = dict(
-            case=name, shape=[1, g, E, dispatch.shape[-1], d, f],
+            case=name, shape=[G, g, E, dispatch.shape[-1], d, f],
             slot_tile=p["tile"], down_splits=p["ks"], live_experts=experts,
             live_slots=slots, max_abs_err=err, normalized_err=norm,
             tolerance=BF16_TOL, ms=ms, host_ms=host_ms,
@@ -1022,6 +1043,180 @@ def check_moe_grouped_ffn(torch, F, ref, gen):
     worst = max(r["max_abs_err"] for r in rows.values())
     return {**rows["decode"], "max_abs_err": worst, "shapes": rows,
             "edge_cases": edge}
+
+
+MOE_BWD_NAMES = ("dx", "dcombine", "dwg", "dwu", "dwd")
+
+
+def _moe_grads(torch, ref, dispatch, ins, dout, kernel):
+    """(dx, dcombine, dwg, dwu, dwd) of sum(out * dout) through the
+    kernels (``MoEGroupedFFN``), or autograd of the plain version in f32
+    on the same values."""
+    from repro_torch.kernels.moe_matmul import MoEGroupedFFN
+    if kernel:
+        leaves = [t.detach().clone().requires_grad_() for t in ins]
+        g = torch.autograd.grad(MoEGroupedFFN.apply(dispatch, *leaves),
+                                leaves, dout)
+    else:
+        leaves = [t.detach().float().requires_grad_() for t in ins]
+        g = torch.autograd.grad(ref.moe_grouped_ffn(dispatch, *leaves),
+                                leaves, dout.float())
+    return (g[1], g[0], g[2], g[3], g[4])
+
+
+def _moe_bwd_errs(torch, got, want) -> dict:
+    """Each gradient's max |error| over max |reference|."""
+    return {n: ((a.float() - b.float()).abs().max()
+                / b.float().abs().max().clamp(min=1e-30)).item()
+            for n, a, b in zip(MOE_BWD_NAMES, got, want)}
+
+
+def check_moe_grouped_ffn_bwd(torch, F, ref, gen):
+    """The grouped FFN's backward kernel (``moe_grouped_ffn_bwd``) against
+    torch autograd of the plain version in f32 on the same inputs, at
+    mixtral-8x7b's training shape in bf16 (each of dx, dcombine, dwg, dwu,
+    dwd within a normalized max error of 2e-2), its edge cases at the
+    decode shape (an expert with no token: exact-zero weight gradients; a
+    dropped token: dx exactly 0; a random dispatch with two tokens in one
+    slot and combine weights off the dispatch: 2e-2), one narrow f32 case
+    at rtol/atol 1e-4, and two calls bit for bit.  Timed (the backward's
+    launch alone, from one forward's saved tensors) beside its bound
+    (operations: six products of 2 d f flops a live slot on the tensor
+    cores, dcombine's 2 d flops a (token, live slot) pair on the CUDA
+    cores), autograd of the plain version in bf16, and as a library
+    yardstick torch autograd through three ``torch.bmm`` and SwiGLU on
+    the gathered (E, G C, d) input (no dispatch, combine or their
+    gradients: no single PyTorch call computes them)."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.moe_matmul import (
+        launch_forward, moe_grouped_ffn_bwd, plan_bwd)
+    cfg = get_config("mixtral-8x7b")
+    E, d, f, bf = cfg.n_experts, cfg.d_model, cfg.d_ff, torch.bfloat16
+    G, g = MOE_SHAPES[-1][1:]
+
+    def weight(shape, fan_in):
+        w = torch.randn(shape, generator=gen, device="cuda")
+        return w.mul_(fan_in ** -0.5).to(bf)
+
+    ws = (weight((E, d, f), d), weight((E, d, f), d), weight((E, f, d), f))
+    torch.cuda.empty_cache()
+    dispatch, combine = moe_route(torch, gen, cfg, g, G)
+    C = dispatch.shape[-1]
+    x = torch.randn((G, g, d), generator=gen, device="cuda").to(bf)
+    dout = torch.randn((G, g, d), generator=gen, device="cuda").to(bf)
+    got = _moe_grads(torch, ref, dispatch, (combine, x, *ws), dout, True)
+    again = _moe_grads(torch, ref, dispatch, (combine, x, *ws), dout, True)
+    bits = all(torch.equal(a, b) for a, b in zip(got, again))
+    del again
+    want = _moe_grads(torch, ref, dispatch, (combine, x, *ws), dout, False)
+    torch.cuda.synchronize()
+    errs = _moe_bwd_errs(torch, got, want)
+    max_abs = max((a.float() - b).abs().max().item()
+                  for a, b in zip(got, want))
+    del got, want
+    torch.cuda.empty_cache()
+    if not bits:
+        raise AssertionError("moe_grouped_ffn_bwd: two calls differ")
+    if not max(errs.values()) <= BWD_BF16_NORM_TOL:
+        raise AssertionError(f"moe_grouped_ffn_bwd bf16 normalized errors "
+                             f"{errs}")
+
+    # timing: the backward's launch alone, from one forward's tensors
+    ins = (dispatch, combine, x, *ws)
+    _, saved = launch_forward(ins, save=True)
+    ms, host_ms = time_ms(lambda i: moe_grouped_ffn_bwd(
+        dout, dispatch, combine, *ws, saved), 10)
+    live = dispatch.any(1)                              # (G, E, C)
+    slots = int(live.sum().item())
+    experts = int(live.any(2).any(0).sum().item())
+    tc_flops = 6 * 2.0 * d * f * slots
+    simt_flops = 2.0 * d * g * slots                    # dcombine
+    need = (experts * 3 * d * f * 2 * 2                 # weights, gradients
+            + nbytes(dout, dispatch, combine)
+            + slots * (d * 2 + 3 * f * 2 + d * 4)       # xin, H, a, b, y
+            + nbytes(x) + G * g * E * C * 4)            # dx, dcombine
+    t_ops = (tc_flops / PEAK_FLOPS["bfloat16"]
+             + simt_flops / PEAK_FLOPS["float32"])
+    t_bytes = need / PEAK_BYTES_PER_S
+    b_ms, b_by = max(t_ops, t_bytes) * 1e3, \
+        "operations" if t_ops >= t_bytes else "bytes"
+    del saved
+    pin = [t.clone().requires_grad_() for t in (combine, x, *ws)]
+    pout = ref.moe_grouped_ffn(dispatch, *pin)
+    plain_ms = time_ms(lambda i: torch.autograd.grad(
+        pout, pin, dout, retain_graph=True), 3)[0]
+    del pin, pout
+    lin = [torch.einsum("GgEC,Ggd->EGCd", dispatch.to(bf), x).flatten(
+        1, 2).contiguous().requires_grad_()] + [
+        w.clone().requires_grad_() for w in ws]
+    lout = torch.bmm(F.silu(torch.bmm(lin[0], lin[1]))
+                     * torch.bmm(lin[0], lin[2]), lin[3])
+    ldo = torch.randn(lout.shape, generator=gen, device="cuda").to(bf)
+    library_ms = time_ms(lambda i: torch.autograd.grad(
+        lout, lin, ldo, retain_graph=True), 10)[0]
+    del lin, lout, ldo
+    torch.cuda.empty_cache()
+    p = plan_bwd(G, g, E, C, d, f, bf)
+
+    # edge cases at the decode shape
+    dispatch, combine = moe_route(torch, gen, cfg, 8)
+    dispatch[..., 0, :] = False                 # expert 0 gets no token
+    combine[..., 0, :] = 0
+    dispatch[:, 3] = False                      # token 3 is dropped
+    combine[:, 3] = 0
+    xs = torch.randn((1, 8, d), generator=gen, device="cuda").to(bf)
+    ds = torch.randn((1, 8, d), generator=gen, device="cuda").to(bf)
+    eg = _moe_grads(torch, ref, dispatch, (combine, xs, *ws), ds, True)
+    edge = {"no_token_expert_and_dropped_token": max(_moe_bwd_errs(
+        torch, eg, _moe_grads(torch, ref, dispatch, (combine, xs, *ws), ds,
+                              False)).values())}
+    zeros = all(torch.equal(w[0], torch.zeros_like(w[0])) for w in eg[2:])
+    dropped = torch.equal(eg[0][:, 3], torch.zeros_like(eg[0][:, 3]))
+    if not (zeros and dropped):
+        raise AssertionError(f"moe_grouped_ffn_bwd: idle expert's gradients "
+                             f"zero {zeros}, dropped token's dx zero "
+                             f"{dropped}")
+    dispatch = torch.rand(dispatch.shape, generator=gen, device="cuda") < 0.2
+    dispatch[0, 0, 1, 0] = dispatch[0, 1, 1, 0] = True   # two in one slot
+    combine = torch.rand(dispatch.shape, generator=gen, device="cuda")
+    edge["random_dispatch_two_in_one_slot"] = max(_moe_bwd_errs(
+        torch, _moe_grads(torch, ref, dispatch, (combine, xs, *ws), ds, True),
+        _moe_grads(torch, ref, dispatch, (combine, xs, *ws), ds,
+                   False)).values())
+    del ws, eg
+    torch.cuda.empty_cache()
+    # one narrow f32 case
+    small = dataclasses.replace(cfg, n_experts=4)
+    dispatch, combine = moe_route(torch, gen, small, 16)
+    x32 = torch.randn((1, 16, 256), generator=gen, device="cuda")
+    w32 = [torch.randn(s, generator=gen, device="cuda") * s[1] ** -0.5
+           for s in ((4, 256, 512), (4, 256, 512), (4, 512, 256))]
+    d32 = torch.randn((1, 16, 256), generator=gen, device="cuda")
+    g32 = _moe_grads(torch, ref, dispatch, (combine, x32, *w32), d32, True)
+    r32 = _moe_grads(torch, ref, dispatch, (combine, x32, *w32), d32, False)
+    for a, b in zip(g32, r32):
+        torch.testing.assert_close(a, b, rtol=BWD_F32_TOL, atol=BWD_F32_TOL)
+    edge["float32_max_abs_err"] = max((a - b).abs().max().item()
+                                      for a, b in zip(g32, r32))
+    print("moe_grouped_ffn_bwd edge cases:", json.dumps(dict(
+        **edge, idle_expert_grads_zero=zeros, dropped_token_dx_zero=dropped,
+        tolerance=BWD_BF16_NORM_TOL, float32_tolerance=BWD_F32_TOL)),
+        flush=True)
+    if not max(edge["no_token_expert_and_dropped_token"],
+               edge["random_dispatch_two_in_one_slot"]) <= BWD_BF16_NORM_TOL:
+        raise AssertionError(f"moe_grouped_ffn_bwd edge cases: {edge}")
+    row = dict(shape=[G, g, E, C, d, f], live_slots=slots,
+               live_experts=experts, max_abs_err=max_abs,
+               normalized_err=errs, tolerance=BWD_BF16_NORM_TOL,
+               two_calls_bit_identical=bits, ms=ms, host_ms=host_ms,
+               plain_ms=plain_ms, library_ms=library_ms,
+               library="torch autograd through 3 x torch.bmm + SwiGLU on "
+                       "the gathered (E, G C, d) input",
+               bound_ms=b_ms, bound_by=b_by,
+               plan={k: p[k] for k in ("tile", "dh", "dwd", "dcombine")},
+               edge_cases=edge)
+    print("moe_grouped_ffn_bwd", json.dumps(row), flush=True)
+    return row
 
 
 # the WKV recurrence at rwkv6-1.6b's width on the training path (batch 4 x
@@ -2127,6 +2322,7 @@ KERNEL_GROUPS = (("flash_attention", "flash_fwd_kernel"),
                  ("page_gather", "page_gather_kernel"),
                  ("ring_gather", "ring_gather_kernel"),
                  ("prefill_page_attention", "prefill_page_attention_kernel"),
+                 ("moe_grouped_ffn_bwd", "moe_bwd_"),
                  ("moe_grouped_ffn", ("moe_dispatch_kernel",
                                       "moe_mma_kernel", "moe_gemm_kernel",
                                       "moe_combine_kernel")),
@@ -2648,9 +2844,11 @@ def _train_run(torch, cfg, params, opt_name, sync, batches, lr):
 
 def small_train_config(torch, arch: str):
     """The narrow f32 model of the small training run: llama3.2-1b's smoke
-    config widened to d 256 and head dim 64; rwkv6-1.6b's and
-    recurrentgemma-2b's smoke configs as they are (d 64, 4 heads of 16;
-    recurrentgemma's window of 16 wraps at the run's 96 tokens)."""
+    config widened to d 256 and head dim 64; rwkv6-1.6b's,
+    recurrentgemma-2b's and mixtral-8x7b's smoke configs as they are (d
+    64, 4 heads of 16; recurrentgemma's and mixtral's windows of 16 wrap
+    at the run's 96 tokens; mixtral's 4 experts, top-2, route 3 groups of
+    64 tokens a step, capacity 40)."""
     from repro_torch.configs import get_smoke_config
     cfg = dataclasses.replace(get_smoke_config(arch), dtype=torch.float32)
     if arch == "llama3.2-1b":
@@ -2741,14 +2939,20 @@ TRAIN_B, TRAIN_S, TRAIN_STEPS, TRAIN_DELTA = 4, 512, 8, 2
 # (forward and backward), and per slot of the first group the projections
 # of its layer 0 that must get a gradient
 FLASH = ("flash_attention", "flash_attention_bwd")
+MOE = ("moe_grouped_ffn", "moe_grouped_ffn_bwd")
 TRAIN_RUNS = {
-    "llama3.2-1b": ({"attn": FLASH}, {"s0": ("wq", "wk", "wv")}),
+    "llama3.2-1b": ({"attn": FLASH}, {"s0": ("mix.wq", "mix.wk", "mix.wv")}),
     "rwkv6-1.6b": ({"rwkv6": ("rwkv6_scan", "rwkv6_scan_bwd")},
-                   {"s0": ("wr", "wk", "wv", "decay_w1", "bonus_u")}),
+                   {"s0": ("mix.wr", "mix.wk", "mix.wv", "mix.decay_w1",
+                           "mix.bonus_u")}),
     "recurrentgemma-2b": ({"rglru": ("rglru_scan", "rglru_scan_bwd"),
                            "local": FLASH},
-                          {"s0": ("wx", "wa", "wi", "lam", "conv_w"),
-                           "s2": ("wq", "wk", "wv")}),
+                          {"s0": ("mix.wx", "mix.wa", "mix.wi", "mix.lam",
+                                  "mix.conv_w"),
+                           "s2": ("mix.wq", "mix.wk", "mix.wv")}),
+    "mixtral-8x7b": ({"swa": FLASH + MOE},
+                     {"s0": ("mix.wq", "mix.wk", "mix.wv", "ffn.router",
+                             "ffn.wg", "ffn.wu", "ffn.wd")}),
 }
 # depth cuts, every width kept: recurrentgemma-2b's 26 layers (2,894,574,080
 # parameters) need 69.5 GB of engine state at delta 2 (12 + 4 (delta + 1)
@@ -2758,8 +2962,10 @@ TRAIN_RUNS = {
 # 4 of the 8 (rglru, rglru, local) groups and the (rglru, rglru) tail (14
 # layers, 1,866,744,320 parameters) run out of memory in that update; 3
 # groups and the tail are 11 layers, 1,609,786,880 parameters, 38.6 GB of
-# state
-TRAIN_GROUPS = {"recurrentgemma-2b": 3}
+# state.  mixtral-8x7b: one layer (1,713,418,240 parameters) is ~70 GiB
+# at the update's peak (44 bytes a parameter, as recurrentgemma-2b's 11
+# layers measured), two (3.16 B) would need ~130 GiB
+TRAIN_GROUPS = {"recurrentgemma-2b": 3, "mixtral-8x7b": 1}
 
 
 def train_config(arch: str):
@@ -2797,6 +3003,7 @@ def full_width_training(torch, ops, ref, arch):
     from repro_torch.tree import leaves
     cfg, reduced = train_config(arch)
     kind_kernels, watched = TRAIN_RUNS[arch]
+    torch.cuda.empty_cache()            # the phase needs the whole card
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     params = paramlib.init_tree(
@@ -2805,14 +3012,15 @@ def full_width_training(torch, ops, ref, arch):
     sync = SyncConfig(delta=TRAIN_DELTA, remat="none", packed_ring=True)
     spec = LMBatchSpec(batch=TRAIN_B, seq_len=TRAIN_S,
                        vocab_size=cfg.vocab_size, seed=0)
-    inner = make_lm_grad_fn(cfg, sync)
+    metrics = []                        # lm_loss's metrics, per step
+    inner = make_lm_grad_fn(cfg, sync, on_metrics=metrics.append)
     watched_max = []
 
     def grad_fn(p, batch):              # the engine's grad_fn, watched
         loss, grads = inner(p, batch)
         g0 = grads["groups"]["g0"]
         watched_max.append(torch.stack([
-            g0[slot]["mix"][w][0].abs().max()
+            g0[slot][w.split(".")[0]][w.split(".")[1]][0].abs().max()
             for slot, names in watched.items() for w in names]))
         return loss, grads
 
@@ -2850,11 +3058,16 @@ def full_width_training(torch, ops, ref, arch):
                 + cfg.layer_kinds.count(kind) * TRAIN_STEPS
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     grad_min = dict(zip(
-        [f"g0.{slot}.mix.{w}" for slot, names in watched.items()
+        [f"g0.{slot}.{w}" for slot, names in watched.items()
          for w in names],
         torch.stack(watched_max).amin(0).tolist()))
     tele = eng.telemetry.summary()
     steady = sorted(step_s[1:])[len(step_s[1:]) // 2]
+    router = {k: [float(m[k]) for m in metrics[:TRAIN_STEPS]]
+              for k in (("lb_loss", "router_entropy") if cfg.is_moe else ())}
+    if cfg.is_moe and [float(m["total_loss"]) for m in
+                       metrics[:TRAIN_STEPS]] != losses:
+        raise AssertionError("the engine's loss is not lm_loss's total")
     print("full-width training:", json.dumps(dict(
         arch=cfg.name, layers=n_layers, reduced=reduced,
         parameters=sum(t.numel() for t in leaves(state.params)),
@@ -2864,9 +3077,12 @@ def full_width_training(torch, ops, ref, arch):
         tokens_per_s=TRAIN_B * TRAIN_S / steady, peak_mem_gib=peak,
         staleness_per_step=ramp, telemetry=tele, launches=launches,
         expected_launches=want, plain_version_calls=plain_calls,
-        min_layer0_grad_max_abs=grad_min)), flush=True)
-    if not all(map(lambda x: x == x and abs(x) < float("inf"), losses)):
-        raise AssertionError(f"non-finite training losses {losses}")
+        min_layer0_grad_max_abs=grad_min, router_metrics_per_step=router)),
+        flush=True)
+    if not all(map(lambda x: x == x and abs(x) < float("inf"),
+                   losses + sum(router.values(), []))):
+        raise AssertionError(f"non-finite training losses {losses} or "
+                             f"router metrics {router}")
     if ramp != [min(i, TRAIN_DELTA) for i in range(TRAIN_STEPS)] or \
             tele["max_staleness"] != TRAIN_DELTA:
         raise AssertionError(f"staleness ramp {ramp}, telemetry {tele}")
@@ -3541,8 +3757,21 @@ def check_flash_build(torch, spills: dict) -> None:
 def check_moe_build(torch) -> None:
     """Gate: the grouped FFN wrapper's plan states the shared memory,
     stages and weight columns a block that the bf16 kernels are built
-    with, at every slot tile."""
-    from repro_torch.kernels.moe_matmul import SLOT_TILES, kernel_tiles, plan
+    with, at every slot tile; and ``plan_bwd`` the backward blocks'
+    tiles, stages, shared memory and threads, in both types."""
+    from repro_torch.kernels.moe_matmul import (
+        BWD_TILE_KEYS, SLOT_TILES, bwd_kernel_tiles, kernel_tiles, plan,
+        plan_bwd)
+    bwd = bwd_kernel_tiles()
+    pb = {dt: plan_bwd(2, 1024, 8, 320, 4096, 14336, dt)
+          for dt in (torch.bfloat16, torch.float32)}
+    want = dict(zip(BWD_TILE_KEYS, [
+        pb[torch.bfloat16]["tile"][k] for k in ("bm", "bn", "bk", "stages",
+                                                "smem", "threads")] + [
+        pb[torch.float32]["tile"][k] for k in ("bm", "bn", "bk", "smem",
+                                               "threads")]))
+    if bwd != want or pb[torch.bfloat16]["sw"]["smem"] != bwd["sw_smem"]:
+        raise AssertionError(f"moe plan_bwd vs kernels: {want} {bwd}")
     built = kernel_tiles()
     for nt in SLOT_TILES:
         p = plan(1, nt, 8, nt, 4096, 14336, torch.bfloat16, 132)
@@ -3553,7 +3782,8 @@ def check_moe_build(torch) -> None:
             raise AssertionError(f"moe plan vs kernels at slot tile {nt}: "
                                  f"{want} {got}")
     print(f"moe_grouped_ffn plan == kernel shared memory, stages and "
-          f"columns at slot tiles {list(SLOT_TILES)}", flush=True)
+          f"columns at slot tiles {list(SLOT_TILES)}; plan_bwd == the "
+          f"backward's tiles {json.dumps(bwd)}", flush=True)
 
 
 def check_wkv_build() -> None:
@@ -3669,6 +3899,13 @@ def main() -> int:
     # deterministic cuBLAS for the engine's bit-identity checks: read when
     # the first cuBLAS handle is made, so it is set before CUDA starts
     os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    # the caching allocator grows segments in place instead of splitting
+    # fixed ones: mixtral-8x7b's training phase peaks at ~71 of the card's
+    # 79 GiB, and after the earlier phases the fixed segments left 27 GiB
+    # reserved in pieces too small for its 6.38 GiB packed row (read when
+    # CUDA starts)
+    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF",
+                          "expandable_segments:True")
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -3725,6 +3962,8 @@ def main() -> int:
         ("prefill_page_attention", check_prefill_page_attention,
          (torch, F, ref, gen)),
         ("moe_grouped_ffn", check_moe_grouped_ffn, (torch, F, ref, gen)),
+        ("moe_grouped_ffn_bwd", check_moe_grouped_ffn_bwd,
+         (torch, F, ref, gen)),
         ("rwkv6_scan", check_rwkv6_scan, (torch, ref, gen)),
         ("rwkv6_scan_bwd", check_rwkv6_scan_bwd, (torch, ref, gen)),
         ("rglru_scan", check_rglru_scan, (torch, ref, gen)),
@@ -3758,6 +3997,9 @@ def main() -> int:
     paths["recurrentgemma_training"], _ = timed(
         "recurrentgemma_training", full_width_training, torch, ops, ref,
         "recurrentgemma-2b")
+    timed("small_moe_training", small_training, torch, "mixtral-8x7b")
+    paths["moe_training"], _ = timed("moe_training", full_width_training,
+                                     torch, ops, ref, "mixtral-8x7b")
     _, real_xy = timed("paper_regression", paper_regression, torch)
     timed("server_regression", server_regression, torch, *real_xy)
     del real_xy
@@ -3785,6 +4027,9 @@ def main() -> int:
                 "prefill_page_attention":
                     "src/repro/kernels/page_gather.py:107",
                 "moe_grouped_ffn": "src/repro/kernels/moe_matmul.py:64",
+                # the gradient of the kernel above: the TPU package has
+                # none and trains through autodiff of its plain version
+                "moe_grouped_ffn_bwd": "src/repro/kernels/moe_matmul.py:64",
                 "rwkv6_scan": "src/repro/kernels/rwkv6_scan.py:54",
                 # the gradient of the kernel above: the TPU package has
                 # none and trains through autodiff of its plain recurrence
@@ -3800,6 +4045,7 @@ def main() -> int:
                 "flash_attention_bwd": "training",
                 "prefill_page_attention": "chunked_serving",
                 "moe_grouped_ffn": "moe_serving",
+                "moe_grouped_ffn_bwd": "moe_training",
                 "rwkv6_scan": "rwkv6_training",
                 "rwkv6_scan_bwd": "rwkv6_training",
                 "rglru_scan": "recurrentgemma_training",

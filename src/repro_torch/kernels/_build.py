@@ -13,11 +13,11 @@ started together.
 
 Each C entry point returns ``cudaGetLastError()`` after its launch;
 ``check`` raises on anything but 0.  ``launches`` counts kernel launches
-per kernel (``KERNELS``: the flash-attention, the WKV and the RG-LRU
-sources hold two each, the forward and the backward); each wrapper adds one right after
-its launch and nowhere else, through ``count``, under a lock: worker threads
-(the parameter server's) launch at once, and ``+= 1`` on a dict entry is
-not atomic.
+per kernel (``KERNELS``: the flash-attention, the MoE FFN, the WKV and
+the RG-LRU sources hold two each, the forward and the backward); each
+wrapper adds one right after its launch and nowhere else, through
+``count``, under a lock: worker threads (the parameter server's) launch
+at once, and ``+= 1`` on a dict entry is not atomic.
 """
 from __future__ import annotations
 
@@ -37,8 +37,8 @@ SOURCES = ("flash_attention", "page_gather", "decode_attention",
            "rwkv6_scan", "rglru_scan")
 KERNELS = ("flash_attention", "flash_attention_bwd", "page_gather",
            "decode_attention", "ring_gather", "prefill_page_attention",
-           "moe_grouped_ffn", "rwkv6_scan", "rwkv6_scan_bwd", "rglru_scan",
-           "rglru_scan_bwd")
+           "moe_grouped_ffn", "moe_grouped_ffn_bwd", "rwkv6_scan",
+           "rwkv6_scan_bwd", "rglru_scan", "rglru_scan_bwd")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 NVCC_TIMEOUT_S = 600

@@ -21,7 +21,15 @@ CUDA cores with f32 scratch.  :func:`plan` picks the tiles, stages and
 split from the shapes alone.  The wrapper allocates the scratch.  Its
 plain version is ``ref.moe_grouped_ffn``.
 
-No backward: MoE training, which needs one, is a later slice of the port.
+The gradient (no TPU kernel: the JAX package trains through autodiff of
+``ref.moe_grouped_ffn``) is ``moe_grouped_ffn_bwd`` in the same source:
+dx, dcombine (f32) and the three weight gradients, nine launches, no
+atomics, each weight gradient one block's loop over all G x C slots of
+its expert (deterministic, exact zeros for an expert without a token).
+bf16 runs its six products on the tensor cores (``mma.sync``), f32 on
+the CUDA cores, as does dcombine = dout . y in both types.
+:func:`plan_bwd` states its tiles and grids from the shapes alone.
+:class:`MoEGroupedFFN` is the autograd function over the two.
 """
 from __future__ import annotations
 
@@ -34,8 +42,10 @@ from .flash_attention import ELEM
 
 NAME = "moe_grouped_ffn"
 _P, _I = ctypes.c_void_p, ctypes.c_int
-SIGNATURES = {"moe_grouped_ffn_fwd": [_P] * 11 + [_I] * 11 + [_P],
-              "moe_grouped_ffn_tiles": [_I, _I, _I]}
+SIGNATURES = {"moe_grouped_ffn_fwd": [_P] * 13 + [_I] * 11 + [_P],
+              "moe_grouped_ffn_tiles": [_I, _I, _I],
+              "moe_grouped_ffn_bwd": [_P] * 21 + [_I] * 8 + [_P],
+              "moe_grouped_ffn_bwd_tiles": [_I]}
 MAX_GRID = 65535
 SM_SMEM = 233_472       # shared memory of one H100 SM, 1 KB kept per block
 # f32, on the CUDA cores
@@ -48,6 +58,16 @@ TC_THREADS = 256        # two warpgroups
 TC_COLS = {"up": 128, "down": 256}   # weight output columns per block
 TC_WBYTES = 4 * TC_K * 64 * 2        # weight bytes of one stage
 SLOT_TILES = (8, 16, 32, 48, 64, 96, 128, 160)   # wgmma widths built
+# the backward (csrc: BW_*, SW_*): bf16 products on the tensor cores in
+# blocks of BW_BM x BW_BN outputs, BW_BK deep stages; f32 products and
+# dcombine on the CUDA cores in blocks of SW_BM x SW_BN, SW_BK deep
+BW_BM, BW_BN, BW_BK, BW_STAGES, BW_THREADS = 128, 128, 64, 3, 256
+BW_SMEM = 1024 + BW_STAGES * 2 * BW_BM * BW_BK * 2
+SW_BM, SW_BN, SW_BK, SW_THREADS = 128, 128, 16, 256
+SW_SMEM = 2 * SW_BK * (SW_BM + 4) * 4
+GATHER_THREADS, GATHER_COLS = 128, 512  # the gathers: threads, d a block
+BWD_TILE_KEYS = ("bm", "bn", "bk", "stages", "smem", "threads", "sw_bm",
+                 "sw_bn", "sw_bk", "sw_smem", "sw_threads")
 
 
 def _cdiv(a: int, b: int) -> int:
@@ -131,22 +151,58 @@ def kernel_tiles() -> dict:
             for nt in SLOT_TILES for k in ("up", "down")}
 
 
-def moe_grouped_ffn(dispatch: torch.Tensor, combine: torch.Tensor,
-                    xg: torch.Tensor, wg: torch.Tensor, wu: torch.Tensor,
-                    wd: torch.Tensor) -> torch.Tensor:
-    """dispatch: (G, g, E, C) bool; combine: (G, g, E, C) f32; xg: (G, g, d);
-    wg/wu: (E, d, f); wd: (E, f, d), all CUDA tensors on one device, xg and
-    the weights of one dtype (f32 or bf16), all contiguous at 16-byte
-    aligned addresses, d and f multiples of 8 -> (G, g, d) in xg's
-    dtype."""
-    ts = (dispatch, combine, xg, wg, wu, wd)
+def plan_bwd(G: int, g: int, E: int, C: int, d: int, f: int,
+             dtype: torch.dtype) -> dict:
+    """The backward's launches for one shape, a pure function of (G, g,
+    E, C, d, f, dtype), never of the data.  Returns the product blocks'
+    tiles (``route`` "mma": bf16 on the tensor cores, ``bm`` x ``bn``
+    outputs, ``bk`` deep stages through a ring of ``stages``, ``smem``
+    dynamic bytes; "simt": the CUDA cores, static ``smem``), the
+    dcombine block's (``sw``: always the CUDA cores), and per launch its
+    ``grid`` (x, y, z) and ``threads``: ``dy`` (the combine-weighted
+    gather of dout), ``dh`` (dy wd^T with da, db in its epilogue),
+    ``dxin`` (twice: da wg^T, db wu^T), ``dwd``, ``dwg_dwu`` (twice),
+    ``dx`` (the dispatch gather) and ``dcombine``; ``launches`` counts
+    them."""
+    mma = dtype == torch.bfloat16
+    bm, bn = (BW_BM, BW_BN) if mma else (SW_BM, SW_BN)
+    tile = (dict(route="mma", bm=BW_BM, bn=BW_BN, bk=BW_BK,
+                 stages=BW_STAGES, smem=BW_SMEM, threads=BW_THREADS)
+            if mma else
+            dict(route="simt", bm=SW_BM, bn=SW_BN, bk=SW_BK, stages=1,
+                 smem=SW_SMEM, threads=SW_THREADS))
+    chunks = _cdiv(d, GATHER_COLS)
+    grids = {"dy": ((C * chunks, E, G), GATHER_THREADS, 4 * _cdiv(g, 32)),
+             "dh": ((_cdiv(f, bn), _cdiv(C, bm), G * E), tile["threads"],
+                    tile["smem"]),
+             "dxin": ((_cdiv(d, bn), _cdiv(C, bm), G * E), tile["threads"],
+                      tile["smem"]),
+             "dwd": ((_cdiv(d, bn), _cdiv(f, bm), E), tile["threads"],
+                     tile["smem"]),
+             "dwg_dwu": ((_cdiv(f, bn), _cdiv(d, bm), E), tile["threads"],
+                         tile["smem"]),
+             "dx": ((g * chunks, G), GATHER_THREADS, 4 * _cdiv(E * C, 32)),
+             "dcombine": ((_cdiv(E * C, SW_BN), _cdiv(g, SW_BM), G),
+                          SW_THREADS, SW_SMEM)}
+    return dict(tile=tile, sw=dict(bm=SW_BM, bn=SW_BN, bk=SW_BK,
+                                   smem=SW_SMEM, threads=SW_THREADS),
+                launches=9, **{k: dict(grid=grid, threads=t, smem=sm)
+                               for k, (grid, t, sm) in grids.items()})
+
+
+def bwd_kernel_tiles() -> dict:
+    """The built library's own numbers for the backward's blocks, to hold
+    :func:`plan_bwd` and the constants here to: {BWD_TILE_KEYS: value}."""
+    lib = _build.load(NAME, SIGNATURES)
+    return {k: lib.moe_grouped_ffn_bwd_tiles(i)
+            for i, k in enumerate(BWD_TILE_KEYS)}
+
+
+def _check(ts: tuple) -> None:
+    dispatch, combine, xg, wg, wu, wd = ts
     if xg.device.type != "cuda" or any(t.device != xg.device for t in ts):
         raise ValueError(f"{NAME}: CUDA tensors on one device only, got "
                          f"{sorted({str(t.device) for t in ts})}")
-    if any(t.requires_grad for t in ts) and torch.is_grad_enabled():
-        raise NotImplementedError(
-            f"{NAME}: the CUDA kernel has no backward; MoE training comes "
-            "with a later slice of the port")
     if dispatch.dtype != torch.bool or combine.dtype != torch.float32:
         raise ValueError(f"{NAME}: dispatch must be bool and combine f32, "
                          f"got {dispatch.dtype} / {combine.dtype}")
@@ -169,11 +225,20 @@ def moe_grouped_ffn(dispatch: torch.Tensor, combine: torch.Tensor,
     if max(G, E) > MAX_GRID:
         raise ValueError(f"{NAME}: {G} groups or {E} experts exceed the "
                          f"grid limit {MAX_GRID}")
+
+
+def launch_forward(ts: tuple, save: bool
+                   ) -> tuple[torch.Tensor, dict | None]:
+    """The forward's launches on checked inputs ``ts`` (dispatch, combine,
+    xg, wg, wu, wd); with ``save``, also what :func:`moe_grouped_ffn_bwd`
+    reads: {xin, h, a, b (the up product's pre-activations), y (the down
+    product's f32 partials), live, ks}."""
+    dispatch, combine, xg, wg, wu, wd = ts
+    G, g, E, C = dispatch.shape
+    d, f = xg.shape[-1], wg.shape[-1]
     out = torch.empty((G, g, d), dtype=xg.dtype, device=xg.device)
-    if out.numel() == 0:
-        return out
-    if C == 0:
-        return out.zero_()
+    if out.numel() == 0 or C == 0:
+        return out.zero_(), None
     p = plan(G, g, E, C, d, f, xg.dtype, torch.cuda.get_device_properties(
         xg.device).multi_processor_count)
     ks = p["ks"]
@@ -183,15 +248,123 @@ def moe_grouped_ffn(dispatch: torch.Tensor, combine: torch.Tensor,
     h = torch.empty((G, E, C, f), dtype=xg.dtype, device=xg.device)
     y = torch.empty((ks, G, E, C, d), dtype=torch.float32, device=xg.device)
     live = torch.empty((G, E, C), dtype=torch.int32, device=xg.device)
+    a = torch.empty_like(h) if save else None
+    b = torch.empty_like(h) if save else None
     lib = _build.load(NAME, SIGNATURES)
     with torch.cuda.device(xg.device):
         rc = lib.moe_grouped_ffn_fwd(
             dispatch.data_ptr(), combine.data_ptr(), xg.data_ptr(),
             wg.data_ptr(), wu.data_ptr(), wd.data_ptr(), out.data_ptr(),
             xin.data_ptr(), h.data_ptr(), y.data_ptr(), live.data_ptr(),
+            a.data_ptr() if save else None, b.data_ptr() if save else None,
             ELEM[xg.dtype], G, g, E, C, d, f, p["tile"], p["up"]["stages"],
             ks, p["per"],
             torch.cuda.current_stream(xg.device).cuda_stream)
     _build.check(lib, rc, NAME)
     _build.count(NAME)
-    return out
+    return out, (dict(xin=xin, h=h, a=a, b=b, y=y, live=live, ks=ks)
+                 if save else None)
+
+
+def moe_grouped_ffn(dispatch: torch.Tensor, combine: torch.Tensor,
+                    xg: torch.Tensor, wg: torch.Tensor, wu: torch.Tensor,
+                    wd: torch.Tensor) -> torch.Tensor:
+    """dispatch: (G, g, E, C) bool; combine: (G, g, E, C) f32; xg: (G, g, d);
+    wg/wu: (E, d, f); wd: (E, f, d), all CUDA tensors on one device, xg and
+    the weights of one dtype (f32 or bf16), all contiguous at 16-byte
+    aligned addresses, d and f multiples of 8 -> (G, g, d) in xg's
+    dtype.  No gradient: :class:`MoEGroupedFFN` differentiates."""
+    ts = (dispatch, combine, xg, wg, wu, wd)
+    if any(t.requires_grad for t in ts) and torch.is_grad_enabled():
+        raise ValueError(f"{NAME}: the raw wrapper records no gradient; "
+                         "differentiate through MoEGroupedFFN.apply")
+    _check(ts)
+    return launch_forward(ts, save=False)[0]
+
+
+def moe_grouped_ffn_bwd(dout: torch.Tensor, dispatch: torch.Tensor,
+                        combine: torch.Tensor, wg: torch.Tensor,
+                        wu: torch.Tensor, wd: torch.Tensor, saved: dict
+                        ) -> tuple[torch.Tensor, ...]:
+    """The gradient of :func:`moe_grouped_ffn` from dout (G, g, d) in x's
+    dtype and the forward's ``saved`` tensors (``launch_forward(...,
+    save=True)``) -> (dx (G, g, d), dcombine (G, g, E, C) f32, dwg, dwu (E, d, f), dwd
+    (E, f, d)), the gradients in x's dtype.  One launch count."""
+    G, g, E, C = dispatch.shape
+    d, f = wg.shape[1], wg.shape[2]
+    dt = wg.dtype
+    if dout.shape != (G, g, d) or dout.dtype != dt or dout.device != \
+            wg.device or not dout.is_contiguous() or dout.data_ptr() % 16:
+        raise ValueError(f"{NAME}_bwd: dout {tuple(dout.shape)} {dout.dtype}"
+                         f" on {dout.device}, want ({G}, {g}, {d}) {dt}, "
+                         "contiguous and 16-byte aligned on the weights' "
+                         "device")
+    p = plan_bwd(G, g, E, C, d, f, dt)
+    if any(max(v["grid"][1:]) > MAX_GRID for v in p.values()
+           if isinstance(v, dict) and "grid" in v):
+        raise ValueError(f"{NAME}_bwd: a grid passes the limit {MAX_GRID}")
+    dev = wg.device
+    dx = torch.empty((G, g, d), dtype=dt, device=dev)
+    dcomb = torch.empty((G, g, E, C), dtype=torch.float32, device=dev)
+    dwg, dwu = torch.empty_like(wg), torch.empty_like(wu)
+    dwd = torch.empty_like(wd)
+    if saved is None:                   # C == 0 or no token: no FFN output
+        return (dx.zero_(), dcomb.zero_(), dwg.zero_(), dwu.zero_(),
+                dwd.zero_())
+    dy = torch.empty((G, E, C, d), dtype=dt, device=dev)
+    da = torch.empty((G, E, C, f), dtype=dt, device=dev)
+    db = torch.empty_like(da)
+    dxin = torch.empty((G, E, C, d), dtype=torch.float32, device=dev)
+    sv = saved
+    lib = _build.load(NAME, SIGNATURES)
+    with torch.cuda.device(dev):
+        rc = lib.moe_grouped_ffn_bwd(
+            dispatch.data_ptr(), combine.data_ptr(), dout.data_ptr(),
+            wg.data_ptr(), wu.data_ptr(), wd.data_ptr(),
+            sv["xin"].data_ptr(), sv["h"].data_ptr(), sv["a"].data_ptr(),
+            sv["b"].data_ptr(), sv["y"].data_ptr(), sv["live"].data_ptr(),
+            dx.data_ptr(), dcomb.data_ptr(), dwg.data_ptr(), dwu.data_ptr(),
+            dwd.data_ptr(), dy.data_ptr(), da.data_ptr(), db.data_ptr(),
+            dxin.data_ptr(), ELEM[dt], G, g, E, C, d, f, sv["ks"],
+            torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(lib, rc, f"{NAME}_bwd")
+    _build.count(f"{NAME}_bwd")
+    return dx, dcomb, dwg, dwu, dwd
+
+
+class MoEGroupedFFN(torch.autograd.Function):
+    """The grouped FFN with its hand-written backward: ``apply(dispatch,
+    combine, xg, wg, wu, wd)`` with :func:`moe_grouped_ffn`'s contract.
+
+    When a gradient is wanted the forward keeps what the backward reads:
+    xin (G, E, C, d) and H (G, E, C, f) in x's dtype (its own scratch),
+    the up product's pre-activations a = xin wg and b = xin wu (G, E, C,
+    f) in x's dtype, written by the same launch, and the down product's
+    f32 partials y (ks, G, E, C, d).  Keeping a and b (2 x 147 MB in bf16
+    a layer at mixtral's training shape) costs less than the two products
+    (a third of the backward's) that recomputing them would take, and y
+    (84 MB) less than a third product; H is the forward's own bf16 H, so
+    dwd = H^T dy sees the operand the forward multiplied.  Without a
+    gradient (``torch.no_grad``, serving) the forward allocates and keeps
+    nothing beyond :func:`moe_grouped_ffn`'s scratch.  The backward
+    returns no gradient for dispatch, an f32 one for combine and x's
+    dtype for x and the weights."""
+
+    @staticmethod
+    def forward(ctx, dispatch, combine, xg, wg, wu, wd):
+        ts = (dispatch, combine, xg, wg, wu, wd)
+        _check(ts)
+        save = any(ctx.needs_input_grad)
+        out, saved = launch_forward(ts, save)
+        if save:
+            ctx.save_for_backward(dispatch, combine, wg, wu, wd)
+            ctx.saved = saved
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        dispatch, combine, wg, wu, wd = ctx.saved_tensors
+        dx, dcomb, dwg, dwu, dwd = moe_grouped_ffn_bwd(
+            dout.contiguous(), dispatch, combine, wg, wu, wd, ctx.saved)
+        ctx.saved = None
+        return None, dcomb, dx, dwg, dwu, dwd

@@ -16,7 +16,7 @@ from ._build import launches, reset_launches
 from .decode_attention import decode_attention as _decode_attention
 from .decode_attention import decode_attention_paged as _decode_paged
 from .flash_attention import FlashAttention
-from .moe_matmul import moe_grouped_ffn as _moe_grouped_ffn
+from .moe_matmul import MoEGroupedFFN
 from .page_gather import page_gather as _page_gather
 from .page_gather import prefill_page_attention as _prefill_page_attention
 from .page_gather import prefill_page_attention_paged as _prefill_paged
@@ -133,10 +133,13 @@ def moe_grouped_ffn(dispatch: torch.Tensor, combine: torch.Tensor,
                     wd: torch.Tensor) -> torch.Tensor:
     """Grouped-expert SwiGLU FFN over dispatched token groups
     (models/moe.py): dispatch (G, g, E, C) bool, combine (G, g, E, C) f32,
-    xg (G, g, d), wg/wu (E, d, f), wd (E, f, d) -> (G, g, d).  The card's
-    route has no backward."""
+    xg (G, g, d), wg/wu (E, d, f), wd (E, f, d) -> (G, g, d).
+    Differentiable on both routes (in combine, xg and the weights): on the
+    card through :class:`MoEGroupedFFN` (forward and backward kernels), on
+    the CPU through autograd of the plain version, the JAX package's own
+    route."""
     if _on_cuda(xg):
-        return _moe_grouped_ffn(dispatch, combine, xg, wg, wu, wd)
+        return MoEGroupedFFN.apply(dispatch, combine, xg, wg, wu, wd)
     return ref.moe_grouped_ffn(dispatch, combine, xg, wg, wu, wd)
 
 

@@ -311,7 +311,10 @@ def main(argv=None) -> dict:
 
     # one ParameterDB engine for both paths (sync dict state at delta=0,
     # device ring buffer otherwise) — see repro_torch.pdb.torch_backend
-    engine = make_train_engine(cfg, opt, sync, params)
+    router: dict = {}       # an MoE config's last lm_loss metrics
+    engine = make_train_engine(cfg, opt, sync, params,
+                               on_metrics=router.update if cfg.is_moe
+                               else None)
     state = engine.init_state()
 
     if args.resume and args.ckpt_dir:
@@ -341,7 +344,10 @@ def main(argv=None) -> dict:
         loss = float(metrics["loss"])
         losses.append(loss)
         if step % args.log_every == 0 or step == args.steps - 1:
-            print(f"step {step:5d} loss {loss:.4f} [{outcome}] "
+            aux = (f"lb_loss {float(router['lb_loss']):.4f} router_entropy "
+                   f"{float(router['router_entropy']):.4f} "
+                   if router else "")
+            print(f"step {step:5d} loss {loss:.4f} [{outcome}] {aux}"
                   f"{(time.time()-t0):.1f}s", flush=True)
         if args.ckpt_dir and (step + 1) % args.ckpt_every == 0:
             save_checkpoint(args.ckpt_dir, step + 1, engine.commit(state))

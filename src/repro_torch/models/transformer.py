@@ -25,8 +25,9 @@ layer's serving cache is its state, one dense row per sequence slot
 (rwkv6: ``S``, ``x_last``, ``cx_last``; rglru: ``h``, ``conv``), written
 in place by ``decode_step``; ``prefill_chunk`` carries it outside the
 cache (``init_chunk_carry``) until the slot goes live.  Every other layer
-kind raises naming the slice that brings it, and so does ``lm_loss`` on
-an MoE config (MoE training is a later slice).
+kind raises naming the slice that brings it.  The training forward
+carries the MoE router's aux losses (summed over the layers, as JAX's
+``_merge_aux``) into ``lm_loss``'s total; the serving paths drop them.
 """
 from __future__ import annotations
 
@@ -65,17 +66,6 @@ def check_supported(cfg: ModelConfig) -> None:
                 f"{_LATER.get(kind, 'a later slice')}")
 
 
-def check_trainable(cfg: ModelConfig) -> None:
-    """The training path takes dense configs only: MoE training needs a
-    backward of the grouped FFN kernel and the router's aux losses in the
-    loss, which come with a later slice of the port."""
-    if cfg.is_moe:
-        raise NotImplementedError(
-            f"{cfg.name}: MoE training (a moe_grouped_ffn backward and the "
-            "router aux losses in lm_loss) comes with a later slice of the "
-            "port; MoE models serve")
-
-
 # ---------------------------------------------------------------------------
 # Specs
 # ---------------------------------------------------------------------------
@@ -95,15 +85,19 @@ def _block_specs(cfg: ModelConfig, kind: str, stack: tuple[int, ...]) -> dict:
             "ffn": ffn}
 
 
+AUX_ZERO = {"lb_loss": 0.0, "z_loss": 0.0, "router_entropy": 0.0}
+
+
 def _apply_ffn(bp: dict, kind: str, h: torch.Tensor,
-               cfg: ModelConfig) -> torch.Tensor:
-    """The block's FFN, as JAX's ``_apply_ffn``; the MoE router's aux
-    losses are dropped (they only enter the training loss)."""
+               cfg: ModelConfig) -> tuple[torch.Tensor, dict]:
+    """The block's FFN and its aux losses, as JAX's ``_apply_ffn``: the MoE
+    router's {lb_loss, z_loss, router_entropy} (f32 scalars), Python zeros
+    for the others (no device work on a dense path)."""
     if kind == "rwkv6":
-        return chan_mix_fwd(bp["ffn"], h, cfg)
+        return chan_mix_fwd(bp["ffn"], h, cfg), dict(AUX_ZERO)
     if cfg.is_moe and kind != "xattn":
-        return moe_ffn(bp["ffn"], h, cfg)[0]
-    return apply_mlp(bp["ffn"], h, cfg)
+        return moe_ffn(bp["ffn"], h, cfg)
+    return apply_mlp(bp["ffn"], h, cfg), dict(AUX_ZERO)
 
 
 def model_specs(cfg: ModelConfig) -> dict:
@@ -131,7 +125,7 @@ def _unstack(tree: dict, n: int) -> list[dict]:
 # ---------------------------------------------------------------------------
 
 def _apply_block(bp: dict, kind: str, x: torch.Tensor, cfg: ModelConfig,
-                 positions: torch.Tensor) -> torch.Tensor:
+                 positions: torch.Tensor) -> tuple[torch.Tensor, dict]:
     h = apply_norm(bp["ln1"], x, cfg)
     if kind == "rwkv6":
         x = x + time_mix_fwd(bp["mix"], h, cfg)
@@ -140,7 +134,8 @@ def _apply_block(bp: dict, kind: str, x: torch.Tensor, cfg: ModelConfig,
     else:
         x = x + attn.attention_fwd(bp["mix"], h, cfg, kind, positions)
     h2 = apply_norm(bp["ln2"], x, cfg)
-    return x + _apply_ffn(bp, kind, h2, cfg)
+    f, aux = _apply_ffn(bp, kind, h2, cfg)
+    return x + f, aux
 
 
 def _remat_wrap(fn, remat: str):
@@ -157,37 +152,50 @@ def _remat_wrap(fn, remat: str):
     raise ValueError(f"unknown remat policy {remat!r}")
 
 
-def forward(params: dict, tokens: torch.Tensor, cfg: ModelConfig,
-            remat: str = "none") -> torch.Tensor:
-    """Full-sequence forward.  tokens: (B, S) int -> logits (B, S, V) f32."""
+def _forward_aux(params: dict, tokens: torch.Tensor, cfg: ModelConfig,
+                 remat: str = "none") -> tuple[torch.Tensor, dict]:
+    """Full-sequence forward and the FFNs' aux losses summed over the
+    layers in layer order (JAX's ``forward``; Python zeros for a model
+    without MoE layers)."""
     check_supported(cfg)
     B, S = tokens.shape
     x = embed_tokens(params, tokens, cfg)
     positions = torch.arange(S, device=tokens.device).expand(B, S)
+    aux = dict(AUX_ZERO)
     for gi, g in enumerate(cfg.groups):
 
-        def body(xc, slot_params, _g=g):
+        def body(xc, auxc, slot_params, _g=g):
             for si, kind in enumerate(_g.pattern):
-                xc = _apply_block(slot_params[f"s{si}"], kind, xc, cfg,
-                                  positions)
-            return xc
+                xc, a = _apply_block(slot_params[f"s{si}"], kind, xc, cfg,
+                                     positions)
+                auxc = {k: auxc[k] + a[k] for k in AUX_ZERO}
+            return xc, auxc
 
         layer = _remat_wrap(body, remat)
         for lp in _unstack(params["groups"][f"g{gi}"], g.n):
-            x = layer(x, lp)
+            x, aux = layer(x, aux, lp)
     x = apply_norm(params["final_norm"], x, cfg)
-    return lm_logits(params, x, cfg)
+    return lm_logits(params, x, cfg), aux
+
+
+def forward(params: dict, tokens: torch.Tensor, cfg: ModelConfig,
+            remat: str = "none") -> torch.Tensor:
+    """Full-sequence forward.  tokens: (B, S) int -> logits (B, S, V) f32."""
+    return _forward_aux(params, tokens, cfg, remat)[0]
 
 
 def lm_loss(params: dict, batch: dict, cfg: ModelConfig,
             remat: str = "none") -> tuple[torch.Tensor, dict]:
-    """Next-token cross entropy.  batch: tokens (B,S), labels (B,S), mask
-    (B,S).  The label logit is picked with ``gather`` where the JAX package
-    sums against a one-hot: both are exact in f32, every other term being
-    0.  Dense models have no router losses, so the total is the loss; MoE
-    configs raise (``check_trainable``)."""
-    check_trainable(cfg)
-    logits = forward(params, batch["tokens"], cfg, remat=remat).float()
+    """Next-token cross entropy plus the MoE router's losses, as JAX's
+    ``lm_loss``: returns (total, {loss, total_loss, lb_loss,
+    router_entropy}), total = loss + router_aux_coef * lb / n_moe +
+    router_z_coef * z / n_moe (the layer sums over the MoE layer count;
+    dense models: zeros, total == loss).  batch: tokens (B,S), labels
+    (B,S), mask (B,S).  The label logit is picked with ``gather`` where
+    the JAX package sums against a one-hot: both are exact in f32, every
+    other term being 0."""
+    logits, aux = _forward_aux(params, batch["tokens"], cfg, remat=remat)
+    logits = logits.float()
     lse = torch.logsumexp(logits, dim=-1)                       # (B, S)
     correct = torch.gather(logits, -1,
                            batch["labels"].long()[..., None])[..., 0]
@@ -195,10 +203,17 @@ def lm_loss(params: dict, batch: dict, cfg: ModelConfig,
     mask = batch.get("mask")
     mask = torch.ones_like(nll) if mask is None else mask.float()
     loss = torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)
-    zero = torch.zeros((), dtype=torch.float32, device=loss.device)
-    metrics = {"loss": loss, "total_loss": loss, "lb_loss": zero,
-               "router_entropy": zero}
-    return loss, metrics
+    if not cfg.is_moe:              # JAX's total is loss + 0 * 0: loss
+        zero = torch.zeros((), dtype=torch.float32, device=loss.device)
+        return loss, {"loss": loss, "total_loss": loss, "lb_loss": zero,
+                      "router_entropy": zero}
+    n_moe = sum(1 for k in cfg.layer_kinds if k != "xattn")
+    total = (loss + cfg.router_aux_coef * aux["lb_loss"] / n_moe
+             + cfg.router_z_coef * aux["z_loss"] / n_moe)
+    metrics = {"loss": loss, "total_loss": total,
+               "lb_loss": aux["lb_loss"] / n_moe,
+               "router_entropy": aux["router_entropy"] / n_moe}
+    return total, metrics
 
 
 # ---------------------------------------------------------------------------
@@ -232,7 +247,7 @@ def _recurrent_block(bp: dict, kind: str, x: torch.Tensor, state: dict,
         f = chan_mix_fwd(bp["ffn"], h2, cfg, x_last=state["cx_last"])
         new["cx_last"] = h2[:, -1]
     else:
-        f = _apply_ffn(bp, kind, h2, cfg)
+        f = _apply_ffn(bp, kind, h2, cfg)[0]
     return x + f, new
 
 
@@ -278,7 +293,7 @@ def _prefill_block(bp: dict, kind: str, x: torch.Tensor, cfg: ModelConfig,
     c = _fill_kv(cfg, kind, kk, vv, cache_len)
     x = x + mix
     h2 = apply_norm(bp["ln2"], x, cfg)
-    return x + _apply_ffn(bp, kind, h2, cfg), c
+    return x + _apply_ffn(bp, kind, h2, cfg)[0], c
 
 
 def _stack_layers(per_layer: dict[str, list[dict]]) -> dict:
@@ -338,7 +353,7 @@ def _decode_block(bp: dict, kind: str, x: torch.Tensor, c: dict,
     mix, _ = attn.attention_decode_paged(bp["mix"], h, c, cfg, kind, pos)
     x = x + mix
     h2 = apply_norm(bp["ln2"], x, cfg)
-    return x + _apply_ffn(bp, kind, h2, cfg)
+    return x + _apply_ffn(bp, kind, h2, cfg)[0]
 
 
 def decode_step(params: dict, cache: dict, tokens: torch.Tensor,
@@ -402,7 +417,7 @@ def _chunk_block(bp: dict, kind: str, x: torch.Tensor, c: dict, car: dict,
                                           start, pos[L])
     x = x + mix
     h2 = apply_norm(bp["ln2"], x, cfg)
-    return x + _apply_ffn(bp, kind, h2, cfg), car
+    return x + _apply_ffn(bp, kind, h2, cfg)[0], car
 
 
 def prefill_chunk(params: dict, cache: dict, tokens: torch.Tensor,

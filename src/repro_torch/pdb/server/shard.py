@@ -22,10 +22,15 @@ Retries are safe: every state-mutating message is keyed by
 ``(kind, worker, chunk, itr)`` and deduplicated, so a client that resends
 after a connection reset (shard death drill, ``runtime.fault.Backoff``)
 gets at-least-once delivery with exactly-once recording.  A resent read
-gets the version it was served the first time: its recording may have let
-the chunk's owner write since (the first response lost with a killed
-shard), so each chunk keeps the value its last write replaced (the JAX
-shard serves the current version there, one write too new).  With
+gets the reply it was given the first time, the version its telemetry
+records: its recording may have let other workers write the chunk since
+(the first response lost with a killed shard; up to delta + 1 writes at
+delay delta), so the shard keeps, per worker and chunk, the reply to the
+worker's last read of it (version, value, drift) and answers a resend
+with that.  A worker resends only its last read of a chunk, so one reply
+per (worker, chunk) is enough at any delay; a kept value is a reference
+to the tensor a later write replaced, never a copy.  (The JAX shard
+serves the current version there, up to delta + 1 writes too new.)  With
 ``--snapshot`` the shard persists its state (chunks, policy, dedup set,
 telemetry, Lamport clock) after each mutation and restores it on boot —
 a killed-and-restarted shard resumes where it died.
@@ -91,9 +96,9 @@ class ShardState:
         self.version = {c: 0 for c in self.chunks}
         self.cum_change = {c: 0.0 for c in self.chunks}   # vap ledger (L-inf)
         self.seen: set[tuple] = set()
-        self.served: dict[tuple, int] = {}      # read key -> version served
-        # chunk -> (version, value, cum) that its last write replaced
-        self.prev: dict[int, tuple] = {}
+        # (worker, chunk) -> (itr, version, modified, value, cum): the
+        # reply to the worker's last read of the chunk, for its resend
+        self.replies: dict[tuple, tuple] = {}
         self.lamport = 0
         self.cond = threading.Condition()
 
@@ -107,7 +112,7 @@ class ShardState:
         blob = pickle.dumps({
             "cfg": self.cfg, "chunks": self.chunks, "policy": self.policy,
             "version": self.version, "cum_change": self.cum_change,
-            "seen": self.seen, "served": self.served, "prev": self.prev,
+            "seen": self.seen, "replies": self.replies,
             "lamport": self.lamport, "telemetry": self.telemetry})
         tmp = path + ".tmp"
         with open(tmp, "wb") as f:
@@ -124,7 +129,7 @@ class ShardState:
         self.chunks, self.policy = d["chunks"], d["policy"]
         self.version, self.cum_change = d["version"], d["cum_change"]
         self.seen, self.lamport = d["seen"], d["lamport"]
-        self.served, self.prev = d["served"], d["prev"]
+        self.replies = d["replies"]
         self.telemetry = d["telemetry"]
         self.cond = threading.Condition()
         return self
@@ -189,11 +194,11 @@ class ShardState:
         bound) and no payload travels."""
         key = ("r", w, c, a)
         ver, cum = self.version[c], self.cum_change[c]
-        if key in self.seen:              # crash retry: serve, don't re-record
-            want = self.served.get(key, ver)
-            if want != ver and self.prev.get(c, (None,))[0] == want:
-                return want, True, self.prev[c][1], self.prev[c][2]
-            return ver, True, self.chunks[c], cum
+        if key in self.seen:              # crash retry: the first reply
+            itr, *reply = self.replies.get((w, c), (None,))
+            if itr == a:
+                return tuple(reply)
+            return ver, True, self.chunks[c], cum   # recorded by a notify
         vb = self.cfg.vbound
         if cached_ver is not None and cached_ver == ver:
             served, modified = ver, False             # cache validated
@@ -206,7 +211,7 @@ class ShardState:
         self.telemetry.on_read(w, c, a, version=served,
                                lamport=self._tick(None))
         self.seen.add(key)
-        self.served[key] = served
+        self.replies[w, c] = (a, served, modified, self.chunks[c], cum)
         self.cond.notify_all()
         return served, modified, self.chunks[c], cum
 
@@ -219,7 +224,6 @@ class ShardState:
         if key in self.seen:
             return
         old = self.chunks[c]
-        self.prev[c] = (self.version[c], old, self.cum_change[c])
         if old.shape == arr.shape:
             self.cum_change[c] += (float((arr - old).abs().max())
                                    if arr.numel() else 0.0)

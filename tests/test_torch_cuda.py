@@ -40,7 +40,8 @@ from repro_torch.kernels.decode_attention import (  # noqa: E402
 from repro_torch.kernels.flash_attention import (  # noqa: E402
     FlashAttention, flash_attention, flash_attention_bwd, kernel_smem, plan)
 from repro_torch.kernels.moe_matmul import (  # noqa: E402
-    SLOT_TILES, kernel_tiles, moe_grouped_ffn)
+    BWD_TILE_KEYS, SLOT_TILES, MoEGroupedFFN, bwd_kernel_tiles, kernel_tiles,
+    moe_grouped_ffn, plan_bwd)
 from repro_torch.kernels.moe_matmul import plan as moe_plan  # noqa: E402
 from repro_torch.kernels.page_gather import (  # noqa: E402
     page_gather, prefill_page_attention, prefill_page_attention_paged)
@@ -337,8 +338,9 @@ def test_ops_route_by_device_and_count_launches(gen):
     ops.ring_gather(hist, torch.tensor(1, dtype=torch.int32, device="cuda"))
     ops.prefill_page_attention_paged(*_paged_inputs(
         gen, 1, 8, 4, 4, 4, 2, 64, 5, torch.bfloat16))
-    ops.moe_grouped_ffn(*_moe_inputs(gen, 1, 8, 4, 4, 64, 96,
-                                     torch.bfloat16))
+    dispatch, *moe = _moe_inputs(gen, 1, 8, 4, 4, 64, 96, torch.bfloat16)
+    ops.moe_grouped_ffn(dispatch, *[t.requires_grad_() for t in moe]
+                        ).float().sum().backward()
     wkv = [t.requires_grad_() for t in _wkv_inputs(gen, 1, 9, 2, 16,
                                                    torch.bfloat16)]
     ops.rwkv6(*wkv).float().sum().backward()
@@ -871,9 +873,8 @@ def test_moe_grouped_ffn_is_sync_free_and_refuses(gen):
     strided = ins[3].transpose(1, 2).contiguous().transpose(1, 2)
     with pytest.raises(ValueError, match="contiguous"):
         moe_grouped_ffn(*ins[:3], strided, *ins[4:])
-    with pytest.raises(NotImplementedError, match="no backward"):
-        moe_grouped_ffn(*ins[:3], ins[3].float().requires_grad_(),
-                        ins[4].float(), ins[5].float())
+    with pytest.raises(ValueError, match="MoEGroupedFFN"):
+        moe_grouped_ffn(*ins[:3], ins[3].requires_grad_(), *ins[4:])
 
 
 def _moe_compare():
@@ -926,6 +927,130 @@ def test_moe_plan_matches_the_kernels(gen):
         for kind in ("up", "down"):
             k = p[kind]
             assert built[(nt, kind)] == (k["smem"], k["stages"], k["cols"])
+
+
+def _moe_grads(ins, dout, kernel):
+    """(dx, dcombine, dwg, dwu, dwd) of sum(out * dout): through
+    ``MoEGroupedFFN`` on the inputs (``kernel``), or through autograd of
+    the plain version in f32 on the same values."""
+    dispatch, combine, *rest = ins
+    if kernel:
+        leaves = [t.detach().clone().requires_grad_()
+                  for t in (combine, *rest)]
+        out = MoEGroupedFFN.apply(dispatch, *leaves)
+        g = torch.autograd.grad(out, leaves, dout)
+    else:
+        leaves = [t.detach().float().requires_grad_()
+                  for t in (combine, *rest)]
+        out = ref.moe_grouped_ffn(dispatch, *leaves)
+        g = torch.autograd.grad(out, leaves, dout.float())
+    dcomb, dx, dwg, dwu, dwd = g
+    return dx, dcomb, dwg, dwu, dwd
+
+
+MOE_BWD_NAMES = ("dx", "dcombine", "dwg", "dwu", "dwd")
+
+
+def _moe_bwd_close(got, want, dtype):
+    """f32 at rtol/atol 1e-4 (sums over up to a few hundred slots in
+    another order); bf16 to a normalized max error of 2e-2 per gradient
+    (dy, da, db rounded once to bf16, as the flash backward is held)."""
+    for name, a, b in zip(MOE_BWD_NAMES, got, want):
+        assert a.dtype == (torch.float32 if name == "dcombine" else dtype)
+        assert a.shape == b.shape, name
+        if dtype == torch.float32:
+            torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4,
+                                       msg=name)
+        else:
+            err = (a.float() - b).abs().max() / b.abs().max().clamp(
+                min=1e-30)
+            assert err <= 2e-2, (name, err.item())
+
+
+@pytest.mark.parametrize("G,g,E,C,d,f", [
+    (1, 16, 4, 8, 32, 48),
+    (2, 24, 4, 16, 16, 64),
+    (1, 32, 8, 10, 64, 96),         # capacity drops
+    (1, 128, 8, 40, 128, 256),
+    (2, 300, 8, 94, 64, 128),       # slot tiles past one block
+    (1, 512, 8, 160, 256, 384),     # two row blocks of slots, ragged
+])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_moe_grouped_ffn_bwd(gen, G, g, E, C, d, f, dtype):
+    ins = _moe_inputs(gen, G, g, E, C, d, f, dtype)
+    dout = _randn(gen, (G, g, d), dtype)
+    _moe_bwd_close(_moe_grads(ins, dout, True), _moe_grads(ins, dout, False),
+                   dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_moe_grouped_ffn_bwd_edge_cases(gen, dtype):
+    """An expert with no token gets exact-zero weight gradients, a token
+    no expert takes gets dx exactly 0, and a random dispatch (two tokens
+    in one slot, combine weights off the dispatch) against autograd."""
+    G, g, E, C, d, f = 1, 16, 4, 8, 64, 96
+    dispatch, combine = _moe_routing(gen, G, g, E, C)
+    dispatch[..., 2, :] = False               # expert 2 gets no token
+    combine[..., 2, :] = 0
+    dispatch[:, 5] = False                    # token 5 is dropped
+    combine[:, 5] = 0
+    ins = _moe_inputs(gen, G, g, E, C, d, f, dtype, (dispatch, combine))
+    dout = _randn(gen, (G, g, d), dtype)
+    got = _moe_grads(ins, dout, True)
+    _moe_bwd_close(got, _moe_grads(ins, dout, False), dtype)
+    dx, _, dwg, dwu, dwd = got
+    for w in (dwg, dwu, dwd):
+        assert torch.equal(w[2], torch.zeros_like(w[2]))
+    assert torch.equal(dx[:, 5], torch.zeros_like(dx[:, 5]))
+    rnd = torch.rand((G, g, E, C), generator=gen, device="cuda")
+    dispatch = rnd < 0.15
+    dispatch[0, 0, 1, 3] = dispatch[0, 1, 1, 3] = True   # two in one slot
+    combine = torch.rand((G, g, E, C), generator=gen, device="cuda")
+    ins = _moe_inputs(gen, G, g, E, C, d, f, dtype, (dispatch, combine))
+    _moe_bwd_close(_moe_grads(ins, dout, True), _moe_grads(ins, dout, False),
+                   dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_moe_grouped_ffn_bwd_bits_and_counts(gen, dtype):
+    """Two backward calls give the same bits (no atomics), the backward
+    makes no host synchronisation, and through ``ops.moe_grouped_ffn``
+    the forward counts one ``moe_grouped_ffn`` launch and the backward
+    one ``moe_grouped_ffn_bwd``."""
+    ins = _moe_inputs(gen, 2, 64, 8, 20, 128, 256, dtype)
+    dout = _randn(gen, (2, 64, 128), dtype)
+    first = _moe_grads(ins, dout, True)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        second = _moe_grads(ins, dout, True)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+    leaves = [t.detach().clone().requires_grad_() for t in ins[1:]]
+    ops.reset_launches()
+    out = ops.moe_grouped_ffn(ins[0], *leaves)
+    assert ops.launches["moe_grouped_ffn"] == 1
+    assert ops.launches["moe_grouped_ffn_bwd"] == 0
+    out.backward(dout)
+    assert ops.launches["moe_grouped_ffn_bwd"] == 1
+    with torch.no_grad():
+        ops.moe_grouped_ffn(*ins)
+    assert ops.launches["moe_grouped_ffn"] == 2
+    assert ops.launches["moe_grouped_ffn_bwd"] == 1
+
+
+def test_moe_plan_bwd_matches_the_kernels(gen):
+    """The wrapper's constants and plan_bwd state the backward blocks'
+    tiles, stages, shared memory and threads as the built library has
+    them."""
+    built = bwd_kernel_tiles()
+    p = plan_bwd(2, 1024, 8, 320, 4096, 14336, torch.bfloat16)
+    q = plan_bwd(2, 1024, 8, 320, 4096, 14336, torch.float32)
+    assert built == dict(zip(BWD_TILE_KEYS, (
+        p["tile"]["bm"], p["tile"]["bn"], p["tile"]["bk"],
+        p["tile"]["stages"], p["tile"]["smem"], p["tile"]["threads"],
+        q["tile"]["bm"], q["tile"]["bn"], q["tile"]["bk"], q["tile"]["smem"],
+        q["tile"]["threads"])))
 
 
 # ---------------------------------------------------------------------------

@@ -16,7 +16,8 @@
   other, as in JAX: a decode batch is one routing group, idle rows
   included) and 4.0; chunked and prefix-cached runs give JAX's tokens,
   ``prefill_chunks`` and ``prefix_hit_rate``.
-* MoE training raises ``NotImplementedError``.
+
+MoE training is held to JAX in tests/test_torch_moe_train.py.
 
 Inputs come from numpy with a seed; models run in f32.
 """
@@ -43,8 +44,6 @@ from repro_torch import serve as tserve  # noqa: E402
 from repro_torch.checkpoint import params_from_numpy  # noqa: E402
 from repro_torch.kernels import ops as tops  # noqa: E402
 from repro_torch.kernels import ref as tref  # noqa: E402
-from repro_torch.launch.steps import make_lm_grad_fn  # noqa: E402
-from repro_torch.core.sync import SyncConfig  # noqa: E402
 from repro_torch.models import moe as tmoe  # noqa: E402
 from repro_torch.models import paramlib as tparamlib  # noqa: E402
 from repro_torch.models import transformer as ttf  # noqa: E402
@@ -377,15 +376,3 @@ def test_chunked_and_prefix_cached_match_jax_engine(mixtral):
         assert got.prefix_hit_rate == want.prefix_hit_rate
         if knobs.get("prefix_cache"):
             assert got.prefix_hit_rate > 0
-
-
-def test_moe_training_raises():
-    cfg = tconfigs.get_smoke_config("mixtral-8x7b")
-    params = tparamlib.init_tree(ttf.model_specs(cfg),
-                                 torch.Generator().manual_seed(0))
-    batch = {"tokens": torch.zeros((1, 8), dtype=torch.int64),
-             "labels": torch.zeros((1, 8), dtype=torch.int64)}
-    with pytest.raises(NotImplementedError, match="MoE training"):
-        ttf.lm_loss(params, batch, cfg)
-    with pytest.raises(NotImplementedError, match="MoE training"):
-        make_lm_grad_fn(cfg, SyncConfig())

@@ -13,9 +13,14 @@ written here and not in the package, is held to the JAX package's Pallas
 kernel in interpret mode and to the same function in f64 at half of the
 card's gate: a normalized max error (max |emu - ref| / max |ref|) of
 1e-2, so the gate keeps a margin over what the rounding alone costs.
+``moe_matmul.plan_bwd``, the backward's tiles and grids, is held to the
+same limits at mixtral's training shape, to reading no data, and to the
+CUDA source's constants.
 """
 import inspect
 import math
+import re
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -28,8 +33,9 @@ from repro.kernels.moe_matmul import \
     moe_grouped_ffn as pallas_moe  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.kernels.flash_attention import SMEM_LIMIT, SMS  # noqa
+from repro_torch.kernels import moe_matmul as mm  # noqa: E402
 from repro_torch.kernels.moe_matmul import (  # noqa: E402
-    MAX_GRID, SLOT_TILES, plan)
+    MAX_GRID, SLOT_TILES, plan, plan_bwd)
 from repro_torch.models.moe import route  # noqa: E402
 
 torch.set_num_threads(1)
@@ -220,3 +226,75 @@ def test_bf16_rounding_within_half_the_gate(G, g, E, C, d, f, two):
     if C == 3:                           # the decode shape splits f
         assert p["ks"] > 1
 
+
+
+# ---------------------------------------------------------------------------
+# the backward's plan
+# ---------------------------------------------------------------------------
+
+# (G, g, E, C, d, f): mixtral-8x7b's training shape (batch 4 x 512 in
+# groups of 1024: C 320), llama4-scout's smoke-like width, the CUDA tests'
+BWD_SHAPES = [(2, 1024, 8, 320, 4096, 14336), (1, 16, 4, 8, 32, 48),
+              (2, 24, 4, 16, 16, 64), (2, 300, 8, 94, 64, 128),
+              (1, 512, 8, 160, 256, 384), (4, 64, 16, 10, 5120, 8192)]
+
+
+def test_mixtral_training_capacity():
+    assert _capacity(1024) == 320
+
+
+@pytest.mark.parametrize("shape", BWD_SHAPES,
+                         ids=lambda s: "x".join(map(str, s)))
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_plan_bwd_fits_shared_memory_and_the_grid(shape, dtype):
+    G, g, E, C, d, f = shape
+    p = plan_bwd(G, g, E, C, d, f, dtype)
+    t = p["tile"]
+    assert t["route"] == ("mma" if dtype == torch.bfloat16 else "simt")
+    limit = SMEM_LIMIT if t["route"] == "mma" else 48 * 1024
+    assert 0 < t["smem"] <= limit and t["threads"] == 256
+    assert p["sw"]["smem"] <= 48 * 1024
+    for name in ("dy", "dh", "dxin", "dwd", "dwg_dwu", "dx", "dcombine"):
+        grid = p[name]["grid"]
+        assert 0 < grid[0] < 2 ** 31, name
+        assert all(0 < v <= MAX_GRID for v in grid[1:]), name
+        assert p[name]["smem"] <= SMEM_LIMIT
+    bm, bn = t["bm"], t["bn"]
+    # every output element has a block: slots x f, slots x d, f x d, d x f
+    assert p["dh"]["grid"][0] * bn >= f and p["dh"]["grid"][1] * bm >= C
+    assert p["dxin"]["grid"][0] * bn >= d and p["dh"]["grid"][2] == G * E
+    assert p["dwd"]["grid"][:2] == (-(-d // bn), -(-f // bm))
+    assert p["dwg_dwu"]["grid"][:2] == (-(-f // bn), -(-d // bm))
+    assert p["dwd"]["grid"][2] == p["dwg_dwu"]["grid"][2] == E
+    assert p["dcombine"]["grid"] == (-(-(E * C) // p["sw"]["bn"]),
+                                     -(-g // p["sw"]["bm"]), G)
+    assert p["launches"] == 9
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_plan_bwd_reads_no_data(dtype):
+    assert list(inspect.signature(plan_bwd).parameters) == \
+        ["G", "g", "E", "C", "d", "f", "dtype"]
+    for shape in BWD_SHAPES:
+        assert plan_bwd(*shape, dtype) == plan_bwd(*shape, dtype)
+
+
+def test_plan_bwd_states_the_source():
+    """The wrapper's constants are the CUDA source's (the card's tests
+    hold the built library's ``moe_grouped_ffn_bwd_tiles`` to them too)."""
+    src = (Path(mm.__file__).with_name("csrc")
+           / "moe_grouped_ffn.cu").read_text()
+    consts = {k: int(v) for k, v in re.findall(
+        r"constexpr int ((?:BW|SW)_[A-Z]+) = (\d+);", src)}
+    assert consts == dict(BW_BM=mm.BW_BM, BW_BN=mm.BW_BN, BW_BK=mm.BW_BK,
+                          BW_STAGES=mm.BW_STAGES, BW_THREADS=mm.BW_THREADS,
+                          SW_BM=mm.SW_BM, SW_BN=mm.SW_BN, SW_BK=mm.SW_BK,
+                          SW_THREADS=mm.SW_THREADS)
+    assert "BW_TILE = BW_BM * BW_BK * 2;" in src
+    assert "BW_SMEM = 1024 + BW_STAGES * 2 * BW_TILE;" in src
+    assert "SW_SMEM = 2 * SW_BK * (SW_BM + 4) * 4;" in src
+    assert mm.BW_SMEM == 1024 + mm.BW_STAGES * 2 * mm.BW_BM * mm.BW_BK * 2
+    assert mm.SW_SMEM == 2 * mm.SW_BK * (mm.SW_BM + 4) * 4
+    p = plan_bwd(2, 1024, 8, 320, 4096, 14336, torch.bfloat16)
+    assert (p["tile"]["bm"], p["tile"]["bk"], p["tile"]["smem"]) == \
+        (mm.BW_BM, mm.BW_BK, mm.BW_SMEM)

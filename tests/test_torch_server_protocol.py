@@ -391,7 +391,8 @@ def test_shard_drift_ledger_is_numpys_linf():
 
 def test_shard_state_snapshot_restores(tmp_path):
     """The atomic pickle snapshot round-trips chunks, versions, dedup set,
-    Lamport clock and the Lamport-stamped telemetry."""
+    the replies kept for resends, Lamport clock and the Lamport-stamped
+    telemetry."""
     path = str(tmp_path / "s.pkl")
     cfg = ShardConfig(shard_id=0, n_shards=1, n_workers=1, n_chunks=1,
                       policy="dc", snapshot_path=path)
@@ -404,8 +405,10 @@ def test_shard_state_snapshot_restores(tmp_path):
     back = ShardState.restore(path)
     assert torch.equal(back.chunks[0], st.chunks[0])
     assert back.version == {0: 1} and back.seen == st.seen
-    assert back.served == st.served == {("r", 0, 0, 1): 0}
-    assert torch.equal(back.prev[0][1], torch.zeros(3, dtype=torch.float64))
+    (itr, version, modified, value, cum), = back.replies.values()
+    assert list(back.replies) == list(st.replies) == [(0, 0)]
+    assert (itr, version, modified, cum) == (1, 0, True, 0.0)
+    assert torch.equal(value, torch.zeros(3, dtype=torch.float64))
     assert back.lamport == st.lamport
     assert back.telemetry.timed_history() == st.telemetry.timed_history()
     assert back.cum_change == st.cum_change == {0: 3.0}
@@ -485,3 +488,78 @@ def test_telemetry_pickles_with_its_lamport_stamps():
     back.on_retry(1)                          # its lock was rebuilt
     assert back.stats.retried_steps == 1
     assert Telemetry().timed_history() == []
+
+
+@pytest.mark.parametrize("batched", [False, True], ids=["read", "batch"])
+def test_resent_read_at_delta_2_gets_the_version_its_telemetry_records(
+        batched):
+    """Delay 2, two workers each owning one chunk of a one-shard store:
+    worker 1's read of chunk 0 at iteration 1 is recorded but its reply
+    lost, and the owner writes chunk 0 twice (iterations 1 and 2) before
+    the resend.  The resend gets version 0 and its value, the version the
+    shard's telemetry recorded at the first serve (JAX's shard serves
+    version 2); every read's returned version is the recorded one (the
+    telemetry's staleness sum), and the completed history passes
+    ``core.history``'s checks at delay 2."""
+    from repro.pdb.server.shard import ShardConfig as JShardConfig
+    from repro.pdb.server.shard import ShardState as JShardState
+    cfg = dict(shard_id=0, n_shards=1, n_workers=2, n_chunks=2,
+               policy="dc", delta=2, timeout=1.0)
+
+    def read(st, w, c, a):
+        if batched:
+            resp, payload = st.read_batch({"op": "read_batch", "worker": w,
+                                           "itr": a, "ops": [[c, a]]})
+            (_, version, _, _), = resp["results"]
+            value = JP.unpack_arrays(resp["manifest"], bytes(payload))[c]
+        else:
+            resp, payload = st.read({"op": "read", "worker": w, "chunk": c,
+                                     "itr": a})
+            version = resp["version"]
+            value = JP.decode_array(resp, bytes(payload))
+        return version, np.asarray(value).tolist()
+
+    def write(st, w, a):
+        meta, payload = JP.encode_array(np.full(2, float(a)))
+        resp, _ = st.write({"op": "write", "worker": w, "chunk": w,
+                            "itr": a, **meta}, payload)
+        assert resp["ok"], resp
+
+    resent = {}
+    for name, state_cls, cfg_cls in (("port", ShardState, ShardConfig),
+                                     ("jax", JShardState, JShardConfig)):
+        st = state_cls(cfg_cls(**cfg), {0: np.zeros(2), 1: np.zeros(2)})
+        staleness = []
+
+        def rd(w, c, a):
+            version, value = read(st, w, c, a)
+            staleness.append((a - 1) - version)
+            return version, value
+
+        for c in (0, 1):
+            rd(0, c, 1)
+        rd(1, 0, 1)                 # recorded; say its reply was lost
+        staleness.pop()             # ... so the worker never saw it
+        rd(1, 1, 1)
+        write(st, 0, 1)
+        for c in (0, 1):
+            rd(0, c, 2)
+        write(st, 0, 2)             # two writes since the lost reply
+        resent[name] = rd(1, 0, 1)  # the resend
+        assert st.telemetry.stats.reads == 6      # not recorded again
+        write(st, 1, 1)
+        for a in (2, 3):
+            for w in ((1,) if a == 2 else (0, 1)):
+                for c in (0, 1):
+                    rd(w, c, a)
+                write(st, w, a)
+        if name == "port":
+            assert sum(staleness) == st.telemetry.stats.sum_staleness
+            h = st.telemetry.history
+            assert H.is_complete(h, 2, 3)
+            assert H.satisfies_rcwc(h, 2, delta=2)
+            merged = [op for _, op in sorted(st.telemetry.timed_history(),
+                                             key=lambda t: t[0])]
+            assert merged == h
+    assert resent["port"] == (0, [0.0, 0.0])
+    assert resent["jax"] == (2, [2.0, 2.0])
