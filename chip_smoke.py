@@ -1071,6 +1071,80 @@ def _moe_bwd_errs(torch, got, want) -> dict:
             for n, a, b in zip(MOE_BWD_NAMES, got, want)}
 
 
+# the bf16 backward's launches in order (moe_matmul.plan_bwd's names)
+MOE_BWD_LAUNCHES = ("rows", "dy", "dh", "dxin", "dwd", "dwg_dwu", "dx",
+                    "dcombine")
+# an earlier version's csrc, unpacked here to be timed in turns with this
+# one (optional; the MoE backward check skips it when absent)
+MOE_PARENT_DIR = ROOT / "build" / "moe_parent"
+
+
+def moe_bwd_bounds(G, g, E, C, d, f, slots: int, experts: int) -> dict:
+    """The backward's least time at one shape: operations, six products of
+    2 d f flops a live slot and dcombine's 2 d g a live slot, against the
+    bytes it must move (each expert's weights read and their gradients
+    written once, dout, dispatch, combine, the saved xin, H, a, b and
+    bf16 y of each live slot, dx and dcombine).  ``bound_ms`` counts
+    dcombine on the tensor cores in bf16 (the route it takes);
+    ``bound_ms_dcombine_f32`` on the CUDA cores in f32."""
+    tc, dc = 12.0 * d * f * slots, 2.0 * d * g * slots
+    need = (experts * 3 * d * f * 2 * 2 + G * g * d * 2 * 2
+            + G * g * E * C * (1 + 4 + 4) + slots * (d * 2 * 2 + 3 * f * 2))
+    t_bytes = need / PEAK_BYTES_PER_S
+    t_new = (tc + dc) / PEAK_FLOPS["bfloat16"]
+    t_old = tc / PEAK_FLOPS["bfloat16"] + dc / PEAK_FLOPS["float32"]
+    return dict(bound_ms=max(t_new, t_bytes) * 1e3,
+                bound_by="operations" if t_new >= t_bytes else "bytes",
+                bound_ms_dcombine_f32=max(t_old, t_bytes) * 1e3)
+
+
+def launch_breakdown(fn, names, calls: int = 3) -> dict:
+    """{launch name: mean device ms} of the kernels one call of ``fn(i)``
+    makes, from a ``torch.profiler`` trace of the last ``calls`` of
+    ``calls + 1`` calls (a call's kernels in their start order, named by
+    ``names``), and their kernel names under ``"kernels"``."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn(0)
+    torch.cuda.synchronize()
+    # one call more than is read: the trace can miss the first kernels of
+    # its window, so the last ``calls`` calls' kernels are taken
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for i in range(calls + 1):
+            fn(i)
+        torch.cuda.synchronize()
+    ev = sorted((e for e in prof.events()
+                 if e.device_type.name == "CUDA" and "moe_" in e.name),
+                key=lambda e: e.time_range.start)
+    if len(ev) < calls * len(names) or len(ev) > (calls + 1) * len(names):
+        raise RuntimeError(f"{len(ev)} kernels in {calls + 1} calls, want "
+                           f"{len(names)} a call: "
+                           f"{[e.name[:40] for e in ev[:12]]}")
+    ev = ev[len(ev) - calls * len(names):]
+    out = {n: sum(ev[c * len(names) + i].time_range.elapsed_us()
+                  for c in range(calls)) / calls / 1e3
+           for i, n in enumerate(names)}
+    out["kernels"] = [re.sub(r"^.*?(moe_\w+).*$", r"\1", e.name)
+                      for e in ev[:len(names)]]
+    return out
+
+
+def moe_parent_backward(dispatch, combine, x, ws, dout):
+    """The backward of the version unpacked at ``MOE_PARENT_DIR`` (built
+    with nvcc there, through ``tools/moe_compare.py``'s loader), as
+    ``fn(i)``; None when no such version is there."""
+    if not (MOE_PARENT_DIR / "moe_grouped_ffn.cu").exists():
+        return None
+    import importlib.util
+    from repro_torch.kernels import _build
+    spec = importlib.util.spec_from_file_location(
+        "moe_compare", ROOT / "tools" / "moe_compare.py")
+    mc = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mc)
+    lib = mc.load_other(MOE_PARENT_DIR, _build._nvcc(), _build.NVCC_FLAGS)
+    return mc.other_backward(lib, dispatch, combine, x, ws, dout)
+
+
 def check_moe_grouped_ffn_bwd(torch, F, ref, gen):
     """The grouped FFN's backward kernel (``moe_grouped_ffn_bwd``) against
     torch autograd of the plain version in f32 on the same inputs, at
@@ -1081,16 +1155,19 @@ def check_moe_grouped_ffn_bwd(torch, F, ref, gen):
     slot and combine weights off the dispatch: 2e-2), one narrow f32 case
     at rtol/atol 1e-4, and two calls bit for bit.  Timed (the backward's
     launch alone, from one forward's saved tensors) beside its bound
-    (operations: six products of 2 d f flops a live slot on the tensor
-    cores, dcombine's 2 d flops a (token, live slot) pair on the CUDA
-    cores), autograd of the plain version in bf16, and as a library
-    yardstick torch autograd through three ``torch.bmm`` and SwiGLU on
-    the gathered (E, G C, d) input (no dispatch, combine or their
-    gradients: no single PyTorch call computes them)."""
+    (``moe_bwd_bounds``: operations, with dcombine on the tensor cores as
+    it runs, and beside it with dcombine on the CUDA cores), autograd of
+    the plain version in bf16, and as a library yardstick torch autograd
+    through three ``torch.bmm`` and SwiGLU on the gathered (E, G C, d)
+    input (no dispatch, combine or their gradients: no single PyTorch
+    call computes them); each launch's time from a profiler trace; and,
+    when an earlier version's source is unpacked at ``MOE_PARENT_DIR``,
+    that version's backward in turns (parent, this, this, parent)."""
     from repro_torch.configs import get_config
     from repro_torch.kernels.moe_matmul import (
         launch_forward, moe_grouped_ffn_bwd, plan_bwd)
     cfg = get_config("mixtral-8x7b")
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
     E, d, f, bf = cfg.n_experts, cfg.d_model, cfg.d_ff, torch.bfloat16
     G, g = MOE_SHAPES[-1][1:]
 
@@ -1124,22 +1201,31 @@ def check_moe_grouped_ffn_bwd(torch, F, ref, gen):
     # timing: the backward's launch alone, from one forward's tensors
     ins = (dispatch, combine, x, *ws)
     _, saved = launch_forward(ins, save=True)
-    ms, host_ms = time_ms(lambda i: moe_grouped_ffn_bwd(
-        dout, dispatch, combine, *ws, saved), 10)
+    this = lambda i: moe_grouped_ffn_bwd(  # noqa: E731
+        dout, dispatch, combine, *ws, saved)
+    parent = moe_parent_backward(dispatch, combine, x, ws, dout)
+    parent_ms = None
+    if parent is None:
+        ms, host_ms = time_ms(this, 10)
+    else:   # in turns: parent, this, this, parent
+        turns = [time_ms(fn, 10) for fn in (parent, this, this, parent)]
+        ms, host_ms = turns[1]
+        parent_ms = [turns[0][0], turns[3][0]]
+        print("moe_grouped_ffn_bwd ms in turns (parent, this, this, "
+              "parent):", json.dumps([t[0] for t in turns]), flush=True)
+    breakdown = launch_breakdown(this, MOE_BWD_LAUNCHES)
+    print("moe_grouped_ffn_bwd launches (ms):", json.dumps(breakdown),
+          flush=True)
+    del parent
     live = dispatch.any(1)                              # (G, E, C)
     slots = int(live.sum().item())
     experts = int(live.any(2).any(0).sum().item())
-    tc_flops = 6 * 2.0 * d * f * slots
-    simt_flops = 2.0 * d * g * slots                    # dcombine
-    need = (experts * 3 * d * f * 2 * 2                 # weights, gradients
-            + nbytes(dout, dispatch, combine)
-            + slots * (d * 2 + 3 * f * 2 + d * 4)       # xin, H, a, b, y
-            + nbytes(x) + G * g * E * C * 4)            # dx, dcombine
-    t_ops = (tc_flops / PEAK_FLOPS["bfloat16"]
-             + simt_flops / PEAK_FLOPS["float32"])
-    t_bytes = need / PEAK_BYTES_PER_S
-    b_ms, b_by = max(t_ops, t_bytes) * 1e3, \
-        "operations" if t_ops >= t_bytes else "bytes"
+    bounds = moe_bwd_bounds(G, g, E, C, d, f, slots, experts)
+    b_ms, b_by = bounds["bound_ms"], bounds["bound_by"]
+    print("moe_grouped_ffn_bwd bounds:", json.dumps(dict(
+        ms=ms, **bounds, share=bounds["bound_ms"] / ms,
+        share_dcombine_f32=bounds["bound_ms_dcombine_f32"] / ms)),
+        flush=True)
     del saved
     pin = [t.clone().requires_grad_() for t in (combine, x, *ws)]
     pout = ref.moe_grouped_ffn(dispatch, *pin)
@@ -1156,7 +1242,7 @@ def check_moe_grouped_ffn_bwd(torch, F, ref, gen):
         lout, lin, ldo, retain_graph=True), 10)[0]
     del lin, lout, ldo
     torch.cuda.empty_cache()
-    p = plan_bwd(G, g, E, C, d, f, bf)
+    p = plan_bwd(G, g, E, C, d, f, bf, n_sm)
 
     # edge cases at the decode shape
     dispatch, combine = moe_route(torch, gen, cfg, 8)
@@ -1213,7 +1299,10 @@ def check_moe_grouped_ffn_bwd(torch, F, ref, gen):
                library="torch autograd through 3 x torch.bmm + SwiGLU on "
                        "the gathered (E, G C, d) input",
                bound_ms=b_ms, bound_by=b_by,
-               plan={k: p[k] for k in ("tile", "dh", "dwd", "dcombine")},
+               bound_ms_dcombine_f32=bounds["bound_ms_dcombine_f32"],
+               parent_ms=parent_ms, breakdown=breakdown,
+               plan={k: p[k] for k in ("tile", "dh", "dxin", "dwd",
+                                       "dwg_dwu", "dcombine")},
                edge_cases=edge)
     print("moe_grouped_ffn_bwd", json.dumps(row), flush=True)
     return row
@@ -2325,7 +2414,8 @@ KERNEL_GROUPS = (("flash_attention", "flash_fwd_kernel"),
                  ("moe_grouped_ffn_bwd", "moe_bwd_"),
                  ("moe_grouped_ffn", ("moe_dispatch_kernel",
                                       "moe_mma_kernel", "moe_gemm_kernel",
-                                      "moe_combine_kernel")),
+                                      "moe_combine_kernel",
+                                      "moe_save_y_kernel")),
                  ("rwkv6_scan", ("rwkv6_fwd_sum_kernel", "rwkv6_fwd_kernel")),
                  ("rwkv6_scan_bwd", ("rwkv6_bwd_sum_kernel",
                                      "rwkv6_bwd_dv_kernel", "rwkv6_bwd_kernel",
@@ -3760,18 +3850,24 @@ def check_moe_build(torch) -> None:
     with, at every slot tile; and ``plan_bwd`` the backward blocks'
     tiles, stages, shared memory and threads, in both types."""
     from repro_torch.kernels.moe_matmul import (
-        BWD_TILE_KEYS, SLOT_TILES, bwd_kernel_tiles, kernel_tiles, plan,
-        plan_bwd)
+        BWD_TILE_KEYS, SLOT_TILES, TC_PRODUCTS, bwd_kernel_queues,
+        bwd_kernel_tiles, kernel_tiles, plan, plan_bwd)
     bwd = bwd_kernel_tiles()
-    pb = {dt: plan_bwd(2, 1024, 8, 320, 4096, 14336, dt)
+    shape = (2, 1024, 8, 320, 4096, 14336)
+    pb = {dt: plan_bwd(*shape, dt, 132)
           for dt in (torch.bfloat16, torch.float32)}
+    tb, sw = pb[torch.bfloat16], pb[torch.float32]
     want = dict(zip(BWD_TILE_KEYS, [
-        pb[torch.bfloat16]["tile"][k] for k in ("bm", "bn", "bk", "stages",
-                                                "smem", "threads")] + [
-        pb[torch.float32]["tile"][k] for k in ("bm", "bn", "bk", "smem",
-                                               "threads")]))
-    if bwd != want or pb[torch.bfloat16]["sw"]["smem"] != bwd["sw_smem"]:
-        raise AssertionError(f"moe plan_bwd vs kernels: {want} {bwd}")
+        tb["tile"][k] for k in ("bm", "bn", "bk", "stages", "smem",
+                                "wg_stages", "wg_smem", "threads",
+                                "producer_regs", "consumer_regs")] + [
+        sw["tile"][k] for k in ("bm", "bn", "bk", "smem", "threads")] + [
+        tb["rows"]["threads"]]))
+    queues = bwd_kernel_queues(*shape)
+    if bwd != want or tb["sw"]["smem"] != bwd["sw_smem"] or queues != {
+            k: tb[k]["queue"] for k in TC_PRODUCTS}:
+        raise AssertionError(f"moe plan_bwd vs kernels: {want} {bwd} "
+                             f"{queues}")
     built = kernel_tiles()
     for nt in SLOT_TILES:
         p = plan(1, nt, 8, nt, 4096, 14336, torch.bfloat16, 132)

@@ -63,6 +63,8 @@
 //   depth in 32-deep chunks, each thread keeping its share of the next
 //   chunk in flight in registers; xin and H are f32.  TF32 would move its
 //   1e-4 results, so it stays off the tensor cores.
+#include <cuda.h>
+
 #include "common.cuh"
 #include "hopper_mma.cuh"
 
@@ -643,7 +645,7 @@ int mma_slots(int nt, const __nv_bfloat16* A, const __nv_bfloat16* W1,
 
 // 512-column chunks of d: the dispatch and combine blocks of one slot or
 // token each take one
-int d_chunks(int d) { return (d + NT1 * 4 - 1) / (NT1 * 4); }
+__host__ __device__ int d_chunks(int d) { return (d + NT1 * 4 - 1) / (NT1 * 4); }
 
 template <typename T>
 int launch_combine(const float* combine, const int* live, const float* y,
@@ -663,58 +665,579 @@ int launch_combine(const float* combine, const int* live, const float* y,
   return (int)cudaGetLastError();
 }
 
+// the backward's y in bf16 (saved under grad): a slot's row of y summed
+// over the KS split partials in order and rounded once (the plain
+// version's own out_e), 0 for a slot without a token
+__global__ void __launch_bounds__(NT1) moe_save_y_kernel(
+    const float* __restrict__ y, const int* __restrict__ live,
+    __nv_bfloat16* __restrict__ ybf, int E, int C, int d, int KS,
+    long long split_stride) {
+  const int nchunk = d_chunks(d);
+  const int c = blockIdx.x / nchunk, chunk = blockIdx.x % nchunk;
+  const long long slot = ((long long)blockIdx.z * E + blockIdx.y) * C + c;
+  const int j = (chunk * NT1 + threadIdx.x) * 4;
+  if (j >= d) return;
+  float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+  if (live[slot]) {
+    const float* yr = y + slot * d + j;
+    v = load4(yr);
+    for (int s = 1; s < KS; ++s) {
+      const float4 q = load4(yr + s * split_stride);
+      v.x += q.x;
+      v.y += q.y;
+      v.z += q.z;
+      v.w += q.w;
+    }
+  }
+  store4<__nv_bfloat16>(ybf + slot * d + j, v);
+}
+
 // ---- backward -------------------------------------------------------------
 //
 // moe_grouped_ffn_bwd: the gradient of the function above with respect to
 // x, combine and the three weights, from dout (G, g, d) and what the
 // forward left: xin, H, the up product's pre-activations a = xin wg and
-// b = xin wu (kept under grad), the down product's f32 partials y and the
-// liveness flags.  Nine launches, no atomics: every output element is
-// written by one thread, its sum taken in a fixed order.
+// b = xin wu (kept under grad), the down product's output y and the
+// liveness flags.  No atomics: every output element is written by one
+// thread, its sum taken in a fixed order.
 //  (B1) dy gather: dy_e[c] = sum_t combine[t, e, c] dout[t] over the tokens
 //       with a weight in the slot (token order), for live slots;
 //  (B2) dh = dy wd^T, and in its epilogue da = dh * b * silu'(a),
 //       db = dh * silu(a);
-//  (B3) dxin = da wg^T, then (B4) dxin += db wu^T (f32);
-//  (B5) dwd_e = H_e^T dy_e, (B6) dwg_e = xin_e^T da_e, (B7) dwu_e =
-//       xin_e^T db_e: each a reduction over all G x C slots of expert e,
-//       looped over inside one block (the slots are the products' depth),
-//       dead slots zero-filled, so an expert without a token gets exact
-//       zeros;
-//  (B8) dx gather: dx[t] = sum over the (e, c) that dispatch t of
+//  (B3) dxin = da wg^T + db wu^T;
+//  (B4) dwd_e = H_e^T dy_e, (B5) dwg_e = xin_e^T da_e and dwu_e =
+//       xin_e^T db_e: reductions over the slots of expert e, exact zeros
+//       for an expert without a token;
+//  (B6) dx gather: dx[t] = sum over the (e, c) that dispatch t of
 //       dxin_e[c] (index order; a dropped token gets 0);
-//  (B9) dcombine[t, e, c] = dout[t] . y_e[c] in f32 (the ks partials of y
-//       are the depth's segments), 0 at dead slots.
-// Bound: operations.  (B2)-(B7) are six products of 2 d f flops a live
-// slot (mixtral's training shape, ~4,100 live slots: 2.9 TFLOP), (B9) 2 g
-// E C d a group.
-// bf16 runs (B2)-(B7) on the tensor cores (mma.sync m16n8k16 through
-// ldmatrix, f32 accumulators), blocks of 128 x 128 outputs streaming
-// 64-deep tiles of both operands through a 3-stage cp.async ring; each
-// operand is stored in shared memory as it lies in device memory (the
-// reduced dimension contiguous, "K-major", or the output's), in 128-byte
-// swizzled rows, and ldmatrix reads it with or without .trans: the
-// weights in (B2)-(B4) are read the other way round than the forward
-// reads them (dh = dy wd^T takes wd (f, d) with d, the reduced dimension,
-// contiguous), and in (B5)-(B7) both operands are slot-major with the
-// slots reduced.  da, db and dy are bf16 (the f32 values rounded once),
-// dxin and dcombine f32, the weight gradients rounded once to bf16.
-// f32, and (B9) in both types, runs on the CUDA cores: 128 x 128 outputs a
-// block, 8 x 8 a thread, 16-deep tiles.
+//  (B7) dcombine[t, e, c] = dout[t] . y_e[c], 0 at dead slots.
+// Bound: operations.  (B2)-(B5) are six products of 2 d f flops a live
+// slot (mixtral's training shape, ~4,100 live slots: 2.9 TFLOP), (B7) 2 d
+// flops a (token, slot) pair.
+//
+// bf16: eight launches, the products on the tensor cores.  (B0) lists,
+// one block an expert, the expert's slots across the G groups in (group,
+// slot) order, the live ones first, with their count and each slot's
+// place.  (B1) writes dy in list order (row i of expert e: its i-th
+// slot; a dead slot's row zeros), and (B2)'s epilogue da and db the same
+// way, so that the operands listed rows would otherwise have to be
+// gathered for are plain tiles.  (B2)-(B5) and (B7) are one
+// warp-specialised kernel, moe_bwd_tc_kernel<MODE>, on wgmma m64n256k16:
+// persistent blocks (one an SM) of three warpgroups walk a static tile
+// queue (tile blockIdx.x + i gridDim.x) ordered so that the tiles that
+// share a weight tile (B2, B3) or an activation tile (B4, B5) run at once
+// and share it in L2.  (B2), (B3) walk an expert's listed rows in 128-row
+// tiles, a tile past its count returning at once; (B4), (B5) reduce over
+// exactly its live rows, in 64-deep stages.  A dead slot is never read
+// (the forward leaves it unwritten, and NaN times a zero row is NaN).
+// One producer warp (of a warpgroup at TB_PRODUCER_REGS registers after
+// setmaxnreg) fills a ring of TB_STAGES 48 KB stages (128 x 64 of A, 256
+// x 64 of B; the loads, not the products, set the pace of a cp.async
+// ring here) with the Tensor Memory Accelerator through SWIZZLE_128B
+// tensor maps: one box an operand a stage, except the weight gradients'
+// A (H or xin at the slots' own rows), whose listed rows are cut into
+// runs of consecutive slots and read in boxes of 2^i rows; a box past a
+// tensor's edge reads zeros.  Each stage completes on its "full" mbarrier
+// by its bytes.  The two consumer warpgroups (TB_CONSUMER_REGS) each
+// multiply 64 x 256 outputs, keep one stage's wgmma group in flight, free
+// a stage on its "empty" mbarrier, and store their tile while the
+// producer fills the next tile's stages: the weight gradients (TB_WG_STAGES
+// stages) through shared memory and TMA, so that the store runs on under
+// the next tile's products.
+// Layouts (each operand in shared memory as it lies in device memory):
+//  * dh = dy wd_e^T and dxin = [da | db] [wg_e | wu_e]^T: both operands
+//    K-major; dxin is one product of depth 2 f, written once in f32 at the
+//    slots' own rows;
+//  * dwd_e = H^T dy and [dwg_e | dwu_e] = xin^T [da | db]: both MN-major
+//    (the listed slots are the depth; wgmma with both imm-trans bits);
+//    a dwg/dwu tile is 128 rows of d by 128 columns of f of each, so the
+//    xin tile is read once for both;
+//  * dcombine (a group's g x E C) = dout y^T: both K-major, y the
+//    forward's output summed over its split and rounded once to bf16 (the
+//    plain version's own out_e), 0 at dead slots.
+// da, db and dy are bf16 (the f32 values rounded once), dxin and dcombine
+// f32, the weight gradients rounded once to bf16.
+// f32 runs (B2)-(B5) and (B7) on the CUDA cores (moe_bwd_simt_kernel, nine
+// launches: dxin as two products, the second adding to the first; dwg and
+// dwu apart; dcombine over y's f32 split partials): 128 x 128 outputs a
+// block, 8 x 8 a thread, 16-deep tiles, dead slots zero-filled in each
+// load.
 
-constexpr int BW_BM = 128;       // tensor-core block: output rows
-constexpr int BW_BN = 128;       // ... columns
-constexpr int BW_BK = 64;        // ... depth of one stage
-constexpr int BW_STAGES = 3;
-constexpr int BW_THREADS = 256;  // 8 warps, 2 (rows) x 4 (columns)
-constexpr int BW_TILE = BW_BM * BW_BK * 2;  // bytes of one operand's tile
-constexpr int BW_SMEM = 1024 + BW_STAGES * 2 * BW_TILE;
+constexpr int TB_BM = 128;       // tensor-core tile: output rows
+constexpr int TB_BN = 256;       // ... columns (one m64n256 a warpgroup)
+constexpr int TB_BK = 64;        // ... depth of one stage
+constexpr int TB_STAGES = 4;     // ring of dh, dxin and dcombine
+constexpr int TB_WG_STAGES = 3;  // ... of the weight gradients
+constexpr int TB_THREADS = 384;  // a producer and two consumer warpgroups
+constexpr int TB_A = TB_BM * TB_BK * 2;  // bytes of a stage's A tile
+constexpr int TB_B = TB_BN * TB_BK * 2;  // ... B tile
+constexpr int TB_OUT = TB_BM * TB_BN * 2;  // a weight-gradient tile (bf16)
+constexpr int TB_SMEM = 1024 + TB_STAGES * (TB_A + TB_B);
+constexpr int TB_WG_SMEM = 1024 + TB_WG_STAGES * (TB_A + TB_B) + TB_OUT;
+constexpr int TB_PRODUCER_REGS = 48;
+constexpr int TB_CONSUMER_REGS = 224;
+constexpr int ROWS_THREADS = 256;  // (B0): one block an expert
 constexpr int SW_BM = 128;       // CUDA-core block: output rows
 constexpr int SW_BN = 128;       // ... columns
 constexpr int SW_BK = 16;        // ... depth of one tile
 constexpr int SW_THREADS = 256;  // 16 x 16 threads, 8 x 8 outputs each
 constexpr int SW_SMEM = 2 * SW_BK * (SW_BM + 4) * 4;
-static_assert(BW_BM == BW_BN, "one tile size for both operands");
+// setmaxnreg moves registers between the warpgroups of a block, within
+// what it launched with: 168 a thread at 384 threads (65,536 / 384, in
+// steps of 8)
+static_assert(TB_PRODUCER_REGS * 128 + TB_CONSUMER_REGS * 256 <=
+                  (65536 / TB_THREADS) / 8 * 8 * TB_THREADS,
+              "registers of one block");
+
+// the products of moe_bwd_tc_kernel
+constexpr int MODE_DH = 0, MODE_DXIN = 1, MODE_DWD = 2, MODE_DWGU = 3,
+              MODE_DCOMB = 4;
+
+// the weight gradients: both operands MN-major, a ring of TB_WG_STAGES
+// and the tile stored through shared memory
+__host__ __device__ constexpr bool wgrad(int mode) {
+  return mode == MODE_DWD || mode == MODE_DWGU;
+}
+
+__host__ __device__ constexpr int cdiv(int a, int b) { return (a + b - 1) / b; }
+
+// a product's tiles: z (expert, or group for dcombine) slowest, then a,
+// then b
+struct TileGrid {
+  int z, a, b;
+};
+
+__host__ __device__ inline TileGrid tc_tiles(int mode, int G, int g, int E,
+                                             int C, int d, int f) {
+  const int GC = G * C;
+  switch (mode) {
+    case MODE_DH:  // a: columns of f, b: listed rows
+      return {E, cdiv(f, TB_BN), cdiv(GC, TB_BM)};
+    case MODE_DXIN:  // a: columns of d, b: listed rows
+      return {E, cdiv(d, TB_BN), cdiv(GC, TB_BM)};
+    case MODE_DWD:  // a: rows of f, b: columns of d
+      return {E, cdiv(f, TB_BM), cdiv(d, TB_BN)};
+    case MODE_DWGU:  // a: rows of d, b: 128 columns of f of dwg and dwu
+      return {E, cdiv(d, TB_BM), cdiv(f, TB_BN / 2)};
+    default:  // dcombine, a group: a: slots, b: tokens
+      return {G, cdiv(E * C, TB_BN), cdiv(g, TB_BM)};
+  }
+}
+
+// The bf16 products' operands.  dy, da and db are in list order: (E, G C,
+// d or f), row i of expert e its i-th listed slot, rows past the count
+// zero as far as a weight gradient reads them (cdiv(count, 64) 64).  The
+// tensor maps (SWIZZLE_128B, 64-column boxes) by mode:
+//  dh:       a dy (d, G C, E) box 128 rows;  b wd (d, f, E) box 256
+//  dxin:     a da, a2 db (f, G C, E) 128;    b wg, b2 wu (f, d, E) 256
+//  dwd:      runs H (f, G E C);              b dy (d, G C, E) box 64
+//  dwg, dwu: runs xin (d, G E C);            b da, b2 db (f, G C, E) 64
+//  dcombine: a dout (d, g, G) box 128;       b y (d, E C, G) 256
+// runs[i]: the same tensor in boxes of 2^i rows, i = 0..6, for the
+// weight gradients' A, read at the slots' own rows
+constexpr int RUN_MAPS = 7;
+
+// o, o2: the weight gradients' outputs, (d, f, E) dwd or (f, d, E) dwg and
+// dwu, boxes of 64 x 64, stored from shared memory
+struct alignas(64) TcArgs {
+  CUtensorMap a, a2, b, b2, runs[RUN_MAPS], o, o2;
+  const __nv_bfloat16 *sa, *sb;
+  __nv_bfloat16 *da, *db, *dwg, *dwu, *dwd;
+  float *dxin, *dcomb;
+  // rows: E lists of G C slot indices ((group E + e) C + c, the live
+  // slots first), the E counts, then each slot's place in its list
+  const int* rows;
+  int G, g, E, C, d, f;
+};
+
+struct TcTile {
+  int z, m0, n0, ne, nk;
+  bool live;
+};
+
+template <int MODE>
+__device__ __forceinline__ TcTile tc_tile(const TcArgs& p, const TileGrid& tg,
+                                          int t) {
+  TcTile T;
+  const int b = t % tg.b, a = (t / tg.b) % tg.a;
+  T.z = t / (tg.a * tg.b);
+  T.ne = 0;
+  if constexpr (MODE != MODE_DCOMB)  // the expert's count of listed rows
+    T.ne = p.rows[(long long)p.E * p.G * p.C + T.z];
+  if constexpr (MODE == MODE_DH || MODE == MODE_DXIN) {
+    T.m0 = b * TB_BM;
+    T.n0 = a * TB_BN;
+    T.live = T.m0 < T.ne;  // a tile past the expert's rows: nothing
+    // dxin: the depth of da wg, then of db wu, each in whole stages
+    T.nk = MODE == MODE_DH ? cdiv(p.d, TB_BK) : 2 * cdiv(p.f, TB_BK);
+  } else if constexpr (MODE == MODE_DWD || MODE == MODE_DWGU) {
+    T.m0 = a * TB_BM;
+    T.n0 = b * (MODE == MODE_DWD ? TB_BN : TB_BN / 2);
+    T.live = true;  // no rows: the tile is written with zeros
+    T.nk = cdiv(T.ne, TB_BK);
+  } else {
+    T.m0 = b * TB_BM;
+    T.n0 = a * TB_BN;
+    T.live = true;
+    T.nk = cdiv(p.d, TB_BK);
+  }
+  return T;
+}
+
+// one stage of the tile (depth kt) into A (As) and B (Bs) by the producer
+// warp (lane 0 the boxes, every lane the listed rows), completing on bar.
+// K-major tiles land as [rows][64], MN-major ones as 64-column blocks of
+// [64 depth rows][64].
+template <int MODE>
+__device__ __forceinline__ void tc_load(const TcArgs& p, const TcTile& T,
+                                        int kt, uint32_t As, uint32_t Bs,
+                                        uint32_t bar, int lane) {
+  const int k0 = kt * TB_BK;
+  if constexpr (MODE == MODE_DWD || MODE == MODE_DWGU) {
+    // A: the stage's 64 listed slots (lane's rows lane and lane + 32) cut
+    // into runs of consecutive slots, each run read in boxes of 64, 32,
+    // ..., 1 rows by the lane at its start; the rows past the count are
+    // one run past the tensor's end (zeros).  Top-k routing fills each
+    // group's slots from 0 up, so a stage is one or two runs.
+    static_assert(TB_BK == 64, "two depth rows a lane");
+    const int* list = p.rows + (long long)T.z * p.G * p.C;
+    const int past = p.G * p.E * p.C;
+    int slot[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int kr = lane + 32 * h, j = k0 + kr;
+      slot[h] = j < T.ne ? list[j] : past + kr;
+    }
+    const int up0 = __shfl_up_sync(0xffffffffu, slot[0], 1);
+    const int up1 = __shfl_up_sync(0xffffffffu, slot[1], 1);
+    const int last0 = __shfl_sync(0xffffffffu, slot[0], 31);
+    const bool start[2] = {lane == 0 || slot[0] != up0 + 1,
+                           slot[1] != (lane == 0 ? last0 : up1) + 1};
+    const unsigned long long starts =
+        (unsigned long long)__ballot_sync(0xffffffffu, start[1]) << 32 |
+        __ballot_sync(0xffffffffu, start[0]);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      if (!start[h]) continue;
+      const int kr = lane + 32 * h;
+      const unsigned long long later =
+          kr == 63 ? 0ull : starts >> (kr + 1) << (kr + 1);
+      int len = (later ? __ffsll(later) - 1 : 64) - kr;
+      int r = kr, at = slot[h];
+      while (len > 0) {
+        const int lg = 31 - __clz(len);  // the largest power of two in len
+#pragma unroll
+        for (int blk = 0; blk < TB_BM / 64; ++blk)
+          tma_load_2d(As + blk * (TB_BK * 128) + r * 128, &p.runs[lg], bar,
+                      T.m0 + 64 * blk, at);
+        r += 1 << lg;
+        at += 1 << lg;
+        len -= 1 << lg;
+      }
+    }
+    if (lane == 0) {
+#pragma unroll
+      for (int blk = 0; blk < TB_BN / 64; ++blk) {
+        const int half = TB_BN / 2 / 64;  // dwg/dwu: blocks of da, then db
+        const void* map = MODE == MODE_DWGU && blk >= half ? &p.b2 : &p.b;
+        const int col = MODE == MODE_DWGU ? T.n0 + 64 * (blk % half)
+                                          : T.n0 + 64 * blk;
+        tma_load_3d(Bs + blk * (TB_BK * 128), map, bar, col, k0, T.z);
+      }
+    }
+  } else if (lane == 0) {
+    if constexpr (MODE == MODE_DH) {
+      tma_load_3d(As, &p.a, bar, k0, T.m0, T.z);
+      tma_load_3d(Bs, &p.b, bar, k0, T.n0, T.z);
+    } else if constexpr (MODE == MODE_DXIN) {  // da wg, then db wu
+      const int kf = cdiv(p.f, TB_BK);
+      const bool hi = kt >= kf;
+      const int k = (hi ? kt - kf : kt) * TB_BK;
+      tma_load_3d(As, hi ? &p.a2 : &p.a, bar, k, T.m0, T.z);
+      tma_load_3d(Bs, hi ? &p.b2 : &p.b, bar, k, T.n0, T.z);
+    } else {
+      tma_load_3d(As, &p.a, bar, k0, T.m0, T.z);
+      tma_load_3d(Bs, &p.b, bar, k0, T.n0, T.z);
+    }
+  }
+}
+
+template <typename T>
+__device__ __forceinline__ void store2(T* p, float x, float y);
+template <>
+__device__ __forceinline__ void store2<float>(float* p, float x, float y) {
+  *reinterpret_cast<float2*>(p) = make_float2(x, y);
+}
+template <>
+__device__ __forceinline__ void store2<__nv_bfloat16>(__nv_bfloat16* p,
+                                                      float x, float y) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(x, y);
+}
+
+template <typename T>
+__device__ __forceinline__ float2 load2(const T* p);
+template <>
+__device__ __forceinline__ float2 load2<float>(const float* p) {
+  return *reinterpret_cast<const float2*>(p);
+}
+template <>
+__device__ __forceinline__ float2 load2<__nv_bfloat16>(
+    const __nv_bfloat16* p) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+}
+
+// da = dh b silu'(a), db = dh silu(a) for two neighbouring columns, from
+// the pre-activations a, b; at da/db element offset out
+template <typename T>
+__device__ __forceinline__ void swiglu_grad2(T* da, T* db, float2 a, float2 b,
+                                             long long out, float v0,
+                                             float v1) {
+  const float s0 = 1.f / (1.f + expf(-a.x)), s1 = 1.f / (1.f + expf(-a.y));
+  // silu'(a) = s (1 + a (1 - s))
+  store2<T>(da + out, v0 * b.x * (s0 * (1.f + a.x * (1.f - s0))),
+            v1 * b.y * (s1 * (1.f + a.y * (1.f - s1))));
+  store2<T>(db + out, v0 * (a.x * s0), v1 * (a.y * s1));
+}
+
+// consumer warpgroup cw's 64 x 256 outputs of the tile: accumulator j of
+// thread (warp w, lane l) is row 16 w + l/4 + 8 ((j/2) % 2), column
+// 8 (j/4) + 2 (l % 4) + j % 2
+template <int MODE>
+__device__ __forceinline__ void tc_store(const TcArgs& p, const TcTile& T,
+                                         int cw, const float* acc) {
+  const int tid = threadIdx.x & 127, w = tid >> 5, lane = tid & 31;
+  const int GC = p.G * p.C;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int m = T.m0 + 64 * cw + 16 * w + (lane >> 2) + 8 * h;
+    if constexpr (MODE == MODE_DH) {
+      // da, db in list order; the rows past the count that a weight
+      // gradient reads are zeros
+      if (m >= GC || m >= cdiv(T.ne, TB_BK) * TB_BK) continue;
+      const long long out = ((long long)T.z * GC + m) * p.f;
+      const long long in =
+          m < T.ne ? (long long)p.rows[(long long)T.z * GC + m] * p.f : -1;
+#pragma unroll
+      for (int q = 0; q < TB_BN / 8; ++q) {
+        const int n = T.n0 + 8 * q + 2 * (lane & 3);
+        if (n >= p.f) continue;
+        if (in < 0) {
+          store2<__nv_bfloat16>(p.da + out + n, 0.f, 0.f);
+          store2<__nv_bfloat16>(p.db + out + n, 0.f, 0.f);
+        } else {
+          swiglu_grad2(p.da, p.db, load2(p.sa + in + n),
+                       load2(p.sb + in + n), out + n, acc[4 * q + 2 * h],
+                       acc[4 * q + 2 * h + 1]);
+        }
+      }
+      continue;
+    }
+    long long row;  // element offset of the output row
+    if constexpr (MODE == MODE_DXIN) {  // dxin at the slot's place
+      if (m >= T.ne) continue;
+      row = (long long)p.rows[(long long)T.z * GC + m] * p.d;
+    } else {
+      if (m >= p.g) continue;
+      row = ((long long)T.z * p.g + m) * p.E * p.C;
+    }
+#pragma unroll
+    for (int q = 0; q < TB_BN / 8; ++q) {
+      const int col = 8 * q + 2 * (lane & 3);
+      const float v0 = acc[4 * q + 2 * h], v1 = acc[4 * q + 2 * h + 1];
+      if constexpr (MODE == MODE_DXIN) {
+        const int n = T.n0 + col;
+        if (n < p.d) store2<float>(p.dxin + row + n, v0, v1);
+      } else {  // scalar stores: a group's E C columns may be odd
+        const int n = T.n0 + col, EC = p.E * p.C;
+        if (n < EC) p.dcomb[row + n] = v0;
+        if (n + 1 < EC) p.dcomb[row + n + 1] = v1;
+      }
+    }
+  }
+}
+
+// a weight-gradient tile: consumer warpgroup cw's 64 x 256 sums, rounded
+// to bf16, into its half of the shared tile at out ([4 column blocks][64
+// rows][64], swizzled as the maps store it), then to device memory by
+// TMA (its thread 0 starts the four boxes; the stores run on while the
+// warpgroup starts its next tile, and are waited for, their reads of
+// shared memory, before the next tile is written there)
+template <int MODE>
+__device__ __forceinline__ void tc_store_wgrad(const TcArgs& p,
+                                               const TcTile& T, int cw,
+                                               const float* acc,
+                                               uint32_t out) {
+  const int tid = threadIdx.x & 127, w = tid >> 5, lane = tid & 31;
+  out += cw * (TB_OUT / 2);
+  if (tid == 0) bulk_wait_read0();
+  named_barrier(1 + cw, 128);
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = 16 * w + (lane >> 2) + 8 * h;
+#pragma unroll
+    for (int q = 0; q < TB_BN / 8; ++q) {
+      const int col = 8 * q + 2 * (lane & 3);
+      const __nv_bfloat162 v = __floats2bfloat162_rn(
+          acc[4 * q + 2 * h], acc[4 * q + 2 * h + 1]);
+      asm volatile("st.shared.b32 [%0], %1;\n" ::"r"(
+                       out + swz<64>(r, col)),
+                   "r"(*reinterpret_cast<const uint32_t*>(&v)));
+    }
+  }
+  fence_proxy_async();
+  named_barrier(1 + cw, 128);
+  if (tid == 0) {
+    const int m = T.m0 + 64 * cw;
+#pragma unroll
+    for (int blk = 0; blk < TB_BN / 64; ++blk) {
+      const int half = TB_BN / 2 / 64;  // dwg/dwu: blocks of dwg, then dwu
+      const void* map = MODE == MODE_DWGU && blk >= half ? &p.o2 : &p.o;
+      const int col = MODE == MODE_DWGU ? T.n0 + 64 * (blk % half)
+                                        : T.n0 + 64 * blk;
+      tma_store_3d(map, out + blk * (64 * 128), col, m, T.z);
+    }
+    bulk_commit();
+  }
+}
+
+template <int MODE>
+__device__ __forceinline__ void tc_epilogue(const TcArgs& p, const TcTile& T,
+                                            int cw, const float* acc,
+                                            uint32_t out) {
+  if constexpr (wgrad(MODE))
+    tc_store_wgrad<MODE>(p, T, cw, acc, out);
+  else
+    tc_store<MODE>(p, T, cw, acc);
+}
+
+template <int MODE>
+__global__ void __launch_bounds__(TB_THREADS, 1) moe_bwd_tc_kernel(
+    const __grid_constant__ TcArgs p) {
+  constexpr int TRANS = wgrad(MODE);  // both operands MN-major
+  constexpr int STAGES = wgrad(MODE) ? TB_WG_STAGES : TB_STAGES;
+  extern __shared__ unsigned char tb_raw[];
+  __shared__ __align__(8) uint64_t bars[2 * STAGES];  // full, empty
+  const uint32_t ring = align1024(tb_raw);
+  const uint32_t out = ring + STAGES * (TB_A + TB_B);  // wgrad's tile
+  const uint32_t full0 = smem_u32(bars), empty0 = full0 + 8 * STAGES;
+  const int tid = threadIdx.x, role = tid >> 7;
+  if (tid == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(full0 + 8 * s, 1);     // the producer's expect_tx
+      mbar_init(empty0 + 8 * s, 256);  // the consumers' threads
+    }
+    fence_mbar_init();
+  }
+  __syncthreads();
+  const TileGrid tg = tc_tiles(MODE, p.G, p.g, p.E, p.C, p.d, p.f);
+  const int ntiles = tg.z * tg.a * tg.b;
+
+  if (role == 0) {  // producer: its first warp starts the copies
+    reg_dealloc<TB_PRODUCER_REGS>();
+    if (tid >= 32) return;
+    int it = 0;  // stages started, over all of this block's tiles
+    for (int t = blockIdx.x; t < ntiles; t += gridDim.x) {
+      const TcTile T = tc_tile<MODE>(p, tg, t);
+      if (!T.live) continue;
+      for (int kt = 0; kt < T.nk; ++kt, ++it) {
+        const int s = it % STAGES;
+        const uint32_t full = full0 + 8 * s;
+        mbar_wait(empty0 + 8 * s, ((it / STAGES) & 1) ^ 1);
+        if (tid == 0) mbar_expect_tx(full, TB_A + TB_B);
+        __syncwarp();
+        const uint32_t As = ring + s * (TB_A + TB_B);
+        tc_load<MODE>(p, T, kt, As, As + TB_A, full, tid);
+      }
+    }
+    return;
+  }
+
+  reg_alloc<TB_CONSUMER_REGS>();
+  const int cw = role - 1;  // rows 64 cw.. of each tile
+  float acc[TB_BN / 2];
+  int it = 0;
+  for (int t = blockIdx.x; t < ntiles; t += gridDim.x) {
+    const TcTile T = tc_tile<MODE>(p, tg, t);
+    if (!T.live) continue;
+#pragma unroll
+    for (int j = 0; j < TB_BN / 2; ++j) acc[j] = 0.f;
+    for (int kt = 0; kt < T.nk; ++kt, ++it) {
+      const int s = it % STAGES;
+      mbar_wait(full0 + 8 * s, (it / STAGES) & 1);
+      const uint32_t As = ring + s * (TB_A + TB_B), Bs = As + TB_A;
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < TB_BK / 16; ++kk) {
+        uint64_t da, db;
+        if constexpr (TRANS) {  // 16 depth rows of 128 bytes a step
+          da = wgmma_desc(As + cw * (TB_BK * 128) + kk * 2048, TB_BK * 128);
+          db = wgmma_desc(Bs + kk * 2048, TB_BK * 128);
+        } else {  // 32 bytes of each row a step
+          da = wgmma_desc(As + cw * (64 * 128) + kk * 32, 0);
+          db = wgmma_desc(Bs + kk * 32, 0);
+        }
+        wgmma_ss_n256<TRANS>(acc, da, db);
+      }
+      wgmma_commit();
+      wgmma_wait<1>();  // stage it - 1's products are done: free it
+      if (kt > 0) mbar_arrive(empty0 + 8 * ((it - 1) % STAGES));
+    }
+    wgmma_wait0();
+    if (T.nk > 0) mbar_arrive(empty0 + 8 * ((it - 1) % STAGES));
+    fence_regs<TB_BN / 2>(acc);
+    tc_epilogue<MODE>(p, T, cw, acc, out);
+  }
+  // the last tile's stores read shared memory until they finish
+  if constexpr (wgrad(MODE))
+    if ((tid & 127) == 0) bulk_wait_read0();
+}
+
+// (B0): for each expert e, rows[e G C + i] = its i-th slot over (group,
+// slot) order, (group E + e) C + c, the live slots first and then the
+// dead ones; rows[E G C + e] = the live count; and for each slot,
+// rows[E G C + E + slot] = its place i in its expert's list.  One block an
+// expert, prefix sums in order.
+__global__ void __launch_bounds__(ROWS_THREADS) moe_bwd_rows_kernel(
+    const int* __restrict__ live, int* __restrict__ rows, int G, int E,
+    int C) {
+  __shared__ int warp_n[ROWS_THREADS / 32];
+  __shared__ int n_live;
+  const int e = blockIdx.x, GC = G * C;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  int* list = rows + (long long)e * GC;
+  int* place = rows + (long long)E * GC + E;
+  // pass 0 lists the live slots, pass 1 the dead ones after them
+  for (int pass = 0; pass < 2; ++pass) {
+    int base = pass ? n_live : 0;
+    for (int i0 = 0; i0 < GC; i0 += ROWS_THREADS) {
+      const int i = i0 + threadIdx.x, grp = i / C, c = i % C;
+      const int slot = (grp * E + e) * C + c;
+      const bool on = i < GC && (live[slot] != 0) == (pass == 0);
+      const unsigned m = __ballot_sync(0xffffffffu, on);
+      if (lane == 0) warp_n[warp] = __popc(m);
+      __syncthreads();
+      int before = 0, total = 0;
+      for (int w = 0; w < ROWS_THREADS / 32; ++w) {
+        before += w < warp ? warp_n[w] : 0;
+        total += warp_n[w];
+      }
+      if (on) {
+        const int at = base + before + __popc(m & ((1u << lane) - 1u));
+        list[at] = slot;
+        place[slot] = at;
+      }
+      base += total;
+      __syncthreads();  // warp_n is rewritten by the next round
+    }
+    if (pass == 0 && threadIdx.x == 0) {
+      n_live = base;
+      rows[(long long)E * GC + e] = base;
+    }
+    __syncthreads();
+  }
+}
+
+// ---- the products in f32, and dcombine in f32, on the CUDA cores -----------
 
 // one operand of a product: element (z, i, k) of A (M x K, i = m) or B
 // (N x K, i = n) at p + (zmod ? z % zmod : z) * zs + seg * ss + (KMAJ ?
@@ -759,32 +1282,8 @@ __device__ __forceinline__ bool slot_live(const Gemm& p, int z, int seg,
   return p.live[(long long)z * p.lz + (long long)seg * p.lseg + i] != 0;
 }
 
-template <typename T>
-__device__ __forceinline__ void store2(T* p, float x, float y);
-template <>
-__device__ __forceinline__ void store2<float>(float* p, float x, float y) {
-  *reinterpret_cast<float2*>(p) = make_float2(x, y);
-}
-template <>
-__device__ __forceinline__ void store2<__nv_bfloat16>(__nv_bfloat16* p,
-                                                      float x, float y) {
-  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(x, y);
-}
-
-template <typename T>
-__device__ __forceinline__ float2 load2(const T* p);
-template <>
-__device__ __forceinline__ float2 load2<float>(const float* p) {
-  return *reinterpret_cast<const float2*>(p);
-}
-template <>
-__device__ __forceinline__ float2 load2<__nv_bfloat16>(
-    const __nv_bfloat16* p) {
-  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
-}
-
 // the epilogue of one pair of neighbouring outputs (m, n), (m, n + 1), n
-// even; the bf16 modes need N even (d and f are multiples of 8)
+// even
 template <typename T, int EPI>
 __device__ __forceinline__ void epilogue2(const Gemm& p, int z, int m, int n,
                                           float v0, float v1) {
@@ -803,143 +1302,11 @@ __device__ __forceinline__ void epilogue2(const Gemm& p, int z, int m, int n,
   } else if constexpr (EPI == EPI_T) {
     store2<T>(static_cast<T*>(p.out) + at, v0, v1);
   } else {
-    const float2 a = load2<T>(static_cast<const T*>(p.ea) + at);
-    const float2 b = load2<T>(static_cast<const T*>(p.eb) + at);
-    const float s0 = 1.f / (1.f + expf(-a.x)), s1 = 1.f / (1.f + expf(-a.y));
-    // silu'(a) = s (1 + a (1 - s))
-    store2<T>(static_cast<T*>(p.out) + at,
-              v0 * b.x * (s0 * (1.f + a.x * (1.f - s0))),
-              v1 * b.y * (s1 * (1.f + a.y * (1.f - s1))));
-    store2<T>(static_cast<T*>(p.out2) + at, v0 * (a.x * s0), v1 * (a.y * s1));
+    swiglu_grad2<T>(static_cast<T*>(p.out), static_cast<T*>(p.out2),
+                    load2<T>(static_cast<const T*>(p.ea) + at),
+                    load2<T>(static_cast<const T*>(p.eb) + at), at, v0, v1);
   }
 }
-
-// ---- (B2)-(B7) in bf16, on the tensor cores -------------------------------
-
-// one operand's tile of depth tile kt into shared memory at dst: KMAJ,
-// [128 rows i][64 k] (swz<128>); else [64 k][128 i] (swz<64>, two 64-wide
-// column blocks).  Zero past the edges and for dead slots.
-template <bool KMAJ, bool IS_A>
-__device__ __forceinline__ void bw_load(const Gemm& p, const Operand& o,
-                                        uint32_t dst, int z, int i0, int seg,
-                                        int k0, int rows) {
-  const __nv_bfloat16* base =
-      static_cast<const __nv_bfloat16*>(o.p) + zoff(o, z) + seg * o.ss;
-  const int row_live = IS_A ? LIVE_M : LIVE_N;
-#pragma unroll
-  for (int u = 0; u < BW_BM * BW_BK / 8 / BW_THREADS; ++u) {
-    const int q = threadIdx.x + u * BW_THREADS;
-    int i, k;
-    if constexpr (KMAJ) {
-      i = q >> 3;
-      k = (q & 7) * 8;
-    } else {
-      k = q >> 4;
-      i = (q & 15) * 8;
-    }
-    const int gi = i0 + i, gk = k0 + k;
-    bool ok = gi < rows && gk < p.seg_len;
-    if (ok && p.live_dim == LIVE_K && !KMAJ) ok = slot_live(p, z, seg, gk);
-    if (ok && p.live_dim == row_live && KMAJ) ok = slot_live(p, z, 0, gi);
-    const long long off = KMAJ ? (long long)gi * o.ld + gk
-                               : (long long)gk * o.ld + gi;
-    cp_async16(dst + (KMAJ ? swz<BW_BM>(i, k) : swz<BW_BK>(k, i)),
-               ok ? base + off : base, ok);
-  }
-}
-
-template <bool A_KMAJ, bool B_KMAJ, int EPI>
-__global__ void __launch_bounds__(BW_THREADS) moe_bwd_mma_kernel(
-    const Gemm p) {
-  extern __shared__ unsigned char bw_raw[];
-  const uint32_t base = align1024(bw_raw);
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int wm = warp >> 2, wn = warp & 3;
-  const int z = blockIdx.z;
-  const int m0 = blockIdx.y * BW_BM, n0 = blockIdx.x * BW_BN;
-  if (p.live_dim == LIVE_M) {  // a tile of dead slots writes nothing
-    bool any = false;
-    for (int i = tid; i < BW_BM; i += BW_THREADS)
-      any |= m0 + i < p.M && slot_live(p, z, 0, m0 + i);
-    if (!__syncthreads_or(any)) return;
-  }
-  const int kps = (p.seg_len + BW_BK - 1) / BW_BK;
-  const int nkt = kps * p.nseg;
-
-  auto load = [&](int t) {
-    const uint32_t st = base + (t % BW_STAGES) * 2 * BW_TILE;
-    const int seg = t / kps, k0 = (t % kps) * BW_BK;
-    bw_load<A_KMAJ, true>(p, p.a, st, z, m0, seg, k0, p.M);
-    bw_load<B_KMAJ, false>(p, p.b, st + BW_TILE, z, n0, seg, k0, p.N);
-  };
-
-  float acc[4][4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int r = 0; r < 4; ++r) acc[i][j][r] = 0.f;
-
-#pragma unroll
-  for (int s = 0; s < BW_STAGES - 1; ++s) {
-    if (s < nkt) load(s);
-    cp_async_commit();
-  }
-  for (int t = 0; t < nkt; ++t) {
-    cp_async_wait<BW_STAGES - 2>();  // tile t has landed (this thread's)
-    __syncthreads();  // ... everyone's, and tile t - 1 is no longer read
-    if (t + BW_STAGES - 1 < nkt) load(t + BW_STAGES - 1);
-    cp_async_commit();
-    const uint32_t As = base + (t % BW_STAGES) * 2 * BW_TILE;
-    const uint32_t Bs = As + BW_TILE;
-#pragma unroll
-    for (int kk = 0; kk < BW_BK; kk += 16) {
-      uint32_t af[4][4], bf[2][4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int m = wm * 64 + 16 * i;
-        if constexpr (A_KMAJ)
-          frag_a<BW_BM>(af[i], As, m, kk, lane);
-        else  // stored [k][m]: ldmatrix.trans gives the row-major fragment
-          ldsm_x4_t(af[i], As + swz<BW_BK>(kk + (lane & 7) + ((lane >> 4) << 3),
-                                           m + (((lane >> 3) & 1) << 3)));
-      }
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        const int n = wn * 32 + 16 * j;
-        if constexpr (B_KMAJ)
-          frag_b_nk<BW_BN>(bf[j], Bs, n, kk, lane);
-        else
-          frag_b_kn<BW_BK>(bf[j], Bs, n, kk, lane);
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j)
-          mma_bf16(acc[i][j], af[i], &bf[j >> 1][(j & 1) * 2]);
-    }
-  }
-  cp_async_wait<0>();
-
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int hh = 0; hh < 2; ++hh) {
-      const int m = m0 + wm * 64 + 16 * i + (lane >> 2) + 8 * hh;
-      if (m >= p.M) continue;
-      if (p.live_dim == LIVE_M && !slot_live(p, z, 0, m)) continue;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int n = n0 + wn * 32 + 8 * j + 2 * (lane & 3);
-        if (n < p.N)
-          epilogue2<__nv_bfloat16, EPI>(p, z, m, n, acc[i][j][2 * hh],
-                                        acc[i][j][2 * hh + 1]);
-      }
-    }
-}
-
-// ---- the products in f32, and (B9), on the CUDA cores ----------------------
 
 template <typename T, bool KMAJ, bool IS_A>
 __device__ __forceinline__ float sw_elem(const Gemm& p, const Operand& o,
@@ -1025,22 +1392,31 @@ __global__ void __launch_bounds__(SW_THREADS) moe_bwd_simt_kernel(
   }
 }
 
-// ---- (B1) and (B8), the gathers -------------------------------------------
+// ---- (B1) and (B6), the gathers -------------------------------------------
 
-// dy[grp][e][c] = sum over tokens t (in order) with combine[grp][t][e][c]
-// != 0 of that weight times dout[grp][t], for live slots (a dead slot's row
-// is not written: the products zero-fill it)
+// dy of slot (grp, e, c) = sum over tokens t (in order) with
+// combine[grp][t][e][c] != 0 of that weight times dout[grp][t].  place
+// null (f32): at the slot's own row of (G, E, C, d), live slots only (the
+// products zero-fill dead ones); else (bf16) at row place[slot] of
+// expert e's G C rows in list order, a dead slot's row written as zeros
 template <typename T>
 __global__ void __launch_bounds__(NT1) moe_bwd_dy_kernel(
     const float* __restrict__ comb, const int* __restrict__ live,
-    const T* __restrict__ dout, T* __restrict__ dy, int g, int E, int C,
-    int d) {
+    const T* __restrict__ dout, T* __restrict__ dy,
+    const int* __restrict__ place, int g, int E, int C, int d) {
   extern __shared__ unsigned masks[];  // one ballot word per 32 tokens
-  const int nchunk = (d + NT1 * 4 - 1) / (NT1 * 4);
-  const int c = blockIdx.x / nchunk, chunk = blockIdx.x % nchunk;
-  const int e = blockIdx.y, grp = blockIdx.z;
+  // one block a slot, all of d (the ballots once, not once a chunk)
+  const int c = blockIdx.x, e = blockIdx.y, grp = blockIdx.z;
   const long long slot = ((long long)grp * E + e) * C + c;
-  if (!live[slot]) return;
+  const long long out =
+      place == nullptr ? slot
+                       : (long long)e * gridDim.z * C + place[slot];
+  if (!live[slot]) {
+    if (place != nullptr)
+      for (int j = threadIdx.x * 4; j < d; j += NT1 * 4)
+        store4<T>(dy + out * d + j, make_float4(0.f, 0.f, 0.f, 0.f));
+    return;
+  }
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const long long EC = (long long)E * C;
   const float* col = comb + (long long)grp * g * EC + e * C + c;
@@ -1051,22 +1427,22 @@ __global__ void __launch_bounds__(NT1) moe_bwd_dy_kernel(
     if (lane == 0) masks[w] = m;
   }
   __syncthreads();
-  const int j = (chunk * NT1 + threadIdx.x) * 4;
-  if (j >= d) return;
   const T* db = dout + (long long)grp * g * d;
-  float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
-  for (int w = 0; w < nw; ++w) {
-    for (unsigned m = masks[w]; m; m &= m - 1) {
-      const int t = w * 32 + __ffs(m) - 1;
-      const float cw = col[t * EC];
-      const float4 v = load4(db + (long long)t * d + j);
-      acc.x = fmaf(cw, v.x, acc.x);
-      acc.y = fmaf(cw, v.y, acc.y);
-      acc.z = fmaf(cw, v.z, acc.z);
-      acc.w = fmaf(cw, v.w, acc.w);
+  for (int j = threadIdx.x * 4; j < d; j += NT1 * 4) {
+    float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+    for (int w = 0; w < nw; ++w) {
+      for (unsigned m = masks[w]; m; m &= m - 1) {
+        const int t = w * 32 + __ffs(m) - 1;
+        const float cw = col[t * EC];
+        const float4 v = load4(db + (long long)t * d + j);
+        acc.x = fmaf(cw, v.x, acc.x);
+        acc.y = fmaf(cw, v.y, acc.y);
+        acc.z = fmaf(cw, v.z, acc.z);
+        acc.w = fmaf(cw, v.w, acc.w);
+      }
     }
+    store4<T>(dy + out * d + j, acc);
   }
-  store4<T>(dy + slot * d + j, acc);
 }
 
 // dx[grp][t] = sum over (e, c) in index order with dispatch[grp][t][e][c]
@@ -1077,9 +1453,7 @@ __global__ void __launch_bounds__(NT1) moe_bwd_dx_kernel(
     const float* __restrict__ dxin, T* __restrict__ dx, int g, int E, int C,
     int d) {
   extern __shared__ unsigned sm[];  // ballot words over the (e, c) row
-  const int nchunk = (d + NT1 * 4 - 1) / (NT1 * 4);
-  const int t = blockIdx.x / nchunk, chunk = blockIdx.x % nchunk;
-  const int grp = blockIdx.y;
+  const int t = blockIdx.x, grp = blockIdx.y;  // one block a token, all d
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int EC = E * C, nw = (EC + 31) / 32;
   const unsigned char* drow = disp + ((long long)grp * g + t) * EC;
@@ -1091,32 +1465,21 @@ __global__ void __launch_bounds__(NT1) moe_bwd_dx_kernel(
     if (lane == 0) sm[w] = m;
   }
   __syncthreads();
-  const int col = (chunk * NT1 + threadIdx.x) * 4;
-  if (col >= d) return;
   const float* xb = dxin + (long long)grp * EC * d;
-  float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
-  for (int w = 0; w < nw; ++w) {
-    for (unsigned m = sm[w]; m; m &= m - 1) {
-      const int j = w * 32 + __ffs(m) - 1;
-      const float4 v = load4(xb + (long long)j * d + col);
-      acc.x += v.x;
-      acc.y += v.y;
-      acc.z += v.z;
-      acc.w += v.w;
+  for (int col = threadIdx.x * 4; col < d; col += NT1 * 4) {
+    float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+    for (int w = 0; w < nw; ++w) {
+      for (unsigned m = sm[w]; m; m &= m - 1) {
+        const int j = w * 32 + __ffs(m) - 1;
+        const float4 v = load4(xb + (long long)j * d + col);
+        acc.x += v.x;
+        acc.y += v.y;
+        acc.z += v.z;
+        acc.w += v.w;
+      }
     }
+    store4<T>(dx + ((long long)grp * g + t) * d + col, acc);
   }
-  store4<T>(dx + ((long long)grp * g + t) * d + col, acc);
-}
-
-template <bool A_KMAJ, bool B_KMAJ, int EPI>
-int launch_bw_mma(const Gemm& p, int Z, cudaStream_t s) {
-  const auto kernel = moe_bwd_mma_kernel<A_KMAJ, B_KMAJ, EPI>;
-  const int err = (int)cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, BW_SMEM);
-  if (err) return err;
-  const dim3 grid((p.N + BW_BN - 1) / BW_BN, (p.M + BW_BM - 1) / BW_BM, Z);
-  kernel<<<grid, BW_THREADS, BW_SMEM, s>>>(p);
-  return (int)cudaGetLastError();
 }
 
 template <typename TA, typename TB, bool A_KMAJ, bool B_KMAJ, int EPI>
@@ -1150,22 +1513,12 @@ Gemm gemm(Operand a, Operand b, int M, int N, int seg_len, int nseg,
   return p;
 }
 
-// (B2)-(B7) and their launches, in element type T (the tensor cores for
-// bf16, the CUDA cores for f32)
-template <typename T, bool A_KMAJ, bool B_KMAJ, int EPI>
-int launch_bw(const Gemm& p, int Z, cudaStream_t s) {
-  if constexpr (sizeof(T) == 2)
-    return launch_bw_mma<A_KMAJ, B_KMAJ, EPI>(p, Z, s);
-  else
-    return launch_bw_simt<T, T, A_KMAJ, B_KMAJ, EPI>(p, Z, s);
-}
-
-template <typename T>
-int bwd_products(const void* dy, const void* wg, const void* wu,
-                 const void* wd, const void* xin, const void* h,
-                 const void* sa, const void* sb, const int* lv, void* da,
-                 void* db, void* dxin, void* dwg, void* dwu, void* dwd, int G,
-                 int E, int C, int d, int f, cudaStream_t s) {
+// the f32 products (B2)-(B5) on the CUDA cores
+int bwd_products_f32(const void* dy, const void* wg, const void* wu,
+                     const void* wd, const void* xin, const void* h,
+                     const void* sa, const void* sb, const int* lv, void* da,
+                     void* db, void* dxin, void* dwg, void* dwu, void* dwd,
+                     int G, int E, int C, int d, int f, cudaStream_t s) {
   const int GE = G * E;
   const long long Cd = (long long)C * d, Cf = (long long)C * f,
                   df = (long long)d * f;
@@ -1175,68 +1528,200 @@ int bwd_products(const void* dy, const void* wg, const void* wu,
   p.out2 = db;
   p.ea = sa;
   p.eb = sb;
-  int err = launch_bw<T, true, true, EPI_SWIGLU>(p, GE, s);
+  int err = launch_bw_simt<float, float, true, true, EPI_SWIGLU>(p, GE, s);
   if (err) return err;
-  // (B3), (B4) dxin (C x d) = da wg_e^T + db wu_e^T, wg_e (d x f): K-major
+  // (B3) dxin (C x d) = da wg_e^T, then += db wu_e^T, wg_e (d x f): K-major
   for (int q = 0; q < 2; ++q) {
     p = gemm(Operand{q ? db : da, Cf, 0, f, 0},
              Operand{q ? wu : wg, df, 0, f, E}, C, d, f, 1, lv, C, 0, LIVE_M,
              dxin, Cd, d);
-    err = q ? launch_bw<T, true, true, EPI_F32_ADD>(p, GE, s)
-            : launch_bw<T, true, true, EPI_F32>(p, GE, s);
+    err = q ? launch_bw_simt<float, float, true, true, EPI_F32_ADD>(p, GE, s)
+            : launch_bw_simt<float, float, true, true, EPI_F32>(p, GE, s);
     if (err) return err;
   }
-  // (B5) dwd_e (f x d) = H_e^T dy_e over the G x C slots: both slot-major
+  // (B4) dwd_e (f x d) = H_e^T dy_e over the G x C slots: both slot-major
   // (the depth's rows), one segment a group
   p = gemm(Operand{h, Cf, (long long)E * Cf, f, 0},
            Operand{dy, Cd, (long long)E * Cd, d, 0}, f, d, C, G, lv, C,
            (long long)E * C, LIVE_K, dwd, df, d);
-  err = launch_bw<T, false, false, EPI_T>(p, E, s);
+  err = launch_bw_simt<float, float, false, false, EPI_T>(p, E, s);
   if (err) return err;
-  // (B6), (B7) dwg_e, dwu_e (d x f) = xin_e^T da_e, xin_e^T db_e
+  // (B5) dwg_e, dwu_e (d x f) = xin_e^T da_e, xin_e^T db_e
   for (int q = 0; q < 2; ++q) {
     p = gemm(Operand{xin, Cd, (long long)E * Cd, d, 0},
              Operand{q ? db : da, Cf, (long long)E * Cf, f, 0}, d, f, C, G,
              lv, C, (long long)E * C, LIVE_K, q ? dwu : dwg, df, f);
-    err = launch_bw<T, false, false, EPI_T>(p, E, s);
+    err = launch_bw_simt<float, float, false, false, EPI_T>(p, E, s);
     if (err) return err;
   }
   return 0;
 }
 
 template <typename T>
-int moe_bwd(const unsigned char* disp, const float* comb, const T* dout,
-            const void* wg, const void* wu, const void* wd, const void* xin,
-            const void* h, const void* sa, const void* sb, const float* y,
-            const int* lv, T* dx, float* dcomb, void* dwg, void* dwu,
-            void* dwd, T* dy, void* da, void* db, float* dxin, int G, int g,
-            int E, int C, int d, int f, int ks, cudaStream_t s) {
-  const long long EC = (long long)E * C;
-  moe_bwd_dy_kernel<T><<<dim3(C * d_chunks(d), E, G), NT1,
+int launch_dy(const float* comb, const int* lv, const T* dout, T* dy,
+              const int* place, int G, int g, int E, int C, int d,
+              cudaStream_t s) {
+  moe_bwd_dy_kernel<T><<<dim3(C, E, G), NT1,
                          sizeof(unsigned) * ((g + 31) / 32), s>>>(
-      comb, lv, dout, dy, g, E, C, d);
-  int err = (int)cudaGetLastError();
-  if (err) return err;
-  err = bwd_products<T>(dy, wg, wu, wd, xin, h, sa, sb, lv, da, db, dxin,
-                        dwg, dwu, dwd, G, E, C, d, f, s);
-  if (err) return err;
-  const size_t smem8 = sizeof(unsigned) * ((EC + 31) / 32);
+      comb, lv, dout, dy, place, g, E, C, d);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_dx(const unsigned char* disp, const int* lv, const float* dxin,
+              T* dx, int G, int g, int E, int C, int d, cudaStream_t s) {
+  const size_t smem8 = sizeof(unsigned) * ((E * C + 31) / 32);
   if (smem8 > 48 * 1024) {
-    err = (int)cudaFuncSetAttribute(moe_bwd_dx_kernel<T>,
-                                    cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                    (int)smem8);
+    const int err = (int)cudaFuncSetAttribute(
+        moe_bwd_dx_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem8);
     if (err) return err;
   }
-  moe_bwd_dx_kernel<T><<<dim3(g * d_chunks(d), G), NT1, smem8, s>>>(
+  moe_bwd_dx_kernel<T><<<dim3(g, G), NT1, smem8, s>>>(
       disp, lv, dxin, dx, g, E, C, d);
-  if ((err = (int)cudaGetLastError())) return err;
-  // (B9) dcombine (g x EC) = dout (g x d) y^T, y (EC x d) a group, the ks
+  return (int)cudaGetLastError();
+}
+
+int moe_bwd_f32(const unsigned char* disp, const float* comb,
+                const float* dout, const void* wg, const void* wu,
+                const void* wd, const void* xin, const void* h,
+                const void* sa, const void* sb, const float* y, const int* lv,
+                float* dx, float* dcomb, void* dwg, void* dwu, void* dwd,
+                float* dy, void* da, void* db, float* dxin, int G, int g,
+                int E, int C, int d, int f, int ks, cudaStream_t s) {
+  const long long EC = (long long)E * C;
+  int err = launch_dy<float>(comb, lv, dout, dy, nullptr, G, g, E, C, d, s);
+  if (err) return err;
+  err = bwd_products_f32(dy, wg, wu, wd, xin, h, sa, sb, lv, da, db, dxin,
+                         dwg, dwu, dwd, G, E, C, d, f, s);
+  if (err) return err;
+  if ((err = launch_dx<float>(disp, lv, dxin, dx, G, g, E, C, d, s)))
+    return err;
+  // (B7) dcombine (g x EC) = dout (g x d) y^T, y (EC x d) a group, the ks
   // partials as the depth's segments
   const Gemm p = gemm(Operand{dout, (long long)g * d, 0, d, 0},
                       Operand{y, EC * d, (long long)G * EC * d, d, 0}, g,
                       (int)EC, d, ks, lv, EC, 0, LIVE_N, dcomb,
                       (long long)g * EC, EC);
-  return launch_bw_simt<T, float, true, true, EPI_F32>(p, G, s);
+  return launch_bw_simt<float, float, true, true, EPI_F32>(p, G, s);
+}
+
+// cuTensorMapEncodeTiled, looked up through the runtime's entry points
+// (no link to libcuda)
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                 void*, const cuuint64_t*, const cuuint64_t*,
+                                 const cuuint32_t*, const cuuint32_t*,
+                                 CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 12050
+    if (cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                         cudaEnableDefault, &q) == cudaSuccess &&
+        q == cudaDriverEntryPointSuccess)
+#else
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
+                                cudaEnableDefault, &q) == cudaSuccess &&
+        q == cudaDriverEntryPointSuccess)
+#endif
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// a bf16 tensor of `rank` (2 or 3) dims {cols, rows[, planes]}, rows of
+// cols elements and planes of plane_rows rows, as a SWIZZLE_128B map of
+// boxes {64, box_rows[, 1]}; false if the encoding is refused
+bool tensor_map(CUtensorMap* map, const void* base, int rank, long long cols,
+                long long rows, long long planes, long long plane_rows,
+                int box_rows) {
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[3] = {(cuuint64_t)cols, (cuuint64_t)rows,
+                              (cuuint64_t)planes};
+  const cuuint64_t strides[2] = {(cuuint64_t)cols * 2,
+                                 (cuuint64_t)(plane_rows * cols * 2)};
+  const cuuint32_t box[3] = {64, (cuuint32_t)box_rows, 1};
+  const cuuint32_t unit[3] = {1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank,
+            const_cast<void*>(base), dims, strides, box, unit,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int MODE>
+int launch_tc(const TcArgs& a, int n_sm, cudaStream_t s) {
+  const auto kernel = moe_bwd_tc_kernel<MODE>;
+  const int smem = wgrad(MODE) ? TB_WG_SMEM : TB_SMEM;
+  const int err = (int)cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err) return err;
+  const TileGrid t = tc_tiles(MODE, a.G, a.g, a.E, a.C, a.d, a.f);
+  const int n = t.z * t.a * t.b;
+  if (n == 0) return 0;
+  kernel<<<n < n_sm ? n : n_sm, TB_THREADS, smem, s>>>(a);
+  return (int)cudaGetLastError();
+}
+
+// the bf16 backward: (B0), (B1) in list order, the five products, (B6)
+int moe_bwd_bf16(const unsigned char* disp, const float* comb,
+                 const __nv_bfloat16* dout, const __nv_bfloat16* wg,
+                 const __nv_bfloat16* wu, const __nv_bfloat16* wd,
+                 const __nv_bfloat16* xin, const __nv_bfloat16* h,
+                 const __nv_bfloat16* y, const int* lv, __nv_bfloat16* dy,
+                 TcArgs& a, int* rows, __nv_bfloat16* dx, int n_sm,
+                 cudaStream_t s) {
+  const int G = a.G, g = a.g, E = a.E, C = a.C, d = a.d, f = a.f;
+  const long long GC = (long long)G * C, EC = (long long)E * C;
+  moe_bwd_rows_kernel<<<E, ROWS_THREADS, 0, s>>>(lv, rows, G, E, C);
+  int err = (int)cudaGetLastError();
+  if (err) return err;
+  err = launch_dy<__nv_bfloat16>(comb, lv, dout, dy, rows + E * GC + E, G,
+                                 g, E, C, d, s);
+  if (err) return err;
+  const int bad = (int)cudaErrorInvalidValue;
+  // (B2) dh: dy (list order) against wd
+  if (!tensor_map(&a.a, dy, 3, d, GC, E, GC, TB_BM) ||
+      !tensor_map(&a.b, wd, 3, d, f, E, f, TB_BN))
+    return bad;
+  if ((err = launch_tc<MODE_DH>(a, n_sm, s))) return err;
+  // (B3) dxin: [da | db] (list order) against [wg | wu]
+  if (!tensor_map(&a.a, a.da, 3, f, GC, E, GC, TB_BM) ||
+      !tensor_map(&a.a2, a.db, 3, f, GC, E, GC, TB_BM) ||
+      !tensor_map(&a.b, wg, 3, f, d, E, d, TB_BN) ||
+      !tensor_map(&a.b2, wu, 3, f, d, E, d, TB_BN))
+    return bad;
+  if ((err = launch_tc<MODE_DXIN>(a, n_sm, s))) return err;
+  // (B4) dwd: H's listed rows against dy
+  for (int i = 0; i < RUN_MAPS; ++i)
+    if (!tensor_map(&a.runs[i], h, 2, f, G * EC, 1, 0, 1 << i)) return bad;
+  if (!tensor_map(&a.b, dy, 3, d, GC, E, GC, TB_BK) ||
+      !tensor_map(&a.o, a.dwd, 3, d, f, E, f, 64))
+    return bad;
+  if ((err = launch_tc<MODE_DWD>(a, n_sm, s))) return err;
+  // (B5) dwg, dwu: xin's listed rows against [da | db]
+  for (int i = 0; i < RUN_MAPS; ++i)
+    if (!tensor_map(&a.runs[i], xin, 2, d, G * EC, 1, 0, 1 << i)) return bad;
+  if (!tensor_map(&a.b, a.da, 3, f, GC, E, GC, TB_BK) ||
+      !tensor_map(&a.b2, a.db, 3, f, GC, E, GC, TB_BK) ||
+      !tensor_map(&a.o, a.dwg, 3, f, d, E, d, 64) ||
+      !tensor_map(&a.o2, a.dwu, 3, f, d, E, d, 64))
+    return bad;
+  if ((err = launch_tc<MODE_DWGU>(a, n_sm, s))) return err;
+  if ((err = launch_dx<__nv_bfloat16>(disp, lv, a.dxin, dx, G, g, E, C, d,
+                                      s)))
+    return err;
+  // (B7) dcombine: dout against y, a group at a time
+  if (!tensor_map(&a.a, dout, 3, d, g, G, g, TB_BM) ||
+      !tensor_map(&a.b, y, 3, d, EC, G, EC, TB_BN))
+    return bad;
+  return launch_tc<MODE_DCOMB>(a, n_sm, s);
 }
 
 }  // namespace
@@ -1262,16 +1747,18 @@ extern "C" int moe_grouped_ffn_tiles(int nt, int gated, int what) {
 // (G, E, C, d) and h (G, E, C, f), f32 for f32 and bf16 for bf16; y (ks,
 // G, E, C, d) f32; live (G, E, C) int32; save_a, save_b:
 // null, or (G, E, C, f) in xin's type for the up product's pre-activations
-// xin wg and xin wu (the backward's; written for live slots only).  tile: f32's slots per warp (1,
+// xin wg and xin wu (the backward's; written for live slots only); y_save
+// (bf16 only): null, or (G, E, C, d) bf16 for the backward's y (summed over
+// the split, rounded once; 0 at dead slots).  tile: f32's slots per warp (1,
 // 4 or 8), bf16's slot tile (TC_SLOT_TILES); stages: bf16's ring depth
 // (as moe_grouped_ffn_tiles gives it; 0 for f32); ks splits f in (3) into
 // parts of chunks_per_split chunks (32 deep in f32, 64 in bf16).
 extern "C" int moe_grouped_ffn_fwd(
     const void* dispatch, const void* combine, const void* x, const void* wg,
     const void* wu, const void* wd, void* out, void* xin, void* h, void* y,
-    void* live, void* save_a, void* save_b, int dtype, int G, int g, int E,
-    int C, int d, int f, int tile, int stages, int ks, int chunks_per_split,
-    void* stream) {
+    void* live, void* save_a, void* save_b, void* y_save, int dtype, int G,
+    int g, int E, int C, int d, int f, int tile, int stages, int ks,
+    int chunks_per_split, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const unsigned char* disp = static_cast<const unsigned char*>(dispatch);
   const float* comb = static_cast<const float*>(combine);
@@ -1318,51 +1805,106 @@ extern "C" int moe_grouped_ffn_fwd(
                          yy, nullptr, nullptr, G, E, C, f, d, ks,
                          chunks_per_split, y_split, s);
   if (err) return err;
-  return launch_combine<B16>(comb, lv, yy, static_cast<B16*>(out), G, g, E,
-                             C, d, ks, y_split, s);
+  err = launch_combine<B16>(comb, lv, yy, static_cast<B16*>(out), G, g, E, C,
+                            d, ks, y_split, s);
+  if (err || y_save == nullptr) return err;
+  moe_save_y_kernel<<<dim3(C * d_chunks(d), E, G), NT1, 0, s>>>(
+      yy, lv, static_cast<B16*>(y_save), E, C, d, ks, y_split);
+  return (int)cudaGetLastError();
 }
 
 // The backward's tiles, for the wrapper's plan_bwd to be held to: the
-// tensor-core block's rows (what = 0), columns (1), depth (2), stages (3),
-// dynamic shared memory (4) and threads (5); the CUDA-core block's rows
-// (6), columns (7), depth (8), static shared memory (9) and threads (10).
+// tensor-core block's rows (what = 0), columns (1), depth (2), stages (3)
+// and dynamic shared memory (4), the weight gradients' stages (5) and
+// shared memory (6), threads (7), producer and consumer registers (8, 9);
+// the CUDA-core block's rows (10), columns (11), depth (12), static shared
+// memory (13) and threads (14); the row lists' block threads (15).
 extern "C" int moe_grouped_ffn_bwd_tiles(int what) {
-  const int v[] = {BW_BM, BW_BN, BW_BK, BW_STAGES, BW_SMEM, BW_THREADS,
-                   SW_BM, SW_BN, SW_BK, SW_SMEM, SW_THREADS};
-  return what >= 0 && what < 11 ? v[what] : -1;
+  const int v[] = {TB_BM,        TB_BN,            TB_BK,
+                   TB_STAGES,    TB_SMEM,          TB_WG_STAGES,
+                   TB_WG_SMEM,   TB_THREADS,       TB_PRODUCER_REGS,
+                   TB_CONSUMER_REGS, SW_BM,        SW_BN,
+                   SW_BK,        SW_SMEM,          SW_THREADS,
+                   ROWS_THREADS};
+  return what >= 0 && what < 16 ? v[what] : -1;
+}
+
+// Tiles of the bf16 product ``mode`` (0 dh, 1 dxin, 2 dwd, 3 dwg and dwu,
+// 4 dcombine) at one shape: the z (1), a (2) and b (3) extents of its tile
+// queue, or their product (0).
+extern "C" int moe_grouped_ffn_bwd_queue(int mode, int G, int g, int E,
+                                         int C, int d, int f, int what) {
+  const TileGrid t = tc_tiles(mode, G, g, E, C, d, f);
+  const int v[] = {t.z * t.a * t.b, t.z, t.a, t.b};
+  return what >= 0 && what < 4 ? v[what] : -1;
+}
+
+// The backward's row lists alone (its first launch), from live (G, E, C)
+// int32 into rows (E G C + E) int32: expert e's live slots (group E + e)
+// C + c in (group, slot) order at e G C.., its count at E G C + e; the
+// entries past a count are not written.
+extern "C" int moe_grouped_ffn_rows(const void* live, void* rows, int G,
+                                    int E, int C, void* stream) {
+  moe_bwd_rows_kernel<<<E, ROWS_THREADS, 0,
+                        static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int*>(live), static_cast<int*>(rows), G, E, C);
+  return (int)cudaGetLastError();
 }
 
 // dout (G, g, d) in x's type and what the forward kept under grad: xin
 // (G, E, C, d) and h (G, E, C, f) in x's type, the pre-activations save_a
-// and save_b (G, E, C, f) in x's type, y (ks, G, E, C, d) f32 and live
-// (G, E, C) int32 -> dx (G, g, d) in x's type, dcombine (G, g, E, C) f32,
-// dwg, dwu (E, d, f) and dwd (E, f, d) in the weights' (x's) type.
-// Scratch from the caller: dy (G, E, C, d), da and db (G, E, C, f) in x's
-// type, dxin (G, E, C, d) f32.  All contiguous.
+// and save_b (G, E, C, f) in x's type, y (bf16: the forward's y_save, (G,
+// E, C, d); f32: the split partials, (ks, G, E, C, d)) and live (G, E, C)
+// int32 -> dx (G, g, d) in x's type, dcombine (G, g, E, C) f32, dwg, dwu
+// (E, d, f) and dwd (E, f, d) in the weights' (x's) type.  Scratch from
+// the caller: dy (G, E, C, d), da and db (G, E, C, f) in x's type, dxin
+// (G, E, C, d) f32, rows (E G C + E) int32 (bf16; null for f32).  n_sm:
+// the persistent products' blocks (the card's SM count).  All contiguous.
 extern "C" int moe_grouped_ffn_bwd(
     const void* dispatch, const void* combine, const void* dout,
     const void* wg, const void* wu, const void* wd, const void* xin,
     const void* h, const void* save_a, const void* save_b, const void* y,
     const void* live, void* dx, void* dcombine, void* dwg, void* dwu,
-    void* dwd, void* dy, void* da, void* db, void* dxin, int dtype, int G,
-    int g, int E, int C, int d, int f, int ks, void* stream) {
+    void* dwd, void* dy, void* da, void* db, void* dxin, void* rows,
+    int dtype, int G, int g, int E, int C, int d, int f, int ks, int n_sm,
+    void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const unsigned char* disp = static_cast<const unsigned char*>(dispatch);
   const float* comb = static_cast<const float*>(combine);
   const int* lv = static_cast<const int*>(live);
-  const float* yy = static_cast<const float*>(y);
   float* dc = static_cast<float*>(dcombine);
   float* dxi = static_cast<float*>(dxin);
   if (dtype == kF32)
-    return moe_bwd<float>(disp, comb, static_cast<const float*>(dout), wg,
-                          wu, wd, xin, h, save_a, save_b, yy, lv,
-                          static_cast<float*>(dx), dc, dwg, dwu, dwd,
-                          static_cast<float*>(dy), da, db, dxi, G, g, E, C,
-                          d, f, ks, s);
-  if (dtype != kBF16) return (int)cudaErrorInvalidValue;
+    return moe_bwd_f32(disp, comb, static_cast<const float*>(dout), wg, wu,
+                       wd, xin, h, save_a, save_b,
+                       static_cast<const float*>(y), lv,
+                       static_cast<float*>(dx), dc, dwg, dwu, dwd,
+                       static_cast<float*>(dy), da, db, dxi, G, g, E, C, d,
+                       f, ks, s);
+  if (dtype != kBF16 || rows == nullptr || n_sm < 1)
+    return (int)cudaErrorInvalidValue;
   using B16 = __nv_bfloat16;
-  return moe_bwd<B16>(disp, comb, static_cast<const B16*>(dout), wg, wu, wd,
-                      xin, h, save_a, save_b, yy, lv, static_cast<B16*>(dx),
-                      dc, dwg, dwu, dwd, static_cast<B16*>(dy), da, db, dxi, G,
-                      g, E, C, d, f, ks, s);
+  TcArgs a;
+  a.sa = static_cast<const B16*>(save_a);
+  a.sb = static_cast<const B16*>(save_b);
+  a.da = static_cast<B16*>(da);
+  a.db = static_cast<B16*>(db);
+  a.dwg = static_cast<B16*>(dwg);
+  a.dwu = static_cast<B16*>(dwu);
+  a.dwd = static_cast<B16*>(dwd);
+  a.dxin = dxi;
+  a.dcomb = dc;
+  a.rows = static_cast<const int*>(rows);
+  a.G = G;
+  a.g = g;
+  a.E = E;
+  a.C = C;
+  a.d = d;
+  a.f = f;
+  return moe_bwd_bf16(disp, comb, static_cast<const B16*>(dout),
+                      static_cast<const B16*>(wg), static_cast<const B16*>(wu),
+                      static_cast<const B16*>(wd), static_cast<const B16*>(xin),
+                      static_cast<const B16*>(h), static_cast<const B16*>(y),
+                      lv, static_cast<B16*>(dy), a, static_cast<int*>(rows),
+                      static_cast<B16*>(dx), n_sm, s);
 }

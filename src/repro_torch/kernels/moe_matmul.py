@@ -23,13 +23,16 @@ plain version is ``ref.moe_grouped_ffn``.
 
 The gradient (no TPU kernel: the JAX package trains through autodiff of
 ``ref.moe_grouped_ffn``) is ``moe_grouped_ffn_bwd`` in the same source:
-dx, dcombine (f32) and the three weight gradients, nine launches, no
-atomics, each weight gradient one block's loop over all G x C slots of
-its expert (deterministic, exact zeros for an expert without a token).
-bf16 runs its six products on the tensor cores (``mma.sync``), f32 on
-the CUDA cores, as does dcombine = dout . y in both types.
-:func:`plan_bwd` states its tiles and grids from the shapes alone.
-:class:`MoEGroupedFFN` is the autograd function over the two.
+dx, dcombine (f32) and the three weight gradients, no atomics, exact
+zeros for an expert without a token.  bf16 takes eight launches: each
+expert's live slots listed on the device, the dy gather, five products
+on ``wgmma`` in one warp-specialised persistent kernel (dh with the
+SwiGLU gradient in its epilogue, dxin as one product of depth 2f, dwd,
+dwg and dwu in one launch, dcombine against the forward's bf16 y) that
+walk the listed rows only, and the dx gather.  f32 takes nine, on the
+CUDA cores.  :func:`plan_bwd` states its tiles, tile queues and grids
+from the shapes alone.  :class:`MoEGroupedFFN` is the autograd function
+over the two.
 """
 from __future__ import annotations
 
@@ -42,10 +45,12 @@ from .flash_attention import ELEM
 
 NAME = "moe_grouped_ffn"
 _P, _I = ctypes.c_void_p, ctypes.c_int
-SIGNATURES = {"moe_grouped_ffn_fwd": [_P] * 13 + [_I] * 11 + [_P],
+SIGNATURES = {"moe_grouped_ffn_fwd": [_P] * 14 + [_I] * 11 + [_P],
               "moe_grouped_ffn_tiles": [_I, _I, _I],
-              "moe_grouped_ffn_bwd": [_P] * 21 + [_I] * 8 + [_P],
-              "moe_grouped_ffn_bwd_tiles": [_I]}
+              "moe_grouped_ffn_bwd": [_P] * 22 + [_I] * 9 + [_P],
+              "moe_grouped_ffn_bwd_tiles": [_I],
+              "moe_grouped_ffn_bwd_queue": [_I] * 8,
+              "moe_grouped_ffn_rows": [_P, _P, _I, _I, _I, _P]}
 MAX_GRID = 65535
 SM_SMEM = 233_472       # shared memory of one H100 SM, 1 KB kept per block
 # f32, on the CUDA cores
@@ -58,16 +63,28 @@ TC_THREADS = 256        # two warpgroups
 TC_COLS = {"up": 128, "down": 256}   # weight output columns per block
 TC_WBYTES = 4 * TC_K * 64 * 2        # weight bytes of one stage
 SLOT_TILES = (8, 16, 32, 48, 64, 96, 128, 160)   # wgmma widths built
-# the backward (csrc: BW_*, SW_*): bf16 products on the tensor cores in
-# blocks of BW_BM x BW_BN outputs, BW_BK deep stages; f32 products and
-# dcombine on the CUDA cores in blocks of SW_BM x SW_BN, SW_BK deep
-BW_BM, BW_BN, BW_BK, BW_STAGES, BW_THREADS = 128, 128, 64, 3, 256
-BW_SMEM = 1024 + BW_STAGES * 2 * BW_BM * BW_BK * 2
+# the backward (csrc: TB_*, SW_*, ROWS_THREADS): bf16 products on wgmma in
+# persistent blocks of a producer and two consumer warpgroups, TB_BM x
+# TB_BN output tiles, TB_BK deep stages through a ring of TB_STAGES (the
+# weight gradients: TB_WG_STAGES, and their bf16 tile staged in shared
+# memory for its store); f32 products and dcombine on the CUDA cores in
+# blocks of SW_BM x SW_BN, SW_BK deep
+TB_BM, TB_BN, TB_BK, TB_THREADS = 128, 256, 64, 384
+TB_STAGES, TB_WG_STAGES = 4, 3
+TB_PRODUCER_REGS, TB_CONSUMER_REGS = 48, 224
+TB_SMEM = 1024 + TB_STAGES * (TB_BM + TB_BN) * TB_BK * 2
+TB_WG_SMEM = 1024 + TB_WG_STAGES * (TB_BM + TB_BN) * TB_BK * 2 \
+    + TB_BM * TB_BN * 2
 SW_BM, SW_BN, SW_BK, SW_THREADS = 128, 128, 16, 256
 SW_SMEM = 2 * SW_BK * (SW_BM + 4) * 4
-GATHER_THREADS, GATHER_COLS = 128, 512  # the gathers: threads, d a block
-BWD_TILE_KEYS = ("bm", "bn", "bk", "stages", "smem", "threads", "sw_bm",
-                 "sw_bn", "sw_bk", "sw_smem", "sw_threads")
+ROWS_THREADS = 256                      # the row lists: one block an expert
+GATHER_THREADS = 128    # the gathers: threads a block (a slot or token)
+BWD_TILE_KEYS = ("bm", "bn", "bk", "stages", "smem", "wg_stages",
+                 "wg_smem", "threads", "producer_regs", "consumer_regs",
+                 "sw_bm", "sw_bn", "sw_bk", "sw_smem", "sw_threads",
+                 "rows_threads")
+# the bf16 products' tile queues (csrc: MODE_*, tc_tiles), in launch order
+TC_PRODUCTS = ("dh", "dxin", "dwd", "dwg_dwu", "dcombine")
 
 
 def _cdiv(a: int, b: int) -> int:
@@ -151,43 +168,73 @@ def kernel_tiles() -> dict:
             for nt in SLOT_TILES for k in ("up", "down")}
 
 
+def tc_queue(name: str, G: int, g: int, E: int, C: int, d: int,
+             f: int) -> tuple[int, int, int]:
+    """The tile queue (z, a, b) of a bf16 backward product, b fastest
+    (csrc ``tc_tiles``): dh and dxin walk (expert, TB_BN columns of f or d,
+    TB_BM listed rows of the expert's G C), dwd and dwg_dwu (expert,
+    TB_BM rows of f or d, TB_BN columns of d or TB_BN / 2 of f of each of
+    dwg and dwu), dcombine (group, TB_BN slots of E C, TB_BM tokens)."""
+    return {"dh": (E, _cdiv(f, TB_BN), _cdiv(G * C, TB_BM)),
+            "dxin": (E, _cdiv(d, TB_BN), _cdiv(G * C, TB_BM)),
+            "dwd": (E, _cdiv(f, TB_BM), _cdiv(d, TB_BN)),
+            "dwg_dwu": (E, _cdiv(d, TB_BM), _cdiv(f, TB_BN // 2)),
+            "dcombine": (G, _cdiv(E * C, TB_BN), _cdiv(g, TB_BM))}[name]
+
+
 def plan_bwd(G: int, g: int, E: int, C: int, d: int, f: int,
-             dtype: torch.dtype) -> dict:
+             dtype: torch.dtype, n_sm: int) -> dict:
     """The backward's launches for one shape, a pure function of (G, g,
-    E, C, d, f, dtype), never of the data.  Returns the product blocks'
-    tiles (``route`` "mma": bf16 on the tensor cores, ``bm`` x ``bn``
-    outputs, ``bk`` deep stages through a ring of ``stages``, ``smem``
-    dynamic bytes; "simt": the CUDA cores, static ``smem``), the
-    dcombine block's (``sw``: always the CUDA cores), and per launch its
-    ``grid`` (x, y, z) and ``threads``: ``dy`` (the combine-weighted
-    gather of dout), ``dh`` (dy wd^T with da, db in its epilogue),
-    ``dxin`` (twice: da wg^T, db wu^T), ``dwd``, ``dwg_dwu`` (twice),
-    ``dx`` (the dispatch gather) and ``dcombine``; ``launches`` counts
-    them."""
-    mma = dtype == torch.bfloat16
-    bm, bn = (BW_BM, BW_BN) if mma else (SW_BM, SW_BN)
-    tile = (dict(route="mma", bm=BW_BM, bn=BW_BN, bk=BW_BK,
-                 stages=BW_STAGES, smem=BW_SMEM, threads=BW_THREADS)
-            if mma else
-            dict(route="simt", bm=SW_BM, bn=SW_BN, bk=SW_BK, stages=1,
-                 smem=SW_SMEM, threads=SW_THREADS))
-    chunks = _cdiv(d, GATHER_COLS)
-    grids = {"dy": ((C * chunks, E, G), GATHER_THREADS, 4 * _cdiv(g, 32)),
-             "dh": ((_cdiv(f, bn), _cdiv(C, bm), G * E), tile["threads"],
-                    tile["smem"]),
-             "dxin": ((_cdiv(d, bn), _cdiv(C, bm), G * E), tile["threads"],
-                      tile["smem"]),
-             "dwd": ((_cdiv(d, bn), _cdiv(f, bm), E), tile["threads"],
-                     tile["smem"]),
-             "dwg_dwu": ((_cdiv(f, bn), _cdiv(d, bm), E), tile["threads"],
-                         tile["smem"]),
-             "dx": ((g * chunks, G), GATHER_THREADS, 4 * _cdiv(E * C, 32)),
-             "dcombine": ((_cdiv(E * C, SW_BN), _cdiv(g, SW_BM), G),
-                          SW_THREADS, SW_SMEM)}
-    return dict(tile=tile, sw=dict(bm=SW_BM, bn=SW_BN, bk=SW_BK,
-                                   smem=SW_SMEM, threads=SW_THREADS),
-                launches=9, **{k: dict(grid=grid, threads=t, smem=sm)
-                               for k, (grid, t, sm) in grids.items()})
+    E, C, d, f, dtype, n_sm), never of the data.  Returns the product
+    blocks' tiles (``route`` "wgmma": bf16, ``bm`` x ``bn`` outputs a
+    tile, ``bk`` deep stages through a ring of ``stages`` and ``smem``
+    dynamic bytes, the weight gradients' ``wg_stages`` and ``wg_smem``,
+    ``threads`` of a producer and two consumer warpgroups with
+    ``producer_regs`` / ``consumer_regs`` registers; "simt": f32 on the
+    CUDA cores, static ``smem``), the CUDA-core block's (``sw``), and per
+    launch its ``grid`` (x, y, z), ``threads``, ``smem`` and, for the
+    persistent products, ring ``stages``: bf16's
+    ``rows`` (one block an expert), ``dy`` (the combine-weighted gather of
+    dout), the persistent products ``dh`` (dy wd^T with da, db in its
+    epilogue), ``dxin`` ([da | db] [wg | wu]^T), ``dwd``, ``dwg_dwu`` and
+    ``dcombine``, each with its tile ``queue`` (z, a, b) and ``tiles``,
+    on min(tiles, n_sm) blocks, and ``dx`` (the dispatch gather); f32's
+    ``dy``, ``dh``, ``dxin`` (twice: da wg^T, db wu^T), ``dwd``,
+    ``dwg_dwu`` (twice), ``dx`` and ``dcombine`` on (columns, rows, z)
+    grids.  ``launches`` counts them."""
+    sw = dict(bm=SW_BM, bn=SW_BN, bk=SW_BK, smem=SW_SMEM, threads=SW_THREADS)
+    grids = {"dy": ((C, E, G), GATHER_THREADS, 4 * _cdiv(g, 32)),
+             "dx": ((g, G), GATHER_THREADS, 4 * _cdiv(E * C, 32))}
+    if dtype == torch.bfloat16:
+        tile = dict(route="wgmma", bm=TB_BM, bn=TB_BN, bk=TB_BK,
+                    stages=TB_STAGES, smem=TB_SMEM, wg_stages=TB_WG_STAGES,
+                    wg_smem=TB_WG_SMEM, threads=TB_THREADS,
+                    producer_regs=TB_PRODUCER_REGS,
+                    consumer_regs=TB_CONSUMER_REGS)
+        out = {"rows": dict(grid=(E, 1, 1), threads=ROWS_THREADS, smem=36)}
+        for name in TC_PRODUCTS:
+            q = tc_queue(name, G, g, E, C, d, f)
+            n = q[0] * q[1] * q[2]
+            wg = name in ("dwd", "dwg_dwu")
+            out[name] = dict(grid=(min(n, n_sm), 1, 1), threads=TB_THREADS,
+                             smem=TB_WG_SMEM if wg else TB_SMEM,
+                             stages=TB_WG_STAGES if wg else TB_STAGES,
+                             queue=q, tiles=n)
+        launches = 8
+    else:
+        tile = dict(route="simt", stages=1, **sw)
+        bm, bn = SW_BM, SW_BN
+        out = {k: dict(grid=grid, threads=SW_THREADS, smem=SW_SMEM)
+               for k, grid in (
+                   ("dh", (_cdiv(f, bn), _cdiv(C, bm), G * E)),
+                   ("dxin", (_cdiv(d, bn), _cdiv(C, bm), G * E)),
+                   ("dwd", (_cdiv(d, bn), _cdiv(f, bm), E)),
+                   ("dwg_dwu", (_cdiv(f, bn), _cdiv(d, bm), E)),
+                   ("dcombine", (_cdiv(E * C, bn), _cdiv(g, bm), G)))}
+        launches = 9
+    out.update({k: dict(grid=grid, threads=t, smem=sm)
+                for k, (grid, t, sm) in grids.items()})
+    return dict(tile=tile, sw=sw, launches=launches, **out)
 
 
 def bwd_kernel_tiles() -> dict:
@@ -196,6 +243,46 @@ def bwd_kernel_tiles() -> dict:
     lib = _build.load(NAME, SIGNATURES)
     return {k: lib.moe_grouped_ffn_bwd_tiles(i)
             for i, k in enumerate(BWD_TILE_KEYS)}
+
+
+def bwd_kernel_queues(G: int, g: int, E: int, C: int, d: int,
+                      f: int) -> dict:
+    """The built library's tile queues of the bf16 products at one shape,
+    to hold :func:`tc_queue` to: {name: (z, a, b)}."""
+    lib = _build.load(NAME, SIGNATURES)
+    return {name: tuple(lib.moe_grouped_ffn_bwd_queue(i, G, g, E, C, d, f, w)
+                        for w in (1, 2, 3))
+            for i, name in enumerate(TC_PRODUCTS)}
+
+
+def expert_rows(live: torch.Tensor) -> torch.Tensor:
+    """The bf16 backward's row lists from the forward's slot liveness
+    ``live`` (G, E, C) int32 -> (E G C + E + G E C) int32: at e G C..,
+    the slots (group E + e) C + c of expert e in (group, slot) order, the
+    ones with a token first and then the others; at E G C + e, the count
+    of the first; at E G C + E + slot, the slot's place in its expert's
+    list.  A CUDA tensor goes through the backward's first kernel, a CPU
+    tensor through the plain version."""
+    G, E, C = live.shape
+    GC = G * C
+    if live.device.type == "cuda":
+        out = torch.empty(E * GC + E + G * E * C, dtype=torch.int32,
+                          device=live.device)
+        lib = _build.load(NAME, SIGNATURES)
+        with torch.cuda.device(live.device):
+            rc = lib.moe_grouped_ffn_rows(
+                live.contiguous().data_ptr(), out.data_ptr(), G, E, C,
+                torch.cuda.current_stream(live.device).cuda_stream)
+        _build.check(lib, rc, f"{NAME}_rows")
+        return out
+    slots = torch.arange(G * E * C, dtype=torch.int32).view(G, E, C)
+    on = live.cpu().transpose(0, 1).reshape(E, GC) != 0
+    order = slots.transpose(0, 1).reshape(E, GC)
+    lists = torch.cat([torch.cat([order[e][on[e]], order[e][~on[e]]])
+                       for e in range(E)])
+    place = torch.empty(G * E * C, dtype=torch.int32)
+    place[lists.long()] = torch.arange(GC, dtype=torch.int32).repeat(E)
+    return torch.cat([lists, on.sum(1, dtype=torch.int32), place])
 
 
 def _check(ts: tuple) -> None:
@@ -231,8 +318,9 @@ def launch_forward(ts: tuple, save: bool
                    ) -> tuple[torch.Tensor, dict | None]:
     """The forward's launches on checked inputs ``ts`` (dispatch, combine,
     xg, wg, wu, wd); with ``save``, also what :func:`moe_grouped_ffn_bwd`
-    reads: {xin, h, a, b (the up product's pre-activations), y (the down
-    product's f32 partials), live, ks}."""
+    reads: {xin, h, a, b (the up product's pre-activations), y (bf16: the
+    down product's output (G, E, C, d), summed over the split and rounded
+    once, 0 at dead slots; f32: its split partials), live, ks}."""
     dispatch, combine, xg, wg, wu, wd = ts
     G, g, E, C = dispatch.shape
     d, f = xg.shape[-1], wg.shape[-1]
@@ -250,6 +338,8 @@ def launch_forward(ts: tuple, save: bool
     live = torch.empty((G, E, C), dtype=torch.int32, device=xg.device)
     a = torch.empty_like(h) if save else None
     b = torch.empty_like(h) if save else None
+    bf16_y = torch.empty_like(xin) if save and xg.dtype == torch.bfloat16 \
+        else None
     lib = _build.load(NAME, SIGNATURES)
     with torch.cuda.device(xg.device):
         rc = lib.moe_grouped_ffn_fwd(
@@ -257,12 +347,13 @@ def launch_forward(ts: tuple, save: bool
             wg.data_ptr(), wu.data_ptr(), wd.data_ptr(), out.data_ptr(),
             xin.data_ptr(), h.data_ptr(), y.data_ptr(), live.data_ptr(),
             a.data_ptr() if save else None, b.data_ptr() if save else None,
-            ELEM[xg.dtype], G, g, E, C, d, f, p["tile"], p["up"]["stages"],
+            None if bf16_y is None else bf16_y.data_ptr(), ELEM[xg.dtype], G, g, E, C, d, f, p["tile"], p["up"]["stages"],
             ks, p["per"],
             torch.cuda.current_stream(xg.device).cuda_stream)
     _build.check(lib, rc, NAME)
     _build.count(NAME)
-    return out, (dict(xin=xin, h=h, a=a, b=b, y=y, live=live, ks=ks)
+    return out, (dict(xin=xin, h=h, a=a, b=b,
+                      y=y if bf16_y is None else bf16_y, live=live, ks=ks)
                  if save else None)
 
 
@@ -299,9 +390,10 @@ def moe_grouped_ffn_bwd(dout: torch.Tensor, dispatch: torch.Tensor,
                          f" on {dout.device}, want ({G}, {g}, {d}) {dt}, "
                          "contiguous and 16-byte aligned on the weights' "
                          "device")
-    p = plan_bwd(G, g, E, C, d, f, dt)
-    if any(max(v["grid"][1:]) > MAX_GRID for v in p.values()
-           if isinstance(v, dict) and "grid" in v):
+    n_sm = torch.cuda.get_device_properties(wg.device).multi_processor_count
+    p = plan_bwd(G, g, E, C, d, f, dt, n_sm)
+    if any(max(v["grid"][1:]) > MAX_GRID or v.get("tiles", 0) >= 2 ** 31
+           for v in p.values() if isinstance(v, dict) and "grid" in v):
         raise ValueError(f"{NAME}_bwd: a grid passes the limit {MAX_GRID}")
     dev = wg.device
     dx = torch.empty((G, g, d), dtype=dt, device=dev)
@@ -311,10 +403,15 @@ def moe_grouped_ffn_bwd(dout: torch.Tensor, dispatch: torch.Tensor,
     if saved is None:                   # C == 0 or no token: no FFN output
         return (dx.zero_(), dcomb.zero_(), dwg.zero_(), dwu.zero_(),
                 dwd.zero_())
-    dy = torch.empty((G, E, C, d), dtype=dt, device=dev)
-    da = torch.empty((G, E, C, f), dtype=dt, device=dev)
+    # dy, da, db: f32 at the slots' rows (G, E, C, .); bf16 in list order
+    # (E, G C, .), the rows of each expert's list
+    rows_first = (G, E, C) if dt == torch.float32 else (E, G * C)
+    dy = torch.empty(rows_first + (d,), dtype=dt, device=dev)
+    da = torch.empty(rows_first + (f,), dtype=dt, device=dev)
     db = torch.empty_like(da)
     dxin = torch.empty((G, E, C, d), dtype=torch.float32, device=dev)
+    rows = torch.empty(E * G * C + E + G * E * C, dtype=torch.int32,
+                       device=dev) if dt == torch.bfloat16 else None
     sv = saved
     lib = _build.load(NAME, SIGNATURES)
     with torch.cuda.device(dev):
@@ -325,7 +422,8 @@ def moe_grouped_ffn_bwd(dout: torch.Tensor, dispatch: torch.Tensor,
             sv["b"].data_ptr(), sv["y"].data_ptr(), sv["live"].data_ptr(),
             dx.data_ptr(), dcomb.data_ptr(), dwg.data_ptr(), dwu.data_ptr(),
             dwd.data_ptr(), dy.data_ptr(), da.data_ptr(), db.data_ptr(),
-            dxin.data_ptr(), ELEM[dt], G, g, E, C, d, f, sv["ks"],
+            dxin.data_ptr(), None if rows is None else rows.data_ptr(),
+            ELEM[dt], G, g, E, C, d, f, sv["ks"], n_sm,
             torch.cuda.current_stream(dev).cuda_stream)
     _build.check(lib, rc, f"{NAME}_bwd")
     _build.count(f"{NAME}_bwd")
@@ -340,10 +438,13 @@ class MoEGroupedFFN(torch.autograd.Function):
     xin (G, E, C, d) and H (G, E, C, f) in x's dtype (its own scratch),
     the up product's pre-activations a = xin wg and b = xin wu (G, E, C,
     f) in x's dtype, written by the same launch, and the down product's
-    f32 partials y (ks, G, E, C, d).  Keeping a and b (2 x 147 MB in bf16
-    a layer at mixtral's training shape) costs less than the two products
-    (a third of the backward's) that recomputing them would take, and y
-    (84 MB) less than a third product; H is the forward's own bf16 H, so
+    output y: bf16, (G, E, C, d), its f32 split partials summed and
+    rounded once by one more launch (the plain version's own out_e, which
+    dcombine = dout . y reads on the tensor cores); f32, the partials (ks,
+    G, E, C, d).  Keeping a and b (2 x 147 MB in bf16 a layer at
+    mixtral's training shape) costs less than the two products (a third
+    of the backward's) that recomputing them would take, and y (42 MB in
+    bf16) less than a third product; H is the forward's own bf16 H, so
     dwd = H^T dy sees the operand the forward multiplied.  Without a
     gradient (``torch.no_grad``, serving) the forward allocates and keeps
     nothing beyond :func:`moe_grouped_ffn`'s scratch.  The backward

@@ -47,7 +47,12 @@ What the client adds over a dumb RPC stub:
     :func:`repro_torch.runtime.fault.retry_with_backoff`; connection
     resets reconnect with exponential backoff and resend (shards
     deduplicate by per-sub-op key, so a replayed batch is exactly-once per
-    sub-op), and each retry is reported into the client's Telemetry.
+    sub-op), and each retry is reported into the client's Telemetry.  A
+    connection failure met outside that loop (a pipelined batch, a
+    deferred write's settle, a one-way broadcast) marks the shard
+    *severed*; the connection that replaces it counts one retry when it
+    is opened, so every resend after a shard's death shows in
+    ``retried_steps`` whichever path met the failure first.
     Connection *establishment* runs inside the same guarded region: a
     connect-phase timeout against a hung shard surfaces as the standard
     :class:`WaitTimeout` diagnostic.
@@ -113,6 +118,9 @@ class ClientParameterDB:
         self.lamport = 0
         self._next_id = 0
         self._conns: dict[int, _Conn] = {}
+        # shards whose connection failed outside retry_with_backoff: the
+        # next connection to one is a resend, counted as a retry
+        self._severed: set[int] = set()
         self._read_sets: dict[int, set[int]] = {}
         # write-behind: per shard, one deferred write_batch whose response
         # has not been read yet -> (rid, header, payload, writes)
@@ -125,9 +133,18 @@ class ClientParameterDB:
             conn = _Conn(P.connect(self.addrs[shard],
                                    timeout=self.timeout + 10.0))
             self._conns[shard] = conn
+            if shard in self._severed:
+                self._severed.discard(shard)
+                self.telemetry.on_retry(0)
         return conn
 
-    def _drop(self, shard: int) -> None:
+    def _drop(self, shard: int, severed: bool = True) -> None:
+        """Close ``shard``'s connection.  ``severed``: it failed (or was
+        left mid-stream), so the next connection to the shard is a resend
+        and counts as a retry; retry_with_backoff's own attempts pass False,
+        since the loop counts them itself."""
+        if severed:
+            self._severed.add(shard)
         conn = self._conns.pop(shard, None)
         if conn is not None:
             try:
@@ -138,7 +155,7 @@ class ClientParameterDB:
     def close(self) -> None:
         for s in list(self._conns):
             self.flush(s)
-            self._drop(s)
+            self._drop(s, severed=False)
 
     def __enter__(self):
         return self
@@ -223,7 +240,7 @@ class ClientParameterDB:
                 self._drop(shard)
                 raise self._timeout_error(header, shard, "rpc")
             except OSError:
-                self._drop(shard)
+                self._drop(shard, severed=False)
                 raise
             self._check(resp, header, shard)
             return resp, rp
@@ -231,7 +248,7 @@ class ClientParameterDB:
         return retry_with_backoff(
             attempt, self.backoff, retry_on=(ConnectionError,),
             telemetry=self.telemetry,
-            on_retry=lambda attempt_no: self._drop(shard),
+            on_retry=lambda attempt_no: self._drop(shard, severed=False),
             describe=f"rpc {header.get('op')} -> shard{shard}")
 
     def _rpc_pipelined(self, requests: dict[int, tuple[dict, bytes]]

@@ -40,7 +40,8 @@ from repro_torch.kernels.decode_attention import (  # noqa: E402
 from repro_torch.kernels.flash_attention import (  # noqa: E402
     FlashAttention, flash_attention, flash_attention_bwd, kernel_smem, plan)
 from repro_torch.kernels.moe_matmul import (  # noqa: E402
-    BWD_TILE_KEYS, SLOT_TILES, MoEGroupedFFN, bwd_kernel_tiles, kernel_tiles,
+    BWD_TILE_KEYS, SLOT_TILES, TC_PRODUCTS, MoEGroupedFFN, bwd_kernel_queues,
+    bwd_kernel_tiles, expert_rows, kernel_tiles,
     moe_grouped_ffn, plan_bwd)
 from repro_torch.kernels.moe_matmul import plan as moe_plan  # noqa: E402
 from repro_torch.kernels.page_gather import (  # noqa: E402
@@ -974,6 +975,7 @@ def _moe_bwd_close(got, want, dtype):
     (1, 128, 8, 40, 128, 256),
     (2, 300, 8, 94, 64, 128),       # slot tiles past one block
     (1, 512, 8, 160, 256, 384),     # two row blocks of slots, ragged
+    (2, 200, 8, 50, 256, 320),      # C not a multiple of 64, two groups
 ])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_moe_grouped_ffn_bwd(gen, G, g, E, C, d, f, dtype):
@@ -1012,6 +1014,51 @@ def test_moe_grouped_ffn_bwd_edge_cases(gen, dtype):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_moe_grouped_ffn_bwd_one_group_and_non_prefix(gen, dtype):
+    """An expert live in one group and empty in the other (its weight
+    gradients from that group's rows alone), and a non-prefix dispatch
+    (live slots scattered through C, dead slots between them) at d 256
+    against autograd of the plain version."""
+    G, g, E, C, d, f = 2, 96, 4, 40, 256, 384
+    dispatch, combine = _moe_routing(gen, G, g, E, C)
+    dispatch[1, :, 3] = False                 # expert 3: group 0 only
+    combine[1, :, 3] = 0
+    ins = _moe_inputs(gen, G, g, E, C, d, f, dtype, (dispatch, combine))
+    dout = _randn(gen, (G, g, d), dtype)
+    _moe_bwd_close(_moe_grads(ins, dout, True), _moe_grads(ins, dout, False),
+                   dtype)
+    # each token in a slot of its own, spread over C with gaps
+    dispatch = torch.zeros((G, g, E, C), dtype=torch.bool, device="cuda")
+    perm = torch.randperm(E * C, generator=gen, device="cuda")[:g]
+    for grp in range(G):
+        dispatch[grp].view(g, E * C)[torch.arange(g, device="cuda"),
+                                     perm] = True
+    combine = dispatch.float() * torch.rand((G, g, E, C), generator=gen,
+                                            device="cuda")
+    ins = _moe_inputs(gen, G, g, E, C, d, f, dtype, (dispatch, combine))
+    _moe_bwd_close(_moe_grads(ins, dout, True), _moe_grads(ins, dout, False),
+                   dtype)
+
+
+def test_moe_expert_rows_kernel_equals_plain(gen):
+    """The bf16 backward's first kernel lists each expert's live slots
+    as its plain version does: top-2 routing with drops, an expert with
+    no token, one live in one group only, and a random dispatch."""
+    G, g, E, C = 2, 300, 8, 94
+    dispatch, _ = _moe_routing(gen, G, g, E, C)
+    cases = [dispatch.clone()]
+    dispatch[..., 2, :] = False
+    dispatch[1, :, 5] = False
+    cases.append(dispatch)
+    cases.append(torch.rand((G, g, E, C), generator=gen, device="cuda")
+                 < 0.004)
+    for disp in cases:
+        live = disp.any(1).to(torch.int32).contiguous()
+        got = expert_rows(live)
+        assert torch.equal(got.cpu(), expert_rows(live.cpu()))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_moe_grouped_ffn_bwd_bits_and_counts(gen, dtype):
     """Two backward calls give the same bits (no atomics), the backward
     makes no host synchronisation, and through ``ops.moe_grouped_ffn``
@@ -1041,16 +1088,23 @@ def test_moe_grouped_ffn_bwd_bits_and_counts(gen, dtype):
 
 def test_moe_plan_bwd_matches_the_kernels(gen):
     """The wrapper's constants and plan_bwd state the backward blocks'
-    tiles, stages, shared memory and threads as the built library has
-    them."""
+    tiles, stages, shared memory, threads and registers, and the bf16
+    products' tile queues, as the built library has them."""
     built = bwd_kernel_tiles()
-    p = plan_bwd(2, 1024, 8, 320, 4096, 14336, torch.bfloat16)
-    q = plan_bwd(2, 1024, 8, 320, 4096, 14336, torch.float32)
+    p = plan_bwd(2, 1024, 8, 320, 4096, 14336, torch.bfloat16, 132)
+    q = plan_bwd(2, 1024, 8, 320, 4096, 14336, torch.float32, 132)
     assert built == dict(zip(BWD_TILE_KEYS, (
         p["tile"]["bm"], p["tile"]["bn"], p["tile"]["bk"],
-        p["tile"]["stages"], p["tile"]["smem"], p["tile"]["threads"],
+        p["tile"]["stages"], p["tile"]["smem"], p["tile"]["wg_stages"],
+        p["tile"]["wg_smem"], p["tile"]["threads"],
+        p["tile"]["producer_regs"], p["tile"]["consumer_regs"],
         q["tile"]["bm"], q["tile"]["bn"], q["tile"]["bk"], q["tile"]["smem"],
-        q["tile"]["threads"])))
+        q["tile"]["threads"], p["rows"]["threads"])))
+    for shape in ((2, 1024, 8, 320, 4096, 14336), (1, 16, 4, 8, 32, 48),
+                  (2, 300, 8, 94, 64, 128)):
+        p = plan_bwd(*shape, torch.bfloat16, 132)
+        assert bwd_kernel_queues(*shape) == {
+            k: p[k]["queue"] for k in TC_PRODUCTS}
 
 
 # ---------------------------------------------------------------------------

@@ -13,9 +13,10 @@ written here and not in the package, is held to the JAX package's Pallas
 kernel in interpret mode and to the same function in f64 at half of the
 card's gate: a normalized max error (max |emu - ref| / max |ref|) of
 1e-2, so the gate keeps a margin over what the rounding alone costs.
-``moe_matmul.plan_bwd``, the backward's tiles and grids, is held to the
-same limits at mixtral's training shape, to reading no data, and to the
-CUDA source's constants.
+``moe_matmul.plan_bwd``, the backward's tiles, tile queues and grids, is
+held to the same limits at mixtral's training shape, to reading no data,
+and to the CUDA source's constants; ``moe_matmul.expert_rows``, the plain
+version of the bf16 backward's row lists, to a numpy loop.
 """
 import inspect
 import math
@@ -248,53 +249,191 @@ def test_mixtral_training_capacity():
 @pytest.mark.parametrize("dtype", DTYPES)
 def test_plan_bwd_fits_shared_memory_and_the_grid(shape, dtype):
     G, g, E, C, d, f = shape
-    p = plan_bwd(G, g, E, C, d, f, dtype)
+    p = plan_bwd(G, g, E, C, d, f, dtype, SMS)
     t = p["tile"]
-    assert t["route"] == ("mma" if dtype == torch.bfloat16 else "simt")
-    limit = SMEM_LIMIT if t["route"] == "mma" else 48 * 1024
-    assert 0 < t["smem"] <= limit and t["threads"] == 256
+    assert t["route"] == ("wgmma" if dtype == torch.bfloat16 else "simt")
+    limit = SMEM_LIMIT if t["route"] == "wgmma" else 48 * 1024
+    assert 0 < t["smem"] <= limit
+    assert t.get("wg_smem", 0) <= SMEM_LIMIT
+    assert t["threads"] == (384 if t["route"] == "wgmma" else 256)
     assert p["sw"]["smem"] <= 48 * 1024
-    for name in ("dy", "dh", "dxin", "dwd", "dwg_dwu", "dx", "dcombine"):
+    names = ("dy", "dh", "dxin", "dwd", "dwg_dwu", "dx", "dcombine")
+    for name in names + (("rows",) if t["route"] == "wgmma" else ()):
         grid = p[name]["grid"]
         assert 0 < grid[0] < 2 ** 31, name
         assert all(0 < v <= MAX_GRID for v in grid[1:]), name
         assert p[name]["smem"] <= SMEM_LIMIT
     bm, bn = t["bm"], t["bn"]
-    # every output element has a block: slots x f, slots x d, f x d, d x f
-    assert p["dh"]["grid"][0] * bn >= f and p["dh"]["grid"][1] * bm >= C
-    assert p["dxin"]["grid"][0] * bn >= d and p["dh"]["grid"][2] == G * E
-    assert p["dwd"]["grid"][:2] == (-(-d // bn), -(-f // bm))
-    assert p["dwg_dwu"]["grid"][:2] == (-(-f // bn), -(-d // bm))
-    assert p["dwd"]["grid"][2] == p["dwg_dwu"]["grid"][2] == E
-    assert p["dcombine"]["grid"] == (-(-(E * C) // p["sw"]["bn"]),
-                                     -(-g // p["sw"]["bm"]), G)
-    assert p["launches"] == 9
+    if t["route"] == "wgmma":
+        # a consumer warpgroup's registers hold its 64 x bn f32 sums, and
+        # setmaxnreg shares out no more than the block launched with (168
+        # a thread at 384 threads)
+        assert bn // 2 < t["consumer_regs"] <= 255
+        launched = 65536 // t["threads"] // 8 * 8 * t["threads"]
+        assert 128 * t["producer_regs"] + 256 * t["consumer_regs"] \
+            <= launched
+        # every output element has a tile: the listed rows (at most G C an
+        # expert) x f or d, f x d, d x (f of dwg and of dwu), tokens x E C
+        q = {k: p[k]["queue"] for k in mm.TC_PRODUCTS}
+        assert q["dh"][0] == q["dxin"][0] == q["dwd"][0] == E
+        assert q["dh"][1] * bn >= f and q["dxin"][1] * bn >= d
+        assert q["dh"][2] * bm >= G * C and q["dxin"][2] * bm >= G * C
+        assert q["dwd"][1] * bm >= f and q["dwd"][2] * bn >= d
+        assert q["dwg_dwu"][1] * bm >= d and q["dwg_dwu"][2] * bn // 2 >= f
+        assert q["dcombine"] == (G, -(-(E * C) // bn), -(-g // bm))
+        for k in q:     # persistent: one block an SM, no more than tiles
+            assert p[k]["tiles"] == math.prod(q[k])
+            assert p[k]["grid"] == (min(p[k]["tiles"], SMS), 1, 1)
+        assert p["rows"]["grid"] == (E, 1, 1)
+        assert p["launches"] == 8
+    else:
+        # every output element has a block: slots x f, slots x d, f x d,
+        # d x f
+        assert p["dh"]["grid"][0] * bn >= f and p["dh"]["grid"][1] * bm >= C
+        assert p["dxin"]["grid"][0] * bn >= d and \
+            p["dh"]["grid"][2] == G * E
+        assert p["dwd"]["grid"][:2] == (-(-d // bn), -(-f // bm))
+        assert p["dwg_dwu"]["grid"][:2] == (-(-f // bn), -(-d // bm))
+        assert p["dwd"]["grid"][2] == p["dwg_dwu"]["grid"][2] == E
+        assert p["dcombine"]["grid"] == (-(-(E * C) // p["sw"]["bn"]),
+                                         -(-g // p["sw"]["bm"]), G)
+        assert p["launches"] == 9
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
 def test_plan_bwd_reads_no_data(dtype):
     assert list(inspect.signature(plan_bwd).parameters) == \
-        ["G", "g", "E", "C", "d", "f", "dtype"]
+        ["G", "g", "E", "C", "d", "f", "dtype", "n_sm"]
     for shape in BWD_SHAPES:
-        assert plan_bwd(*shape, dtype) == plan_bwd(*shape, dtype)
+        assert plan_bwd(*shape, dtype, SMS) == plan_bwd(*shape, dtype, SMS)
+    # the grid follows the card's SMs, never the data
+    assert plan_bwd(2, 1024, 8, 320, 4096, 14336, torch.bfloat16, 8)[
+        "dh"]["grid"] == (8, 1, 1)
 
 
 def test_plan_bwd_states_the_source():
     """The wrapper's constants are the CUDA source's (the card's tests
-    hold the built library's ``moe_grouped_ffn_bwd_tiles`` to them too)."""
+    hold the built library's ``moe_grouped_ffn_bwd_tiles`` and
+    ``moe_grouped_ffn_bwd_queue`` to them too)."""
     src = (Path(mm.__file__).with_name("csrc")
            / "moe_grouped_ffn.cu").read_text()
     consts = {k: int(v) for k, v in re.findall(
-        r"constexpr int ((?:BW|SW)_[A-Z]+) = (\d+);", src)}
-    assert consts == dict(BW_BM=mm.BW_BM, BW_BN=mm.BW_BN, BW_BK=mm.BW_BK,
-                          BW_STAGES=mm.BW_STAGES, BW_THREADS=mm.BW_THREADS,
-                          SW_BM=mm.SW_BM, SW_BN=mm.SW_BN, SW_BK=mm.SW_BK,
-                          SW_THREADS=mm.SW_THREADS)
-    assert "BW_TILE = BW_BM * BW_BK * 2;" in src
-    assert "BW_SMEM = 1024 + BW_STAGES * 2 * BW_TILE;" in src
+        r"constexpr int ((?:TB|SW|ROWS)_[A-Z_]+) = (\d+);", src)}
+    assert consts == dict(
+        TB_BM=mm.TB_BM, TB_BN=mm.TB_BN, TB_BK=mm.TB_BK,
+        TB_STAGES=mm.TB_STAGES, TB_WG_STAGES=mm.TB_WG_STAGES,
+        TB_THREADS=mm.TB_THREADS,
+        TB_PRODUCER_REGS=mm.TB_PRODUCER_REGS,
+        TB_CONSUMER_REGS=mm.TB_CONSUMER_REGS, ROWS_THREADS=mm.ROWS_THREADS,
+        SW_BM=mm.SW_BM, SW_BN=mm.SW_BN, SW_BK=mm.SW_BK,
+        SW_THREADS=mm.SW_THREADS)
+    assert "TB_A = TB_BM * TB_BK * 2;" in src
+    assert "TB_B = TB_BN * TB_BK * 2;" in src
+    assert "TB_SMEM = 1024 + TB_STAGES * (TB_A + TB_B);" in src
+    assert "TB_OUT = TB_BM * TB_BN * 2;" in src
+    assert "TB_WG_SMEM = 1024 + TB_WG_STAGES * (TB_A + TB_B) + TB_OUT;" \
+        in src
     assert "SW_SMEM = 2 * SW_BK * (SW_BM + 4) * 4;" in src
-    assert mm.BW_SMEM == 1024 + mm.BW_STAGES * 2 * mm.BW_BM * mm.BW_BK * 2
+    assert mm.TB_SMEM == 1024 + mm.TB_STAGES * (mm.TB_BM + mm.TB_BN) \
+        * mm.TB_BK * 2
+    assert mm.TB_WG_SMEM == 1024 + mm.TB_WG_STAGES * (
+        mm.TB_BM + mm.TB_BN) * mm.TB_BK * 2 + mm.TB_BM * mm.TB_BN * 2
     assert mm.SW_SMEM == 2 * mm.SW_BK * (mm.SW_BM + 4) * 4
-    p = plan_bwd(2, 1024, 8, 320, 4096, 14336, torch.bfloat16)
+    p = plan_bwd(2, 1024, 8, 320, 4096, 14336, torch.bfloat16, SMS)
     assert (p["tile"]["bm"], p["tile"]["bk"], p["tile"]["smem"]) == \
-        (mm.BW_BM, mm.BW_BK, mm.BW_SMEM)
+        (mm.TB_BM, mm.TB_BK, mm.TB_SMEM)
+    # the products' modes are numbered in the wrapper's order
+    assert "constexpr int MODE_DH = 0, MODE_DXIN = 1, MODE_DWD = 2, " \
+        "MODE_DWGU = 3,\n              MODE_DCOMB = 4;" in src
+    assert mm.TC_PRODUCTS == ("dh", "dxin", "dwd", "dwg_dwu", "dcombine")
+
+
+# ---------------------------------------------------------------------------
+# the bf16 backward's row lists
+# ---------------------------------------------------------------------------
+
+def _rows_numpy(live: np.ndarray) -> np.ndarray:
+    """The row lists as a loop over (expert, group, slot): expert e's
+    slots (group E + e) C + c in (group, slot) order, the live ones first,
+    then the E live counts, then each slot's place in its list."""
+    G, E, C = live.shape
+    GC = G * C
+    lists, counts = [], []
+    place = np.zeros(G * E * C, dtype=np.int32)
+    for e in range(E):
+        mine = [[], []]
+        for grp in range(G):
+            for c in range(C):
+                mine[not live[grp, e, c]].append((grp * E + e) * C + c)
+        for i, slot in enumerate(mine[0] + mine[1]):
+            place[slot] = i
+        lists += mine[0] + mine[1]
+        counts.append(len(mine[0]))
+    return np.concatenate([np.array(lists + counts, dtype=np.int32), place])
+
+
+def _live(dispatch: torch.Tensor) -> torch.Tensor:
+    return dispatch.any(1).to(torch.int32)
+
+
+def _routed(G, g, E, C, seed):
+    rng = np.random.default_rng(seed)
+    probs = torch.softmax(torch.from_numpy(
+        rng.standard_normal((G, g, E)).astype(np.float32)), -1)
+    return route(probs, 2, C)[0]
+
+
+@pytest.mark.parametrize("case", ["prefix", "empty_expert", "one_group",
+                                  "random", "two_in_one_slot", "none"])
+def test_expert_rows_plain_equals_numpy(case):
+    """``moe_matmul.expert_rows`` (the plain version of the backward's
+    first kernel) lists the slots, live ones first, and places each slot
+    as a loop does: top-2 routing
+    (slots filled in prefix order), an expert with no token, one live in
+    one group only, a random dispatch with gaps, two tokens in one slot,
+    and no token at all."""
+    G, g, E, C = 2, 48, 4, 20
+    rng = np.random.default_rng(3)
+    if case == "prefix":
+        disp = _routed(G, g, E, C, 0)
+    elif case == "empty_expert":
+        disp = _routed(G, g, E, C, 1)
+        disp[..., 2, :] = False
+    elif case == "one_group":
+        disp = _routed(G, g, E, C, 2)
+        disp[1, :, 0] = False
+    elif case == "random":
+        disp = torch.from_numpy(rng.random((G, g, E, C)) < 0.02)
+    elif case == "two_in_one_slot":
+        disp = torch.from_numpy(rng.random((G, g, E, C)) < 0.02)
+        disp[0, 0, 1, 3] = disp[0, 1, 1, 3] = True
+    else:
+        disp = torch.zeros((G, g, E, C), dtype=torch.bool)
+    live = _live(disp)
+    got = mm.expert_rows(live)
+    assert got.dtype == torch.int32 and got.shape == (2 * E * G * C + E,)
+    assert np.array_equal(got.numpy(), _rows_numpy(live.numpy()))
+    counts = got[E * G * C:E * G * C + E]
+    assert counts.tolist() == live.sum((0, 2)).tolist()
+    if case == "prefix":    # top-2 fills each group's slots from 0 on
+        assert all(bool((live[grp, e, :int(live[grp, e].sum())] == 1).all())
+                   for grp in range(G) for e in range(E))
+
+
+def test_expert_rows_walk_only_live_rows_at_mixtral_training_shape():
+    """At mixtral's training shape (G 2, g 1024, E 8, C 320, top-2) the
+    lists hold every live slot once, none dead, and the dh / dxin tiles a
+    list needs (128 rows each) are far fewer than the G C / 128 a fixed
+    per-group grid would run."""
+    G, g, E, C = 2, 1024, 8, 320
+    live = _live(_routed(G, g, E, C, 4))
+    rows = mm.expert_rows(live)
+    counts = rows[E * G * C:E * G * C + E]
+    flat = live.flatten()
+    listed = torch.cat([rows[e * G * C:e * G * C + int(counts[e])]
+                        for e in range(E)]).long()
+    assert sorted(listed.tolist()) == torch.nonzero(flat).flatten().tolist()
+    live_tiles = sum(-(-int(n) // mm.TB_BM) for n in counts)
+    per_group = G * E * -(-C // mm.TB_BM)
+    assert int(counts.sum()) == int(flat.sum()) <= G * g * 2
+    assert live_tiles < per_group

@@ -14,6 +14,7 @@ and without shard processes.
 """
 import pickle
 import socket
+import socketserver
 import struct
 import threading
 import time
@@ -563,3 +564,117 @@ def test_resent_read_at_delta_2_gets_the_version_its_telemetry_records(
             assert merged == h
     assert resent["port"] == (0, [0.0, 0.0])
     assert resent["jax"] == (2, [2.0, 2.0])
+
+
+# ---------------------------------------------------------------------------
+# every resend after a severed connection counts as a retry
+# ---------------------------------------------------------------------------
+
+class _SeveringHandler(socketserver.BaseRequestHandler):
+    """The shard's connection handler, except that the first request whose
+    op is in ``server.sever`` is read and then the connection is closed
+    unanswered and unprocessed: the shard's side of the socket dies between
+    the client's send and its receive."""
+
+    def handle(self):
+        sock = self.request
+        while True:
+            try:
+                h, payload = P.recv_msg(sock)
+            except (ConnectionError, OSError):
+                return
+            if h.get("op") in self.server.sever:
+                self.server.sever.discard(h["op"])
+                self.server.severed.append(h["op"])
+                return
+            resp, rp = self.server.dispatch(h, payload)
+            if h.get("noreply"):
+                continue
+            resp["id"] = h["id"]
+            P.send_msg(sock, resp, rp)
+
+
+@pytest.fixture
+def severing_shard():
+    """One in-process shard of one chunk (two f64 zeros) for one worker at
+    delta 0, whose handler severs the ops listed in ``server.sever``."""
+    server = ShardServer(("127.0.0.1", 0))
+    server.RequestHandlerClass = _SeveringHandler
+    server.sever, server.severed = set(), []
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    manifest, payload = P.pack_arrays({0: torch.zeros(2,
+                                                      dtype=torch.float64)})
+    with P.connect(server.server_address, timeout=5.0) as sock:
+        P.send_msg(sock, {"op": "init", "id": 1, "config": {
+            "shard_id": 0, "n_shards": 1, "n_workers": 1, "n_chunks": 1,
+            "policy": "dc", "delta": 0, "vbound": None, "timeout": 5.0,
+            "record": True}, "manifest": manifest}, payload)
+        assert P.recv_msg(sock)[0]["ok"]
+    try:
+        yield server
+    finally:
+        server.shutdown()
+        server.server_close()
+
+
+@pytest.mark.parametrize("path", ["rpc", "pipelined", "settle",
+                                  "write-send", "post"])
+def test_resend_after_a_severed_connection_counts_a_retry(severing_shard,
+                                                          path):
+    """Each client path that can meet a dead shard connection counts its
+    resend as one retry: a synchronous ``_rpc`` (inside its backoff loop),
+    a pipelined ``read_batch`` and a deferred ``write_batch``'s settle
+    (both resent through ``_rpc`` on a new connection), a ``write_batch``
+    whose send fails, and a one-way broadcast whose send fails (the next
+    request's new connection).  The shard's side is closed between the
+    send and its receive, or before the send; the resent request is
+    served exactly once and delta 0's values are the sequential ones."""
+    server = severing_shard
+    db = ClientParameterDB(0, [server.server_address], n_workers=1,
+                           n_chunks=1, timeout=5.0,
+                           backoff=Backoff(max_retries=3, base_delay=0.001),
+                           batched=path != "rpc")
+    one = torch.ones(2, dtype=torch.float64)
+
+    def dead_conn() -> _Conn:
+        a, b = socket.socketpair()
+        b.close()                 # the shard's side is gone before the send
+        return _Conn(sock=a)
+
+    try:
+        if path == "rpc":
+            server.sever.add("read")
+            got = db.read(0, 0, 1)
+        elif path == "pipelined":
+            server.sever.add("read_batch")
+            got, = db.read_all(0, 1)
+        else:
+            got, = db.read_all(0, 1)
+            assert db.telemetry.stats.retried_steps == 0
+            if path == "settle":
+                server.sever.add("write_batch")
+            elif path == "write-send":
+                db._conns[0].sock.close()
+                db._conns[0] = dead_conn()
+            db.write(0, 0, 1, one)
+            if path == "post":
+                db.settle()
+                db._conns[0].sock.close()
+                db._conns[0] = dead_conn()
+                db._post(0, {"op": "frontier", "worker": 0, "itr": 1})
+                assert 0 not in db._conns
+            got, = db.read_all(0, 2)
+        assert db.telemetry.stats.retried_steps == 1
+        assert server.severed == ({"rpc": ["read"],
+                                   "pipelined": ["read_batch"],
+                                   "settle": ["write_batch"]}.get(path, []))
+        want = torch.zeros(2, dtype=torch.float64) \
+            if path in ("rpc", "pipelined") else one
+        assert torch.equal(got, want)
+        db.flush()
+        stats = server.state.telemetry.stats
+        assert stats.reads == 1 + (path not in ("rpc", "pipelined"))
+        assert stats.writes == (path not in ("rpc", "pipelined"))
+    finally:
+        db.close()
