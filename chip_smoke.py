@@ -239,12 +239,35 @@ Phases (any failure raises and the script exits non-zero):
    worker 0's first loss within 1e-6 of phase 6's step 0; per step the
    wall and its parts (settle, read, copies, gradient, write) on the host
    clock, peak device memory, the host's peak RSS and the shards' RSS.
-   Last, the clusters' forkserver and resource tracker are stopped and no
-   shard and no child of this script may be left running.
+   Then phase 12; last, the clusters' forkserver and resource tracker are
+   stopped and no shard and no child of this script may be left running;
+12. the dense ring decode, remat and the chunked cross entropy, on
+   ``llama3.2-1b`` at full width (bf16 compute, random weights from seed
+   0) with the card otherwise free.  (a) B8 prompts of 128 tokens
+   prefilled into the dense 544-slot ring, then 32 greedy
+   ``decode_step``s at a scalar pos (the dense path: launch counts reset
+   just before, read just after): ``decode_attention`` exactly 16 x 32
+   launches, all in its gathered form (the JAX package's own), flash
+   forward 16, nothing else, no plain version; every step's logits bit
+   for bit those of the paged decode over pools filled from the same
+   ring (pages of 16, an identity table), the greedy tokens equal; the
+   decode-step host and wall p50 of both.  (b) One ``make_lm_grad_fn``
+   call each at batch 4 x 512 (f32 master): remat ``none`` twice,
+   ``full``, ``dots``, and ``none`` with ``REPRO_CHUNKED_CE=1``, the peak
+   reset before each: the loss bit for bit across the remat policies,
+   the chunked loss within 1e-4 relative; the gradients bit for bit the
+   first call's when the two ``none`` calls agree bit for bit, else
+   within a normalized 2e-2 (the line says which; chunked CE's always
+   within 2e-2); flash forward 16 a call under ``none``, 32 under
+   ``full`` and ``dots`` (the recomputation), backward 16; peaks ordered
+   ``full`` < ``dots`` < ``none`` and chunked < unchunked; each call's
+   peak and wall printed.  (c) ``examples/torch_quickstart.py``'s
+   ``main`` on the card: 20 finite losses and 9 decoded ids.
 
 The last two lines are the ``kernels`` JSON object (twelve rows; each
 row's ``launches_by_path`` counts its launches on every path, the
-recurrent serving, serve-while-train and server training paths' included)
+recurrent serving, serve-while-train, server training, dense decode and
+remat paths' included)
 and
 ``{"ok": true, "device": {...}}``.  float32 matmuls and convolutions run in
 full f32 (TF32 off) throughout.
@@ -509,6 +532,8 @@ def check_decode(torch, F, ref, gen):
         need = nbytes(q, got, table) + B * L \
             + live * KV * hd * 2 * k.element_size()
         b_ms, b_by = bound(need, 4.0 * hd * H * live, dt)
+        # the gathered form (the dense ring decode's) reads no table
+        gb_ms, gb_by = bound(need - nbytes(table), 4.0 * hd * H * live, dt)
         del k, v
         sets = rotation((q, pk, pv, table, valid))
         n = len(sets)
@@ -537,6 +562,9 @@ def check_decode(torch, F, ref, gen):
             host_ms=host_ms, gathered_ms=g_ms, gathered_host_ms=g_host,
             gathered_pair_ms=pair_ms, gathered_pair_host_ms=pair_host,
             plain_ms=time_ms(lambda i: plain(sets[i % n]), reps // 4)[0],
+            gathered_plain_ms=time_ms(lambda i: ref.attention_decode(
+                *gsets[i % n]), reps // 4)[0],
+            gathered_bound_ms=gb_ms, gathered_bound_by=gb_by,
             library_ms=time_ms(lambda i: F.scaled_dot_product_attention(
                 *lib_sets[i % n][:3], attn_mask=lib_sets[i % n][3],
                 enable_gqa=True), reps)[0],
@@ -3802,6 +3830,310 @@ def server_training(torch, ops, ref, phase6_loss0):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 12: the dense ring decode, remat and the chunked cross entropy
+# ---------------------------------------------------------------------------
+
+DENSE_B, DENSE_PROMPT, DENSE_STEPS = 8, 128, 32
+GRAD_NORM_TOL = 2e-2            # bf16 gradients: max |d| / max |g| per leaf
+CHUNKED_REL = 1e-4              # chunked against unchunked loss, relative
+# (remat, REPRO_CHUNKED_CE) of phase 12b's gradient calls, in order: the
+# first is the reference the others are held to
+REMAT_CALLS = (("none", False), ("none", False), ("full", False),
+               ("dots", False), ("none", True))
+
+
+def paged_from_dense(torch, cache: dict, page: int) -> dict:
+    """A paged cache holding the dense cache's rings: row b's L slots as
+    pages b * L / page onward of one pool (an identity table); recurrent
+    rows copied."""
+    out = {}
+    for gkey, slots in cache.items():
+        out[gkey] = {}
+        for skey, c in slots.items():
+            if "k" not in c:
+                out[gkey][skey] = {k: t.clone() for k, t in c.items()}
+                continue
+            n, B, L, KV, hd = c["k"].shape
+            npp = L // page
+            pt = torch.arange(B * npp, dtype=torch.int32,
+                              device=c["k"].device).view(1, B, npp)
+            out[gkey][skey] = {
+                "pk": c["k"].reshape(n, B * npp, page, KV, hd).clone(),
+                "pv": c["v"].reshape(n, B * npp, page, KV, hd).clone(),
+                "pt": pt.expand(n, B, npp).contiguous()}
+    return out
+
+
+def _decode_timed(torch, cfg, params, cache, tok, pos):
+    """One decode step at ``pos``: (logits, next tokens, host seconds (the
+    call's enqueue), wall seconds (ending in a sync))."""
+    from repro_torch.models.transformer import decode_step
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out, _ = decode_step(params, cache, tok, pos, cfg)
+    host = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return out, torch.argmax(out[:, -1], -1)[:, None], host, \
+        time.perf_counter() - t0
+
+
+def _greedy_decode(torch, cfg, params, cache, last, pos0: int):
+    """DENSE_STEPS greedy decode steps at a scalar pos from ``last`` (B, V):
+    (each step's logits, the tokens (B, DENSE_STEPS))."""
+    pos = torch.arange(pos0, pos0 + DENSE_STEPS, device="cuda")
+    tok = torch.argmax(last, -1)[:, None]
+    logits, toks = [], []
+    for i in range(DENSE_STEPS):
+        out, tok, _, _ = _decode_timed(torch, cfg, params, cache, tok,
+                                       pos[i])
+        logits.append(out)
+        toks.append(tok)
+    return logits, torch.cat(toks, 1)
+
+
+def _decode_turns(torch, cfg, params, caches: dict, toks: dict,
+                  pos0: int) -> dict:
+    """DENSE_STEPS more greedy steps of each cache, the two taken in turns
+    (a, b, b, a, ...): {name: (host seconds, wall seconds) per step}."""
+    pos = torch.arange(pos0, pos0 + DENSE_STEPS, device="cuda")
+    times = {name: ([], []) for name in caches}
+    names = list(caches)
+    for i in range(DENSE_STEPS):
+        for name in (names if i % 2 == 0 else names[::-1]):
+            _, toks[name], host, wall = _decode_timed(
+                torch, cfg, params, caches[name], toks[name], pos[i])
+            times[name][0].append(host)
+            times[name][1].append(wall)
+    return times
+
+
+def _p50(xs) -> float:
+    return sorted(xs)[len(xs) // 2]
+
+
+def dense_decode(torch, ops, ref, cfg, params) -> dict:
+    """12a: llama3.2-1b's dense ring decode (the JAX package's own form:
+    ``decode_attention`` over the gathered ring), B8 prompts of 128 in a
+    544-slot ring, 32 greedy steps at a scalar pos, held bit for bit to
+    the paged decode over pools filled from the same ring."""
+    from repro_torch.models.transformer import prefill
+    prompts = torch.randint(
+        0, cfg.vocab_size, (DENSE_B, DENSE_PROMPT), device="cuda",
+        generator=torch.Generator(device="cuda").manual_seed(0))
+    forms = {"gathered": 0, "paged": 0}
+
+    def counted(form, fn):
+        def call(*a):
+            forms[form] += 1
+            return fn(*a)
+        return call
+    with torch.no_grad(), \
+            patched(ops, "_decode_attention",
+                    counted("gathered", ops._decode_attention)), \
+            patched(ops, "_decode_paged",
+                    counted("paged", ops._decode_paged)):
+        ops.reset_launches()                # the dense path starts here
+        with plain_versions_counted(ref) as plain:
+            last, dense = prefill(params, prompts, cfg, cache_len=MAIN_L)
+            paged = paged_from_dense(torch, dense, PAGE)
+            d_logits, d_toks = _greedy_decode(torch, cfg, params, dense,
+                                              last, DENSE_PROMPT)
+        torch.cuda.synchronize()
+        launches = dict(ops.launches)       # ... and ends here
+        dense_forms = dict(forms)
+        p_logits, p_toks = _greedy_decode(torch, cfg, params, paged, last,
+                                          DENSE_PROMPT)
+        paged_forms = {k: forms[k] - dense_forms[k] for k in forms}
+        turns = _decode_turns(
+            torch, cfg, params, {"dense": dense, "paged": paged},
+            {"dense": d_toks[:, -1:], "paged": p_toks[:, -1:]},
+            DENSE_PROMPT + DENSE_STEPS)
+    n_layers = len(cfg.layer_kinds)
+    bits = [bool(torch.equal(a, b)) for a, b in zip(d_logits, p_logits)]
+    finite = all(bool(torch.isfinite(x).all()) for x in d_logits)
+    print("dense ring decode:", json.dumps(dict(
+        batch=DENSE_B, prompt=DENSE_PROMPT, cache_len=MAIN_L,
+        steps=DENSE_STEPS, launches=launches, forms_dense=dense_forms,
+        forms_paged=paged_forms, plain_version_calls=plain,
+        logits_bit_for_bit_paged=all(bits), tokens_equal=bool(
+            torch.equal(d_toks, p_toks)),
+        # timed over DENSE_STEPS further steps of each, in turns
+        decode_step_host_p50_ms=_p50(turns["dense"][0]) * 1e3,
+        paged_decode_step_host_p50_ms=_p50(turns["paged"][0]) * 1e3,
+        decode_step_wall_p50_ms=_p50(turns["dense"][1]) * 1e3,
+        paged_decode_step_wall_p50_ms=_p50(turns["paged"][1]) * 1e3,
+        first_tokens=d_toks[0, :8].tolist())), flush=True)
+    if launches["decode_attention"] != n_layers * DENSE_STEPS or \
+            dense_forms != {"gathered": n_layers * DENSE_STEPS, "paged": 0}:
+        raise AssertionError(f"dense decode launches {launches} forms "
+                             f"{dense_forms}: want {n_layers} x "
+                             f"{DENSE_STEPS} in the gathered form")
+    if launches["flash_attention"] != n_layers or \
+            sum(launches.values()) != n_layers * (DENSE_STEPS + 1):
+        raise AssertionError(f"dense path launches {launches}")
+    if any(plain.values()):
+        raise AssertionError(f"plain versions ran: {plain}")
+    if paged_forms != {"gathered": 0, "paged": n_layers * DENSE_STEPS}:
+        raise AssertionError(f"paged run's forms {paged_forms}")
+    if not (finite and all(bits) and torch.equal(d_toks, p_toks)):
+        raise AssertionError(f"dense decode != paged: logits bit for bit "
+                             f"per step {bits}, finite {finite}")
+    return launches
+
+
+def _warm_checkpoint(torch) -> None:
+    """The process's first ``torch.utils.checkpoint`` call pays a one-off
+    set-up of seconds; take it here, outside the timed calls."""
+    from functools import partial
+    from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                        create_selective_checkpoint_contexts)
+    x = torch.ones(8, device="cuda", requires_grad=True)
+    recompute = partial(create_selective_checkpoint_contexts,
+                        lambda *a, **k: CheckpointPolicy.PREFER_RECOMPUTE)
+    for kw in ({}, {"context_fn": recompute}):
+        checkpoint(torch.sin, x, use_reentrant=False, **kw).sum().backward()
+
+
+def remat_and_chunked_ce(torch, ops, ref, cfg) -> dict:
+    """12b: one ``make_lm_grad_fn`` call per ``REMAT_CALLS`` entry at
+    llama3.2-1b's training shape (batch 4 x 512, f32 master, bf16
+    compute): the loss bit for bit across the remat policies, chunked
+    within CHUNKED_REL of it, gradients bit for bit the first call's when
+    two ``none`` calls agree bit for bit (else within GRAD_NORM_TOL), flash
+    launches exact, peaks ordered full < dots < none and chunked < none.
+    The first call's gradients stay on the card through the later calls,
+    so their peaks share that baseline; the allocator keeps its cache
+    between the calls, so a wall times no fresh mapping of memory."""
+    from repro_torch.core.sync import SyncConfig
+    from repro_torch.data import LMBatchSpec, make_lm_batch
+    from repro_torch.launch.steps import make_lm_grad_fn
+    from repro_torch.models import paramlib
+    from repro_torch.models.transformer import model_specs
+    from repro_torch.tree import leaves_with_path
+    master = paramlib.init_tree(
+        model_specs(cfg), torch.Generator(device="cuda").manual_seed(0),
+        dtype=cfg.param_dtype)
+    batch = make_lm_batch(LMBatchSpec(batch=TRAIN_B, seq_len=TRAIN_S,
+                                      vocab_size=cfg.vocab_size, seed=0),
+                          0, "cuda")
+    n_layers = len(cfg.layer_kinds)
+    rows, ref_grads, launches = [], None, dict.fromkeys(ops.launches, 0)
+    _warm_checkpoint(torch)
+    for remat, chunked in REMAT_CALLS:
+        grad_fn = make_lm_grad_fn(cfg, SyncConfig(remat=remat))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        ops.reset_launches()
+        os.environ["REPRO_CHUNKED_CE"] = "1" if chunked else "0"
+        try:
+            with plain_versions_counted(ref) as plain:
+                t0 = time.perf_counter()
+                loss, grads = grad_fn(master, batch)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+        finally:
+            del os.environ["REPRO_CHUNKED_CE"]
+        n = dict(ops.launches)
+        for k in launches:
+            launches[k] += n[k]
+        row = dict(remat=remat, chunked_ce=chunked, loss=float(loss),
+                   wall_s=wall, base_gib=base / 2 ** 30,
+                   peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+                   flash_fwd=n["flash_attention"],
+                   flash_bwd=n["flash_attention_bwd"],
+                   plain_version_calls=sum(plain.values()))
+        g = dict(leaves_with_path(grads))
+        del grads
+        if ref_grads is None:
+            ref_grads, ref_loss = g, loss
+        else:
+            row["grads_bit_for_bit"] = all(
+                torch.equal(g[k], ref_grads[k]) for k in ref_grads)
+            errs = {"/".join(k): (
+                (g[k].float() - ref_grads[k].float()).abs().max()
+                / ref_grads[k].float().abs().max().clamp(min=1e-30)).item()
+                for k in ref_grads}
+            row["grad_worst_leaf"] = max(errs, key=errs.get)
+            row["grad_norm_err"] = errs[row["grad_worst_leaf"]]
+            row["loss_bit_for_bit"] = bool(torch.equal(loss, ref_loss))
+        del g
+        rows.append(row)
+        print("remat / chunked CE call:", json.dumps(row), flush=True)
+    none2, full, dots, chunked = rows[1:]
+    deterministic = none2["grads_bit_for_bit"]
+    print("remat gates:", json.dumps(dict(
+        none_calls_bit_for_bit=deterministic,
+        gradients_held=("bit for bit" if deterministic else
+                        f"normalized {GRAD_NORM_TOL}"),
+        peaks_gib={r["remat"] + ("+chunked" if r["chunked_ce"] else ""):
+                   r["peak_gib"] for r in rows[1:]},
+        chunked_vs_none_peak_gib=none2["peak_gib"] - chunked["peak_gib"],
+        chunked_loss_rel=abs(chunked["loss"] - none2["loss"])
+        / abs(none2["loss"]))), flush=True)
+    for r in rows:
+        fwd = n_layers * (2 if r["remat"] in ("full", "dots") else 1)
+        if (r["flash_fwd"], r["flash_bwd"]) != (fwd, n_layers):
+            raise AssertionError(f"flash launches {r}: want {fwd} forward, "
+                                 f"{n_layers} backward")
+        if r["plain_version_calls"] or not math.isfinite(r["loss"]):
+            raise AssertionError(f"remat call {r}")
+    for r in (none2, full, dots):
+        if not r["loss_bit_for_bit"]:
+            raise AssertionError(f"loss differs across remat: {r}")
+        if not (r["grads_bit_for_bit"] if deterministic
+                else r["grad_norm_err"] <= GRAD_NORM_TOL):
+            raise AssertionError(f"gradients differ: {r}")
+    if abs(chunked["loss"] - none2["loss"]) > CHUNKED_REL * abs(none2["loss"]) \
+            or not chunked["grad_norm_err"] <= GRAD_NORM_TOL:
+        raise AssertionError(f"chunked CE: {chunked} vs {none2}")
+    if not full["peak_gib"] < dots["peak_gib"] < none2["peak_gib"]:
+        raise AssertionError(f"peaks not ordered full < dots < none: "
+                             f"{[r['peak_gib'] for r in rows]}")
+    if not chunked["peak_gib"] < none2["peak_gib"]:
+        raise AssertionError("chunked CE peaks at or above unchunked")
+    return launches
+
+
+def quickstart_on_card(torch) -> None:
+    """12c: ``examples/torch_quickstart.py``'s ``main`` on the card."""
+    import importlib.util
+    path = ROOT / "examples" / "torch_quickstart.py"
+    spec = importlib.util.spec_from_file_location("torch_quickstart", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    out = mod.main(["--device", "cuda"])
+    if len(out["losses"]) != 20 or not all(
+            math.isfinite(v) for v in out["losses"]) or \
+            len(out["decoded"]) != 9:
+        raise AssertionError(f"quickstart on the card: {out}")
+
+
+def dense_decode_and_remat(torch, ops, ref) -> dict:
+    """Phase 12 on llama3.2-1b at full width with the card otherwise free:
+    (a) the dense ring decode, (b) remat and the chunked cross entropy,
+    (c) the quickstart example.  Returns the launches of (a) and (b)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import paramlib
+    from repro_torch.models.transformer import model_specs
+    from repro_torch.serve import serving_params
+    cfg = get_config("llama3.2-1b")
+    torch.cuda.empty_cache()
+    master = paramlib.init_tree(
+        model_specs(cfg), torch.Generator(device="cuda").manual_seed(0),
+        dtype=cfg.param_dtype)
+    params = serving_params(master, cfg)
+    del master
+    paths = {"dense_decode": dense_decode(torch, ops, ref, cfg, params)}
+    del params
+    torch.cuda.empty_cache()
+    paths["remat"] = remat_and_chunked_ce(torch, ops, ref, cfg)
+    torch.cuda.empty_cache()
+    quickstart_on_card(torch)
+    return paths
+
+
 def print_ptxas(source: str, log: str) -> dict[str, tuple[int, int]]:
     """One line per compiled kernel: its entry (the mangled name without
     the anonymous-namespace prefix, so the template arguments show, e.g.
@@ -4106,6 +4438,8 @@ def main() -> int:
     paths["server_training"] = timed(
         "server_training", server_training, torch, ops, ref,
         train_losses[0])
+    paths.update(timed("dense_decode_and_remat", dense_decode_and_remat,
+                       torch, ops, ref))
     timed("server_processes_stopped", server_processes_stopped)
     print("phase seconds:", json.dumps(dict(
         phase_s, total=time.perf_counter() - t0)), flush=True)
@@ -4163,7 +4497,8 @@ def main() -> int:
             **{k: row[k] for k in ("hd128", "hd256", "shapes", "edge_cases",
                                    "library", "serial_steps", "state_bytes",
                                    "checkpoint_bytes", "chunk", "threads",
-                                   "gathered_ms", "gathered_pair_ms")
+                                   "gathered_ms", "gathered_pair_ms",
+                                   "gathered_plain_ms", "gathered_bound_ms")
                if k in row},
             **({"stateful": stateful[name]} if name in stateful else {})))
     print(smi())

@@ -1,5 +1,6 @@
-"""Step-function builders for the training driver (port of the training
-half of ``repro.launch.steps``)."""
+"""Step-function builders (port of ``repro.launch.steps``): the training
+step, the ParameterDB train engine's gradient function and engine, and
+the prefill and decode steps over the dense cache."""
 from __future__ import annotations
 
 from typing import Any, Callable
@@ -8,10 +9,28 @@ import torch
 
 from ..core.sync import SyncConfig
 from ..models.config import ModelConfig
-from ..models.transformer import lm_loss
+from ..models.transformer import decode_step as model_decode
+from ..models.transformer import lm_loss, prefill
 from ..optim.optimizers import Optimizer
 from ..pdb.torch_backend import TrainEngine, make_engine
 from ..tree import leaves_with_path, unflatten
+
+
+def make_train_step(cfg: ModelConfig, opt: Optimizer,
+                    sync: SyncConfig) -> Callable:
+    """train_step(params, opt_state, batch) -> (params, opt_state,
+    metrics): ``lm_loss``'s gradients under ``sync.remat``, then
+    ``opt.update``; metrics as ``lm_loss`` gives them (detached).  The
+    parameters are not updated in place: the step returns new trees, as
+    JAX's does."""
+    metrics: dict = {}
+    grad_fn = make_lm_grad_fn(cfg, sync, on_metrics=metrics.update)
+
+    def train_step(params, opt_state, batch):
+        _, grads = grad_fn(params, batch)
+        new_params, new_opt = opt.update(grads, opt_state, params)
+        return new_params, new_opt, dict(metrics)
+    return train_step
 
 
 def make_lm_grad_fn(cfg: ModelConfig, sync: SyncConfig,
@@ -49,3 +68,23 @@ def make_train_engine(cfg: ModelConfig, opt: Optimizer, sync: SyncConfig,
     ``on_metrics`` as for :func:`make_lm_grad_fn`."""
     return make_engine(params, make_lm_grad_fn(cfg, sync, on_metrics), opt,
                        sync, record_history=record_history)
+
+
+def make_prefill_step(cfg: ModelConfig, cache_len: int,
+                      remat: str = "none") -> Callable:
+    """prefill_step(params, batch) -> (last-position logits (B, V), dense
+    cache); batch: {"tokens": (B, S)}."""
+    def prefill_step(params, batch):
+        return prefill(params, batch["tokens"], cfg, cache_len=cache_len,
+                       remat=remat)
+    return prefill_step
+
+
+def make_decode_step(cfg: ModelConfig) -> Callable:
+    """serve_step(params, cache, batch) -> (logits (B, 1, V), cache);
+    batch: {"tokens": (B, 1), "pos": a scalar or (B,)}.  The cache is
+    updated in place (``decode_step``)."""
+    def serve_step(params, cache, batch):
+        return model_decode(params, cache, batch["tokens"], batch["pos"],
+                            cfg)
+    return serve_step

@@ -264,7 +264,11 @@ def parse_args(argv=None) -> argparse.Namespace:
                     default="datacentric")
     ap.add_argument("--delta", type=int, default=0)
     ap.add_argument("--compression", choices=["none", "int8"], default="none")
-    ap.add_argument("--remat", default="none")
+    ap.add_argument("--remat", choices=["none", "full", "dots"],
+                    default="none",
+                    help="none|full|dots: keep every activation, recompute "
+                         "each layer in the backward, or keep only the "
+                         "products with no batch dimensions")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--ckpt-dir", default="")
     ap.add_argument("--ckpt-every", type=int, default=25)

@@ -1,7 +1,8 @@
-"""Self-attention with GQA, sliding windows, RoPE and a paged KV cache
-(port of ``repro.models.attention``'s self-attention: the training and
-prefill forward, paged decode, and chunked prefill against the paged
-cache).
+"""Self-attention with GQA, sliding windows, RoPE and KV caches (port of
+``repro.models.attention``'s self-attention): the training and prefill
+forward; one-token decode against the dense ring cache
+(``init_kv_cache``, ``attention_decode``: the JAX package's own form) or
+against the paged cache; and chunked prefill against the paged cache.
 
 The softmax path dispatches through :mod:`repro_torch.kernels.ops`, so the
 CUDA kernels and their plain versions share one call site.
@@ -10,6 +11,7 @@ from __future__ import annotations
 
 import torch
 
+from ..device import resolve_device
 from ..kernels import ops as kops
 from .config import ModelConfig
 from .layers import apply_rope, rmsnorm
@@ -87,6 +89,54 @@ def _ring_valid(pos: torch.Tensor, L: int, cfg: ModelConfig,
     if kind in ("local", "swa") and cfg.window:
         valid &= abs_pos > pos - cfg.window
     return valid
+
+
+def init_kv_cache(cfg: ModelConfig, kind: str, batch: int, cache_len: int,
+                  stack: tuple[int, ...] = (),
+                  device: str | torch.device | None = None) -> dict:
+    """The zero dense ring cache of one attention slot: {"k", "v": stack +
+    (batch, L, KV, hd)} in the compute dtype on ``device`` (default
+    ``cuda``), two tensors (both are written in place).  L is the JAX
+    package's ring length: ``cache_len`` for ``attn``, ``min(window or
+    cache_len, cache_len)`` for the windowed kinds."""
+    L = cache_len if kind == "attn" else min(cfg.window or cache_len,
+                                             cache_len)
+    shape = stack + (batch, L, cfg.n_kv_heads, cfg.hd)
+    dev = resolve_device(device)
+    return {"k": torch.zeros(shape, dtype=cfg.dtype, device=dev),
+            "v": torch.zeros(shape, dtype=cfg.dtype, device=dev)}
+
+
+def attention_decode(params: dict, x: torch.Tensor, cache: dict,
+                     cfg: ModelConfig, kind: str,
+                     pos: torch.Tensor) -> tuple[torch.Tensor, dict]:
+    """One-token decode against the dense ring cache {"k", "v": (B, L, KV,
+    hd)} (``init_kv_cache`` or ``prefill``'s).  x: (B, 1, d); pos: a
+    scalar (every row at one position, JAX's ``_dyn_update``) or (B,)
+    per-row positions.  The new K/V entry lands at slot ``pos % L`` of
+    each row **in place** (``index_put_``, where JAX returns new arrays);
+    the returned cache is the same dict.  The read is
+    ``kops.attention_decode`` over the ring and ``_ring_valid``'s mask: on
+    the card the ``decode_attention`` kernel in its gathered form, on the
+    CPU ``ref.attention_decode``.  Returns (out (B, 1, d), cache)."""
+    q, k_new, v_new = _qkv(params, x, cfg)
+    theta = _rope_theta(cfg, kind)
+    B = x.shape[0]
+    posb = pos.expand(B) if pos.ndim == 0 else pos
+    q = apply_rope(q, posb[:, None], theta)
+    k_new = apply_rope(k_new, posb[:, None], theta)
+
+    k, v = cache["k"], cache["v"]
+    L = k.shape[1]
+    rows = torch.arange(B, device=k.device)
+    slot = torch.remainder(posb.long(), L)                       # (B,)
+    k.index_put_((rows, slot), k_new[:, 0].to(k.dtype))
+    v.index_put_((rows, slot), v_new[:, 0].to(v.dtype))
+
+    valid = _ring_valid(pos, L, cfg, kind)
+    out = kops.attention_decode(q, k, v, valid)
+    out = _merge_heads(out) @ params["wo"].to(x.dtype)
+    return out, cache
 
 
 def attention_decode_paged(params: dict, x: torch.Tensor, cache: dict,

@@ -92,7 +92,9 @@ def moe_ffn(params: dict, x: torch.Tensor,
     B, S, d = x.shape
     E, k = cfg.n_experts, cfg.top_k
     xg, g = _group_tokens(x, cfg.moe_group_size)
-    logits = torch.einsum("Ggd,dE->GgE", xg.float(), params["router"].float())
+    # JAX's einsum("Ggd,dE->GgE"), written as @: a product with no batch
+    # dimensions, which remat "dots" keeps (transformer.save_dots)
+    logits = xg.float() @ params["router"].float()
     probs = torch.softmax(logits, dim=-1)
     capacity = max(math.ceil(g * k * cfg.capacity_factor / E), 1)
     dispatch, combine = route(probs, k, capacity)

@@ -5,7 +5,8 @@ Entry points (plain functions over a params dict):
   model_specs(cfg)                                  -> P-spec tree
   forward(params, tokens, cfg, remat)               -> logits   [train path]
   lm_loss(params, batch, cfg, remat)                -> (loss, metrics)
-  prefill(params, tokens, cfg, cache_len)           -> (last_logits, cache)
+  prefill(params, tokens, cfg, cache_len, remat)    -> (last_logits, cache)
+  init_cache(cfg, batch, cache_len, device)         -> dense cache
   decode_step(params, cache, tokens, pos, cfg)      -> (logits, cache)
   prefill_chunk(params, cache, tokens, start, rows, carry, cfg, cache_len)
                                                     -> (logits, cache, carry)
@@ -24,17 +25,29 @@ recurrentgemma, on the training and the serving paths.  A recurrent
 layer's serving cache is its state, one dense row per sequence slot
 (rwkv6: ``S``, ``x_last``, ``cx_last``; rglru: ``h``, ``conv``), written
 in place by ``decode_step``; ``prefill_chunk`` carries it outside the
-cache (``init_chunk_carry``) until the slot goes live.  Every other layer
-kind raises naming the slice that brings it.  The training forward
+cache (``init_chunk_carry``) until the slot goes live.  ``decode_step``
+serves either cache: the dense one (``prefill``'s or ``init_cache``'s:
+each attention layer a ring {"k", "v"}, read by ``decode_attention`` in
+the JAX package's own form) or the paged one
+(``repro_torch.serve.paged_cache``).  The ``xattn`` kind and the
+frontends raise naming the slice that brings them.  The training forward
 carries the MoE router's aux losses (summed over the layers, as JAX's
 ``_merge_aux``) into ``lm_loss``'s total; the serving paths drop them.
+Remat ``none`` keeps every activation, ``full`` recomputes each layer in
+the backward and ``dots`` keeps only the outputs of the products with no
+batch dimensions (JAX's ``dots_with_no_batch_dims_saveable``);
+``REPRO_CHUNKED_CE=1`` computes the loss over sequence chunks whose
+logits the backward recomputes (JAX's ``_lm_loss_chunked``).
 """
 from __future__ import annotations
 
+import os
+from functools import partial
 from typing import Any
 
 import torch
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from ..device import resolve_device
 from ..kernels import ops as kops
@@ -48,22 +61,20 @@ from .rwkv6 import (chan_mix_fwd, init_rwkv_state, rwkv6_specs,
                     time_mix_decode, time_mix_fwd)
 
 SELF_ATTN_KINDS = ("attn", "local", "swa")
-_LATER = {
-    "xattn": "slice 7 (rest of the zoo: xattn, vision)",
-}
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise ``NotImplementedError`` for what later slices of the port
-    bring: frontends and the layer kinds not ported yet."""
+    """Raise ``NotImplementedError`` for what slice 7 of the port (ROADMAP
+    A8) brings: the frontends and the ``xattn`` layer kind, the only
+    kind ``ModelConfig.validate`` admits that is not ported."""
     if cfg.frontend is not None:
         raise NotImplementedError(
             f"{cfg.name}: the {cfg.frontend} frontend comes with slice 7")
     for kind in set(cfg.layer_kinds):
         if kind not in SELF_ATTN_KINDS + RECURRENT_KINDS:
             raise NotImplementedError(
-                f"{cfg.name}: layer kind {kind!r} comes with "
-                f"{_LATER.get(kind, 'a later slice')}")
+                f"{cfg.name}: layer kind {kind!r} comes with slice 7 (rest "
+                "of the zoo: xattn, vision)")
 
 
 # ---------------------------------------------------------------------------
@@ -138,25 +149,44 @@ def _apply_block(bp: dict, kind: str, x: torch.Tensor, cfg: ModelConfig,
     return x + f, aux
 
 
+def save_dots(ctx, op, *args, **kwargs) -> CheckpointPolicy:
+    """The selective-checkpoint policy of remat ``dots``, JAX's
+    ``dots_with_no_batch_dims_saveable``: keep the output of every product
+    with no batch dimensions and recompute everything else, every custom
+    ``autograd.Function`` included (flash, the MoE grouped FFN, WKV,
+    RG-LRU: ``pallas_call`` outputs or batched einsums in JAX).  Such a
+    product is ``aten.mm``: ``x @ W`` with a 3-D ``x`` folds into one
+    whenever ``W`` requires grad, as every parameter does under training;
+    the batched products (the plain attention's, the plain grouped FFN's
+    einsums) lower to ``aten.bmm``.  The MoE router is written as ``@``
+    for that reason: its einsum would lower to ``bmm``."""
+    return (CheckpointPolicy.MUST_SAVE if op is torch.ops.aten.mm.default
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
 def _remat_wrap(fn, remat: str):
     """``none`` keeps every activation; ``full`` recomputes each layer's in
-    the backward (``jax.checkpoint`` of the JAX package's scan body)."""
+    the backward (``jax.checkpoint`` of the JAX package's scan body);
+    ``dots`` keeps what :func:`save_dots` keeps and recomputes the rest.
+    Under ``full`` and ``dots`` every forward kernel of the layer launches
+    a second time in the backward."""
     if remat == "none":
         return fn
     if remat == "full":
         return lambda *a: checkpoint(fn, *a, use_reentrant=False)
     if remat == "dots":
-        raise NotImplementedError(
-            "remat 'dots' (keep the matmul outputs, recompute the rest) "
-            "comes with a later slice of the port")
+        return lambda *a: checkpoint(
+            fn, *a, use_reentrant=False,
+            context_fn=partial(create_selective_checkpoint_contexts,
+                               save_dots))
     raise ValueError(f"unknown remat policy {remat!r}")
 
 
-def _forward_aux(params: dict, tokens: torch.Tensor, cfg: ModelConfig,
-                 remat: str = "none") -> tuple[torch.Tensor, dict]:
-    """Full-sequence forward and the FFNs' aux losses summed over the
-    layers in layer order (JAX's ``forward``; Python zeros for a model
-    without MoE layers)."""
+def _forward_hidden(params: dict, tokens: torch.Tensor, cfg: ModelConfig,
+                    remat: str = "none") -> tuple[torch.Tensor, dict]:
+    """The forward up to the final norm (JAX's ``_forward_hidden``):
+    (hidden (B, S, d), the FFNs' aux losses summed over the layers in
+    layer order; Python zeros for a model without MoE layers)."""
     check_supported(cfg)
     B, S = tokens.shape
     x = embed_tokens(params, tokens, cfg)
@@ -174,14 +204,64 @@ def _forward_aux(params: dict, tokens: torch.Tensor, cfg: ModelConfig,
         layer = _remat_wrap(body, remat)
         for lp in _unstack(params["groups"][f"g{gi}"], g.n):
             x, aux = layer(x, aux, lp)
-    x = apply_norm(params["final_norm"], x, cfg)
-    return lm_logits(params, x, cfg), aux
+    return x, aux
 
 
 def forward(params: dict, tokens: torch.Tensor, cfg: ModelConfig,
             remat: str = "none") -> torch.Tensor:
     """Full-sequence forward.  tokens: (B, S) int -> logits (B, S, V) f32."""
-    return _forward_aux(params, tokens, cfg, remat)[0]
+    x, _ = _forward_hidden(params, tokens, cfg, remat)
+    return lm_logits(params, apply_norm(params["final_norm"], x, cfg), cfg)
+
+
+def _nll(params: dict, x: torch.Tensor, labels: torch.Tensor,
+         cfg: ModelConfig) -> torch.Tensor:
+    """Per-token cross entropy of the normed hidden x (B, S, d) against
+    labels (B, S).  The label logit is picked with ``gather`` where the
+    JAX package sums against a one-hot: both are exact in f32, every other
+    term being 0."""
+    logits = lm_logits(params, x, cfg).float()
+    lse = torch.logsumexp(logits, dim=-1)                       # (B, S)
+    correct = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    return lse - correct
+
+
+def _chunk_sums(params: dict, x: torch.Tensor, labels: torch.Tensor,
+                mask: torch.Tensor,
+                cfg: ModelConfig) -> tuple[torch.Tensor, torch.Tensor]:
+    nll = _nll(params, x, labels, cfg)
+    return torch.sum(nll * mask), torch.sum(mask)
+
+
+def _lm_loss_chunked(params: dict, batch: dict, cfg: ModelConfig,
+                     remat: str, n_chunks: int = 8
+                     ) -> tuple[torch.Tensor, dict]:
+    """``lm_loss`` over sequence chunks (JAX's ``_lm_loss_chunked``): the
+    chunk count is ``min(n_chunks, S)`` stepped down until it divides S;
+    each chunk's (B, c, V) logits, log-sum-exp and masked sums run inside
+    a checkpoint, so autograd keeps none of its logits and the backward
+    recomputes them a chunk at a time.  (total, count) add up in f32 in
+    chunk order."""
+    tokens = batch["tokens"]
+    B, S = tokens.shape
+    hidden, aux = _forward_hidden(params, tokens, cfg, remat)
+    x = apply_norm(params["final_norm"], hidden, cfg)
+    mask = batch.get("mask")
+    mask = (torch.ones((B, S), dtype=torch.float32, device=tokens.device)
+            if mask is None else mask.float())
+    n_chunks = min(n_chunks, S)
+    while S % n_chunks:
+        n_chunks -= 1
+    c = S // n_chunks
+    tot = torch.zeros((), dtype=torch.float32, device=tokens.device)
+    cnt = torch.zeros((), dtype=torch.float32, device=tokens.device)
+    for i in range(n_chunks):
+        sl = slice(i * c, (i + 1) * c)
+        t, n = checkpoint(_chunk_sums, params, x[:, sl],
+                          batch["labels"][:, sl], mask[:, sl], cfg,
+                          use_reentrant=False)
+        tot, cnt = tot + t, cnt + n
+    return _with_router_losses(tot / torch.clamp(cnt, min=1.0), aux, cfg)
 
 
 def lm_loss(params: dict, batch: dict, cfg: ModelConfig,
@@ -191,18 +271,23 @@ def lm_loss(params: dict, batch: dict, cfg: ModelConfig,
     router_entropy}), total = loss + router_aux_coef * lb / n_moe +
     router_z_coef * z / n_moe (the layer sums over the MoE layer count;
     dense models: zeros, total == loss).  batch: tokens (B,S), labels
-    (B,S), mask (B,S).  The label logit is picked with ``gather`` where
-    the JAX package sums against a one-hot: both are exact in f32, every
-    other term being 0."""
-    logits, aux = _forward_aux(params, batch["tokens"], cfg, remat=remat)
-    logits = logits.float()
-    lse = torch.logsumexp(logits, dim=-1)                       # (B, S)
-    correct = torch.gather(logits, -1,
-                           batch["labels"].long()[..., None])[..., 0]
-    nll = lse - correct
+    (B,S), mask (B,S).  ``REPRO_CHUNKED_CE=1``, read at each call as JAX
+    reads it, takes the chunked path (:func:`_lm_loss_chunked`)."""
+    if os.environ.get("REPRO_CHUNKED_CE") == "1":
+        return _lm_loss_chunked(params, batch, cfg, remat)
+    hidden, aux = _forward_hidden(params, batch["tokens"], cfg, remat)
+    nll = _nll(params, apply_norm(params["final_norm"], hidden, cfg),
+               batch["labels"], cfg)
     mask = batch.get("mask")
     mask = torch.ones_like(nll) if mask is None else mask.float()
     loss = torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)
+    return _with_router_losses(loss, aux, cfg)
+
+
+def _with_router_losses(loss: torch.Tensor, aux: dict,
+                        cfg: ModelConfig) -> tuple[torch.Tensor, dict]:
+    """(total, metrics) of ``lm_loss`` from the cross entropy and the
+    layers' summed aux losses."""
     if not cfg.is_moe:              # JAX's total is loss + 0 * 0: loss
         zero = torch.zeros((), dtype=torch.float32, device=loss.device)
         return loss, {"loss": loss, "total_loss": loss, "lb_loss": zero,
@@ -304,11 +389,13 @@ def _stack_layers(per_layer: dict[str, list[dict]]) -> dict:
 
 
 def prefill(params: dict, tokens: torch.Tensor, cfg: ModelConfig,
-            cache_len: int | None = None) -> tuple[torch.Tensor, dict]:
+            cache_len: int | None = None,
+            remat: str = "none") -> tuple[torch.Tensor, dict]:
     """Process a prompt: tokens (B, S) -> (last-position logits (B, V) f32,
     dense cache {g: {s: stacked (n, B, ...) leaves}}: the ring's "k", "v"
     (n, B, L, KV, hd) for attention, "S", "x_last", "cx_last" for rwkv6,
-    "h", "conv" for rglru)."""
+    "h", "conv" for rglru).  ``remat`` wraps each layer as the training
+    forward does (it matters only under autograd)."""
     check_supported(cfg)
     B, S = tokens.shape
     cache_len = cache_len or S
@@ -317,14 +404,22 @@ def prefill(params: dict, tokens: torch.Tensor, cfg: ModelConfig,
 
     cache: dict[str, Any] = {}
     for gi, g in enumerate(cfg.groups):
-        gp = params["groups"][f"g{gi}"]
+
+        def body(xc, slot_params, _g=g):
+            cs = {}
+            for si, kind in enumerate(_g.pattern):
+                xc, cs[f"s{si}"] = _prefill_block(
+                    slot_params[f"s{si}"], kind, xc, cfg, positions,
+                    cache_len)
+            return xc, cs
+
+        layer = _remat_wrap(body, remat)
         per_layer: dict[str, list] = {f"s{si}": [] for si in
                                       range(len(g.pattern))}
-        for lp in _unstack(gp, g.n):
-            for si, kind in enumerate(g.pattern):
-                x, c = _prefill_block(lp[f"s{si}"], kind, x, cfg,
-                                      positions, cache_len)
-                per_layer[f"s{si}"].append(c)
+        for lp in _unstack(params["groups"][f"g{gi}"], g.n):
+            x, cs = layer(x, lp)
+            for skey, c in cs.items():
+                per_layer[skey].append(c)
         cache[f"g{gi}"] = _stack_layers(per_layer)
 
     x = apply_norm(params["final_norm"], x[:, -1:], cfg)
@@ -332,25 +427,42 @@ def prefill(params: dict, tokens: torch.Tensor, cfg: ModelConfig,
 
 
 # ---------------------------------------------------------------------------
-# Decode
+# Dense cache and decode
 # ---------------------------------------------------------------------------
+
+def init_cache(cfg: ModelConfig, batch: int, cache_len: int,
+               device: str | torch.device | None = None) -> dict:
+    """The zero dense cache, in the JAX package's ``init_cache`` tree
+    {g: {s: stacked (n, B, ...) leaves}}: an attention slot's ring
+    (``attention.init_kv_cache``, L = ``cfg.kv_cache_len(kind,
+    cache_len)``), a recurrent slot's rows (``init_recurrent_state``), on
+    ``device`` (default ``cuda``)."""
+    check_supported(cfg)
+    dev = resolve_device(device)
+    return {f"g{gi}": {
+        f"s{si}": (init_recurrent_state(cfg, kind, batch, (g.n,), dev)
+                   if kind in RECURRENT_KINDS else attn.init_kv_cache(
+                       cfg, kind, batch, cfg.kv_cache_len(kind, cache_len),
+                       (g.n,), dev))
+        for si, kind in enumerate(g.pattern)}
+        for gi, g in enumerate(cfg.groups)}
+
 
 def _decode_block(bp: dict, kind: str, x: torch.Tensor, c: dict,
                   cfg: ModelConfig, pos: torch.Tensor) -> torch.Tensor:
     """One layer of a decode step.  An attention layer writes its new K/V
-    into the page pools, a recurrent one its new state into its rows of
-    ``c`` (views of the stacked cache), in place."""
+    into its dense ring or, when ``c`` holds page pools ("pk"), into the
+    pools; a recurrent one its new state into its rows of ``c`` (views of
+    the stacked cache); all in place."""
     if kind in RECURRENT_KINDS:
         x, new = _recurrent_block(bp, kind, x, c, cfg)
         for name, t in new.items():
             c[name].copy_(t)
         return x
-    if "pk" not in c:
-        raise NotImplementedError(
-            "dense ring decode caches are not ported; decode through the "
-            "paged cache (repro_torch.serve.paged_cache)")
+    decode = (attn.attention_decode_paged if "pk" in c
+              else attn.attention_decode)
     h = apply_norm(bp["ln1"], x, cfg)
-    mix, _ = attn.attention_decode_paged(bp["mix"], h, c, cfg, kind, pos)
+    mix, _ = decode(bp["mix"], h, c, cfg, kind, pos)
     x = x + mix
     h2 = apply_norm(bp["ln2"], x, cfg)
     return x + _apply_ffn(bp, kind, h2, cfg)[0]
@@ -359,11 +471,12 @@ def _decode_block(bp: dict, kind: str, x: torch.Tensor, c: dict,
 def decode_step(params: dict, cache: dict, tokens: torch.Tensor,
                 pos: torch.Tensor, cfg: ModelConfig
                 ) -> tuple[torch.Tensor, dict]:
-    """One decode step against a paged cache.  tokens: (B, 1); pos: (B,)
-    per-sequence positions (or a scalar for all rows).  Returns (logits
-    (B, 1, V) f32, cache); the cache's pools and recurrent rows are
-    updated in place (every row's, idle ones included, as in the JAX
-    package: a row's state never reaches another row)."""
+    """One decode step against a dense cache (``prefill``'s or
+    ``init_cache``'s) or a paged one.  tokens: (B, 1); pos: (B,)
+    per-sequence positions or a scalar for all rows.  Returns (logits
+    (B, 1, V) f32, cache); the cache's rings or pools and its recurrent
+    rows are updated in place (every row's, idle ones included, as in the
+    JAX package: a row's state never reaches another row)."""
     check_supported(cfg)
     x = embed_tokens(params, tokens, cfg)
     for gi, g in enumerate(cfg.groups):

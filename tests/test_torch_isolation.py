@@ -1,8 +1,9 @@
 """The port stands alone: no file of ``src/repro_torch``, not
-``chip_smoke.py`` and no probe under ``tools/`` imports ``jax`` or the JAX
-package ``repro``; importing the serving or the training CLI leaves
-``jax`` out of ``sys.modules``; and ``chip_smoke.py`` alone, or without a
-GPU, exits non-zero and prints no result."""
+``chip_smoke.py``, no probe under ``tools/`` and no port example
+(``examples/torch_*.py``) imports ``jax`` or the JAX package ``repro``;
+importing the serving or the training CLI, or an example, leaves ``jax``
+out of ``sys.modules``; and ``chip_smoke.py`` alone, or without a GPU,
+exits non-zero and prints no result."""
 import ast
 import os
 import shutil
@@ -16,8 +17,10 @@ torch = pytest.importorskip("torch")
 torch.set_num_threads(1)
 
 ROOT = Path(__file__).resolve().parents[1]
+EXAMPLES = sorted((ROOT / "examples").glob("torch_*.py"))
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + \
-    [ROOT / "chip_smoke.py"] + sorted((ROOT / "tools").glob("*.py"))
+    [ROOT / "chip_smoke.py"] + sorted((ROOT / "tools").glob("*.py")) + \
+    EXAMPLES
 FORBIDDEN = ("jax", "jaxlib", "repro")
 
 
@@ -54,6 +57,23 @@ def test_train_cli_import_leaves_jax_out():
             " or m == 'repro' for m in sys.modules)))")
     env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
     res = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+
+
+def test_examples_import_leaves_jax_out():
+    assert [p.name for p in EXAMPLES] == [
+        "torch_quickstart.py", "torch_serve_batched.py",
+        "torch_train_100m.py"]
+    code = ("import importlib.util, sys\n"
+            "for path in sys.argv[1:]:\n"
+            "    spec = importlib.util.spec_from_file_location('ex', path)\n"
+            "    spec.loader.exec_module(importlib.util.module_from_spec(spec))"
+            "\nsys.exit(int(any(m == 'jax' or m.startswith(('jax.', "
+            "'repro.')) or m == 'repro' for m in sys.modules)))")
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    res = subprocess.run([sys.executable, "-c", code,
+                          *map(str, EXAMPLES)], env=env,
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
 

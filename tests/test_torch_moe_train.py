@@ -178,7 +178,7 @@ def _jax_value_and_grad(arch, remat):
     return _JAX_GRADS[arch]
 
 
-@pytest.mark.parametrize("remat", ["none", "full"])
+@pytest.mark.parametrize("remat", ["none", "full", "dots"])
 @pytest.mark.parametrize("arch", ARCHS)
 def test_lm_loss_and_grads_match_jax(arch, remat):
     tcfg, tp, tb, jloss, jmetrics, jgrads = _jax_value_and_grad(arch, remat)

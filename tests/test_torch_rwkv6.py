@@ -240,7 +240,7 @@ def _jax_value_and_grad():
     return _JAX_GRADS
 
 
-@pytest.mark.parametrize("remat", ["none", "full"])
+@pytest.mark.parametrize("remat", ["none", "full", "dots"])
 def test_lm_loss_and_grads_match_jax(remat):
     r = _jax_value_and_grad()
     grad_fn = tsteps.make_lm_grad_fn(r["tcfg"], SyncConfig(remat=remat))
