@@ -81,7 +81,21 @@ Phases (any failure raises and the script exits non-zero):
    timed beside their bounds and plain versions (the ``stateful`` lists
    of the two rows); the three attention kernels also at
    recurrentgemma-2b's serving shapes (flash prefills of 128, 300 and 512
-   tokens, decode and chunked prefill on the 544-slot ring); then
+   tokens, decode and chunked prefill on the 544-slot ring); the three at
+   gemma3-4b's heads (8 q over 4 kv heads of 256: a 1100-token prefill in
+   its local (window 1024) and global layers, decode on its 1024- and
+   2048-slot rings, the last chunk of that prompt over both rings) and
+   the backward at its training shape (batch 2 x 2048, window 1024 and
+   global); the flash forward at Sq != Sk, non-causal (the vision
+   model's xattn: a 300-token prefill and a B8 decode step against 1600
+   media tokens at 32 q over 8 kv heads of 128, ragged key tails of 1601
+   and 8, and phase 13's own B2 prefill of 256 and B2 decode step) in
+   bf16 at 2e-2 and f32 at 1e-4 (and its log-sum-exp), timed in both
+   beside the plain version and SDPA (the ``xattn`` list of the flash
+   row); the three at olmo-1b's (16 over 16 of 128) and musicgen-large's
+   (32 over 32 of 64) heads, a group of one (prefills of 128 and 300, B4
+   decode on the 544 ring, the 300-token prompt's last chunk; olmo's
+   decode and chunk in f32 too: the ``group1`` lists); then
    flash attention's batch invariance in bf16 at llama3.2-1b's and
    recurrentgemma-2b's training shapes: each batch row alone gives the
    bits of the forward, lse and the three gradients it gives inside the
@@ -130,8 +144,9 @@ Phases (any failure raises and the script exits non-zero):
 4c. recurrent serving: recurrentgemma-2b's smoke config in f32 on the card
    against the CPU (greedy tokens equal whole-prompt, chunked,
    prefix-cached with hit rate 0, static and sampled); then
-   ``recurrentgemma-2b`` at full width and full depth (26 layers, bf16,
-   random weights from seed 0), batch 8, page 16, cache 544, phase 4's
+   ``recurrentgemma-2b`` at full width, depth cut to 14 of 26 layers
+   (``RG_SERVE_GROUPS``: the script's time limit; bf16, random weights
+   from seed 0), batch 8, page 16, cache 544, phase 4's
    whole-prompt draw: continuous, static and chunked (128) runs on the
    steps clock, each with exact launch counts of flash, decode and
    chunked-prefill attention and the RG-LRU forward (reset just before,
@@ -262,12 +277,51 @@ Phases (any failure raises and the script exits non-zero):
    ``full`` and ``dots`` (the recomputation), backward 16; peaks ordered
    ``full`` < ``dots`` < ``none`` and chunked < unchunked; each call's
    peak and wall printed.  (c) ``examples/torch_quickstart.py``'s
-   ``main`` on the card: 20 finite losses and 9 decoded ids.
+   ``main`` on the card: 20 finite losses and 9 decoded ids;
+13. the rest of the zoo, each model at full width and full depth in
+   bf16 (random weights from seed 0, built leaf by leaf) and freed
+   before the next.  ``olmo-1b``, ``gemma3-4b`` and ``musicgen-large``
+   through ``ServeEngine`` (batch 4, page 16, 8 requests of 16 tokens;
+   olmo and musicgen prompts 128 / 300 in a 544-slot cache, gemma3
+   prompts 128 / 1100 in a 2048-slot cache, so its 1024-slot local rings
+   wrap in prefill, chunks and decode): first-token logits against the
+   plain route on the card within a normalized 2e-2; continuous, static
+   and chunked (128) runs on the steps clock, each path's launch counts
+   reset just before and read just after, exact for flash, decode and
+   chunked-prefill attention (nothing else, no plain version);
+   continuous == static; the decode step's host p50.  On one prompt
+   (300 tokens; gemma3's 1100) in end-aligned chunks on a B1 paged
+   cache then a decode step: at f32 compute the last chunk's and the
+   decode step's logits, each from one cache state, within a normalized
+   1e-4 of the plain route's and the chunk's of the whole prompt's; in
+   bf16 every flash, chunked-prefill and decode call of that run held
+   elementwise against the plain route on its own inputs at 2e-2.
+   ``llama-3.2-vision-11b`` (40 layers, 8 xattn, 9.8 B parameters) with
+   its xattn gates drawn in [0.5, 1.5) (they start at 0, which hides
+   the layer): ``prefill`` of 2 prompts of 256 tokens with media (2 x
+   1600 x 1280), then 12 ``decode_step``s with media on the dense ring
+   (flash exactly 32 + 8 a prefill and 8 a step, decode attention 32 a
+   step, nothing else, no plain version); the same at f32 compute on the
+   same weights, every logit row within a normalized 1e-4 of the plain
+   route's; in bf16 the kernel route no farther from the f32 plain route
+   than 1.25x the plain bf16 route is (both ~0.02 there: the 40 layers'
+   rounding), and every flash and decode call of a bf16 run (the xattn
+   calls at B2 Sq256 and Sq1 against 1600 keys among them) held
+   elementwise against the plain route on its own inputs at 2e-2;
+   zeroing the gates moves the logits; the decode step's wall p50 and
+   the peak memory.  Then
+   ``gemma3-4b`` training at full width, depth 6 of 34 (one 5 local + 1
+   global group, ``reduced``), f32 master and bf16 compute, through the
+   train engine (AdamW, delta 2, packed ring) at batch 2 x 2048 with
+   ``REPRO_CHUNKED_CE=1``, 3 steps: flash forward and backward exactly 6
+   a step, the ring gather once a group and step, no plain version;
+   finite losses, the first within 1e-4 relative of ``lm_loss`` on the
+   plain route; step p50 and peak memory.
 
 The last two lines are the ``kernels`` JSON object (twelve rows; each
 row's ``launches_by_path`` counts its launches on every path, the
-recurrent serving, serve-while-train, server training, dense decode and
-remat paths' included)
+recurrent serving, serve-while-train, server training, dense decode,
+remat and the zoo's paths included)
 and
 ``{"ok": true, "device": {...}}``.  float32 matmuls and convolutions run in
 full f32 (TF32 off) throughout.
@@ -378,20 +432,39 @@ FLASH_HD256 = ((4, 512, 0), (1, 4096, 2048))
 # the forward's shapes (B, S, H, KV, hd, window), all causal: llama3.2-1b's
 # prompts, smollm-360m's heads (group 3), mixtral-8x7b's head dim 128,
 # then recurrentgemma-2b's (training, past the window, and its serving
-# prefills of 128, 300 and 512 tokens)
+# prefills of 128, 300 and 512 tokens), then gemma3-4b's serving prefill of
+# the zoo phase's long prompt (8 q heads over 4 kv heads of 256) in its
+# local (window 1024) and global layers, then the zoo phase's prompts of
+# 128 and 300 tokens at olmo-1b's heads (16 over 16 of 128) and
+# musicgen-large's (32 over 32 of 64): a group of one
+GEMMA3_LONG = 1100
+GROUP1_HEADS = ((16, 128), (32, 64))         # (H = KV, hd)
 FLASH_CASES = [(1, S, 32, 8, 64, 0) for S in (128, 300, 512, 1024)] \
     + [(1, 300, 15, 5, 64, 0), (1, 512, 32, 8, 128, 0)] \
     + [(B, S, 10, 1, 256, w) for B, S, w in FLASH_HD256] \
-    + [(1, S, 10, 1, 256, 2048) for S in (128, 300, 512)]
+    + [(1, S, 10, 1, 256, 2048) for S in (128, 300, 512)] \
+    + [(1, GEMMA3_LONG, 8, 4, 256, w) for w in (1024, 0)] \
+    + [(1, S, H, H, hd, 0) for H, hd in GROUP1_HEADS for S in (128, 300)]
+# the vision model's cross-attention (B, Sq, Sk, H, KV, hd), non-causal:
+# llama-3.2-vision-11b's heads (32 over 8 of 128) against its 1600 media
+# tokens at a 300-token prefill and a B8 decode step, then ragged key
+# tails (1601: one key past a tile; 8: the smoke config's media), then the
+# zoo phase's own shapes (its B2 prefill of 256 tokens and its B2 decode
+# step)
+XATTN_CASES = ((1, 300, 1600, 32, 8, 128), (8, 1, 1600, 32, 8, 128),
+               (1, 300, 1601, 32, 8, 128), (2, 77, 8, 32, 8, 128),
+               (2, 256, 1600, 32, 8, 128), (2, 1, 1600, 32, 8, 128))
 # the backward's (B, S, H, KV, hd, causal, window): llama3.2-1b's training
 # shape first (the main row), other lengths, smollm-360m's heads, a window,
 # mixtral-8x7b's training shape (head dim 128, its 4096 window longer than
-# the sequence), then recurrentgemma-2b's
+# the sequence), then recurrentgemma-2b's, then gemma3-4b's training heads
+# at the zoo phase's batch 2 x 2048 (local window 1024, and global)
 FLASH_BWD_CASES = [(4, 512, 32, 8, 64, True, 0), (4, 128, 32, 8, 64, True, 0),
                    (4, 1024, 32, 8, 64, True, 0), (4, 300, 15, 5, 64, True, 0),
                    (4, 512, 32, 8, 64, True, 128),
                    (4, 512, 32, 8, 128, True, 4096)] \
-    + [(B, S, 10, 1, 256, True, w) for B, S, w in FLASH_HD256]
+    + [(B, S, 10, 1, 256, True, w) for B, S, w in FLASH_HD256] \
+    + [(2, 2048, 8, 4, 256, True, w) for w in (1024, 0)]
 
 
 def window_mask(torch, S: int, window: int):
@@ -436,21 +509,83 @@ def check_flash(torch, F, ref, gen):
         print("flash_attention", json.dumps(row), flush=True)
     main = next(r for r in rows if r["shape"] == [1, 512, 32, 8, 64])
     hd128 = next(r for r in rows if r["shape"][4] == 128)
-    hd256 = [r for r in rows if r["shape"][4] == 256]
-    return {**main, "max_abs_err": worst, "hd128": hd128, "hd256": hd256}
+    hd256 = [r for r in rows if r["shape"][4] == 256 and r["shape"][2] == 10]
+    gemma3 = [r for r in rows if r["shape"][2:] == [8, 4, 256]]
+    group1 = [r for r in rows if r["shape"][2] == r["shape"][3]]
+    xattn = check_flash_cross(torch, F, ref, gen)
+    worst = max([worst] + [r["max_abs_err"] for r in xattn
+                           if r["dtype"] == "bfloat16"])
+    return {**main, "max_abs_err": worst, "hd128": hd128, "hd256": hd256,
+            "gemma3": gemma3, "group1": group1, "xattn": xattn}
+
+
+def check_flash_cross(torch, F, ref, gen):
+    """The forward at Sq != Sk, non-causal (the vision model's xattn),
+    against ``ref.attention`` on the same inputs: bf16 at rtol/atol 2e-2,
+    f32 at 1e-4, its log-sum-exp at 1e-4; timed in both dtypes beside
+    its bound (every (query, key) pair live: 4 hd H B Sq Sk operations),
+    the plain version and SDPA (no mask)."""
+    from repro_torch.kernels.flash_attention import flash_attention
+    rows = []
+    for B, Sq, Sk, H, KV, hd in XATTN_CASES:
+        for dt in ("bfloat16", "float32"):
+            dtype = getattr(torch, dt)
+            mk = lambda s, n: torch.randn((B, s, n, hd), generator=gen,  # noqa
+                                          device="cuda").to(dtype)
+            q, k, v = mk(Sq, H), mk(Sk, KV), mk(Sk, KV)
+            got, lse = flash_attention(q, k, v, causal=False, with_lse=True)
+            want = ref.attention(q, k, v, causal=False)
+            scores = torch.einsum("bqhd,bkhd->bhqk", q.float(),
+                                  k.float().repeat_interleave(H // KV, 2))
+            want_lse = torch.logsumexp(scores * hd ** -0.5, -1)
+            torch.cuda.synchronize()
+            tol = BF16_TOL if dt == "bfloat16" else F32_TOL
+            err = (got.float() - want.float()).abs().max().item()
+            torch.testing.assert_close(got.float(), want.float(), rtol=tol,
+                                       atol=tol)
+            torch.testing.assert_close(lse, want_lse, rtol=F32_TOL,
+                                       atol=F32_TOL)
+            b_ms, b_by = bound(nbytes(q, k, v, got),
+                               4.0 * hd * H * B * Sq * Sk, dt)
+            sets = rotation((q, k, v))
+            n = len(sets)
+            lib_sets = [tuple(t.transpose(1, 2) for t in st) for st in sets]
+            reps = 20 if dt == "bfloat16" else 5
+            ms, host_ms = time_ms(lambda i: flash_attention(
+                *sets[i % n], causal=False), reps)
+            row = dict(
+                shape=[B, Sq, Sk, H, KV, hd], dtype=dt, causal=False,
+                max_abs_err=err, tolerance=tol, ms=ms, host_ms=host_ms,
+                plain_ms=time_ms(lambda i: ref.attention(
+                    *sets[i % n], causal=False), reps)[0],
+                library_ms=time_ms(lambda i: F.scaled_dot_product_attention(
+                    *lib_sets[i % n], enable_gqa=True), reps)[0],
+                bound_ms=b_ms, bound_by=b_by)
+            rows.append(row)
+            print("flash_attention xattn", json.dumps(row), flush=True)
+            del sets, lib_sets
+    return rows
 
 
 # decode shapes (B, L, H, KV, hd, dtype): the serving run's ring (cache_len
 # 544 = 34 pages of 16) and a 1024-slot ring at llama3.2-1b's heads,
 # mixtral-8x7b's head dim 128 on the serving ring, then recurrentgemma-2b's
 # local layers (10 q heads over 1 kv head of 256, its 2048-slot window
-# ring) in bf16 and f32 and its serving ring (544 slots); the first is the
-# one the main path gives the kernel
+# ring) in bf16 and f32 and its serving ring (544 slots), then gemma3-4b's
+# (8 q heads over 4 kv heads of 256) local ring (its 1024 window) and
+# global ring (the zoo phase's cache_len 2048), then olmo-1b's and
+# musicgen-large's heads (a group of one: one live row of the kernel's
+# 16-row tile) on the zoo phase's B4 serving ring, olmo's in f32 too; the
+# first is the one the main path gives the kernel
 MAIN_L, RING_LENS = 544, (544, 1024)
 DECODE_CASES = tuple((8, L, 32, 8, 64, "bfloat16") for L in RING_LENS) \
     + ((8, MAIN_L, 32, 8, 128, "bfloat16"),
        (8, 2048, 10, 1, 256, "bfloat16"), (8, 2048, 10, 1, 256, "float32"),
-       (8, MAIN_L, 10, 1, 256, "bfloat16"))
+       (8, MAIN_L, 10, 1, 256, "bfloat16"),
+       (8, 1024, 8, 4, 256, "bfloat16"), (8, 2048, 8, 4, 256, "bfloat16"),
+       (4, MAIN_L, 16, 16, 128, "bfloat16"),
+       (4, MAIN_L, 16, 16, 128, "float32"),
+       (4, MAIN_L, 32, 32, 64, "bfloat16"))
 
 
 def decode_pools(torch, gen, k, v):
@@ -554,7 +689,7 @@ def check_decode(torch, F, ref, gen):
             st[0], ref.page_gather(st[1], st[3]),
             ref.page_gather(st[2], st[3]), st[4])
         reps = 200 if dt == "bfloat16" else 10   # f32 SDPA: ~2.5 ms a call
-        rows[L, hd, dt] = dict(
+        rows[case] = dict(
             shape=[B, L, H, KV, hd], dtype=dt, page=PAGE,
             splits=plan(L, hd, dtype)["splits"], max_abs_err=err,
             tolerance=tol, paged_equals_gathered=True,
@@ -569,12 +704,17 @@ def check_decode(torch, F, ref, gen):
                 *lib_sets[i % n][:3], attn_mask=lib_sets[i % n][3],
                 enable_gqa=True), reps)[0],
             bound_ms=b_ms, bound_by=b_by)
-        print("decode_attention", json.dumps(rows[L, hd, dt]), flush=True)
+        print("decode_attention", json.dumps(rows[case]), flush=True)
         del sets, gsets, lib_sets
     worst = max(r["max_abs_err"] for r in rows.values())
-    return {**rows[MAIN_L, 64, "bfloat16"], "max_abs_err": worst,
-            "hd128": rows[MAIN_L, 128, "bfloat16"],
-            "hd256": [r for (_, hd, _), r in rows.items() if hd == 256]}
+    return {**rows[8, MAIN_L, 32, 8, 64, "bfloat16"], "max_abs_err": worst,
+            "hd128": rows[8, MAIN_L, 32, 8, 128, "bfloat16"],
+            "hd256": [r for (_, _, H, _, hd, _), r in rows.items()
+                      if hd == 256 and H == 10],
+            "gemma3": [r for (_, _, H, _, hd, _), r in rows.items()
+                       if hd == 256 and H == 8],
+            "group1": [r for (_, _, H, KV, _, _), r in rows.items()
+                       if H == KV]}
 
 
 # page_gather's shapes (L, hd) at 8 kv heads, B8, page 16: the serving
@@ -788,7 +928,9 @@ def check_flash_bwd(torch, F, ref, gen):
     main = rows[0]                  # the training shape, causal
     return {**main, "max_abs_err": max(r["max_abs_err"] for r in rows),
             "hd128": [r for r in rows if r["shape"][4] == 128],
-            "hd256": [r for r in rows if r["shape"][4] == 256]}
+            "hd256": [r for r in rows if r["shape"][4] == 256
+                      and r["shape"][2] == 10],
+            "gemma3": [r for r in rows if r["shape"][2:] == [8, 4, 256]]}
 
 
 # chunked prefill (C, L, start, window, dtype, head dim, H, KV): at
@@ -797,10 +939,14 @@ def check_flash_bwd(torch, F, ref, gen):
 # at mixtral-8x7b's head dim 128; recurrentgemma-2b's local layers (10
 # heads over 1 kv head of 256, its 2048 window over a full 2048-slot ring)
 # in bf16 and f32, and its serving ring of 544 slots (the third chunk of a
-# 512-token prompt) in bf16.  PREFILL_MAIN, the third chunk of a 448-token
-# prompt in the 544-slot ring, is the main path's shape.  The ring lives
-# in pools of 16-slot pages under a shuffled table, as the serving cache
-# holds it.
+# 512-token prompt) in bf16; gemma3-4b's (8 heads over 4 kv heads of 256)
+# local ring of 1024 slots wrapped by the zoo phase's long prompt (its
+# 1024 window) and its global ring of 2048; the last chunk (start 172) of
+# the zoo phase's 300-token prompt at olmo-1b's heads (16 over 16 of 128,
+# bf16 and f32) and musicgen-large's (32 over 32 of 64).  PREFILL_MAIN,
+# the third chunk of a 448-token prompt in the 544-slot ring, is the main
+# path's shape.  The ring lives in pools of 16-slot pages under a
+# shuffled table, as the serving cache holds it.
 PREFILL_CASES = [(128, 544, 0, 0, "bfloat16", 64, 32, 8),
                  (128, 544, 256, 0, "bfloat16", 64, 32, 8),
                  (16, 544, 320, 0, "bfloat16", 64, 32, 8),
@@ -812,7 +958,12 @@ PREFILL_CASES = [(128, 544, 0, 0, "bfloat16", 64, 32, 8),
                  (128, 544, 256, 0, "bfloat16", 128, 32, 8),
                  (128, 2048, 2176, 2048, "bfloat16", 256, 10, 1),
                  (128, 2048, 2176, 2048, "float32", 256, 10, 1),
-                 (128, 544, 256, 2048, "bfloat16", 256, 10, 1)]
+                 (128, 544, 256, 2048, "bfloat16", 256, 10, 1),
+                 (128, 1024, 972, 1024, "bfloat16", 256, 8, 4),
+                 (128, 2048, 972, 0, "bfloat16", 256, 8, 4),
+                 (128, 544, 172, 0, "bfloat16", 128, 16, 16),
+                 (128, 544, 172, 0, "float32", 128, 16, 16),
+                 (128, 544, 172, 0, "bfloat16", 64, 32, 32)]
 PREFILL_MAIN = (128, 544, 256, 0, "bfloat16", 64, 32, 8)
 PREFILL_HD128 = (128, 544, 256, 0, "bfloat16", 128, 32, 8)
 PAGE = 16
@@ -930,7 +1081,11 @@ def check_prefill_page_attention(torch, F, ref, gen):
     worst = max(r["max_abs_err"] for r in rows.values())
     return {**rows[PREFILL_MAIN], "max_abs_err": worst,
             "hd128": rows[PREFILL_HD128],
-            "hd256": [r for c, r in rows.items() if c[5] == 256]}
+            "hd256": [r for c, r in rows.items() if c[5] == 256
+                      and c[6] == 10],
+            "gemma3": [r for c, r in rows.items() if c[5] == 256
+                       and c[6] == 8],
+            "group1": [r for c, r in rows.items() if c[6] == c[7]]}
 
 
 # moe_grouped_ffn at mixtral-8x7b's width (d 4096, f 14336, 8 experts,
@@ -2591,8 +2746,17 @@ def _rg_expected(cfg, rep, n_prefills: int, n_chunks: int) -> dict:
             "page_gather": 0}
 
 
+# recurrentgemma serving's depth cut (every width kept): 4 of the 8
+# (rglru, rglru, local) groups and the tail, 14 of 26 layers, so that the
+# whole script, phase 13 included, stays well inside its time limit (PR 29
+# call 5: 907 s at full depth on a slow host); the kernels and shapes a
+# layer runs are those of every layer
+RG_SERVE_GROUPS = 4
+
+
 def recurrent_serving(torch, ops, ref):
-    """recurrentgemma-2b at full width and full depth (26 layers) in bf16,
+    """recurrentgemma-2b at full width, depth cut to ``RG_SERVE_GROUPS`` of
+    its 8 (rglru, rglru, local) groups and the (rglru, rglru) tail, in bf16,
     random weights from seed 0 built leaf by leaf, batch 8, page 16, cache
     544, on llama3.2-1b's whole-prompt draw (16 requests, prompts 128 / 300
     / 512, generations 16 / 32): continuous and static whole-prompt runs
@@ -2606,7 +2770,10 @@ def recurrent_serving(torch, ops, ref):
     from repro_torch.models.transformer import model_specs, prefill
     from repro_torch.serve import (ServeConfig, ServeEngine,
                                    open_loop_requests, serving_leaf)
-    cfg = get_config("recurrentgemma-2b")
+    full = get_config("recurrentgemma-2b")
+    first, *rest = full.groups
+    cfg = dataclasses.replace(full, groups=(
+        dataclasses.replace(first, n=RG_SERVE_GROUPS), *rest))
     t0 = time.perf_counter()
     torch.cuda.reset_peak_memory_stats()
     params = paramlib.init_tree(
@@ -4134,6 +4301,518 @@ def dense_decode_and_remat(torch, ops, ref) -> dict:
     return paths
 
 
+# ---------------------------------------------------------------------------
+# phase 13: the rest of the zoo
+# ---------------------------------------------------------------------------
+
+# the three text models served through the engine at full width and depth:
+# arch -> (cache_len, prompt lengths).  gemma3-4b's cache passes its 1024
+# window and one prompt length passes it too, so its local rings wrap in
+# whole-prompt prefill, in chunked prefill and in decode
+ZOO_TEXT = {"olmo-1b": (MAIN_L, (128, 300)),
+            "gemma3-4b": (2048, (128, GEMMA3_LONG)),
+            "musicgen-large": (MAIN_L, (128, 300))}
+ZOO_REQUESTS, ZOO_GEN, ZOO_BATCH = 8, 16, 4
+# the vision model through prefill / decode_step: batch, prompt, steps
+VISION_B, VISION_S, VISION_STEPS = 2, 256, 12
+# gemma3-4b training: one (5 local + 1 global) group of the 6, batch 2 x
+# 2048 (the window masks), 3 steps, AdamW, delta 2, chunked cross entropy
+GEMMA3_TRAIN_B, GEMMA3_TRAIN_S, GEMMA3_TRAIN_STEPS = 2, 2048, 3
+ZOO_LOSS_REL = 1e-4             # bf16 loss, kernels vs plain route, relative
+# the vision model's bf16 logits: the kernel route's distance from the f32
+# route within this factor of the plain bf16 route's own (each ~0.02
+# normalized at 40 layers: the activations' rounding, not the kernels;
+# the two bf16 routes' noise adds, so they are not held to each other)
+VISION_BF16_MARGIN = 1.25
+
+
+def _n_self_attn(cfg) -> int:
+    """The model's self-attention layers (each one flash launch a
+    prefill, one decode launch a step)."""
+    from repro_torch.models.transformer import SELF_ATTN_KINDS
+    return sum(k in SELF_ATTN_KINDS for k in cfg.layer_kinds)
+
+
+def _norm_err(got, want) -> float:
+    return ((got.float() - want.float()).abs().max()
+            / want.float().abs().max()).item()
+
+
+def _serving_copy(torch, cfg):
+    """``cfg``'s bf16 serving copy from seed 0, built leaf by leaf (the f32
+    master never whole on the card)."""
+    from repro_torch.models import paramlib
+    from repro_torch.models.transformer import model_specs
+    from repro_torch.serve import serving_leaf
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    params = paramlib.init_tree(
+        model_specs(cfg), torch.Generator(device="cuda").manual_seed(0),
+        dtype=cfg.param_dtype,
+        leaf_fn=lambda k, t, spec: serving_leaf(k, t, cfg, spec))
+    torch.cuda.synchronize()
+    print(f"{cfg.name}, {len(cfg.layer_kinds)} layers: "
+          f"{paramlib.param_count(model_specs(cfg))} params (bf16 serving "
+          f"copy) in {time.perf_counter() - t0:.2f} s, "
+          f"{torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB allocated",
+          flush=True)
+    return params
+
+
+def _attn_expected(cfg, rep, n_prefills: int, n_chunks: int) -> dict:
+    """Exact launches of an attention model's serving run: each
+    self-attention layer one flash forward a whole-prompt prefill, one
+    chunked-prefill attention a chunk, one decode attention a decode step
+    (the warmup's prefills, chunk and decode step included)."""
+    n = _n_self_attn(cfg)
+    return {"flash_attention": n * n_prefills,
+            "prefill_page_attention": n * n_chunks,
+            "decode_attention": n * (rep.decode_steps + 1),
+            "page_gather": 0}
+
+
+@contextlib.contextmanager
+def kernels_held(torch, ops, names):
+    """While the block runs, hold every call of ``ops.<name>`` for each of
+    ``names`` (on the card: its kernel) against the same function on the
+    plain route, on the call's own inputs, elementwise at rtol = atol =
+    BF16_TOL (bf16) or F32_TOL (f32): yields {name: [max |d| of each
+    call]}; raises on leaving if a call disagrees.  Not for a counted
+    path: the plain versions run too."""
+    errs = {n: [] for n in names}
+    bad, saved = [], {n: getattr(ops, n) for n in names}
+
+    def spy_of(name):
+        def spy(*args, **kw):
+            got = saved[name](*args, **kw)
+            with plain_route(ops):
+                want = saved[name](*args, **kw)
+            tol = F32_TOL if got.dtype == torch.float32 else BF16_TOL
+            errs[name].append((got.float() - want.float()).abs().max()
+                              .item())
+            if not torch.allclose(got.float(), want.float(), rtol=tol,
+                                  atol=tol):
+                bad.append((name, list(args[0].shape), errs[name][-1]))
+            return got
+        return spy
+    for n in names:
+        setattr(ops, n, spy_of(n))
+    try:
+        yield errs
+    finally:
+        for n in names:
+            setattr(ops, n, saved[n])
+    if bad or not all(errs.values()):
+        raise AssertionError(f"kernel calls vs plain route: {bad}, calls "
+                             f"{ {n: len(e) for n, e in errs.items()} }")
+
+
+def _chunked_prompt(torch, cfg, params, prompt, L):
+    """``prompt`` through end-aligned chunks on a B1 paged cache up to its
+    last chunk: (cache, page rows, carry, the last chunk's tokens, its
+    start).  The last chunk overlaps the one before; that is sound while
+    the chunks before it wrap no ring (checked), which the engine's plan
+    asks of the whole prompt."""
+    from repro_torch.models.transformer import init_chunk_carry, prefill_chunk
+    from repro_torch.serve import PageAllocator, init_paged_cache
+    S = len(prompt)
+    cache = init_paged_cache(cfg, 1, L, PAGE, device="cuda")
+    rows = {k: torch.from_numpy(v).cuda()
+            for k, v in PageAllocator(cfg, 1, L, PAGE).alloc(0).items()}
+    carry = init_chunk_carry(cfg)
+    starts = list(range(0, S - CHUNK, CHUNK)) + [S - CHUNK]
+    ring = min(c["pt"].shape[-1] * PAGE for slots in cache.values()
+               for c in slots.values() if "pt" in c)
+    if (len(starts) - 1) * CHUNK > ring:
+        raise ValueError(f"{S} tokens: the chunks before the last wrap "
+                         f"the {ring}-slot ring")
+    for s0 in starts[:-1]:
+        toks = torch.tensor([prompt[s0:s0 + CHUNK]], device="cuda")
+        _, cache, carry = prefill_chunk(params, cache, toks, s0, rows, carry,
+                                        cfg, L)
+    s0 = starts[-1]
+    return cache, rows, carry, torch.tensor([prompt[s0:]], device="cuda"), s0
+
+
+def same_cache_logits(torch, ops, cfg, params, prompt, L) -> dict:
+    """One prompt through the engine's chunk plan on a B1 paged cache, then
+    one greedy decode step.  At f32 compute on the same weights: the last
+    chunk's logits and the decode step's, each from one cache state,
+    through the kernels against the plain route, and the last chunk's
+    against the whole-prompt prefill's (normalized, within F32_TOL).  In
+    bf16 (the served kernels): every kernel call of the same run and of
+    the whole-prompt prefill held elementwise against the plain route on
+    its own inputs (``kernels_held``)."""
+    from repro_torch.models.transformer import (decode_step, prefill,
+                                                prefill_chunk)
+    from repro_torch.tree import tree_map
+    clone = lambda tree: tree_map(torch.clone, tree)  # noqa: E731
+    S, pos = len(prompt), torch.tensor([len(prompt)], device="cuda")
+    whole_toks = torch.tensor([prompt], device="cuda")
+    f32 = dataclasses.replace(cfg, dtype=torch.float32)
+    cache, rows, carry, toks, s0 = _chunked_prompt(torch, f32, params,
+                                                   prompt, L)
+    got, cache_k, _ = prefill_chunk(params, clone(cache), toks, s0,
+                                    rows, carry, f32, L)
+    with plain_route(ops):
+        want, _, _ = prefill_chunk(params, clone(cache), toks, s0,
+                                   rows, carry, f32, L)
+    whole, _ = prefill(params, whole_toks, f32, cache_len=L)
+    tok = torch.argmax(got, -1).view(1, 1)
+    d_got, _ = decode_step(params, clone(cache_k), tok, pos, f32)
+    with plain_route(ops):
+        d_want, _ = decode_step(params, clone(cache_k), tok, pos, f32)
+    errs = dict(chunk_kernels_vs_plain=_norm_err(got, want),
+                chunk_vs_whole_prompt=_norm_err(got, whole),
+                decode_kernels_vs_plain=_norm_err(d_got[:, -1],
+                                                  d_want[:, -1]))
+    del cache, cache_k, whole
+    names = ("attention", "prefill_page_attention_paged",
+             "attention_decode_paged")
+    with kernels_held(torch, ops, names) as held:
+        cache, rows, carry, toks, s0 = _chunked_prompt(torch, cfg, params,
+                                                       prompt, L)
+        last, cache, _ = prefill_chunk(params, cache, toks, s0, rows, carry,
+                                       cfg, L)
+        decode_step(params, cache, torch.argmax(last, -1).view(1, 1), pos,
+                    cfg)
+        prefill(params, whole_toks, cfg, cache_len=L)
+    return dict(f32_normalized_err=errs, f32_tolerance=F32_TOL,
+                prompt=S, bf16_calls_held={n: len(e) for n, e in
+                                           held.items()},
+                bf16_max_abs_err={n: max(e) for n, e in held.items()},
+                bf16_tolerance=BF16_TOL)
+
+
+def zoo_text_serving(torch, ops, ref, arch):
+    """``arch`` at full width and depth in bf16 through ``ServeEngine``:
+    first-token logits of one prompt of each length against the plain
+    route on the card; the longest prompt's chunks and a decode step held
+    to the plain route on one cache (``same_cache_logits``); continuous,
+    static and chunked (128) runs on the steps clock, each with exact
+    launch counts (reset just before, read just after) and no plain
+    version; continuous == static; the decode step's p50 on the host
+    clock (between step hooks of the continuous run).  The share of
+    chunked requests whose greedy tokens equal the whole prompt's is
+    printed only: two correct bf16 runs that sum in another order may
+    part at a near tie."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.transformer import prefill
+    from repro_torch.serve import ServeConfig, ServeEngine, open_loop_requests
+    cfg = get_config(arch)
+    cache_len, plens = ZOO_TEXT[arch]
+    params = _serving_copy(torch, cfg)
+    V = cfg.vocab_size
+    reqs = open_loop_requests(ZOO_REQUESTS, 0.5, V, prompt_lens=plens,
+                              gen_lens=(ZOO_GEN,), seed=0)
+    common = dict(batch_size=ZOO_BATCH, page_size=PAGE, cache_len=cache_len)
+    errs = {}
+    for S in sorted({len(r.prompt) for r in reqs}):
+        toks = torch.tensor([next(r.prompt for r in reqs
+                                  if len(r.prompt) == S)], device="cuda")
+        got, _ = prefill(params, toks, cfg, cache_len=cache_len)
+        with plain_route(ops):
+            want, _ = prefill(params, toks, cfg, cache_len=cache_len)
+        if got.shape != (1, V) or not torch.isfinite(got).all():
+            raise AssertionError(f"{arch}: prefill logits not finite")
+        errs[S] = _norm_err(got, want)
+    print(f"{arch} first-token logits, kernels vs plain route:",
+          json.dumps(dict(normalized_err=errs, tolerance=LOGITS_NORM_TOL)),
+          flush=True)
+    if not max(errs.values()) <= LOGITS_NORM_TOL:
+        raise AssertionError(f"{arch}: first-token logits differ: {errs}")
+    held = same_cache_logits(torch, ops, cfg, params,
+                             max(reqs, key=lambda r: len(r.prompt)).prompt,
+                             cache_len)
+    print(f"{arch} chunks and decode on one cache, kernels vs plain route:",
+          json.dumps(held), flush=True)
+    if not max(held["f32_normalized_err"].values()) <= F32_TOL:
+        raise AssertionError(f"{arch}: same-cache logits differ: {held}")
+    n_prefills = len(reqs) + len({len(r.prompt) for r in reqs})  # + warmup
+    runs = {"continuous": (dict(continuous=True), n_prefills, 0),
+            "static": (dict(continuous=False), n_prefills, 0),
+            "chunked": (dict(prefill_chunk=CHUNK), 0, None)}
+    reports, launches, stamps = {}, {}, []
+    for name, (kw, n_pre, n_chunks) in runs.items():
+        eng = ServeEngine(cfg, params, ServeConfig(clock="steps", **kw,
+                                                   **common))
+        hook = (lambda _: stamps.append(time.perf_counter())) \
+            if name == "continuous" else None
+        ops.reset_launches()                 # the path starts here
+        t1 = time.perf_counter()
+        with plain_versions_counted(ref) as plain_calls:
+            rep = eng.run(reqs, step_hook=hook)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t1
+        launches[name] = dict(ops.launches)  # ... and ends here
+        reports[name] = rep
+        if n_chunks is None:                 # + the warmup's chunk
+            n_chunks = rep.prefill_chunks + 1
+        want = _attn_expected(cfg, rep, n_pre, n_chunks)
+        print(f"{arch} {name} (steps clock): {rep.total_tokens} tokens, "
+              f"{rep.decode_steps} decode steps, {rep.prefill_chunks} "
+              f"prefill chunks, {dt:.2f} s host time; launches "
+              f"{launches[name]}; expected {want}; plain version calls "
+              f"{plain_calls}", flush=True)
+        if any(launches[name][k] != v for k, v in want.items()) or \
+                sum(launches[name].values()) != sum(want.values()):
+            raise AssertionError(f"{arch} {name}: launches "
+                                 f"{launches[name]}, want {want}")
+        if any(plain_calls.values()):
+            raise AssertionError(f"{arch} {name}: plain versions ran: "
+                                 f"{plain_calls}")
+        for r in reqs:
+            toks = rep.outputs[r.rid]
+            if len(toks) != r.gen_len or not all(0 <= t < V for t in toks):
+                raise AssertionError(f"{arch} {name} request {r.rid}: bad "
+                                     f"output {toks}")
+    if reports["continuous"].outputs != reports["static"].outputs:
+        raise AssertionError(f"{arch}: continuous and static greedy tokens "
+                             "differ")
+    share = sum(reports["chunked"].outputs[r.rid]
+                == reports["continuous"].outputs[r.rid]
+                for r in reqs) / len(reqs)
+    step_ms = [1e3 * (b - a) for a, b in zip(stamps, stamps[1:])]
+    print(f"{arch} serving:", json.dumps(dict(
+        continuous_equals_static=True,
+        chunked_requests_equal_to_whole_prompt=share,
+        decode_steps=reports["continuous"].decode_steps,
+        decode_step_host_ms_p50=_p50(step_ms),
+        peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30)),
+        flush=True)
+    del params
+    torch.cuda.empty_cache()
+    key = arch.split("-")[0]
+    return {f"{key}_serving": launches["continuous"],
+            f"{key}_chunked": launches["chunked"]}
+
+
+def _vision_run(torch, params, cfg, toks, media, cache_len):
+    """prefill of toks[:, :VISION_S] with media, then VISION_STEPS
+    teacher-forced ``decode_step``s on the dense ring: (the logits of
+    each, decode-step wall ms)."""
+    from repro_torch.models.transformer import decode_step, prefill
+    last, cache = prefill(params, toks[:, :VISION_S], cfg,
+                          cache_len=cache_len, media=media)
+    out, step_ms = [last], []
+    for t in range(VISION_STEPS):
+        pos = VISION_S + t
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        lg, cache = decode_step(params, cache, toks[:, pos:pos + 1],
+                                torch.tensor(pos, device="cuda"), cfg,
+                                media=media)
+        torch.cuda.synchronize()
+        step_ms.append(1e3 * (time.perf_counter() - t1))
+        out.append(lg[:, 0])
+    return out, step_ms
+
+
+def zoo_vision(torch, ops, ref):
+    """llama-3.2-vision-11b at full width and depth (40 layers, 8 of them
+    xattn) in bf16, its xattn gates drawn non-zero (they start at 0, which
+    hides the layer): prefill of VISION_B prompts with media, then
+    VISION_STEPS decode steps with media on the dense ring (the path:
+    launch counts reset just before, read just after; flash 32 + 8 a
+    prefill and 8 a step, decode attention 32 a step, no plain version);
+    at f32 compute on the same weights, the kernel route's logits within
+    1e-4 (normalized) of the plain route's; in bf16, every flash and
+    decode call of a second run held elementwise against the plain route
+    on its own inputs (``kernels_held``: the xattn layers' Sq != Sk calls
+    among them), and the kernel route's logits no farther from the f32
+    plain route than the plain bf16 route's are (times
+    ``VISION_BF16_MARGIN``); the gates' effect (logits with the gates at
+    0 differ); peak memory."""
+    from repro_torch.configs import get_config
+    cfg = get_config("llama-3.2-vision-11b")
+    params = _serving_copy(torch, cfg)
+    g = torch.Generator(device="cuda").manual_seed(1)
+    gates = []
+    for gi, grp in enumerate(cfg.groups):
+        for si, kind in enumerate(grp.pattern):
+            if kind == "xattn":
+                gate = params["groups"][f"g{gi}"][f"s{si}"]["mix"]["gate"]
+                gate.uniform_(0.5, 1.5, generator=g)
+                gates.append(gate)
+    B, V = VISION_B, cfg.vocab_size
+    toks = torch.randint(0, V, (B, VISION_S + VISION_STEPS), generator=g,
+                         device="cuda")
+    media = torch.randn((B, cfg.n_frontend_tokens, cfg.d_frontend),
+                        generator=g, device="cuda")
+    cache_len = VISION_S + VISION_STEPS
+    n_self = _n_self_attn(cfg)
+    n_x = cfg.layer_kinds.count("xattn")
+    torch.cuda.synchronize()
+    ops.reset_launches()                     # the path starts here
+    t1 = time.perf_counter()
+    with plain_versions_counted(ref) as plain_calls:
+        got, step_ms = _vision_run(torch, params, cfg, toks, media,
+                                   cache_len)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t1
+    launches = dict(ops.launches)            # ... and ends here
+    want = {"flash_attention": n_self + n_x + n_x * VISION_STEPS,
+            "decode_attention": n_self * VISION_STEPS}
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    f32 = dataclasses.replace(cfg, dtype=torch.float32)
+    routes = {}
+    with torch.no_grad():
+        with plain_route(ops):
+            routes["plain_bf16"] = _vision_run(torch, params, cfg, toks,
+                                               media, cache_len)[0]
+            routes["plain_f32"] = _vision_run(torch, params, f32, toks,
+                                              media, cache_len)[0]
+        routes["kernels_f32"] = _vision_run(torch, params, f32, toks, media,
+                                            cache_len)[0]
+        # the served bf16 kernels on the path's own inputs, call by call:
+        # the xattn layers' flash forward at B2 Sq256 and B2 Sq1 against
+        # 1600 keys among them
+        with kernels_held(torch, ops, ("attention",
+                                       "attention_decode")) as held:
+            _vision_run(torch, params, cfg, toks, media, cache_len)
+    held_calls = {n: len(e) for n, e in held.items()}
+    if held_calls != {"attention": want["flash_attention"],
+                      "attention_decode": want["decode_attention"]}:
+        raise AssertionError(f"vision: calls held {held_calls}, want {want}")
+
+    def dist(a, b):
+        return max(_norm_err(x, y) for x, y in zip(a, b))
+    errs = dict(
+        f32_kernels_vs_plain=dist(routes["kernels_f32"],
+                                  routes["plain_f32"]),
+        bf16_kernels_vs_f32=dist(got, routes["plain_f32"]),
+        bf16_plain_vs_f32=dist(routes["plain_bf16"], routes["plain_f32"]),
+        bf16_kernels_vs_plain=dist(got, routes["plain_bf16"]))
+    del routes
+    for gate in gates:
+        gate.zero_()
+    with torch.no_grad():
+        ungated, _ = _vision_run(torch, params, cfg, toks, media, cache_len)
+    gate_effect = max(_norm_err(a, b) for a, b in zip(ungated, got))
+    print("llama-3.2-vision-11b serving:", json.dumps(dict(
+        batch=B, prompt=VISION_S, media=list(media.shape),
+        decode_steps=VISION_STEPS, launches=launches,
+        expected_launches=want, plain_version_calls=plain_calls,
+        normalized_err=errs, f32_tolerance=F32_TOL,
+        bf16_margin=VISION_BF16_MARGIN, bf16_calls_held=held_calls,
+        bf16_calls_max_abs_err={n: max(e) for n, e in held.items()},
+        bf16_calls_tolerance=BF16_TOL,
+        gates_zeroed_normalized_change=gate_effect,
+        decode_step_wall_ms_p50=_p50(step_ms), wall_s=wall,
+        peak_mem_gib=peak)), flush=True)
+    if any(launches[k] != v for k, v in want.items()) or \
+            sum(launches.values()) != sum(want.values()):
+        raise AssertionError(f"vision launches {launches}, want {want}")
+    if any(plain_calls.values()):
+        raise AssertionError(f"vision: plain versions ran: {plain_calls}")
+    if not all(torch.isfinite(x).all() for x in got) or \
+            not errs["f32_kernels_vs_plain"] <= F32_TOL or \
+            not errs["bf16_kernels_vs_f32"] <= VISION_BF16_MARGIN \
+            * errs["bf16_plain_vs_f32"]:
+        raise AssertionError(f"vision logits vs plain route: {errs}")
+    if not gate_effect > 1e-3:
+        raise AssertionError(f"the xattn layers change nothing: "
+                             f"{gate_effect}")
+    del params, gates, media, got, ungated
+    torch.cuda.empty_cache()
+    return {"vision_serving": launches}
+
+
+def gemma3_training(torch, ops, ref):
+    """gemma3-4b at full width, depth 6 of 34 (one 5 local + 1 global
+    group), f32 master and bf16 compute, through the train engine: AdamW,
+    delta 2 on the packed ring, batch 2 x 2048 (the 1024 window masks),
+    ``REPRO_CHUNKED_CE=1`` (its 262,144-entry vocabulary), 3 steps (the
+    path: launch counts reset just before, read just after; flash forward
+    and backward 6 a step, the ring gather once a group and step, no plain
+    version).  Losses finite; the first step's loss (the initial weights')
+    against ``lm_loss`` on the plain route; step p50 and peak memory."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.sync import SyncConfig
+    from repro_torch.data import LMBatchSpec, make_lm_batch
+    from repro_torch.launch.steps import make_lm_grad_fn
+    from repro_torch.models import paramlib
+    from repro_torch.models.transformer import lm_loss, model_specs
+    from repro_torch.optim import OptConfig, make_optimizer
+    from repro_torch.pdb import make_engine
+    full = get_config("gemma3-4b")
+    first = full.groups[0]
+    cfg = dataclasses.replace(full, groups=(dataclasses.replace(first, n=1),))
+    reduced = (f"layers {len(full.layer_kinds)} -> {len(cfg.layer_kinds)}: "
+               f"one {first.pattern} group of the {first.n} and none of the "
+               "4-local tail; every width kept (AdamW's update for all "
+               f"{len(full.layer_kinds)} layers exceeds the card's memory)")
+    saved_env = os.environ.get("REPRO_CHUNKED_CE")
+    os.environ["REPRO_CHUNKED_CE"] = "1"
+    try:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        params = paramlib.init_tree(
+            model_specs(cfg), torch.Generator(device="cuda").manual_seed(0),
+            dtype=cfg.param_dtype)
+        spec = LMBatchSpec(batch=GEMMA3_TRAIN_B, seq_len=GEMMA3_TRAIN_S,
+                           vocab_size=cfg.vocab_size, seed=0)
+        batches = [make_lm_batch(spec, t, "cuda")
+                   for t in range(GEMMA3_TRAIN_STEPS)]
+        with torch.no_grad(), plain_route(ops):
+            plain_loss = float(lm_loss(params, batches[0], cfg)[0])
+        sync = SyncConfig(delta=TRAIN_DELTA, remat="none", packed_ring=True)
+        eng = make_engine(params, make_lm_grad_fn(cfg, sync),
+                          make_optimizer(OptConfig(name="adamw", lr=3e-4)),
+                          sync)
+        state = eng.init_state()
+        n_params = paramlib.param_count(model_specs(cfg))
+        del params
+        torch.cuda.synchronize()
+        print(f"gemma3-4b training state ready in "
+              f"{time.perf_counter() - t0:.2f} s: {n_params} params, "
+              f"{torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB allocated",
+              flush=True)
+        losses, step_s = [], []
+        ops.reset_launches()                 # the path starts here
+        with plain_versions_counted(ref) as plain_calls:
+            for b in batches:
+                t1 = time.perf_counter()
+                state, m = eng.step(state, b)
+                losses.append(float(m["loss"]))   # syncs with the device
+                step_s.append(time.perf_counter() - t1)
+        launches = dict(ops.launches)        # ... and ends here
+    finally:
+        if saved_env is None:
+            os.environ.pop("REPRO_CHUNKED_CE", None)
+        else:
+            os.environ["REPRO_CHUNKED_CE"] = saved_env
+    n_attn = _n_self_attn(cfg)
+    want = {"flash_attention": n_attn * GEMMA3_TRAIN_STEPS,
+            "flash_attention_bwd": n_attn * GEMMA3_TRAIN_STEPS,
+            "ring_gather": len(state.hist) * GEMMA3_TRAIN_STEPS}
+    rel = abs(losses[0] - plain_loss) / abs(plain_loss)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    print("gemma3-4b training:", json.dumps(dict(
+        layers=len(cfg.layer_kinds), reduced=reduced, parameters=n_params,
+        batch=GEMMA3_TRAIN_B, seq=GEMMA3_TRAIN_S, delta=TRAIN_DELTA,
+        optimizer="adamw", chunked_ce=True, steps=GEMMA3_TRAIN_STEPS,
+        losses=losses, first_loss_plain_route=plain_loss,
+        first_loss_rel_err=rel, tolerance=ZOO_LOSS_REL, step_s=step_s,
+        step_s_p50=_p50(step_s), launches=launches, expected_launches=want,
+        plain_version_calls=plain_calls, telemetry=eng.telemetry.summary(),
+        peak_mem_gib=peak)), flush=True)
+    if not all(math.isfinite(x) for x in losses) or not rel <= ZOO_LOSS_REL:
+        raise AssertionError(f"gemma3 losses {losses}, plain {plain_loss}")
+    if any(launches[k] != v for k, v in want.items()) or \
+            sum(launches.values()) != sum(want.values()):
+        raise AssertionError(f"gemma3 training launches {launches}, want "
+                             f"{want}")
+    if any(plain_calls.values()):
+        raise AssertionError(f"gemma3 training: plain versions ran: "
+                             f"{plain_calls}")
+    del state, eng, batches
+    torch.cuda.empty_cache()
+    return {"gemma3_training": launches}
+
+
 def print_ptxas(source: str, log: str) -> dict[str, tuple[int, int]]:
     """One line per compiled kernel: its entry (the mangled name without
     the anonymous-namespace prefix, so the template arguments show, e.g.
@@ -4167,7 +4846,7 @@ def check_flash_build(torch, spills: dict) -> None:
                              f"report): {spills}")
     for dt in (torch.float32, torch.bfloat16):
         for hd in (16, 32, 64, 128, 256):
-            p = plan(512, 8, 2, hd, dt)
+            p = plan(512, 512, 8, 2, hd, dt)
             want = {k: p[k]["smem"] for k in ("fwd", "dkdv", "dq")}
             if kernel_smem(dt, hd) != want:
                 raise AssertionError(f"flash plan vs kernel smem at {dt} hd "
@@ -4440,6 +5119,11 @@ def main() -> int:
         train_losses[0])
     paths.update(timed("dense_decode_and_remat", dense_decode_and_remat,
                        torch, ops, ref))
+    for arch in ZOO_TEXT:
+        paths.update(timed(f"{arch}_serving", zoo_text_serving, torch, ops,
+                           ref, arch))
+    paths.update(timed("vision_serving", zoo_vision, torch, ops, ref))
+    paths.update(timed("gemma3_training", gemma3_training, torch, ops, ref))
     timed("server_processes_stopped", server_processes_stopped)
     print("phase seconds:", json.dumps(dict(
         phase_s, total=time.perf_counter() - t0)), flush=True)
@@ -4494,7 +5178,9 @@ def main() -> int:
             plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
             bound_by=row["bound_by"], library_ms=row["library_ms"],
             host_ms=row["host_ms"], shape=row["shape"],
-            **{k: row[k] for k in ("hd128", "hd256", "shapes", "edge_cases",
+            **{k: row[k] for k in ("hd128", "hd256", "gemma3", "group1",
+                                   "xattn",
+                                   "shapes", "edge_cases",
                                    "library", "serial_steps", "state_bytes",
                                    "checkpoint_bytes", "chunk", "threads",
                                    "gathered_ms", "gathered_pair_ms",

@@ -159,7 +159,7 @@ def load_state(ckpt_dir: str, step: int, like: Any) -> Any:
     or a shape mismatch."""
     got = leaves_with_path(load_checkpoint(ckpt_dir, step, device="cpu"))
     by_path = dict(got)
-    paths, out = [], []
+    out = []
     for path, ref in leaves_with_path(_as_tree(like)):
         if path not in by_path:
             raise KeyError(f"checkpoint step {step} has no leaf "
@@ -169,7 +169,6 @@ def load_state(ckpt_dir: str, step: int, like: Any) -> Any:
             raise ValueError(f"shape mismatch for {'/'.join(path)}: ckpt "
                              f"{tuple(t.shape)} vs expected "
                              f"{tuple(ref.shape)}")
-        paths.append(path)
         out.append(t.to(device=ref.device, dtype=ref.dtype))
-    tree = unflatten(paths, out)
+    tree = unflatten(_as_tree(like), out)
     return type(like).from_tree(tree) if hasattr(like, "as_tree") else tree

@@ -2,9 +2,8 @@
 
 ``get_config(arch_id)`` returns the full published config;
 ``get_smoke_config(arch_id)`` the reduced same-family variant the CPU tests
-use.  The dense GQA, the MoE, the RWKV-6 and the recurrentgemma
-architectures are ported so far; asking for any other known architecture
-raises ``KeyError`` naming the slice of the port that brings it.
+use.  Every architecture of the JAX package's zoo is here; an unknown id
+raises ``KeyError``.
 """
 from __future__ import annotations
 
@@ -17,15 +16,11 @@ ARCHS = (
     "llama4_scout_17b_16e",
     "rwkv6_1_6b",
     "recurrentgemma_2b",
+    "olmo_1b",
+    "gemma3_4b",
+    "musicgen_large",
+    "llama3_2_vision_11b",
 )
-
-# architectures of the JAX zoo that later slices of the port bring
-PENDING = {
-    "olmo_1b": "slice 7 (rest of the zoo: layernorm_np)",
-    "gemma3_4b": "slice 7 (rest of the zoo: qk_norm, local layers, softcap)",
-    "musicgen_large": "slice 7 (rest of the zoo: audio tokens)",
-    "llama3_2_vision_11b": "slice 7 (rest of the zoo: xattn, vision)",
-}
 
 # public --arch ids (hyphenated) -> module names
 ALIASES = {
@@ -44,9 +39,6 @@ ALIASES = {
 
 def _module(arch: str):
     name = ALIASES.get(arch, arch.replace("-", "_").replace(".", "_"))
-    if name in PENDING:
-        raise KeyError(f"arch {arch!r} is not ported yet; it comes with "
-                       f"{PENDING[name]}")
     if name not in ARCHS:
         raise KeyError(f"unknown arch {arch!r}; known: {sorted(ALIASES)}")
     return importlib.import_module(f"repro_torch.configs.{name}")
@@ -61,5 +53,5 @@ def get_smoke_config(arch: str):
 
 
 def all_arch_ids() -> list[str]:
-    """The ported architectures' public ids."""
-    return [a for a, m in ALIASES.items() if m in ARCHS]
+    """The public ids of every architecture."""
+    return list(ALIASES)

@@ -1,6 +1,6 @@
 """Synthetic data (port of ``repro.data.synthetic``): token streams for the
-LM zoo, dense and sparse regression sets for the paper's Sec-6 experiments
-(the frontends' media stub comes with the slice that ports them).
+LM zoo (with the vision frontend's media stub), dense and sparse
+regression sets for the paper's Sec-6 experiments.
 
 Determinism contract, as in the JAX package: batch t of a stream depends
 only on (seed, t) — any restart regenerates identical data, which is what
@@ -30,6 +30,8 @@ class LMBatchSpec:
     batch: int
     seq_len: int
     vocab_size: int
+    media_tokens: int = 0           # vision frontend stub
+    media_dim: int = 0
     seed: int = 0
 
 
@@ -44,7 +46,9 @@ def make_lm_batch(spec: LMBatchSpec, step: int,
                   device: str | torch.device | None = None) -> dict:
     """Markov-ish synthetic tokens: enough structure for loss to drop.
     Even positions repeat the previous token, so next-token prediction at
-    odd positions reduces to "repeat the current token"."""
+    odd positions reduces to "repeat the current token".  With
+    ``media_tokens`` the batch also holds ``media`` (B, media_tokens,
+    media_dim) f32, a normal draw times 0.02 from the same generator."""
     dev = resolve_device(device)
     g = _generator(spec.seed, step)
     B, S = spec.batch, spec.seq_len
@@ -57,6 +61,9 @@ def make_lm_batch(spec: LMBatchSpec, step: int,
     mask = torch.ones((B, S), dtype=torch.float32)
     mask[:, -1] = 0.0
     batch = {"tokens": tokens, "labels": labels, "mask": mask}
+    if spec.media_tokens:
+        batch["media"] = torch.randn(
+            (B, spec.media_tokens, spec.media_dim), generator=g) * 0.02
     return {k: v.to(dev) for k, v in batch.items()}
 
 

@@ -1,17 +1,22 @@
 // Causal / sliding-window GQA flash attention: forward for prefill and
-// training, and its backward for training.
+// training, and its backward for training; the forward also serves the
+// vision model's non-causal cross-attention (Sq != Sk).
 //
 // Forward: replaces the Pallas TPU kernel repro/kernels/flash_attention.py
-// (flash_attention, pallas_call at :114).  Same function: q (B,S,H,hd),
-// k/v (B,S,KV,hd) -> (B,S,H,hd) in q's dtype; scale hd^-0.5; kv head =
-// h / (H/KV); online softmax in f32; keys masked by kpos < S, causal
-// kpos <= qpos and window kpos > qpos - window.  Sq == Sk only.  On request
-// it also writes the rows' log-sum-exp lse (B,H,S) in f32 (the scaled
-// scores' domain), which the backward needs; serving passes no lse buffer
-// and pays nothing for it.
+// (flash_attention, pallas_call at :114).  Same function: q (B,Sq,H,hd),
+// k/v (B,Sk,KV,hd) -> (B,Sq,H,hd) in q's dtype; scale hd^-0.5; kv head =
+// h / (H/KV); online softmax in f32; keys masked by kpos < Sk, causal
+// kpos <= qpos and window kpos > qpos - window (the wrapper takes Sq != Sk
+// only non-causal and unwindowed: the vision model's xattn, a prompt or
+// one decode row against 1600 media tokens; the Pallas kernel masks keys
+// by the query length there, which is wrong).  On request it also writes
+// the rows' log-sum-exp lse (B,H,Sq) in f32 (the scaled scores' domain),
+// which the backward needs; serving passes no lse buffer and pays nothing
+// for it.
 //
-// Backward: the TPU package has none (it trains through autodiff of its
-// plain attention); this is the gradient of the forward above, given dO:
+// Backward (Sq == Sk): the TPU package has none (it trains through
+// autodiff of its plain attention); this is the gradient of the forward
+// above, given dO:
 //   P  = exp(scale * q.k - lse)        (recomputed, never stored)
 //   D  = rowsum(dO * O)
 //   dV = P^T dO,  dS = P * (dO V^T - D),  dK = scale dS^T Q,  dQ = scale dS K
@@ -154,9 +159,9 @@ static_assert(dkdv_smem_bytes<256, bwd_rows<256>(), BQ>() <= MAX_SMEM,
 static_assert(dq_smem_bytes<256, bwd_rows<256>(), BK>() <= MAX_SMEM,
               "dQ tiles at hd 256");
 
-__device__ __forceinline__ bool is_live(int qpos, int kpos, int S,
+__device__ __forceinline__ bool is_live(int qpos, int kpos, int Sq, int Sk,
                                         int causal, int window) {
-  return kpos < S && qpos < S && (!causal || kpos <= qpos) &&
+  return kpos < Sk && qpos < Sq && (!causal || kpos <= qpos) &&
          (window <= 0 || kpos > qpos - window);
 }
 
@@ -177,9 +182,9 @@ template <typename T, int HD>
 __global__ void __launch_bounds__(NT)
     flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                      const T* __restrict__ v, T* __restrict__ o,
-                     float* __restrict__ lse, int S, int hd, int group,
-                     Strides sq, Strides sk, Strides sv, Strides so,
-                     float scale, int causal, int window) {
+                     float* __restrict__ lse, int Sq, int Sk, int hd,
+                     int group, Strides sq, Strides sk, Strides sv,
+                     Strides so, float scale, int causal, int window) {
   constexpr int DPT = HD / 16;  // output dims per thread
   extern __shared__ float smem[];
   float* Qs = smem;
@@ -199,7 +204,7 @@ __global__ void __launch_bounds__(NT)
   const T* kb = k + b * sk.b + kvh * sk.h;
   const T* vb = v + b * sv.b + kvh * sv.h;
 
-  load_tile<T, HD>(Qs, qb, sq.s, q0, S, hd);
+  load_tile<T, HD>(Qs, qb, sq.s, q0, Sq, hd);
 
   float m[4], l[4], acc[4][DPT];
 #pragma unroll
@@ -210,7 +215,8 @@ __global__ void __launch_bounds__(NT)
     for (int j = 0; j < DPT; ++j) acc[i][j] = 0.f;
   }
 
-  const int k_end = causal ? min(S, q0 + BQ) : S;
+  // non-causal (Sq != Sk included): every key tile, none skipped
+  const int k_end = causal ? min(Sk, q0 + BQ) : Sk;
   int k_begin = 0;
   if (window > 0) k_begin = (max(0, q0 - window + 1) / BK) * BK;
 
@@ -218,7 +224,7 @@ __global__ void __launch_bounds__(NT)
     __syncthreads();  // the previous tile's Ks/Vs/Ps are no longer read
     for (int i = tid; i < BK * HD; i += NT) {
       const int r = i / HD, d = i % HD, s = k0 + r;
-      const bool in = s < S && d < hd;
+      const bool in = s < Sk && d < hd;
       Ks[r * (HD + 1) + d] = in ? to_f32(kb[(long long)s * sk.s + d]) : 0.f;
       Vs[r * HD + d] = in ? to_f32(vb[(long long)s * sv.s + d]) : 0.f;
     }
@@ -250,7 +256,7 @@ __global__ void __launch_bounds__(NT)
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const int kpos = k0 + tx + 16 * j;
-        live[j] = kpos < S && (!causal || kpos <= qpos) &&
+        live[j] = kpos < Sk && (!causal || kpos <= qpos) &&
                   (window <= 0 || kpos > qpos - window);
         sc[i][j] = live[j] ? sc[i][j] * scale : NEG_INF;
         mx = fmaxf(mx, sc[i][j]);
@@ -295,7 +301,7 @@ __global__ void __launch_bounds__(NT)
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int s = q0 + ty * 4 + i;
-    if (s >= S) continue;
+    if (s >= Sq) continue;
     const float inv = 1.f / fmaxf(l[i], 1e-30f);
 #pragma unroll
     for (int j = 0; j < DPT; ++j) {
@@ -304,7 +310,7 @@ __global__ void __launch_bounds__(NT)
     }
     // every lane of the row group holds the same m and l
     if (lse != nullptr && tx == 0)
-      lse[((long long)b * gridDim.y + h) * S + s] = m[i] + logf(l[i]);
+      lse[((long long)b * gridDim.y + h) * Sq + s] = m[i] + logf(l[i]);
   }
 }
 
@@ -427,7 +433,7 @@ __global__ void __launch_bounds__(NT)
 #pragma unroll
         for (int j = 0; j < QPT; ++j) {
           const int c = tx + 16 * j;
-          const float p = is_live(q0 + c, kpos, S, causal, window)
+          const float p = is_live(q0 + c, kpos, S, S, causal, window)
                               ? expf(sc[i][j] * scale - lse_s[c])
                               : 0.f;
           Ps[(ty * KPT + i) * (QR + 1) + c] = p;
@@ -563,7 +569,7 @@ __global__ void __launch_bounds__(NT)
 #pragma unroll
       for (int j = 0; j < KPT; ++j) {
         const int c = tx + 16 * j;
-        const float p = is_live(q0 + r, k0 + c, S, causal, window)
+        const float p = is_live(q0 + r, k0 + c, S, S, causal, window)
                             ? expf(sc[i][j] * scale - lse_s[r])
                             : 0.f;
         dSs[r * (KR + 1) + c] = p * (dp[i][j] - D_s[r]);
@@ -643,9 +649,10 @@ static_assert(dq_tc_smem<256>() <= MAX_SMEM, "bf16 dQ at hd 256");
 // whether a q tile [q0, q0+rows) by key tile [k0, k0+cols) holds a dead
 // (query, key) pair: else its elements skip the per-element mask
 __device__ __forceinline__ bool tile_has_dead(int q0, int rows, int k0,
-                                              int cols, int S, int causal,
-                                              int window) {
-  return q0 + rows > S || k0 + cols > S || (causal && k0 + cols > q0 + 1) ||
+                                              int cols, int Sq, int Sk,
+                                              int causal, int window) {
+  return q0 + rows > Sq || k0 + cols > Sk ||
+         (causal && k0 + cols > q0 + 1) ||
          (window > 0 && k0 <= q0 + rows - 1 - window);
 }
 
@@ -676,9 +683,10 @@ template <int HD>
 __global__ void __launch_bounds__(FWD_TC_NT)
     flash_fwd_kernel_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
                         const bf16* __restrict__ v, bf16* __restrict__ o,
-                        float* __restrict__ lse, int S, int hd, int group,
-                        Strides sq, Strides sk, Strides sv, Strides so,
-                        float scale_log2, int causal, int window) {
+                        float* __restrict__ lse, int Sq, int Sk, int hd,
+                        int group, Strides sq, Strides sk, Strides sv,
+                        Strides so, float scale_log2, int causal,
+                        int window) {
   constexpr int BK = fwd_tc_keys<HD>();
   constexpr int NS = BK / 2;  // score registers a thread
   constexpr int NO = HD / 2;  // output registers a thread
@@ -699,13 +707,15 @@ __global__ void __launch_bounds__(FWD_TC_NT)
   const bf16* kb = k + b * sk.b + kvh * sk.h;
   const bf16* vb = v + b * sv.b + kvh * sv.h;
 
-  const int k_end = causal ? min(S, q0 + TC_ROWS) : S;
+  // non-causal (Sq != Sk included): every key tile, none skipped
+  const int k_end = causal ? min(Sk, q0 + TC_ROWS) : Sk;
   const int k_begin = window > 0 ? (max(0, q0 - window + 1) / BK) * BK : 0;
   const int n_tiles = (k_end - k_begin + BK - 1) / BK;
 
-  load_tile_async<TC_ROWS, HD, FWD_TC_NT>(Qs, qb, sq.s, q0, S, hd);
-  load_tile_async<BK, HD, FWD_TC_NT>(KVs, kb, sk.s, k_begin, S, hd);
-  load_tile_async<BK, HD, FWD_TC_NT>(KVs + TILE, vb, sv.s, k_begin, S, hd);
+  // rows past Sq and keys past Sk are zero-filled, never read
+  load_tile_async<TC_ROWS, HD, FWD_TC_NT>(Qs, qb, sq.s, q0, Sq, hd);
+  load_tile_async<BK, HD, FWD_TC_NT>(KVs, kb, sk.s, k_begin, Sk, hd);
+  load_tile_async<BK, HD, FWD_TC_NT>(KVs + TILE, vb, sv.s, k_begin, Sk, hd);
   cp_async_commit();
 
   float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
@@ -720,8 +730,8 @@ __global__ void __launch_bounds__(FWD_TC_NT)
     __syncthreads();  // tile t is in; every warp is done with tile t-1
     if (t + 1 < n_tiles) {
       const uint32_t nxt = KVs + ((t + 1) & 1) * 2 * TILE;
-      load_tile_async<BK, HD, FWD_TC_NT>(nxt, kb, sk.s, k0 + BK, S, hd);
-      load_tile_async<BK, HD, FWD_TC_NT>(nxt + TILE, vb, sv.s, k0 + BK, S,
+      load_tile_async<BK, HD, FWD_TC_NT>(nxt, kb, sk.s, k0 + BK, Sk, hd);
+      load_tile_async<BK, HD, FWD_TC_NT>(nxt + TILE, vb, sv.s, k0 + BK, Sk,
                                          hd);
       cp_async_commit();
     }
@@ -741,13 +751,14 @@ __global__ void __launch_bounds__(FWD_TC_NT)
     fence_regs<NS>(s);
 
     float mx[2] = {NEG_INF, NEG_INF};
-    if (tile_has_dead(q0, TC_ROWS, k0, BK, S, causal, window)) {
+    if (tile_has_dead(q0, TC_ROWS, k0, BK, Sq, Sk, causal, window)) {
 #pragma unroll
       for (int j = 0; j < NS; ++j) {
         const int qpos = row0 + 8 * ((j >> 1) & 1);
         const int kpos = k0 + 8 * (j >> 2) + 2 * (lane & 3) + (j & 1);
-        s[j] = is_live(qpos, kpos, S, causal, window) ? s[j] * scale_log2
-                                                      : NEG_INF;
+        s[j] = is_live(qpos, kpos, Sq, Sk, causal, window)
+                   ? s[j] * scale_log2
+                   : NEG_INF;
       }
     } else {
 #pragma unroll
@@ -807,7 +818,7 @@ __global__ void __launch_bounds__(FWD_TC_NT)
     const int i = (j >> 1) & 1;
     const int s_ = row0 + 8 * i;
     const int d = 8 * (j >> 2) + 2 * (lane & 3);
-    if (s_ < S && d < hd) {
+    if (s_ < Sq && d < hd) {
       const float inv = 1.f / fmaxf(l[i], 1e-30f);
       *reinterpret_cast<__nv_bfloat162*>(ob + (long long)s_ * so.s + d) =
           __floats2bfloat162_rn(acc[j] * inv, acc[j + 1] * inv);
@@ -817,8 +828,8 @@ __global__ void __launch_bounds__(FWD_TC_NT)
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
       const int s_ = row0 + 8 * i;
-      if (s_ < S)
-        lse[((long long)b * gridDim.y + h) * S + s_] =
+      if (s_ < Sq)
+        lse[((long long)b * gridDim.y + h) * Sq + s_] =
             (m[i] + log2f(l[i])) * LN2;
     }
   }
@@ -930,7 +941,7 @@ __global__ void __launch_bounds__(BWD_TC_NT)
         mma_bf16(dpt[2 * n2 + 1], av, bo + 2);
       }
     }
-    const bool edge = tile_has_dead(q0, R, k0, R, S, causal, window);
+    const bool edge = tile_has_dead(q0, R, k0, R, S, S, causal, window);
 #pragma unroll
     for (int n = 0; n < 4; ++n)
 #pragma unroll
@@ -941,7 +952,7 @@ __global__ void __launch_bounds__(BWD_TC_NT)
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
           const bool live =
-              !edge || is_live(q0 + c + e, k0 + r, S, causal, window);
+              !edge || is_live(q0 + c + e, k0 + r, S, S, causal, window);
           p[e] = live ? exp2f(st_[n][j + e] * scale_log2 -
                               lse_s[c + e] * LOG2E)
                       : 0.f;
@@ -1120,7 +1131,7 @@ __global__ void __launch_bounds__(BWD_TC_NT)
         mma_bf16(dp[2 * n2 + 1], ao, bv + 2);
       }
     }
-    const bool edge = tile_has_dead(q0, R, k0, R, S, causal, window);
+    const bool edge = tile_has_dead(q0, R, k0, R, S, S, causal, window);
 #pragma unroll
     for (int n = 0; n < 4; ++n)
 #pragma unroll
@@ -1132,7 +1143,7 @@ __global__ void __launch_bounds__(BWD_TC_NT)
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
           const bool live =
-              !edge || is_live(q0 + r, k0 + c + e, S, causal, window);
+              !edge || is_live(q0 + r, k0 + c + e, S, S, causal, window);
           const float p =
               live ? exp2f(sc[n][j + e] * scale_log2 - lse_r[i]) : 0.f;
           ds[e] = p * (dp[n][j + e] - D_r[i]);
@@ -1225,14 +1236,16 @@ extern "C" int flash_attention_smem(int dtype, int hd, int kind) {
 }
 
 // strides: 12 values, (b, s, h) in elements for q, k, v, o in that order;
-// the head dim is contiguous in all four.  lse: (B, H, S) f32 or null.
-// bf16 needs 16-byte aligned pointers and strides and hd % 8 == 0 (the
-// wrapper checks).
+// the head dim is contiguous in all four.  q and o hold Sq rows, k and v
+// Sk (Sq != Sk non-causal and unwindowed only: the wrapper checks).  lse:
+// (B, H, Sq) f32 or null.  bf16 needs 16-byte aligned pointers and strides
+// and hd % 8 == 0 (the wrapper checks).
 extern "C" int flash_attention_fwd(const void* q, const void* k,
                                    const void* v, void* o, void* lse,
-                                   int dtype, int B, int S, int H, int KV,
-                                   int hd, const long long* st, float scale,
-                                   int causal, int window, void* stream) {
+                                   int dtype, int B, int Sq, int Sk, int H,
+                                   int KV, int hd, const long long* st,
+                                   float scale, int causal, int window,
+                                   void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const Strides sq = strides_at(st, 0), sk = strides_at(st, 1),
                 sv = strides_at(st, 2), so = strides_at(st, 3);
@@ -1243,12 +1256,12 @@ extern "C" int flash_attention_fwd(const void* q, const void* k,
       const size_t smem = fwd_smem_bytes<HD>();
       int err = allow_smem(kern, smem);
       if (err) return err;
-      const dim3 grid((S + BQ - 1) / BQ, H, B);
+      const dim3 grid((Sq + BQ - 1) / BQ, H, B);
       kern<<<grid, NT, smem, s>>>(
           static_cast<const float*>(q), static_cast<const float*>(k),
           static_cast<const float*>(v), static_cast<float*>(o),
-          static_cast<float*>(lse), S, hd, H / KV, sq, sk, sv, so, scale,
-          causal, window);
+          static_cast<float*>(lse), Sq, Sk, hd, H / KV, sq, sk, sv, so,
+          scale, causal, window);
       return (int)cudaGetLastError();
     });
   }
@@ -1259,11 +1272,11 @@ extern "C" int flash_attention_fwd(const void* q, const void* k,
     const size_t smem = fwd_tc_smem<HD>();
     int err = allow_smem(kern, smem);
     if (err) return err;
-    const dim3 grid((S + TC_ROWS - 1) / TC_ROWS, H, B);
+    const dim3 grid((Sq + TC_ROWS - 1) / TC_ROWS, H, B);
     kern<<<grid, FWD_TC_NT, smem, s>>>(
         static_cast<const bf16*>(q), static_cast<const bf16*>(k),
         static_cast<const bf16*>(v), static_cast<bf16*>(o),
-        static_cast<float*>(lse), S, hd, H / KV, sq, sk, sv, so,
+        static_cast<float*>(lse), Sq, Sk, hd, H / KV, sq, sk, sv, so,
         scale * LOG2E, causal, window);
     return (int)cudaGetLastError();
   });

@@ -3,13 +3,16 @@
 
 Replaces the Pallas TPU kernel ``repro/kernels/flash_attention.py``
 (``flash_attention``, ``pallas_call`` at :114): causal / sliding-window GQA
-attention with an online softmax in f32.  Bound on the H100: bytes for
-short prompts, operations for long ones (4 * hd * H * B * S(S+1)/2 FLOPs
-for a causal prefill, about 0.4*S per byte at llama3.2-1b's heads, so the
-two meet near S = 740).  The kernels skip tiles entirely above the
-diagonal or behind the window, re-mask dead keys' probabilities, and read
-the (B, S, H, hd) layout through strides, so this wrapper makes no
-transposes.  Head dims up to 256 (recurrentgemma: 10 q heads over one kv
+attention with an online softmax in f32, and (forward only) the vision
+model's non-causal cross-attention, whose Sq text rows (a prompt, or one
+row a decode step) attend to Sk = 1600 media keys.  Bound on the H100:
+bytes for short prompts, operations for long ones (4 * hd * H * B *
+S(S+1)/2 FLOPs for a causal prefill, about 0.4*S per byte at
+llama3.2-1b's heads, so the two meet near S = 740; 4 * hd * H * B * Sq *
+Sk for cross-attention).  The kernels skip tiles entirely above the
+diagonal or behind the window (non-causal: none), re-mask dead keys'
+probabilities (keys past Sk among them), and read the (B, S, H, hd)
+layout through strides, so this wrapper makes no transposes.  Head dims up to 256 (recurrentgemma: 10 q heads over one kv
 head, a 2048 window).  Its plain version is ``ref.attention``.
 
 Two element types, two designs (the ``.cu``'s note): f32 runs on the CUDA
@@ -28,8 +31,12 @@ the GQA group reduced into dK/dV without atomics, deterministic) in a
 ``torch.autograd.Function``; its oracle is torch autograd through
 ``ref.attention``.  The two are counted apart in ``_build.launches``.
 
-Sq == Sk only: the Pallas kernel is wrong for Sk != Sq (it masks by the
-query length), and cross-attention is not on the ported paths.
+Sq != Sk is taken only non-causal and unwindowed, the one form JAX asks
+for (``cross_attention_fwd``); the Pallas kernel is wrong there (it masks
+keys by the query length), so the oracle is ``ref.attention``.  Its
+backward is not written: :class:`FlashAttention` raises when a gradient
+is wanted at Sq != Sk (ROADMAP A12), so the vision model trains on the
+CPU only.
 """
 from __future__ import annotations
 
@@ -45,7 +52,7 @@ ELEM = {torch.float32: 0, torch.bfloat16: 1}
 _P, _I = ctypes.c_void_p, ctypes.c_int
 SIGNATURES = {
     "flash_attention_fwd":
-        [_P] * 5 + [_I] * 6 + [_P, ctypes.c_float, _I, _I, _P],
+        [_P] * 5 + [_I] * 7 + [_P, ctypes.c_float, _I, _I, _P],
     "flash_attention_bwd":
         [_P] * 12 + [_I] * 7 + [_P, ctypes.c_float, _I, _I, _P],
     "flash_attention_smem": [_I, _I, _I],
@@ -60,9 +67,12 @@ def _cdiv(a: int, b: int) -> int:
     return -(-a // b)
 
 
-def plan(S: int, H: int, KV: int, hd: int, dtype: torch.dtype) -> dict:
-    """The kernels' tiles for one shape, a pure function of (S, H, KV, hd,
-    dtype), never of B: a row's result does not depend on the batch.
+def plan(Sq: int, Sk: int, H: int, KV: int, hd: int,
+         dtype: torch.dtype) -> dict:
+    """The kernels' tiles for one shape, a pure function of (Sq, Sk, H,
+    KV, hd, dtype), never of B: a row's result does not depend on the
+    batch.  The forward's grid walks q tiles (Sq); the backward, written
+    for Sq == Sk only, walks key tiles (dK/dV) and q tiles (dQ).
 
     Returns the padded head dim ``hd_tile``; for each tiled kernel
     (``fwd``, ``dkdv``, ``dq``) its ``rows`` x ``cols`` tile (q rows by
@@ -77,34 +87,34 @@ def plan(S: int, H: int, KV: int, hd: int, dtype: torch.dtype) -> dict:
     t = 64 if hd <= 64 else 128 if hd <= 128 else 256
     if dtype == torch.bfloat16:
         keys = 32 if t > 128 else 64
-        n = _cdiv(S, TC_ROWS)
+        nq, nk = _cdiv(Sq, TC_ROWS), _cdiv(Sk, TC_ROWS)
         # q heads per dK/dV block: the largest divisor of the group that
         # still leaves two waves of blocks per batch row, else one
         hpb = next((d for d in range(group, 0, -1) if group % d == 0
-                    and n * KV * (group // d) >= 2 * SMS), 1)
+                    and nk * KV * (group // d) >= 2 * SMS), 1)
         return dict(
             hd_tile=t, heads_per_block=hpb, split=group // hpb,
-            fwd=dict(rows=TC_ROWS, cols=keys, threads=128, grid=(n, H),
+            fwd=dict(rows=TC_ROWS, cols=keys, threads=128, grid=(nq, H),
                      smem=1024 + t * 128 + 2 * 2 * keys * t * 2),
             dkdv=dict(rows=TC_ROWS, cols=TC_ROWS, threads=256,
-                      grid=(n, KV * (group // hpb)),
+                      grid=(nk, KV * (group // hpb)),
                       smem=1024 + 2 * t * 128
                       + 2 * (2 * t * 128 + 2 * TC_ROWS * 4)
                       + 2 * TC_ROWS * TC_ROWS * 2),
-            dq=dict(rows=TC_ROWS, cols=TC_ROWS, threads=256, grid=(n, H),
+            dq=dict(rows=TC_ROWS, cols=TC_ROWS, threads=256, grid=(nq, H),
                     smem=1024 + 2 * t * 128 + 2 * 2 * t * 128
                     + TC_ROWS * TC_ROWS * 2))
     r = 32 if t > 128 else 64           # the backward's accumulating rows
     f = 4                               # f32 bytes
     return dict(
         hd_tile=t, heads_per_block=group, split=1,
-        fwd=dict(rows=64, cols=64, threads=256, grid=(_cdiv(S, 64), H),
+        fwd=dict(rows=64, cols=64, threads=256, grid=(_cdiv(Sq, 64), H),
                  smem=f * (64 * (t + 1) + 64 * (t + 1) + 64 * t
                            + 64 * 65)),
-        dkdv=dict(rows=r, cols=64, threads=256, grid=(_cdiv(S, r), KV),
+        dkdv=dict(rows=r, cols=64, threads=256, grid=(_cdiv(Sk, r), KV),
                   smem=f * (2 * r * (t + 1) + 2 * 64 * (t + 1)
                             + 2 * r * 65 + 2 * 64)),
-        dq=dict(rows=r, cols=64, threads=256, grid=(_cdiv(S, r), H),
+        dq=dict(rows=r, cols=64, threads=256, grid=(_cdiv(Sq, r), H),
                 smem=f * (2 * r * (t + 1) + 2 * 64 * (t + 1) + r * 65
                           + 2 * r)))
 
@@ -117,8 +127,10 @@ def kernel_smem(dtype: torch.dtype, hd: int) -> dict[str, int]:
             for i, kind in enumerate(("fwd", "dkdv", "dq"))}
 
 
-def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-           name: str) -> None:
+def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, name: str,
+           causal: bool, window: int, cross: bool) -> None:
+    """``cross``: whether Sq != Sk may be taken (the forward, non-causal
+    and unwindowed)."""
     if q.device.type != "cuda":
         raise ValueError(f"{name}: CUDA tensors only, got {q.device}")
     if not (q.device == k.device == v.device):
@@ -131,8 +143,11 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     KV = k.shape[2]
     if k.shape[0] != B or k.shape[3] != hd or H % KV:
         raise ValueError(f"{name}: q {tuple(q.shape)} vs k {tuple(k.shape)}")
-    if k.shape[1] != S:
-        raise ValueError(f"{name}: needs Sq == Sk, got {S} and {k.shape[1]}")
+    if k.shape[1] != S and not (cross and not causal and window <= 0):
+        raise ValueError(
+            f"{name}: Sq != Sk ({S} and {k.shape[1]}) is taken only by the "
+            f"forward, non-causal and unwindowed (causal={causal}, "
+            f"window={window})")
     if hd > MAX_HD:
         raise ValueError(f"{name}: head dim {hd} > {MAX_HD}")
     if any(t.stride(-1) != 1 for t in (q, k, v)):
@@ -163,12 +178,13 @@ def _strides(*ts: torch.Tensor) -> ctypes.Array:
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     causal: bool = True, window: int = 0,
                     with_lse: bool = False):
-    """q: (B, S, H, hd); k, v: (B, S, KV, hd) CUDA tensors of one dtype ->
-    (B, S, H, hd), or with ``with_lse`` the pair (out, lse) where lse
-    (B, H, S) f32 is each row's log-sum-exp of its scaled scores."""
-    _check(q, k, v, NAME)
+    """q: (B, Sq, H, hd); k, v: (B, Sk, KV, hd) CUDA tensors of one dtype
+    (Sq != Sk only with ``causal=False, window=0``) -> (B, Sq, H, hd), or
+    with ``with_lse`` the pair (out, lse) where lse (B, H, Sq) f32 is each
+    row's log-sum-exp of its scaled scores."""
+    _check(q, k, v, NAME, causal, window, cross=True)
     B, S, H, hd = q.shape
-    KV = k.shape[2]
+    KV, Sk = k.shape[2], k.shape[1]
     o = torch.empty((B, S, H, hd), dtype=q.dtype, device=q.device)
     lse = torch.empty((B, H, S), dtype=torch.float32, device=q.device) \
         if with_lse else None
@@ -179,7 +195,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             rc = lib.flash_attention_fwd(
                 q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
                 None if lse is None else lse.data_ptr(), ELEM[q.dtype], B,
-                S, H, KV, hd, ctypes.addressof(st), hd ** -0.5, int(causal),
+                S, Sk, H, KV, hd, ctypes.addressof(st), hd ** -0.5,
+                int(causal),
                 int(window), torch.cuda.current_stream(q.device).cuda_stream)
         _build.check(lib, rc, NAME)
         _build.count(NAME)
@@ -194,7 +211,7 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     output ``o``, the output's gradient ``do`` and the forward's ``lse``.
     Deterministic: no atomics, each element written once.  bf16 sums the
     group's partial dK/dV from f32 scratch (``plan``'s split)."""
-    _check(q, k, v, BWD_NAME)
+    _check(q, k, v, BWD_NAME, causal, window, cross=False)
     B, S, H, hd = q.shape
     KV = k.shape[2]
     if o.shape != q.shape or do.shape != q.shape:
@@ -220,7 +237,7 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     hpb, dkp, dvp = 0, None, None
     if q.dtype == torch.bfloat16:
         _check_aligned(BWD_NAME, o=o, do=do)
-        p = plan(S, H, KV, hd, q.dtype)
+        p = plan(S, S, H, KV, hd, q.dtype)
         hpb = p["heads_per_block"]
         dkp, dvp = (torch.empty((B, S, KV * p["split"], hd),
                                 dtype=torch.float32, device=q.device)
@@ -243,13 +260,21 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 class FlashAttention(torch.autograd.Function):
     """Differentiable flash attention on the card: the forward kernel (with
-    its log-sum-exp when a gradient is wanted) and the backward kernel."""
+    its log-sum-exp when a gradient is wanted) and the backward kernel.
+    At Sq != Sk (cross-attention) only the forward is written, so asking
+    for a gradient there raises."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal: bool, window: int):
         ctx.causal, ctx.window = causal, window
         if not any(ctx.needs_input_grad[:3]):
             return flash_attention(q, k, v, causal=causal, window=window)
+        if q.shape[1] != k.shape[1]:
+            raise NotImplementedError(
+                f"{NAME}: no backward at Sq != Sk ({q.shape[1]} and "
+                f"{k.shape[1]}): the cross-attention backward comes with "
+                "ROADMAP A12 (vision training on the card); the CPU trains "
+                "xattn through autograd of ref.attention")
         o, lse = flash_attention(q, k, v, causal=causal, window=window,
                                  with_lse=True)
         ctx.save_for_backward(q, k, v, o, lse)

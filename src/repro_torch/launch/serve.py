@@ -11,10 +11,13 @@ the drain-the-batch baseline).  Arrivals follow a Poisson process at
 system prompts plus unique suffixes.  Weights are random, drawn from
 ``--seed`` (which also seeds the workload).  The kernels are picked by
 device: ``--device cuda`` (the default) runs the hand-written CUDA
-kernels, ``--device cpu`` their plain PyTorch versions.  Every servable
-arch runs: the dense and MoE configs and recurrentgemma-2b (RG-LRU layers
-with local attention); an attention-free model (rwkv6-1.6b) is refused by
-the engine, as the JAX reference's engine fails on it, and serves through
+kernels, ``--device cpu`` their plain PyTorch versions.  Every text
+arch runs: the dense configs (olmo-1b and gemma3-4b's local/global layers
+among them), the MoE configs, musicgen-large (its inputs are codebook ids)
+and recurrentgemma-2b (RG-LRU layers with local attention).  The engine
+refuses two, as the JAX reference's does: an attention-free model
+(rwkv6-1.6b: the JAX engine fails on it) and the vision model
+(llama-3.2-vision-11b: the JAX engine is text-only); both serve through
 the model-level functions of ``models.transformer``.
 
 Examples:
@@ -25,6 +28,8 @@ Examples:
       --temperature 0.8 --top-p 0.9
   PYTHONPATH=src python -m repro_torch.launch.serve \\
       --arch recurrentgemma-2b --smoke --device cpu --prefill-chunk 8
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma3-4b \
+      --smoke --device cpu --prefill-chunk 8
 """
 from __future__ import annotations
 

@@ -13,7 +13,7 @@ from ..models.transformer import decode_step as model_decode
 from ..models.transformer import lm_loss, prefill
 from ..optim.optimizers import Optimizer
 from ..pdb.torch_backend import TrainEngine, make_engine
-from ..tree import leaves_with_path, unflatten
+from ..tree import leaves, unflatten
 
 
 def make_train_step(cfg: ModelConfig, opt: Optimizer,
@@ -46,17 +46,15 @@ def make_lm_grad_fn(cfg: ModelConfig, sync: SyncConfig,
     drops."""
 
     def grad_fn(params, batch):
-        lv = leaves_with_path(params)
-        paths = [p for p, _ in lv]
-        xs = [t.detach().requires_grad_() for _, t in lv]
-        loss, metrics = lm_loss(unflatten(paths, xs), batch, cfg,
+        xs = [t.detach().requires_grad_() for t in leaves(params)]
+        loss, metrics = lm_loss(unflatten(params, xs), batch, cfg,
                                 remat=sync.remat)
         if on_metrics is not None:
             on_metrics({k: v.detach() for k, v in metrics.items()})
         gs = torch.autograd.grad(loss, xs, allow_unused=True)
         gs = [torch.zeros_like(x) if g is None else g
               for x, g in zip(xs, gs)]
-        return loss.detach(), unflatten(paths, gs)
+        return loss.detach(), unflatten(params, gs)
     return grad_fn
 
 
@@ -73,18 +71,18 @@ def make_train_engine(cfg: ModelConfig, opt: Optimizer, sync: SyncConfig,
 def make_prefill_step(cfg: ModelConfig, cache_len: int,
                       remat: str = "none") -> Callable:
     """prefill_step(params, batch) -> (last-position logits (B, V), dense
-    cache); batch: {"tokens": (B, S)}."""
+    cache); batch: {"tokens": (B, S)}, and the vision model's "media"."""
     def prefill_step(params, batch):
         return prefill(params, batch["tokens"], cfg, cache_len=cache_len,
-                       remat=remat)
+                       remat=remat, media=batch.get("media"))
     return prefill_step
 
 
 def make_decode_step(cfg: ModelConfig) -> Callable:
     """serve_step(params, cache, batch) -> (logits (B, 1, V), cache);
-    batch: {"tokens": (B, 1), "pos": a scalar or (B,)}.  The cache is
-    updated in place (``decode_step``)."""
+    batch: {"tokens": (B, 1), "pos": a scalar or (B,)}, and the vision
+    model's "media".  The cache is updated in place (``decode_step``)."""
     def serve_step(params, cache, batch):
         return model_decode(params, cache, batch["tokens"], batch["pos"],
-                            cfg)
+                            cfg, media=batch.get("media"))
     return serve_step

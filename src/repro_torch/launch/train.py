@@ -61,7 +61,9 @@ def build(args, device: torch.device):
     sync = SyncConfig(mode=args.mode, delta=args.delta,
                       compression=args.compression, remat=args.remat)
     spec = LMBatchSpec(batch=args.batch, seq_len=args.seq,
-                       vocab_size=cfg.vocab_size, seed=args.seed)
+                       vocab_size=cfg.vocab_size,
+                       media_tokens=cfg.n_frontend_tokens,
+                       media_dim=cfg.d_frontend, seed=args.seed)
     return cfg, params, opt, sync, spec
 
 

@@ -1,8 +1,10 @@
-"""Self-attention with GQA, sliding windows, RoPE and KV caches (port of
-``repro.models.attention``'s self-attention): the training and prefill
-forward; one-token decode against the dense ring cache
-(``init_kv_cache``, ``attention_decode``: the JAX package's own form) or
-against the paged cache; and chunked prefill against the paged cache.
+"""Self- and cross-attention with GQA, sliding windows, RoPE and KV caches
+(port of ``repro.models.attention``): the training and prefill forward;
+one-token decode against the dense ring cache (``init_kv_cache``,
+``attention_decode``: the JAX package's own form) or against the paged
+cache; chunked prefill against the paged cache; and the vision model's
+tanh-gated cross-attention to the projected media (``xattn``), which keeps
+no cache (the media are re-projected at every call, as in JAX).
 
 The softmax path dispatches through :mod:`repro_torch.kernels.ops`, so the
 CUDA kernels and their plain versions share one call site.
@@ -73,6 +75,24 @@ def attention_fwd(params: dict, x: torch.Tensor, cfg: ModelConfig,
     window = cfg.window if kind in ("local", "swa") else 0
     out = kops.attention(q, k, v, causal=True, window=window)
     return _merge_heads(out) @ params["wo"].to(x.dtype)
+
+
+def cross_attention_fwd(params: dict, x: torch.Tensor, media: torch.Tensor,
+                        cfg: ModelConfig) -> torch.Tensor:
+    """Cross-attention: queries from the text x (B, S, d), keys and values
+    from the projected media (B, N, d); no RoPE, no mask.  The output is
+    scaled by tanh(gate), taken in f32 and cast to the compute dtype
+    (llama-vision's gating; the gate starts at 0)."""
+    dt = x.dtype
+    q = _split_heads(x @ params["wq"].to(dt), cfg.n_heads, cfg.hd)
+    k = _split_heads(media @ params["wk"].to(dt), cfg.n_kv_heads, cfg.hd)
+    v = _split_heads(media @ params["wv"].to(dt), cfg.n_kv_heads, cfg.hd)
+    if cfg.qk_norm:
+        q = rmsnorm(q, params["q_norm"])
+        k = rmsnorm(k, params["k_norm"])
+    out = kops.attention(q, k, v, causal=False, window=0)
+    out = _merge_heads(out) @ params["wo"].to(dt)
+    return torch.tanh(params["gate"].float()).to(dt) * out
 
 
 def _ring_valid(pos: torch.Tensor, L: int, cfg: ModelConfig,

@@ -13,9 +13,7 @@ scans).  Layer kinds:
   rwkv6   — RWKV-6 token-shift + data-dependent-decay WKV mixer
   rglru   — Griffin RG-LRU recurrent block (conv1d + gated linear recurrence)
 
-The self-attention kinds run in the port, and ``rwkv6`` and ``rglru``
-train (their serving comes later); the others raise
-``NotImplementedError`` where a model is built.
+Every kind runs in the port, on the training and the serving paths.
 """
 from __future__ import annotations
 

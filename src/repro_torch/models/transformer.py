@@ -3,23 +3,29 @@
 Entry points (plain functions over a params dict):
 
   model_specs(cfg)                                  -> P-spec tree
-  forward(params, tokens, cfg, remat)               -> logits   [train path]
+  forward(params, tokens, cfg, remat, media)        -> logits   [train path]
   lm_loss(params, batch, cfg, remat)                -> (loss, metrics)
-  prefill(params, tokens, cfg, cache_len, remat)    -> (last_logits, cache)
+  prefill(params, tokens, cfg, cache_len, remat, media)
+                                                    -> (last_logits, cache)
   init_cache(cfg, batch, cache_len, device)         -> dense cache
-  decode_step(params, cache, tokens, pos, cfg)      -> (logits, cache)
-  prefill_chunk(params, cache, tokens, start, rows, carry, cfg, cache_len)
-                                                    -> (logits, cache, carry)
+  decode_step(params, cache, tokens, pos, cfg, media)
+                                                    -> (logits, cache)
+  prefill_chunk(params, cache, tokens, start, rows, carry, cfg, cache_len,
+                media)                              -> (logits, cache, carry)
 
 Parameters of each block-group slot are stacked ``(n, ...)`` as in the JAX
 package, so paths match its checkpoints; the port loops over the stack
 where JAX scans, taking each layer's parameters (and caches) with one
 ``unbind`` per stacked leaf, so the training backward stacks the
 per-layer gradients once instead of scattering each layer's into a zero
-tensor of the whole stack.  The port carries the self-attention kinds
-(``attn``, and ``local``/``swa`` windows through the same code) with a
-dense or a mixture-of-experts FFN (``models/moe.py``), and the recurrent
-blocks: RWKV-6 (``models/rwkv6.py``: time mix and channel mix) and the
+tensor of the whole stack.  The port carries every layer kind of the
+JAX package: the self-attention kinds (``attn``, and ``local``/``swa``
+windows through the same code) with a dense or a mixture-of-experts FFN
+(``models/moe.py``); the vision model's ``xattn`` (tanh-gated
+cross-attention to the media, always with a dense FFN), whose ``media``
+(B, N, d_frontend) every entry point projects once a call through
+``frontend_proj`` and which keeps no cache; and the recurrent blocks:
+RWKV-6 (``models/rwkv6.py``: time mix and channel mix) and the
 Griffin RG-LRU block (``models/rglru.py``, with a gated MLP) of
 recurrentgemma, on the training and the serving paths.  A recurrent
 layer's serving cache is its state, one dense row per sequence slot
@@ -29,8 +35,8 @@ cache (``init_chunk_carry``) until the slot goes live.  ``decode_step``
 serves either cache: the dense one (``prefill``'s or ``init_cache``'s:
 each attention layer a ring {"k", "v"}, read by ``decode_attention`` in
 the JAX package's own form) or the paged one
-(``repro_torch.serve.paged_cache``).  The ``xattn`` kind and the
-frontends raise naming the slice that brings them.  The training forward
+(``repro_torch.serve.paged_cache``).  The audio frontend is a stub, as
+in JAX: its inputs are codebook ids, taken as tokens.  The training forward
 carries the MoE router's aux losses (summed over the layers, as JAX's
 ``_merge_aux``) into ``lm_loss``'s total; the serving paths drop them.
 Remat ``none`` keeps every activation, ``full`` recomputes each layer in
@@ -56,25 +62,12 @@ from .config import RECURRENT_KINDS, ModelConfig
 from .layers import (apply_mlp, apply_norm, apply_rope, embed_specs,
                      embed_tokens, lm_logits, mlp_specs, norm_specs)
 from .moe import moe_ffn, moe_specs
+from .paramlib import P
 from .rglru import init_rglru_state, rglru_decode, rglru_fwd, rglru_specs
 from .rwkv6 import (chan_mix_fwd, init_rwkv_state, rwkv6_specs,
                     time_mix_decode, time_mix_fwd)
 
 SELF_ATTN_KINDS = ("attn", "local", "swa")
-
-
-def check_supported(cfg: ModelConfig) -> None:
-    """Raise ``NotImplementedError`` for what slice 7 of the port (ROADMAP
-    A8) brings: the frontends and the ``xattn`` layer kind, the only
-    kind ``ModelConfig.validate`` admits that is not ported."""
-    if cfg.frontend is not None:
-        raise NotImplementedError(
-            f"{cfg.name}: the {cfg.frontend} frontend comes with slice 7")
-    for kind in set(cfg.layer_kinds):
-        if kind not in SELF_ATTN_KINDS + RECURRENT_KINDS:
-            raise NotImplementedError(
-                f"{cfg.name}: layer kind {kind!r} comes with slice 7 (rest "
-                "of the zoo: xattn, vision)")
 
 
 # ---------------------------------------------------------------------------
@@ -113,14 +106,28 @@ def _apply_ffn(bp: dict, kind: str, h: torch.Tensor,
 
 def model_specs(cfg: ModelConfig) -> dict:
     cfg.validate()
-    check_supported(cfg)
     specs: dict[str, Any] = dict(embed_specs(cfg))
+    if cfg.frontend == "vision":
+        specs["frontend_proj"] = P((cfg.d_frontend, cfg.d_model),
+                                   (None, "embed"))
     specs["groups"] = {
         f"g{gi}": {f"s{si}": _block_specs(cfg, kind, (g.n,))
                    for si, kind in enumerate(g.pattern)}
         for gi, g in enumerate(cfg.groups)}
     specs["final_norm"] = norm_specs(cfg)
     return specs
+
+
+def _project_media(params: dict, media: torch.Tensor | None,
+                   cfg: ModelConfig) -> torch.Tensor | None:
+    """The vision model's media (B, N, d_frontend) in the model width
+    (B, N, d), once a call as JAX does; None for the other frontends."""
+    if cfg.frontend != "vision":
+        return None
+    if media is None:
+        raise ValueError(f"{cfg.name}: the vision frontend needs media "
+                         f"(B, {cfg.n_frontend_tokens}, {cfg.d_frontend})")
+    return media.to(cfg.dtype) @ params["frontend_proj"].to(cfg.dtype)
 
 
 def _unstack(tree: dict, n: int) -> list[dict]:
@@ -136,12 +143,16 @@ def _unstack(tree: dict, n: int) -> list[dict]:
 # ---------------------------------------------------------------------------
 
 def _apply_block(bp: dict, kind: str, x: torch.Tensor, cfg: ModelConfig,
-                 positions: torch.Tensor) -> tuple[torch.Tensor, dict]:
+                 positions: torch.Tensor | None,
+                 media: torch.Tensor | None = None
+                 ) -> tuple[torch.Tensor, dict]:
     h = apply_norm(bp["ln1"], x, cfg)
     if kind == "rwkv6":
         x = x + time_mix_fwd(bp["mix"], h, cfg)
     elif kind == "rglru":
         x = x + rglru_fwd(bp["mix"], h, cfg)
+    elif kind == "xattn":
+        x = x + attn.cross_attention_fwd(bp["mix"], h, media, cfg)
     else:
         x = x + attn.attention_fwd(bp["mix"], h, cfg, kind, positions)
     h2 = apply_norm(bp["ln2"], x, cfg)
@@ -183,13 +194,14 @@ def _remat_wrap(fn, remat: str):
 
 
 def _forward_hidden(params: dict, tokens: torch.Tensor, cfg: ModelConfig,
-                    remat: str = "none") -> tuple[torch.Tensor, dict]:
+                    remat: str = "none", media: torch.Tensor | None = None
+                    ) -> tuple[torch.Tensor, dict]:
     """The forward up to the final norm (JAX's ``_forward_hidden``):
     (hidden (B, S, d), the FFNs' aux losses summed over the layers in
     layer order; Python zeros for a model without MoE layers)."""
-    check_supported(cfg)
     B, S = tokens.shape
     x = embed_tokens(params, tokens, cfg)
+    media = _project_media(params, media, cfg)
     positions = torch.arange(S, device=tokens.device).expand(B, S)
     aux = dict(AUX_ZERO)
     for gi, g in enumerate(cfg.groups):
@@ -197,7 +209,7 @@ def _forward_hidden(params: dict, tokens: torch.Tensor, cfg: ModelConfig,
         def body(xc, auxc, slot_params, _g=g):
             for si, kind in enumerate(_g.pattern):
                 xc, a = _apply_block(slot_params[f"s{si}"], kind, xc, cfg,
-                                     positions)
+                                     positions, media)
                 auxc = {k: auxc[k] + a[k] for k in AUX_ZERO}
             return xc, auxc
 
@@ -208,9 +220,11 @@ def _forward_hidden(params: dict, tokens: torch.Tensor, cfg: ModelConfig,
 
 
 def forward(params: dict, tokens: torch.Tensor, cfg: ModelConfig,
-            remat: str = "none") -> torch.Tensor:
-    """Full-sequence forward.  tokens: (B, S) int -> logits (B, S, V) f32."""
-    x, _ = _forward_hidden(params, tokens, cfg, remat)
+            remat: str = "none",
+            media: torch.Tensor | None = None) -> torch.Tensor:
+    """Full-sequence forward.  tokens: (B, S) int -> logits (B, S, V) f32;
+    media: the vision model's (B, N, d_frontend) frontend tokens."""
+    x, _ = _forward_hidden(params, tokens, cfg, remat, media)
     return lm_logits(params, apply_norm(params["final_norm"], x, cfg), cfg)
 
 
@@ -244,7 +258,8 @@ def _lm_loss_chunked(params: dict, batch: dict, cfg: ModelConfig,
     chunk order."""
     tokens = batch["tokens"]
     B, S = tokens.shape
-    hidden, aux = _forward_hidden(params, tokens, cfg, remat)
+    hidden, aux = _forward_hidden(params, tokens, cfg, remat,
+                                  batch.get("media"))
     x = apply_norm(params["final_norm"], hidden, cfg)
     mask = batch.get("mask")
     mask = (torch.ones((B, S), dtype=torch.float32, device=tokens.device)
@@ -271,11 +286,13 @@ def lm_loss(params: dict, batch: dict, cfg: ModelConfig,
     router_entropy}), total = loss + router_aux_coef * lb / n_moe +
     router_z_coef * z / n_moe (the layer sums over the MoE layer count;
     dense models: zeros, total == loss).  batch: tokens (B,S), labels
-    (B,S), mask (B,S).  ``REPRO_CHUNKED_CE=1``, read at each call as JAX
+    (B,S), mask (B,S), and the vision model's media (B, N, d_frontend).
+    ``REPRO_CHUNKED_CE=1``, read at each call as JAX
     reads it, takes the chunked path (:func:`_lm_loss_chunked`)."""
     if os.environ.get("REPRO_CHUNKED_CE") == "1":
         return _lm_loss_chunked(params, batch, cfg, remat)
-    hidden, aux = _forward_hidden(params, batch["tokens"], cfg, remat)
+    hidden, aux = _forward_hidden(params, batch["tokens"], cfg, remat,
+                                  batch.get("media"))
     nll = _nll(params, apply_norm(params["final_norm"], hidden, cfg),
                batch["labels"], cfg)
     mask = batch.get("mask")
@@ -358,15 +375,17 @@ def _fill_kv(cfg: ModelConfig, kind: str, k: torch.Tensor, v: torch.Tensor,
 
 
 def _prefill_block(bp: dict, kind: str, x: torch.Tensor, cfg: ModelConfig,
-                   positions: torch.Tensor,
-                   cache_len: int) -> tuple[torch.Tensor, dict]:
+                   positions: torch.Tensor, cache_len: int,
+                   media: torch.Tensor | None) -> tuple[torch.Tensor, dict]:
     """One layer of the whole-prompt prefill and its serving cache: the
     ring's K/V for attention; for a recurrence, its state after the prompt
     (run from the zero state through its stateful form, as in the JAX
-    package)."""
+    package); nothing for ``xattn``."""
     if kind in RECURRENT_KINDS:
         zero = init_recurrent_state(cfg, kind, x.shape[0], device=x.device)
         return _recurrent_block(bp, kind, x, zero, cfg)
+    if kind == "xattn":
+        return _apply_block(bp, kind, x, cfg, positions, media)[0], {}
     h = apply_norm(bp["ln1"], x, cfg)
     q, kk, vv = attn._qkv(bp["mix"], h, cfg)
     theta = attn._rope_theta(cfg, kind)
@@ -389,17 +408,17 @@ def _stack_layers(per_layer: dict[str, list[dict]]) -> dict:
 
 
 def prefill(params: dict, tokens: torch.Tensor, cfg: ModelConfig,
-            cache_len: int | None = None,
-            remat: str = "none") -> tuple[torch.Tensor, dict]:
+            cache_len: int | None = None, remat: str = "none",
+            media: torch.Tensor | None = None) -> tuple[torch.Tensor, dict]:
     """Process a prompt: tokens (B, S) -> (last-position logits (B, V) f32,
     dense cache {g: {s: stacked (n, B, ...) leaves}}: the ring's "k", "v"
     (n, B, L, KV, hd) for attention, "S", "x_last", "cx_last" for rwkv6,
-    "h", "conv" for rglru).  ``remat`` wraps each layer as the training
-    forward does (it matters only under autograd)."""
-    check_supported(cfg)
+    "h", "conv" for rglru, {} for xattn).  ``remat`` wraps each layer as
+    the training forward does (it matters only under autograd)."""
     B, S = tokens.shape
     cache_len = cache_len or S
     x = embed_tokens(params, tokens, cfg)
+    media = _project_media(params, media, cfg)
     positions = torch.arange(S, device=tokens.device).expand(B, S)
 
     cache: dict[str, Any] = {}
@@ -410,7 +429,7 @@ def prefill(params: dict, tokens: torch.Tensor, cfg: ModelConfig,
             for si, kind in enumerate(_g.pattern):
                 xc, cs[f"s{si}"] = _prefill_block(
                     slot_params[f"s{si}"], kind, xc, cfg, positions,
-                    cache_len)
+                    cache_len, media)
             return xc, cs
 
         layer = _remat_wrap(body, remat)
@@ -436,24 +455,33 @@ def init_cache(cfg: ModelConfig, batch: int, cache_len: int,
     {g: {s: stacked (n, B, ...) leaves}}: an attention slot's ring
     (``attention.init_kv_cache``, L = ``cfg.kv_cache_len(kind,
     cache_len)``), a recurrent slot's rows (``init_recurrent_state``), on
-    ``device`` (default ``cuda``)."""
-    check_supported(cfg)
+    ``device`` (default ``cuda``); an ``xattn`` slot keeps nothing (its
+    media are re-derived every step)."""
     dev = resolve_device(device)
-    return {f"g{gi}": {
-        f"s{si}": (init_recurrent_state(cfg, kind, batch, (g.n,), dev)
-                   if kind in RECURRENT_KINDS else attn.init_kv_cache(
-                       cfg, kind, batch, cfg.kv_cache_len(kind, cache_len),
-                       (g.n,), dev))
-        for si, kind in enumerate(g.pattern)}
-        for gi, g in enumerate(cfg.groups)}
+
+    def slot(kind: str, n: int) -> dict:
+        if kind in RECURRENT_KINDS:
+            return init_recurrent_state(cfg, kind, batch, (n,), dev)
+        if kind == "xattn":
+            return {}
+        return attn.init_kv_cache(cfg, kind, batch,
+                                  cfg.kv_cache_len(kind, cache_len), (n,),
+                                  dev)
+
+    return {f"g{gi}": {f"s{si}": slot(kind, g.n)
+                       for si, kind in enumerate(g.pattern)}
+            for gi, g in enumerate(cfg.groups)}
 
 
 def _decode_block(bp: dict, kind: str, x: torch.Tensor, c: dict,
-                  cfg: ModelConfig, pos: torch.Tensor) -> torch.Tensor:
+                  cfg: ModelConfig, pos: torch.Tensor,
+                  media: torch.Tensor | None) -> torch.Tensor:
     """One layer of a decode step.  An attention layer writes its new K/V
     into its dense ring or, when ``c`` holds page pools ("pk"), into the
     pools; a recurrent one its new state into its rows of ``c`` (views of
-    the stacked cache); all in place."""
+    the stacked cache); all in place.  ``xattn`` reads the media."""
+    if kind == "xattn":
+        return _apply_block(bp, kind, x, cfg, None, media)[0]
     if kind in RECURRENT_KINDS:
         x, new = _recurrent_block(bp, kind, x, c, cfg)
         for name, t in new.items():
@@ -469,22 +497,24 @@ def _decode_block(bp: dict, kind: str, x: torch.Tensor, c: dict,
 
 
 def decode_step(params: dict, cache: dict, tokens: torch.Tensor,
-                pos: torch.Tensor, cfg: ModelConfig
+                pos: torch.Tensor, cfg: ModelConfig,
+                media: torch.Tensor | None = None
                 ) -> tuple[torch.Tensor, dict]:
     """One decode step against a dense cache (``prefill``'s or
     ``init_cache``'s) or a paged one.  tokens: (B, 1); pos: (B,)
     per-sequence positions or a scalar for all rows.  Returns (logits
     (B, 1, V) f32, cache); the cache's rings or pools and its recurrent
     rows are updated in place (every row's, idle ones included, as in the
-    JAX package: a row's state never reaches another row)."""
-    check_supported(cfg)
+    JAX package: a row's state never reaches another row).  ``media``:
+    the vision model's frontend tokens, re-projected every step."""
     x = embed_tokens(params, tokens, cfg)
+    media = _project_media(params, media, cfg)
     for gi, g in enumerate(cfg.groups):
         gp, gc = params["groups"][f"g{gi}"], cache[f"g{gi}"]
         for lp, lc in zip(_unstack(gp, g.n), _unstack(gc, g.n)):
             for si, kind in enumerate(g.pattern):
                 x = _decode_block(lp[f"s{si}"], kind, x, lc[f"s{si}"], cfg,
-                                  pos)
+                                  pos, media)
     x = apply_norm(params["final_norm"], x, cfg)
     return lm_logits(params, x, cfg), cache
 
@@ -502,7 +532,6 @@ def init_chunk_carry(cfg: ModelConfig,
     batch cache, on ``device`` (default ``cuda``), so that interleaved
     decode steps cannot touch it (it is written into the cache row at
     activation)."""
-    check_supported(cfg)
     recurrent = any(k in RECURRENT_KINDS for k in cfg.layer_kinds)
     dev = resolve_device(device) if recurrent else None
     return {f"g{gi}": {
@@ -514,10 +543,13 @@ def init_chunk_carry(cfg: ModelConfig,
 
 def _chunk_block(bp: dict, kind: str, x: torch.Tensor, c: dict, car: dict,
                  cfg: ModelConfig, rows: dict, start: int, cache_len: int,
-                 pos: dict) -> tuple[torch.Tensor, dict]:
+                 pos: dict,
+                 media: torch.Tensor | None) -> tuple[torch.Tensor, dict]:
     """One layer of a prompt chunk: attention against the paged context
-    (its K/V written into the pools in place), a recurrence from its carry.
-    Returns (x, the layer's new carry)."""
+    (its K/V written into the pools in place), a recurrence from its carry,
+    cross-attention to the media.  Returns (x, the layer's new carry)."""
+    if kind == "xattn":
+        return _apply_block(bp, kind, x, cfg, None, media)[0], car
     if kind in RECURRENT_KINDS:
         return _recurrent_block(bp, kind, x, car, cfg)
     h = apply_norm(bp["ln1"], x, cfg)
@@ -535,7 +567,8 @@ def _chunk_block(bp: dict, kind: str, x: torch.Tensor, c: dict, car: dict,
 
 def prefill_chunk(params: dict, cache: dict, tokens: torch.Tensor,
                   start: int, rows: dict, carry: dict, cfg: ModelConfig,
-                  cache_len: int) -> tuple[torch.Tensor, dict, dict]:
+                  cache_len: int, media: torch.Tensor | None = None
+                  ) -> tuple[torch.Tensor, dict, dict]:
     """Process one prompt chunk of an in-flight prefill against the paged
     cache.  tokens: (1, C) at absolute positions start..start+C-1; rows:
     {L: (n_pp,) int32 tensor} the slot's physical pages per page class
@@ -543,9 +576,10 @@ def prefill_chunk(params: dict, cache: dict, tokens: torch.Tensor,
     decode steps interleave freely); carry: ``init_chunk_carry`` tree.
     The chunk's K/V are written into the pools in place.  Returns
     (last-position logits (1, V) f32, cache, the new carry: new tensors,
-    the given carry is left as it was)."""
-    check_supported(cfg)
+    the given carry is left as it was).  ``media``: the vision model's
+    (1, N, d_frontend) frontend tokens."""
     x = embed_tokens(params, tokens, cfg)
+    media = _project_media(params, media, cfg)
     pos: dict = {}
     new_carry: dict[str, Any] = {}
     for gi, g in enumerate(cfg.groups):
@@ -557,7 +591,7 @@ def prefill_chunk(params: dict, cache: dict, tokens: torch.Tensor,
             for si, kind in enumerate(g.pattern):
                 x, car = _chunk_block(lp[f"s{si}"], kind, x, lc[f"s{si}"],
                                       lcar[f"s{si}"], cfg, rows, start,
-                                      cache_len, pos)
+                                      cache_len, pos, media)
                 per_layer[f"s{si}"].append(car)
         new_carry[f"g{gi}"] = _stack_layers(per_layer)
     x = apply_norm(params["final_norm"], x[:, -1:], cfg)

@@ -52,7 +52,8 @@ from typing import Any, Callable, NamedTuple
 import torch
 
 from ..kernels import ops as kops
-from ..tree import Path, leaves, leaves_with_path, tree_map, unflatten
+from ..tree import (Path, leaves, leaves_with_path, structure, tree_map,
+                    unflatten)
 from .telemetry import Telemetry
 
 PyTree = Any
@@ -102,7 +103,7 @@ def _leaf_delay(path: Path, delta: int,
 
 def _pack_plan(params: PyTree, delta: int,
                delay_for: Callable[[Path], int] | None
-               ) -> tuple[list[_PackGroup], list[Path]]:
+               ) -> tuple[list[_PackGroup], PyTree]:
     lv = leaves_with_path(params)
     by_key: dict[tuple, list] = {}
     for i, (path, leaf) in enumerate(lv):
@@ -118,7 +119,7 @@ def _pack_plan(params: PyTree, delta: int,
             idxs=tuple(m[0] for m in members),
             shapes=tuple(m[1] for m in members),
             sizes=sizes, pad=(-sum(sizes)) % _LANE))
-    return plan, [p for p, _ in lv]
+    return plan, structure(params)
 
 
 def _pack_rows(plan: list[_PackGroup], flat: list) -> dict:
@@ -132,14 +133,14 @@ def _pack_rows(plan: list[_PackGroup], flat: list) -> dict:
 
 
 def _unpack_rows(plan: list[_PackGroup], rows: dict,
-                 paths: list[Path]) -> PyTree:
-    out: list = [None] * len(paths)
+                 like: PyTree) -> PyTree:
+    out: list = [None] * sum(len(g.idxs) for g in plan)
     for g in plan:
         row, off = rows[g.key], 0
         for i, shape, sz in zip(g.idxs, g.shapes, g.sizes):
             out[i] = row.narrow(0, off, sz).view(shape)
             off += sz
-    return unflatten(paths, out)
+    return unflatten(like, out)
 
 
 def _resolve_packed(packed: bool | None, params: PyTree) -> bool:
@@ -217,19 +218,19 @@ def make_delayed_step(
 
     def read_stale(state: DelayedState) -> PyTree:
         commit_ring(state)
-        use_packed, (plan, paths) = layout(state.params)
+        use_packed, (plan, like) = layout(state.params)
         if use_packed:
             rows = {g.key: kops.ring_gather(
                         state.hist[g.key],
                         torch.remainder(state.ptr - g.delay, size))
                     for g in plan}
-            return _unpack_rows(plan, rows, paths)
+            return _unpack_rows(plan, rows, like)
         out = []
         for path, h in leaves_with_path(state.hist):
             d = _leaf_delay(path, delta, delay_for)
             idx = torch.remainder(state.ptr - d, size)
             out.append(h.index_select(0, idx.view(1))[0])
-        return unflatten(paths, out)
+        return unflatten(like, out)
 
     def step(state: DelayedState, batch: Any) -> tuple[DelayedState, dict]:
         stale_params = read_stale(state)

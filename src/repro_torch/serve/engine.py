@@ -71,7 +71,7 @@ import numpy as np
 import torch
 
 from ..models.config import ModelConfig
-from ..models.transformer import (SELF_ATTN_KINDS, check_supported,
+from ..models.transformer import (SELF_ATTN_KINDS,
                                   decode_step, init_chunk_carry, prefill,
                                   prefill_chunk)
 from .live_db import StaticParams, serving_params
@@ -241,7 +241,10 @@ class ServeEngine:
     """
 
     def __init__(self, cfg: ModelConfig, params: Any, scfg: ServeConfig):
-        check_supported(cfg)
+        if cfg.frontend == "vision":
+            raise NotImplementedError(
+                "serving engine is text-only for now; vision archs need "
+                "per-request media plumbing through admission and decode")
         self.cfg, self.scfg = cfg, scfg
         if isinstance(params, Mapping):
             self.db = StaticParams(serving_params(params, cfg))

@@ -44,20 +44,21 @@ from ..models.config import ModelConfig
 from ..models.paramlib import P
 from ..models.transformer import model_specs
 from ..pdb.telemetry import Telemetry
-from ..tree import leaves, leaves_with_path, unflatten
+from ..tree import leaves, leaves_with_path, structure, unflatten
 
 # leaves the JAX package always casts to cfg.dtype before use
 _CAST_PREFIX = "w"
-_CAST_NAMES = ("embedding", "lm_head")
+_CAST_NAMES = ("embedding", "lm_head", "frontend_proj")
 
 
 def serving_leaf(name: str, leaf: Any, cfg: ModelConfig, spec: P) -> Any:
     """The serving copy of one master leaf called ``name`` with the spec
-    ``spec``: the weight matrices (``w*``), ``embedding`` and ``lm_head``
-    cast to ``cfg.dtype`` — bit-identical to the per-use cast, which then
-    costs nothing — unless the spec keeps the leaf f32 (the model reads it
-    in f32: the RG-LRU's gate matrices), and every other leaf (norm scales
-    and the MoE router, read as f32) as it is."""
+    ``spec``: the weight matrices (``w*``), ``embedding``, ``lm_head`` and
+    ``frontend_proj`` cast to ``cfg.dtype`` — bit-identical to the per-use
+    cast, which then costs nothing — unless the spec keeps the leaf f32
+    (the model reads it in f32: the RG-LRU's gate matrices), and every
+    other leaf (norm scales, the MoE router and the xattn gates, read as
+    f32) as it is."""
     if spec.keep_f32:
         return leaf
     if name.startswith(_CAST_PREFIX) or name in _CAST_NAMES:
@@ -133,6 +134,7 @@ class LiveParamDB:
         self._lock = threading.Lock()
         pairs = leaves_with_path(params)
         self._paths = [path for path, _ in pairs]
+        self._structure = structure(params)
         by_delay: dict[int, list[int]] = {}
         for i, path in enumerate(self._paths):
             by_delay.setdefault(sync.delay_for(path), []).append(i)
@@ -200,4 +202,4 @@ class LiveParamDB:
                 self.read_log.append(
                     ReadRecord(chunk=g.chunk, delay=g.delay,
                                itr=alpha, version=v))
-            return unflatten(self._paths, list(self._cached))
+            return unflatten(self._structure, list(self._cached))

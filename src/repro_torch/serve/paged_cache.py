@@ -176,10 +176,9 @@ def init_paged_cache(cfg: ModelConfig, batch: int, cache_len: int,
             cache.setdefault(gkey, {})[skey] = init_recurrent_state(
                 cfg, kind, batch, (n,), dev)
             continue
-        if kind not in SELF_ATTN_KINDS:
-            raise NotImplementedError(
-                f"paged cache for layer kind {kind!r} comes with a later "
-                "slice of the port")
+        if kind not in SELF_ATTN_KINDS:           # xattn: stateless
+            cache.setdefault(gkey, {})[skey] = {}
+            continue
         L = cfg.kv_cache_len(kind, cache_len)
         npp = classes[L]
         P = (batch + extra_seqs) * npp + 1

@@ -30,18 +30,31 @@ def leaves(tree: Any) -> list:
     return [leaf for _, leaf in leaves_with_path(tree)]
 
 
-def unflatten(paths: list[Path], values: list) -> Any:
-    """The nested dict holding ``values`` at ``paths`` (an empty path is
-    the root itself)."""
-    if len(paths) == 1 and paths[0] == ():
-        return values[0]
-    out: dict = {}
-    for path, v in zip(paths, values):
-        node = out
-        for key in path[:-1]:
-            node = node.setdefault(key, {})
-        node[path[-1]] = v
-    return out
+def unflatten(like: Any, values: list) -> Any:
+    """The tree of ``like``'s structure holding ``values`` in leaf order,
+    the counterpart of ``jax.tree_util.tree_unflatten`` with ``like``'s
+    treedef: an empty subtree of ``like`` (olmo's ``layernorm_np`` norms
+    have no parameters) stays an empty dict.  ``like``'s leaves are not
+    read; ``structure`` gives a ``like`` that holds no tensor."""
+    n = len(leaves(like))
+    if n != len(values):
+        raise ValueError(f"unflatten: {len(values)} values for {n} leaves")
+    return _build(like, iter(values))
+
+
+def _build(node: Any, it) -> Any:
+    # a module-level function: a nested recursive one would sit in a
+    # reference cycle with the iterator, keeping every value alive until
+    # the cycle collector runs (a step's gradients, gigabytes on a card)
+    if isinstance(node, dict):
+        return {k: _build(node[k], it) for k in sorted(node)}
+    return next(it)
+
+
+def structure(tree: Any) -> Any:
+    """``tree`` with every leaf replaced by None: its structure, empty
+    subtrees included, for ``unflatten``."""
+    return tree_map(lambda _: None, tree)
 
 
 def tree_map(fn: Callable, tree: Any, *rest: Any) -> Any:
@@ -59,7 +72,7 @@ def ravel(tree: Any) -> tuple[torch.Tensor, Callable[[torch.Tensor], Any]]:
     in the leaves' shapes and dtypes (views of ``vec`` where the dtype is
     the vector's)."""
     lv = leaves_with_path(tree)
-    paths = [p for p, _ in lv]
+    like = structure(tree)
     metas = [(t.shape, t.dtype, t.numel()) for _, t in lv]
     dtype = functools.reduce(torch.promote_types, [d for _, d, _ in metas])
     flat = torch.cat([t.reshape(-1).to(dtype) for _, t in lv])
@@ -69,5 +82,5 @@ def ravel(tree: Any) -> tuple[torch.Tensor, Callable[[torch.Tensor], Any]]:
         for shape, dt, n in metas:
             out.append(vec[off:off + n].view(shape).to(dt))
             off += n
-        return unflatten(paths, out)
+        return unflatten(like, out)
     return flat, unravel

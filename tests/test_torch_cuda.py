@@ -87,6 +87,7 @@ def _randn(gen, shape, dtype):
     (33, 2, 1, 128),      # short sequence, head dim 128
     (200, 15, 5, 64),     # smollm-360m heads
     (100, 10, 1, 256),    # recurrentgemma heads: group 10, head dim 256
+    (300, 16, 16, 128),   # olmo-1b's heads: group 1, head dim 128
 ])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("causal,window", [(True, 0), (True, 24),
@@ -122,10 +123,67 @@ def test_flash_attention_refuses_a_strided_head_dim(gen):
 
 
 def test_flash_attention_rejects_cross_lengths(gen):
+    """Sq != Sk is taken only by the forward, non-causal and unwindowed
+    (the vision model's xattn): causal, windowed and backward calls at
+    such lengths are refused."""
     q = _randn(gen, (1, 8, 2, 64), torch.float32)
     k = _randn(gen, (1, 16, 2, 64), torch.float32)
-    with pytest.raises(ValueError, match="Sq == Sk"):
+    with pytest.raises(ValueError, match="Sq != Sk"):
         flash_attention(q, k, k)
+    with pytest.raises(ValueError, match="Sq != Sk"):
+        flash_attention(q, k, k, causal=False, window=4)
+    lse = torch.zeros((1, 2, 8), device="cuda")
+    with pytest.raises(ValueError, match="Sq != Sk"):
+        flash_attention_bwd(q, k, k, q, q, lse, causal=False)
+
+
+# the vision model's cross-attention shapes (Sq text rows, Sk media keys),
+# heads cut from llama-3.2-vision-11b's 32 / 8 at hd 128 where the card's
+# test time asks for it: one decode row, a prompt, ragged key tails past a
+# tile (1601, 8, 100) and more rows than keys
+CROSS = [
+    (8, 1, 1600, 32, 8, 128),
+    (1, 300, 1600, 32, 8, 128),
+    (2, 1, 1601, 8, 2, 128),
+    (2, 77, 8, 4, 2, 16),
+    (1, 130, 100, 10, 1, 256),
+    (2, 65, 1601, 4, 4, 64),
+]
+
+
+@pytest.mark.parametrize("B,Sq,Sk,H,KV,hd", CROSS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_cross(gen, B, Sq, Sk, H, KV, hd, dtype):
+    """Non-causal Sq != Sk against ``ref.attention``; the log-sum-exp too,
+    and a forward through ``ops.attention`` under no_grad reaches the
+    kernel."""
+    q = _randn(gen, (B, Sq, H, hd), dtype)
+    k = _randn(gen, (B, Sk, KV, hd), dtype)
+    v = _randn(gen, (B, Sk, KV, hd), dtype)
+    got, lse = flash_attention(q, k, v, causal=False, with_lse=True)
+    want = ref.attention(q, k, v, causal=False)
+    assert got.shape == (B, Sq, H, hd) and lse.shape == (B, H, Sq)
+    torch.testing.assert_close(got.float(), want.float(), **TOL[dtype])
+    scores = torch.einsum("bqhd,bkhd->bhqk", q.float(),
+                          k.float().repeat_interleave(H // KV, dim=2))
+    torch.testing.assert_close(lse, torch.logsumexp(scores * hd ** -0.5, -1),
+                               rtol=1e-4, atol=1e-4)
+    ops.reset_launches()
+    with torch.no_grad():
+        out = ops.attention(q, k, v, causal=False, window=0)
+    assert ops.launches["flash_attention"] == 1
+    assert torch.equal(out, got)
+
+
+def test_flash_attention_cross_wants_no_gradient(gen):
+    """A gradient at Sq != Sk is refused before any launch (the backward
+    is not written)."""
+    q = _randn(gen, (1, 4, 4, 64), torch.bfloat16).requires_grad_()
+    k = _randn(gen, (1, 1600, 2, 64), torch.bfloat16)
+    ops.reset_launches()
+    with pytest.raises(NotImplementedError, match="A12"):
+        ops.attention(q, k, k, causal=False, window=0)
+    assert ops.launches["flash_attention"] == 0
 
 
 @pytest.mark.parametrize("B,L,H,KV,hd", [
@@ -136,6 +194,8 @@ def test_flash_attention_rejects_cross_lengths(gen):
     (2, 700, 10, 1, 256),  # recurrentgemma-2b's local heads: 6 splits
     (3, 300, 4, 1, 16),    # its smoke config: head dim padded to 64
     (2, 130, 16, 1, 32),   # group 16, a one-slot last split
+    (4, 544, 16, 16, 128),  # olmo-1b's heads: group 1, one live tile row
+    (4, 544, 32, 32, 64),  # musicgen-large's: group 1
 ])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_decode_attention(gen, B, L, H, KV, hd, dtype):
@@ -574,7 +634,7 @@ def test_flash_attention_refuses_misaligned_bf16(gen):
 def test_flash_attention_bwd_split_and_reduce(gen, B, S, H, KV, hd):
     """bf16 dK/dV as f32 partials per chunk of the group, summed in a fixed
     order: right, and bit-identical run to run."""
-    p = plan(S, H, KV, hd, torch.bfloat16)
+    p = plan(S, S, H, KV, hd, torch.bfloat16)
     assert p["split"] * p["heads_per_block"] == H // KV
     if S == 1100:
         assert p["heads_per_block"] == 2
@@ -591,7 +651,7 @@ def test_flash_attention_plan_matches_the_kernels(gen, dtype):
     """The wrapper's plan states the shared memory the CUDA source sizes
     its launches with."""
     for hd in (16, 32, 64, 128, 256):
-        p = plan(512, 8, 2, hd, dtype)
+        p = plan(512, 512, 8, 2, hd, dtype)
         assert kernel_smem(dtype, hd) == {
             kind: p[kind]["smem"] for kind in ("fwd", "dkdv", "dq")}
 
@@ -657,6 +717,7 @@ def test_prefill_page_attention_serving_shapes(gen, C, L, start, window,
     (1, 24, 40, 15, 5, 64, 17, 0),    # smollm-360m heads: group 3
     (2, 33, 64, 16, 2, 128, 70, 0),   # group 8, widest head, ragged tiles
     (1, 8, 8, 4, 1, 32, 3, 0),        # C == L
+    (1, 128, 544, 16, 16, 128, 172, 0),  # olmo-1b's heads: group 1
 ])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_prefill_page_attention(gen, B, C, L, H, KV, hd, start, window,

@@ -32,7 +32,7 @@ TRAINING = [(4, 512, 32, 8, 64), (4, 512, 10, 1, 256)]
 @pytest.mark.parametrize("hd", [16, 32, 64, 128, 256])
 @pytest.mark.parametrize("dtype", DTYPES)
 def test_plan_fits_shared_memory(hd, dtype):
-    p = plan(512, 8, 2, hd, dtype)
+    p = plan(512, 512, 8, 2, hd, dtype)
     assert p["hd_tile"] >= hd
     for kind in ("fwd", "dkdv", "dq"):
         assert 0 < p[kind]["smem"] <= SMEM_LIMIT, (kind, p[kind])
@@ -43,7 +43,7 @@ def test_plan_fits_shared_memory(hd, dtype):
 def test_plan_fills_the_card_at_the_training_shapes(B, S, H, KV, hd):
     """Each bf16 backward pass (dK/dV, dQ) launches at least one block per
     SM at the training shapes; so does the forward."""
-    p = plan(S, H, KV, hd, torch.bfloat16)
+    p = plan(S, S, H, KV, hd, torch.bfloat16)
     for kind in ("dkdv", "dq", "fwd"):
         blocks = int(np.prod(p[kind]["grid"])) * B
         assert blocks >= SMS, (kind, blocks)
@@ -58,9 +58,9 @@ def test_plan_is_independent_of_the_batch(S, H, KV, hd, dtype):
     adds B as its last dimension, and B = 1 and B = 4 get the same
     tiles."""
     assert list(inspect.signature(plan).parameters) == \
-        ["S", "H", "KV", "hd", "dtype"]
-    p = plan(S, H, KV, hd, dtype)
-    assert p == plan(S, H, KV, hd, dtype)
+        ["Sq", "Sk", "H", "KV", "hd", "dtype"]
+    p = plan(S, S, H, KV, hd, dtype)
+    assert p == plan(S, S, H, KV, hd, dtype)
     group = H // KV
     assert group % p["heads_per_block"] == 0
     assert p["split"] * p["heads_per_block"] == group \
@@ -77,9 +77,9 @@ def test_plan_splits_long_sequences_into_head_chunks():
     """Where the key tiles alone fill the card twice (S 4096, one kv head
     of ten q heads), a dK/dV block walks a chunk of q heads and fewer
     partials are summed; at S 512 every q head is its own partial."""
-    long = plan(4096, 10, 1, 256, torch.bfloat16)
+    long = plan(4096, 4096, 10, 1, 256, torch.bfloat16)
     assert long["heads_per_block"] == 2 and long["split"] == 5
-    short = plan(512, 10, 1, 256, torch.bfloat16)
+    short = plan(512, 512, 10, 1, 256, torch.bfloat16)
     assert short["heads_per_block"] == 1 and short["split"] == 10
 
 
@@ -87,22 +87,24 @@ def test_plan_splits_long_sequences_into_head_chunks():
 # the kernels' bf16 rounding, emulated
 # ---------------------------------------------------------------------------
 
-def _mask(S, causal, window):
+def _mask(S, causal, window, Sk=None):
+    Sk = S if Sk is None else Sk
     qp = torch.arange(S)[:, None]
-    kp = torch.arange(S)[None, :]
-    live = kp <= qp if causal else torch.ones(S, S, dtype=torch.bool)
+    kp = torch.arange(Sk)[None, :]
+    live = kp <= qp if causal else torch.ones(S, Sk, dtype=torch.bool)
     if window > 0:
         live = live & (kp > qp - window)
     return live
 
 
 def _attention_f64(q, k, v, causal, window):
-    """Plain attention in f64: q (B,S,H,hd), k/v (B,S,KV,hd)."""
+    """Plain attention in f64: q (B,Sq,H,hd), k/v (B,Sk,KV,hd)."""
     H, KV = q.shape[2], k.shape[2]
     k = k.repeat_interleave(H // KV, 2)
     v = v.repeat_interleave(H // KV, 2)
     s = torch.einsum("bqhd,bkhd->bhqk", q, k) * q.shape[-1] ** -0.5
-    s = s.masked_fill(~_mask(q.shape[1], causal, window), float("-inf"))
+    s = s.masked_fill(~_mask(q.shape[1], causal, window, k.shape[1]),
+                      float("-inf"))
     return torch.einsum("bhqk,bkhd->bqhd", torch.softmax(s, -1), v)
 
 
@@ -112,18 +114,20 @@ def _bf16(x):
 
 def _emulate_fwd(q, k, v, causal, window, keys):
     """The forward kernel's arithmetic: f32 scores of bf16 inputs, online
-    softmax over key tiles of ``keys``, P as the sum of two bf16 parts in
-    P V, f32 sums, the output rounded to bf16.  Returns (out, lse)."""
+    softmax over key tiles of ``keys`` (the last one partial where Sk is
+    not a multiple), P as the sum of two bf16 parts in P V, f32 sums, the
+    output rounded to bf16.  Returns (out, lse)."""
     B, S, H, hd = q.shape
+    Sk = k.shape[1]
     group = H // k.shape[2]
     kf = k.repeat_interleave(group, 2)
     vf = v.repeat_interleave(group, 2)
     s = torch.einsum("bqhd,bkhd->bhqk", q, kf) * hd ** -0.5
-    live = _mask(S, causal, window)
+    live = _mask(S, causal, window, Sk)
     m = torch.full((B, H, S, 1), -1e30)
     l = torch.zeros((B, H, S, 1))
     acc = torch.zeros((B, H, S, hd))
-    for k0 in range(0, S, keys):
+    for k0 in range(0, Sk, keys):
         st = s[..., k0:k0 + keys]
         lt = live[:, k0:k0 + keys]
         st = st.masked_fill(~lt, -1e30)
@@ -178,7 +182,7 @@ def test_bf16_rounding_keeps_the_gates_margin(hd, H, KV, causal, window):
     q, k, v, do = (_bf16(torch.from_numpy(
         rng.standard_normal((B, S, n, hd)).astype(np.float32)))
         for n in (H, KV, KV, H))
-    keys = plan(S, H, KV, hd, torch.bfloat16)["fwd"]["cols"]
+    keys = plan(S, S, H, KV, hd, torch.bfloat16)["fwd"]["cols"]
     out, lse = _emulate_fwd(q, k, v, causal, window, keys)
 
     ins = [t.double().requires_grad_() for t in (q, k, v)]
@@ -191,3 +195,59 @@ def test_bf16_rounding_keeps_the_gates_margin(hd, H, KV, causal, window):
     for g, w in zip(grads, wants):
         err = ((g.double() - w).abs().max() / w.abs().max()).item()
         assert err <= 1e-2, err
+
+
+# the vision model's cross-attention (non-causal, Sq != Sk): one decode row
+# or a prompt against 1600 media keys, a ragged key tail (1601, 8), and
+# gemma3-like head dim 256 tiles of 32 keys
+XATTN = [(1, 1600, 32, 8, 128), (300, 1600, 32, 8, 128),
+         (1, 1601, 32, 8, 128), (77, 8, 4, 2, 16), (5, 100, 8, 4, 256)]
+
+
+@pytest.mark.parametrize("Sq,Sk,H,KV,hd", XATTN)
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_plan_cross_attention_shapes(Sq, Sk, H, KV, hd, dtype):
+    """The forward's grid walks Sq's q tiles (one at a decode row), its
+    tiles and shared memory do not depend on the key length, and the key
+    tiles cover Sk with a partial last tile where Sk is not a multiple."""
+    p = plan(Sq, Sk, H, KV, hd, dtype)
+    f = p["fwd"]
+    assert f["grid"] == (-(-Sq // f["rows"]), H)
+    assert f == plan(Sq, Sq, H, KV, hd, dtype)["fwd"]
+    assert f["cols"] == (64 if dtype == torch.float32 or hd <= 128 else 32)
+    tiles = -(-Sk // f["cols"])
+    assert (tiles - 1) * f["cols"] < Sk <= tiles * f["cols"]
+
+
+@pytest.mark.parametrize("Sq,Sk,H,KV,hd", XATTN)
+def test_bf16_rounding_keeps_the_gates_margin_at_cross_lengths(Sq, Sk, H,
+                                                               KV, hd):
+    """The forward's bf16 arithmetic at Sq != Sk, non-causal, the ragged
+    key tail's dead keys at probability 0, against f64 attention at half
+    the card's 2e-2 gate."""
+    rng = np.random.default_rng(Sq * 7 + Sk)
+    q = _bf16(torch.from_numpy(
+        rng.standard_normal((1, Sq, H, hd)).astype(np.float32)))
+    k, v = (_bf16(torch.from_numpy(
+        rng.standard_normal((1, Sk, KV, hd)).astype(np.float32)))
+        for _ in range(2))
+    keys = plan(Sq, Sk, H, KV, hd, torch.bfloat16)["fwd"]["cols"]
+    out, lse = _emulate_fwd(q, k, v, False, 0, keys)
+    want = _attention_f64(q.double(), k.double(), v.double(), False, 0)
+    assert out.shape == (1, Sq, H, hd)
+    torch.testing.assert_close(out.double(), want, rtol=1e-2, atol=1e-2)
+    s = torch.einsum("bqhd,bkhd->bhqk", q.double(),
+                     k.double().repeat_interleave(H // KV, 2)) * hd ** -0.5
+    torch.testing.assert_close(lse.double(), torch.logsumexp(s, -1),
+                               rtol=1e-5, atol=1e-5)
+
+
+def test_flash_attention_refuses_a_gradient_at_cross_lengths():
+    """The backward is written for Sq == Sk only: a gradient wanted at
+    Sq != Sk raises before any kernel is looked up, naming the roadmap
+    item that brings it (no fallback to the plain version)."""
+    from repro_torch.kernels.flash_attention import FlashAttention
+    q = torch.zeros((1, 4, 4, 64), requires_grad=True)
+    k = torch.zeros((1, 1600, 2, 64))
+    with pytest.raises(NotImplementedError, match="A12"):
+        FlashAttention.apply(q, k, k, False, 0)
