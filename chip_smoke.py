@@ -92,7 +92,13 @@ Phases (any failure raises and the script exits non-zero):
    and 8, and phase 13's own B2 prefill of 256 and B2 decode step) in
    bf16 at 2e-2 and f32 at 1e-4 (and its log-sum-exp), timed in both
    beside the plain version and SDPA (the ``xattn`` list of the flash
-   row); the three at olmo-1b's (16 over 16 of 128) and musicgen-large's
+   row); the backward at Sq != Sk, non-causal (phase 14's B2 Sq2048
+   against Sk1600 at 32 q over 8 kv heads of 128, then the CUDA tests'
+   cross cases: a B8 decode row, a 300-token prompt, ragged tails of Sq
+   77, 130 and 65 and Sk 1601, 8 and 100) against torch autograd of the
+   plain attention, bf16 at a normalized 2e-2 and f32 at 1e-4, timed in
+   both beside its bound, autograd of the plain version and SDPA's
+   backward (the ``xattn_bwd`` list of the backward row); the three at olmo-1b's (16 over 16 of 128) and musicgen-large's
    (32 over 32 of 64) heads, a group of one (prefills of 128 and 300, B4
    decode on the 544 ring, the 300-token prompt's last chunk; olmo's
    decode and chunk in f32 too: the ``group1`` lists); then
@@ -316,7 +322,27 @@ Phases (any failure raises and the script exits non-zero):
    ``REPRO_CHUNKED_CE=1``, 3 steps: flash forward and backward exactly 6
    a step, the ring gather once a group and step, no plain version;
    finite losses, the first within 1e-4 relative of ``lm_loss`` on the
-   plain route; step p50 and peak memory.
+   plain route; step p50 and peak memory;
+14. vision training: the vision smoke config's shapes at f32,
+   xattn gates drawn in [0.5, 1.5), trained 3 steps through the train
+   engine (SGD, delta 2, packed ring, batch 2 x 96 with media 2 x 8 x
+   24) on the card (flash forward and backward exactly 5 a step, the
+   xattn backward at Sq 96 against Sk 8) and on the CPU (plain
+   versions): losses and the xattn layer's and ``frontend_proj``'s
+   parameters within 1e-4; then ``llama-3.2-vision-11b`` at full width,
+   depth 5 of 40 (one ``("attn",) * 4 + ("xattn",)`` group, ``reduced``),
+   gates drawn non-zero (at 0 the xattn layer's dO would be exactly 0),
+   f32 master and bf16 compute, through the train engine (SGD: AdamW's
+   out-of-place update does not fit, ``VISION_TRAIN_REDUCED``; delta 2,
+   packed ring) at batch 2 x 2048 with media 2 x 1600 x 1280 from
+   ``make_lm_batch`` and ``REPRO_CHUNKED_CE=1``, 3 steps: flash forward
+   and backward exactly 5 a step (4 self-attention, 1 xattn at Sq 2048
+   against Sk 1600), the ring gather once a group and step, no plain
+   version; finite losses, the first within 1e-4 relative of
+   ``lm_loss`` on the plain route; then one more step, not counted, in
+   which every backward kernel call is held against torch autograd of
+   ``ref.attention`` on its own (q, k, v, dO) (f32 1e-4, bf16 a
+   normalized 2e-2); step p50, peak memory and the parameter count.
 
 The last two lines are the ``kernels`` JSON object (twelve rows; each
 row's ``launches_by_path`` counts its launches on every path, the
@@ -465,6 +491,15 @@ FLASH_BWD_CASES = [(4, 512, 32, 8, 64, True, 0), (4, 128, 32, 8, 64, True, 0),
                    (4, 512, 32, 8, 128, True, 4096)] \
     + [(B, S, 10, 1, 256, True, w) for B, S, w in FLASH_HD256] \
     + [(2, 2048, 8, 4, 256, True, w) for w in (1024, 0)]
+# the backward at Sq != Sk, non-causal (B, Sq, Sk, H, KV, hd): the vision
+# training phase's xattn shape (2 x 2048 text rows against 2 x 1600 media
+# tokens, 32 q over 8 kv heads of 128) first, then the CUDA tests' CROSS
+# cases: a B8 decode row, a 300-token prompt, ragged tails on both sides
+# (Sk 1601, 8 and 100; Sq 77, 130 and 65 past a 64-row tile)
+XATTN_BWD_CASES = ((2, 2048, 1600, 32, 8, 128), (8, 1, 1600, 32, 8, 128),
+                   (1, 300, 1600, 32, 8, 128), (2, 1, 1601, 8, 2, 128),
+                   (2, 77, 8, 4, 2, 16), (1, 130, 100, 10, 1, 256),
+                   (2, 65, 1601, 4, 4, 64))
 
 
 def window_mask(torch, S: int, window: int):
@@ -926,11 +961,83 @@ def check_flash_bwd(torch, F, ref, gen):
         del pin, pout, lin, lout, sets
     torch.cuda.empty_cache()
     main = rows[0]                  # the training shape, causal
-    return {**main, "max_abs_err": max(r["max_abs_err"] for r in rows),
+    xattn = check_flash_cross_bwd(torch, F, ref, gen)
+    return {**main, "max_abs_err": max(
+        [r["max_abs_err"] for r in rows]
+        + [r["max_abs_err"] for r in xattn if r["dtype"] == "float32"]),
             "hd128": [r for r in rows if r["shape"][4] == 128],
             "hd256": [r for r in rows if r["shape"][4] == 256
                       and r["shape"][2] == 10],
-            "gemma3": [r for r in rows if r["shape"][2:] == [8, 4, 256]]}
+            "gemma3": [r for r in rows if r["shape"][2:] == [8, 4, 256]],
+            "xattn_bwd": xattn}
+
+
+def check_flash_cross_bwd(torch, F, ref, gen):
+    """The backward at Sq != Sk, non-causal (the vision model's xattn),
+    against torch autograd of ``ref.attention`` in f32 on the same inputs:
+    f32 at rtol/atol 1e-4, bf16 at a normalized max error of 2e-2 per
+    gradient (as the square backward); timed in both dtypes beside its
+    bound (every (query, key) pair live: 2.5 x 4 hd H B Sq Sk operations),
+    autograd of the plain version and SDPA's backward (no mask)."""
+    from repro_torch.kernels.flash_attention import (
+        flash_attention, flash_attention_bwd)
+    rows = []
+    for B, Sq, Sk, H, KV, hd in XATTN_BWD_CASES:
+        mk = lambda s, n: torch.randn((B, s, n, hd), generator=gen,  # noqa
+                                      device="cuda")
+        q32, k32, v32, do32 = mk(Sq, H), mk(Sk, KV), mk(Sk, KV), mk(Sq, H)
+        for dt in ("bfloat16", "float32"):
+            dtype = getattr(torch, dt)
+            q, k, v, do = (t.to(dtype) for t in (q32, k32, v32, do32))
+            ins = [t.float().requires_grad_() for t in (q, k, v)]
+            want = torch.autograd.grad(ref.attention(*ins, causal=False),
+                                       ins, do.float())
+            o, lse = flash_attention(q, k, v, causal=False, with_lse=True)
+            got = flash_attention_bwd(q, k, v, o, do, lse, causal=False)
+            torch.cuda.synchronize()
+            for g, t in zip(got, (q, k, v)):
+                if g.shape != t.shape or g.dtype != dtype:
+                    raise AssertionError(f"xattn backward: {g.shape} "
+                                         f"{g.dtype} for {t.shape}")
+            err = max((g.float() - w).abs().max().item()
+                      for g, w in zip(got, want))
+            if dt == "float32":
+                tol, norm = BWD_F32_TOL, None
+                for g, w in zip(got, want):
+                    torch.testing.assert_close(g, w, rtol=tol, atol=tol)
+            else:
+                tol = BWD_BF16_NORM_TOL
+                norm = max(_norm_err(g, w) for g, w in zip(got, want))
+                if not norm <= tol:
+                    raise AssertionError(f"xattn backward {B, Sq, Sk} bf16 "
+                                         f"normalized error {norm}")
+            del ins, want
+            flops = 2.5 * 4.0 * hd * H * B * Sq * Sk
+            b_ms, b_by = bound(nbytes(q, k, v, o, do, lse, *got), flops, dt)
+            sets = rotation((q, k, v, o, do, lse))
+            n = len(sets)
+            reps = 10 if dt == "bfloat16" else 3
+            ms, host_ms = time_ms(lambda i: flash_attention_bwd(
+                *sets[i % n], causal=False), reps)
+            pin = [t.clone().requires_grad_() for t in (q, k, v)]
+            pout = ref.attention(*pin, causal=False)
+            plain_ms = time_ms(lambda i: torch.autograd.grad(
+                pout, pin, do, retain_graph=True), 3)[0]
+            lin = [t.transpose(1, 2).detach().requires_grad_()
+                   for t in (q, k, v)]
+            lout = F.scaled_dot_product_attention(*lin, enable_gqa=True)
+            ldo = do.transpose(1, 2)
+            library_ms = time_ms(lambda i: torch.autograd.grad(
+                lout, lin, ldo, retain_graph=True), reps)[0]
+            row = dict(shape=[B, Sq, Sk, H, KV, hd], dtype=dt, causal=False,
+                       max_abs_err=err, normalized_err=norm, tolerance=tol,
+                       ms=ms, host_ms=host_ms, plain_ms=plain_ms,
+                       library_ms=library_ms, bound_ms=b_ms, bound_by=b_by)
+            rows.append(row)
+            print("flash_attention_bwd xattn", json.dumps(row), flush=True)
+            del pin, pout, lin, lout, sets, got, o, lse
+        torch.cuda.empty_cache()
+    return rows
 
 
 # chunked prefill (C, L, start, window, dtype, head dim, H, KV): at
@@ -4628,13 +4735,7 @@ def zoo_vision(torch, ops, ref):
     cfg = get_config("llama-3.2-vision-11b")
     params = _serving_copy(torch, cfg)
     g = torch.Generator(device="cuda").manual_seed(1)
-    gates = []
-    for gi, grp in enumerate(cfg.groups):
-        for si, kind in enumerate(grp.pattern):
-            if kind == "xattn":
-                gate = params["groups"][f"g{gi}"][f"s{si}"]["mix"]["gate"]
-                gate.uniform_(0.5, 1.5, generator=g)
-                gates.append(gate)
+    gates = _draw_gates(torch, params, cfg, g)
     B, V = VISION_B, cfg.vocab_size
     toks = torch.randint(0, V, (B, VISION_S + VISION_STEPS), generator=g,
                          device="cuda")
@@ -4811,6 +4912,248 @@ def gemma3_training(torch, ops, ref):
     del state, eng, batches
     torch.cuda.empty_cache()
     return {"gemma3_training": launches}
+
+
+# ---------------------------------------------------------------------------
+# phase 14: vision training
+# ---------------------------------------------------------------------------
+
+# llama-3.2-vision-11b training: one ("attn",) * 4 + ("xattn",) group of
+# the 8, batch 2 x 2048 text tokens against 2 x 1600 media tokens, 3
+# steps, SGD, delta 2, chunked cross entropy (its 128,256-entry vocabulary)
+VISION_TRAIN_B, VISION_TRAIN_S, VISION_TRAIN_STEPS = 2, 2048, 3
+VISION_TRAIN_REDUCED = (
+    "layers 40 -> 5: one ('attn', 'attn', 'attn', 'attn', 'xattn') group "
+    "of the 8, every width kept; 2,146,480,129 parameters, 8.00 GiB an "
+    "f32 copy: at delta 2 on the packed ring the engine holds the master "
+    "(8), the 3-row ring (24), the stale read (8), the f32 gradients (8) "
+    "and the new parameters (8), ~56 GiB before activations; AdamW's "
+    "functional update adds m, v and their new copies (+32 GiB, ~88 GiB) "
+    "past the card's 79.2 GiB, so SGD (AdamW waits for an in-place update, "
+    "ROADMAP A9); deeper cuts add 8 GiB a layer group of 5 and more")
+
+
+def _draw_gates(torch, params, cfg, generator) -> list:
+    """Draw every xattn gate of ``params`` in [0.5, 1.5) in place (they
+    start at 0, where tanh(0) hides the layer and its dO is exactly 0):
+    the gate tensors."""
+    gates = []
+    for gi, grp in enumerate(cfg.groups):
+        for si, kind in enumerate(grp.pattern):
+            if kind == "xattn":
+                gate = params["groups"][f"g{gi}"][f"s{si}"]["mix"]["gate"]
+                with torch.no_grad():
+                    gate.uniform_(0.5, 1.5, generator=generator)
+                gates.append(gate)
+    return gates
+
+
+@contextlib.contextmanager
+def backward_held(torch, ref):
+    """While the block runs, hold every call of the flash backward kernel
+    (``flash_attention_bwd``, as ``FlashAttention.backward`` looks it up
+    at each call) against torch autograd of ``ref.attention`` in f32 on
+    the call's own (q, k, v, dO): f32 at rtol = atol BWD_F32_TOL, bf16 at
+    a normalized BWD_BF16_NORM_TOL per gradient, the backward's own
+    gates.  Yields a list of {q, k, causal, window, err} a call; raises on
+    leaving if a call disagrees or none ran.  Not for a counted path: the
+    plain version runs too."""
+    from repro_torch.kernels import flash_attention as fa
+    saved = fa.flash_attention_bwd
+    calls, bad = [], []
+
+    def spy(q, k, v, o, do, lse, causal=True, window=0):
+        got = saved(q, k, v, o, do, lse, causal=causal, window=window)
+        with torch.enable_grad():
+            ins = [t.detach().float().requires_grad_() for t in (q, k, v)]
+            want = torch.autograd.grad(
+                ref.attention(*ins, causal=causal, window=window), ins,
+                do.float())
+        if q.dtype == torch.float32:
+            err = max((g - w).abs().max().item() for g, w in zip(got, want))
+            ok = all(torch.allclose(g, w, rtol=BWD_F32_TOL, atol=BWD_F32_TOL)
+                     for g, w in zip(got, want))
+        else:
+            err = max(_norm_err(g, w) for g, w in zip(got, want))
+            ok = err <= BWD_BF16_NORM_TOL
+        calls.append(dict(q=list(q.shape), k=list(k.shape), causal=causal,
+                          window=window, err=err))
+        if not ok:
+            bad.append(calls[-1])
+        return got
+    fa.flash_attention_bwd = spy
+    try:
+        yield calls
+    finally:
+        fa.flash_attention_bwd = saved
+    if bad or not calls:
+        raise AssertionError(f"backward calls vs autograd of the plain "
+                             f"version: {bad}, {len(calls)} calls")
+
+
+def small_vision_training(torch, ops):
+    """The vision smoke config at f32 (4 self-attention layers and one
+    xattn layer at d 64, 4 heads of 16; media 8 x 24), gates drawn
+    non-zero, 3 SGD steps through the train engine at delta 2 on the
+    packed ring, batch 2 x 96: the card (CUDA kernels, launches counted)
+    against the CPU (plain versions), losses and the xattn layer's and
+    ``frontend_proj``'s parameters within TRAIN_TOL."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.core.sync import SyncConfig
+    from repro_torch.data import LMBatchSpec, make_lm_batch
+    from repro_torch.models import paramlib
+    from repro_torch.models.transformer import model_specs
+    from repro_torch.tree import leaves_with_path
+    cfg = dataclasses.replace(get_smoke_config("llama-3.2-vision-11b"),
+                              dtype=torch.float32)
+    g = torch.Generator().manual_seed(1)
+    params = paramlib.init_tree(model_specs(cfg), g)
+    _draw_gates(torch, params, cfg, g)
+    spec = LMBatchSpec(batch=2, seq_len=96, vocab_size=cfg.vocab_size,
+                       media_tokens=cfg.n_frontend_tokens,
+                       media_dim=cfg.d_frontend, seed=1)
+    sync = SyncConfig(delta=2, remat="none", packed_ring=True)
+    res = {}
+    for dev in ("cpu", "cuda"):
+        batches = [make_lm_batch(spec, t, dev) for t in range(3)]
+        ops.reset_launches()
+        res[dev] = _train_run(torch, cfg, _to(params, dev), "sgd", sync,
+                              batches, 0.05)
+    launches = dict(ops.launches)            # the card's run
+    want = {"flash_attention": 5 * 3, "flash_attention_bwd": 5 * 3}
+    loss_err = ((res["cpu"][0] - res["cuda"][0].cpu()).abs().max().item()
+                / res["cpu"][0].abs().max().item())
+    held = {"/".join(p): (a, b) for (p, a), (_, b) in zip(
+        leaves_with_path(res["cpu"][1]), leaves_with_path(res["cuda"][1]))
+        if p[0] == "frontend_proj" or p[:3] == ("groups", "g0", "s4")}
+    param_err = max((a - b.cpu()).abs().max().item()
+                    for a, b in held.values())
+    print("small f32 vision training, delta 2 packed, SGD, 3 steps:",
+          json.dumps(dict(
+              loss_rel_err_cuda_vs_cpu=loss_err,
+              param_max_abs_err_cuda_vs_cpu=param_err,
+              params_held=sorted(held), losses_cuda=res["cuda"][0].tolist(),
+              launches_cuda=launches, expected_launches=want,
+              tolerance=TRAIN_TOL)), flush=True)
+    if not (loss_err <= TRAIN_TOL and param_err <= TRAIN_TOL):
+        raise AssertionError("small vision training: CUDA and CPU differ")
+    if any(launches[k] != v for k, v in want.items()) or any(
+            c for k, c in launches.items()
+            if k not in want and k != "ring_gather"):
+        raise AssertionError(f"small vision training launches {launches}, "
+                             f"want {want}")
+
+
+def vision_training(torch, ops, ref):
+    """llama-3.2-vision-11b at full width, depth 5 of 40, through the
+    train engine (phase 14; ``VISION_TRAIN_REDUCED``): f32 master, bf16
+    compute, SGD, delta 2 on the packed ring, batch 2 x 2048 with media 2
+    x 1600 x 1280, ``REPRO_CHUNKED_CE=1``, the xattn gate drawn non-zero,
+    3 steps (the path: launch counts reset just before, read just after;
+    flash forward and backward 5 a step, the ring gather once a group and
+    step, no plain version).  Losses finite; the first step's loss
+    against ``lm_loss`` on the plain route; one more step, not counted,
+    with every backward call held on its own inputs
+    (``backward_held``); step p50, peak memory, parameter count."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.sync import SyncConfig
+    from repro_torch.data import LMBatchSpec, make_lm_batch
+    from repro_torch.launch.steps import make_lm_grad_fn
+    from repro_torch.models import paramlib
+    from repro_torch.models.transformer import lm_loss, model_specs
+    from repro_torch.optim import OptConfig, make_optimizer
+    from repro_torch.pdb import make_engine
+    full = get_config("llama-3.2-vision-11b")
+    first = full.groups[0]
+    cfg = dataclasses.replace(full, groups=(dataclasses.replace(first, n=1),))
+    saved_env = os.environ.get("REPRO_CHUNKED_CE")
+    os.environ["REPRO_CHUNKED_CE"] = "1"
+    try:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        params = paramlib.init_tree(
+            model_specs(cfg), torch.Generator(device="cuda").manual_seed(0),
+            dtype=cfg.param_dtype)
+        gates = _draw_gates(torch, params, cfg,
+                            torch.Generator(device="cuda").manual_seed(1))
+        spec = LMBatchSpec(batch=VISION_TRAIN_B, seq_len=VISION_TRAIN_S,
+                           vocab_size=cfg.vocab_size,
+                           media_tokens=cfg.n_frontend_tokens,
+                           media_dim=cfg.d_frontend, seed=0)
+        batches = [make_lm_batch(spec, t, "cuda")
+                   for t in range(VISION_TRAIN_STEPS)]
+        with torch.no_grad(), plain_route(ops):
+            plain_loss = float(lm_loss(params, batches[0], cfg)[0])
+        sync = SyncConfig(delta=TRAIN_DELTA, remat="none", packed_ring=True)
+        eng = make_engine(params, make_lm_grad_fn(cfg, sync),
+                          make_optimizer(OptConfig(name="sgd", lr=3e-4)),
+                          sync)
+        state = eng.init_state()
+        n_params = paramlib.param_count(model_specs(cfg))
+        gate_values = [x for g in gates for x in g.flatten().tolist()]
+        del params, gates
+        torch.cuda.synchronize()
+        print(f"llama-3.2-vision-11b training state ready in "
+              f"{time.perf_counter() - t0:.2f} s: {n_params} params, "
+              f"{torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB allocated",
+              flush=True)
+        losses, step_s = [], []
+        ops.reset_launches()                 # the path starts here
+        with plain_versions_counted(ref) as plain_calls:
+            for b in batches:
+                t1 = time.perf_counter()
+                state, m = eng.step(state, b)
+                losses.append(float(m["loss"]))   # syncs with the device
+                step_s.append(time.perf_counter() - t1)
+        launches = dict(ops.launches)        # ... and ends here
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        # one more step, not counted: every backward call on its own inputs
+        with backward_held(torch, ref) as held:
+            state, m = eng.step(state, batches[0])
+            held_loss = float(m["loss"])
+    finally:
+        if saved_env is None:
+            os.environ.pop("REPRO_CHUNKED_CE", None)
+        else:
+            os.environ["REPRO_CHUNKED_CE"] = saved_env
+    n_attn, n_x = _n_self_attn(cfg), cfg.layer_kinds.count("xattn")
+    steps = VISION_TRAIN_STEPS
+    want = {"flash_attention": (n_attn + n_x) * steps,
+            "flash_attention_bwd": (n_attn + n_x) * steps,
+            "ring_gather": len(state.hist) * steps}
+    xattn_calls = [c for c in held if c["q"][1] != c["k"][1]]
+    rel = abs(losses[0] - plain_loss) / abs(plain_loss)
+    print("llama-3.2-vision-11b training:", json.dumps(dict(
+        layers=len(cfg.layer_kinds), reduced=VISION_TRAIN_REDUCED,
+        parameters=n_params, batch=VISION_TRAIN_B, seq=VISION_TRAIN_S,
+        media=[VISION_TRAIN_B, cfg.n_frontend_tokens, cfg.d_frontend],
+        delta=TRAIN_DELTA, optimizer="sgd", chunked_ce=True, steps=steps,
+        xattn_gates=gate_values, losses=losses,
+        first_loss_plain_route=plain_loss, first_loss_rel_err=rel,
+        tolerance=ZOO_LOSS_REL, step_s=step_s, step_s_p50=_p50(step_s),
+        launches=launches, expected_launches=want,
+        plain_version_calls=plain_calls, telemetry=eng.telemetry.summary(),
+        peak_mem_gib=peak, held_step_loss=held_loss,
+        backward_calls_held=held,
+        backward_tolerance=dict(bf16_normalized=BWD_BF16_NORM_TOL,
+                                f32=BWD_F32_TOL))), flush=True)
+    if not all(math.isfinite(x) for x in losses + [held_loss]) or \
+            not rel <= ZOO_LOSS_REL:
+        raise AssertionError(f"vision losses {losses}, plain {plain_loss}")
+    if any(launches[k] != v for k, v in want.items()) or \
+            sum(launches.values()) != sum(want.values()):
+        raise AssertionError(f"vision training launches {launches}, want "
+                             f"{want}")
+    if any(plain_calls.values()):
+        raise AssertionError(f"vision training: plain versions ran: "
+                             f"{plain_calls}")
+    if len(held) != n_attn + n_x or len(xattn_calls) != n_x:
+        raise AssertionError(f"vision training: {len(held)} backward calls "
+                             f"held, {len(xattn_calls)} at Sq != Sk")
+    del state, eng, batches
+    torch.cuda.empty_cache()
+    return {"vision_training": launches}
 
 
 def print_ptxas(source: str, log: str) -> dict[str, tuple[int, int]]:
@@ -5124,6 +5467,8 @@ def main() -> int:
                            ref, arch))
     paths.update(timed("vision_serving", zoo_vision, torch, ops, ref))
     paths.update(timed("gemma3_training", gemma3_training, torch, ops, ref))
+    timed("small_vision_training", small_vision_training, torch, ops)
+    paths.update(timed("vision_training", vision_training, torch, ops, ref))
     timed("server_processes_stopped", server_processes_stopped)
     print("phase seconds:", json.dumps(dict(
         phase_s, total=time.perf_counter() - t0)), flush=True)
@@ -5179,7 +5524,7 @@ def main() -> int:
             bound_by=row["bound_by"], library_ms=row["library_ms"],
             host_ms=row["host_ms"], shape=row["shape"],
             **{k: row[k] for k in ("hd128", "hd256", "gemma3", "group1",
-                                   "xattn",
+                                   "xattn", "xattn_bwd",
                                    "shapes", "edge_cases",
                                    "library", "serial_steps", "state_bytes",
                                    "checkpoint_bytes", "chunk", "threads",

@@ -1,6 +1,7 @@
 // Causal / sliding-window GQA flash attention: forward for prefill and
-// training, and its backward for training; the forward also serves the
-// vision model's non-causal cross-attention (Sq != Sk).
+// training, and its backward for training; both also take the vision
+// model's non-causal cross-attention (Sq != Sk), which it serves and trains
+// through.
 //
 // Forward: replaces the Pallas TPU kernel repro/kernels/flash_attention.py
 // (flash_attention, pallas_call at :114).  Same function: q (B,Sq,H,hd),
@@ -14,13 +15,19 @@
 // which the backward needs; serving passes no lse buffer and pays nothing
 // for it.
 //
-// Backward (Sq == Sk): the TPU package has none (it trains through
-// autodiff of its plain attention); this is the gradient of the forward
-// above, given dO:
+// Backward: the TPU package has none (it trains through autodiff of its
+// plain attention); this is the gradient of the forward above, given dO,
+// at Sq == Sk and, non-causal and unwindowed, at Sq != Sk (the xattn
+// layers' q rows of text against Sk media keys):
 //   P  = exp(scale * q.k - lse)        (recomputed, never stored)
 //   D  = rowsum(dO * O)
 //   dV = P^T dO,  dS = P * (dO V^T - D),  dK = scale dS^T Q,  dQ = scale dS K
-// with the GQA group's q heads summed into their kv head's dK and dV.
+// with the GQA group's q heads summed into their kv head's dK and dV.  D,
+// lse and the dQ grid run over Sq rows, the dK/dV grid and its scratch
+// over Sk keys.  A zero-filled q row past Sq (or key past Sk) is not dead
+// by itself: it scores 0, and exp(0 - lse) is not 0; every tail tile
+// takes the per-element mask of both lengths, and lse and D past Sq are
+// never read.  At Sq != Sk (non-causal) no tile is skipped.
 //
 // Bound on the H100: a causal prefill does 4 * hd * H * B * S(S+1)/2 FLOPs
 // on B*S*(2H+2KV)*hd*elem bytes (q, k, v read, o written), about 0.4*S
@@ -91,9 +98,9 @@
 //   backward (a) as f32: D = rowsum(dO * O), one warp per row;
 //   backward (b) one block per (64-key tile, chunk of hpb q heads of a kv
 //     head's group, batch row), streaming the chunk's live (q head, q
-//     tile) pairs: f32 partial dK, dV into (B, S, KV * group/hpb, hd)
-//     scratch.  Blocks per batch row: ceil(S/64) * H/hpb; the wrapper
-//     picks hpb from (S, H, KV) alone, never from B (132+ blocks at the
+//     tile) pairs: f32 partial dK, dV into (B, Sk, KV * group/hpb, hd)
+//     scratch.  Blocks per batch row: ceil(Sk/64) * H/hpb; the wrapper
+//     picks hpb from (Sk, H, KV) alone, never from B (132+ blocks at the
 //     training shapes: 320 at recurrentgemma's B4 S512, 1024 at llama's);
 //   backward (b') sums each kv head's partials in a fixed order into dK
 //     (times the scale) and dV in bf16;
@@ -314,19 +321,19 @@ __global__ void __launch_bounds__(NT)
   }
 }
 
-// (a) D[b, h, s] = sum_d dO[b, s, h, d] * O[b, s, h, d] in f32; one warp
-// per row
+// (a) D[b, h, s] = sum_d dO[b, s, h, d] * O[b, s, h, d] in f32 over the
+// B*H*Sq query rows; one warp per row
 template <typename T>
 __global__ void __launch_bounds__(NT)
     flash_bwd_dot_kernel(const T* __restrict__ o, const T* __restrict__ dout,
-                         float* __restrict__ D, int B, int S, int H, int hd,
+                         float* __restrict__ D, int B, int Sq, int H, int hd,
                          Strides so, Strides sdo) {
   const long long row = (long long)blockIdx.x * (NT / 32) + (threadIdx.x >> 5);
-  if (row >= (long long)B * H * S) return;
+  if (row >= (long long)B * H * Sq) return;
   const int lane = threadIdx.x & 31;
-  const int s = (int)(row % S);
-  const int h = (int)((row / S) % H);
-  const int b = (int)(row / ((long long)S * H));
+  const int s = (int)(row % Sq);
+  const int h = (int)((row / Sq) % H);
+  const int b = (int)(row / ((long long)Sq * H));
   const T* ob = o + b * so.b + s * so.s + h * so.h;
   const T* db = dout + b * sdo.b + s * sdo.s + h * sdo.h;
   float acc = 0.f;
@@ -338,7 +345,8 @@ __global__ void __launch_bounds__(NT)
   if (lane == 0) D[row] = acc;
 }
 
-// (b) dK and dV of one KR-key tile of one kv head, summed over the group
+// (b) dK and dV of one KR-key tile of one kv head, summed over the group:
+// the q tiles walk Sq, the key tiles Sk
 template <typename T, int HD, int KR, int QR>
 __global__ void __launch_bounds__(NT)
     flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
@@ -346,7 +354,7 @@ __global__ void __launch_bounds__(NT)
                           const T* __restrict__ dout,
                           const float* __restrict__ lse,
                           const float* __restrict__ D, T* __restrict__ dk,
-                          T* __restrict__ dv, int S, int H, int hd,
+                          T* __restrict__ dv, int Sq, int Sk, int H, int hd,
                           int group, Strides sq, Strides sk, Strides sv,
                           Strides sdo, Strides sdk, Strides sdv, float scale,
                           int causal, int window) {
@@ -370,8 +378,8 @@ __global__ void __launch_bounds__(NT)
   const int ty = tid >> 4;  // keys ty*KPT .. ty*KPT+KPT-1
   const int tx = tid & 15;  // queries tx + 16*j; dims tx + 16*j
 
-  load_tile<T, HD, KR>(Ks, k + b * sk.b + kvh * sk.h, sk.s, k0, S, hd);
-  load_tile<T, HD, KR>(Vs, v + b * sv.b + kvh * sv.h, sv.s, k0, S, hd);
+  load_tile<T, HD, KR>(Ks, k + b * sk.b + kvh * sk.h, sk.s, k0, Sk, hd);
+  load_tile<T, HD, KR>(Vs, v + b * sv.b + kvh * sv.h, sv.s, k0, Sk, hd);
 
   float adk[KPT][DPT], adv[KPT][DPT];
 #pragma unroll
@@ -380,24 +388,24 @@ __global__ void __launch_bounds__(NT)
     for (int j = 0; j < DPT; ++j) adk[i][j] = adv[i][j] = 0.f;
 
   // live queries of this key tile: qpos >= kpos (causal) and
-  // qpos < kpos + window
+  // qpos < kpos + window (Sq == Sk there); non-causal, every q tile
   const int q_begin = causal ? (k0 / QR) * QR : 0;
-  const int q_end = window > 0 ? min(S, k0 + KR - 1 + window) : S;
+  const int q_end = window > 0 ? min(Sq, k0 + KR - 1 + window) : Sq;
 
   for (int hh = 0; hh < group; ++hh) {
     const int h = kvh * group + hh;
     const T* qb = q + b * sq.b + h * sq.h;
     const T* db = dout + b * sdo.b + h * sdo.h;
-    const float* lse_b = lse + ((long long)b * H + h) * S;
-    const float* D_b = D + ((long long)b * H + h) * S;
+    const float* lse_b = lse + ((long long)b * H + h) * Sq;
+    const float* D_b = D + ((long long)b * H + h) * Sq;
     for (int q0 = q_begin; q0 < q_end; q0 += QR) {
       __syncthreads();  // the previous tile's Qs/dOs/Ps/dSs are not read
-      load_tile<T, HD, QR>(Qs, qb, sq.s, q0, S, hd);
-      load_tile<T, HD, QR>(dOs, db, sdo.s, q0, S, hd);
+      load_tile<T, HD, QR>(Qs, qb, sq.s, q0, Sq, hd);
+      load_tile<T, HD, QR>(dOs, db, sdo.s, q0, Sq, hd);
       if (tid < QR) {
         const int s = q0 + tid;
-        lse_s[tid] = s < S ? lse_b[s] : 0.f;
-        D_s[tid] = s < S ? D_b[s] : 0.f;
+        lse_s[tid] = s < Sq ? lse_b[s] : 0.f;
+        D_s[tid] = s < Sq ? D_b[s] : 0.f;
       }
       __syncthreads();
 
@@ -433,7 +441,8 @@ __global__ void __launch_bounds__(NT)
 #pragma unroll
         for (int j = 0; j < QPT; ++j) {
           const int c = tx + 16 * j;
-          const float p = is_live(q0 + c, kpos, S, S, causal, window)
+          // a zero-filled row past Sq would score 0, not -inf: masked
+          const float p = is_live(q0 + c, kpos, Sq, Sk, causal, window)
                               ? expf(sc[i][j] * scale - lse_s[c])
                               : 0.f;
           Ps[(ty * KPT + i) * (QR + 1) + c] = p;
@@ -469,7 +478,7 @@ __global__ void __launch_bounds__(NT)
 #pragma unroll
   for (int i = 0; i < KPT; ++i) {
     const int s = k0 + ty * KPT + i;
-    if (s >= S) continue;
+    if (s >= Sk) continue;
 #pragma unroll
     for (int j = 0; j < DPT; ++j) {
       const int d = tx + 16 * j;
@@ -480,14 +489,15 @@ __global__ void __launch_bounds__(NT)
   }
 }
 
-// (c) dQ of one QR-row q tile of one q head
+// (c) dQ of one QR-row q tile of one q head: the q tiles walk Sq, the key
+// tiles Sk
 template <typename T, int HD, int QR, int KR>
 __global__ void __launch_bounds__(NT)
     flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                         const T* __restrict__ v, const T* __restrict__ dout,
                         const float* __restrict__ lse,
                         const float* __restrict__ D, T* __restrict__ dq,
-                        int S, int H, int hd, int group, Strides sq,
+                        int Sq, int Sk, int H, int hd, int group, Strides sq,
                         Strides sk, Strides sv, Strides sdo, Strides sdq,
                         float scale, int causal, int window) {
   constexpr int DPT = HD / 16;
@@ -510,13 +520,13 @@ __global__ void __launch_bounds__(NT)
   const int ty = tid >> 4;  // queries ty*QPT .. ty*QPT+QPT-1
   const int tx = tid & 15;  // keys tx + 16*j; dims tx + 16*j
 
-  load_tile<T, HD, QR>(Qs, q + b * sq.b + h * sq.h, sq.s, q0, S, hd);
-  load_tile<T, HD, QR>(dOs, dout + b * sdo.b + h * sdo.h, sdo.s, q0, S, hd);
+  load_tile<T, HD, QR>(Qs, q + b * sq.b + h * sq.h, sq.s, q0, Sq, hd);
+  load_tile<T, HD, QR>(dOs, dout + b * sdo.b + h * sdo.h, sdo.s, q0, Sq, hd);
   if (tid < QR) {
     const int s = q0 + tid;
-    const long long r = ((long long)b * H + h) * S + s;
-    lse_s[tid] = s < S ? lse[r] : 0.f;
-    D_s[tid] = s < S ? D[r] : 0.f;
+    const long long r = ((long long)b * H + h) * Sq + s;
+    lse_s[tid] = s < Sq ? lse[r] : 0.f;
+    D_s[tid] = s < Sq ? D[r] : 0.f;
   }
   const T* kb = k + b * sk.b + kvh * sk.h;
   const T* vb = v + b * sv.b + kvh * sv.h;
@@ -527,14 +537,15 @@ __global__ void __launch_bounds__(NT)
 #pragma unroll
     for (int j = 0; j < DPT; ++j) acc[i][j] = 0.f;
 
-  const int k_end = causal ? min(S, q0 + QR) : S;
+  // non-causal (Sq != Sk included): every key tile, none skipped
+  const int k_end = causal ? min(Sk, q0 + QR) : Sk;
   int k_begin = 0;
   if (window > 0) k_begin = (max(0, q0 - window + 1) / KR) * KR;
 
   for (int k0 = k_begin; k0 < k_end; k0 += KR) {
     __syncthreads();  // the previous tile's Ks/Vs/dSs are no longer read
-    load_tile<T, HD, KR>(Ks, kb, sk.s, k0, S, hd);
-    load_tile<T, HD, KR>(Vs, vb, sv.s, k0, S, hd);
+    load_tile<T, HD, KR>(Ks, kb, sk.s, k0, Sk, hd);
+    load_tile<T, HD, KR>(Vs, vb, sv.s, k0, Sk, hd);
     __syncthreads();
 
     float sc[QPT][KPT], dp[QPT][KPT];
@@ -569,7 +580,8 @@ __global__ void __launch_bounds__(NT)
 #pragma unroll
       for (int j = 0; j < KPT; ++j) {
         const int c = tx + 16 * j;
-        const float p = is_live(q0 + r, k0 + c, S, S, causal, window)
+        // a zero-filled key past Sk would score 0, not -inf: masked
+        const float p = is_live(q0 + r, k0 + c, Sq, Sk, causal, window)
                             ? expf(sc[i][j] * scale - lse_s[r])
                             : 0.f;
         dSs[r * (KR + 1) + c] = p * (dp[i][j] - D_s[r]);
@@ -596,7 +608,7 @@ __global__ void __launch_bounds__(NT)
 #pragma unroll
   for (int i = 0; i < QPT; ++i) {
     const int s = q0 + ty * QPT + i;
-    if (s >= S) continue;
+    if (s >= Sq) continue;
 #pragma unroll
     for (int j = 0; j < DPT; ++j) {
       const int d = tx + 16 * j;
@@ -835,9 +847,10 @@ __global__ void __launch_bounds__(FWD_TC_NT)
   }
 }
 
-// backward (b), bf16: f32 partial dK and dV of one 64-key tile over hpb q
-// heads of one kv head's group (a chunk); partial index blockIdx.y = kvh *
-// split + chunk of the (B, S, KV * split, hd) f32 scratch.  Eight warps:
+// backward (b), bf16: f32 partial dK and dV of one 64-key tile (of Sk)
+// over hpb q heads of one kv head's group (a chunk), walking their q tiles
+// (of Sq); partial index blockIdx.y = kvh * split + chunk of the (B, Sk,
+// KV * split, hd) f32 scratch.  Eight warps:
 // for the products over the head dim (S^T = K Q^T, dP^T = V dO^T) warp w
 // takes keys 16 (w % 4) and queries 32 (w / 4); P^T and dS^T go to shared
 // memory in bf16; for the products over the queries (dV += P^T dO, dK +=
@@ -851,7 +864,7 @@ __global__ void __launch_bounds__(BWD_TC_NT)
                              const float* __restrict__ lse,
                              const float* __restrict__ D,
                              float* __restrict__ dkp, float* __restrict__ dvp,
-                             int S, int H, int hd, int group, int hpb,
+                             int Sq, int Sk, int H, int hd, int group, int hpb,
                              Strides sq, Strides sk, Strides sv, Strides sdo,
                              float scale_log2, int causal, int window) {
   constexpr int R = TC_ROWS;
@@ -874,8 +887,9 @@ __global__ void __launch_bounds__(BWD_TC_NT)
   const int wr = (warp & 3) * 16;  // this warp's keys
   const int wc = warp >> 2;        // its half of the queries / head dims
 
+  // causal and windowed only at Sq == Sk; non-causal, every q tile
   const int q_begin = causal ? (k0 / R) * R : 0;
-  const int q_end = window > 0 ? min(S, k0 + R - 1 + window) : S;
+  const int q_end = window > 0 ? min(Sq, k0 + R - 1 + window) : Sq;
   const int nq = (q_end - q_begin + R - 1) / R;
   const int n_tiles = hpb * nq;
 
@@ -883,21 +897,22 @@ __global__ void __launch_bounds__(BWD_TC_NT)
   auto load_q_tile = [&](int t, uint32_t st) {
     const int h = h_first + t / nq, q0 = q_begin + (t % nq) * R;
     load_tile_async<R, HD, BWD_TC_NT>(st, q + b * sq.b + h * sq.h, sq.s, q0,
-                                      S, hd);
+                                      Sq, hd);
     load_tile_async<R, HD, BWD_TC_NT>(st + TILE, dout + b * sdo.b + h * sdo.h,
-                                      sdo.s, q0, S, hd);
+                                      sdo.s, q0, Sq, hd);
     const int i = threadIdx.x;
     if (i < 2 * R) {
+      // lse and D past Sq are never read from memory: zero-filled
       const int s_ = q0 + (i % R);
-      const float* src = (i < R ? lse : D) + ((long long)b * H + h) * S;
-      cp_async4(st + 2 * TILE + i * 4, s_ < S ? src + s_ : src, s_ < S);
+      const float* src = (i < R ? lse : D) + ((long long)b * H + h) * Sq;
+      cp_async4(st + 2 * TILE + i * 4, s_ < Sq ? src + s_ : src, s_ < Sq);
     }
   };
 
   load_tile_async<R, HD, BWD_TC_NT>(Ks, k + b * sk.b + kvh * sk.h, sk.s, k0,
-                                    S, hd);
+                                    Sk, hd);
   load_tile_async<R, HD, BWD_TC_NT>(Vs, v + b * sv.b + kvh * sv.h, sv.s, k0,
-                                    S, hd);
+                                    Sk, hd);
   load_q_tile(0, St);
   cp_async_commit();
 
@@ -941,7 +956,9 @@ __global__ void __launch_bounds__(BWD_TC_NT)
         mma_bf16(dpt[2 * n2 + 1], av, bo + 2);
       }
     }
-    const bool edge = tile_has_dead(q0, R, k0, R, S, S, causal, window);
+    // a q row past Sq scores 0 against every key (zero-filled), and
+    // exp(0 - 0) is not 0: the tail tiles take the per-element mask
+    const bool edge = tile_has_dead(q0, R, k0, R, Sq, Sk, causal, window);
 #pragma unroll
     for (int n = 0; n < 4; ++n)
 #pragma unroll
@@ -952,7 +969,7 @@ __global__ void __launch_bounds__(BWD_TC_NT)
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
           const bool live =
-              !edge || is_live(q0 + c + e, k0 + r, S, S, causal, window);
+              !edge || is_live(q0 + c + e, k0 + r, Sq, Sk, causal, window);
           p[e] = live ? exp2f(st_[n][j + e] * scale_log2 -
                               lse_s[c + e] * LOG2E)
                       : 0.f;
@@ -992,8 +1009,9 @@ __global__ void __launch_bounds__(BWD_TC_NT)
     for (int j = 0; j < 4; j += 2) {
       const int s_ = k0 + wr + (lane >> 2) + 8 * (j >> 1);
       const int d = wc * (HD / 2) + 8 * n + 2 * (lane & 3);
-      if (s_ >= S || d >= hd) continue;
-      const long long off = (((long long)b * S + s_) * P + blockIdx.y) * hd + d;
+      if (s_ >= Sk || d >= hd) continue;
+      const long long off =
+          (((long long)b * Sk + s_) * P + blockIdx.y) * hd + d;
       *reinterpret_cast<float2*>(dkp + off) = make_float2(adk[n][j],
                                                           adk[n][j + 1]);
       *reinterpret_cast<float2*>(dvp + off) = make_float2(adv[n][j],
@@ -1002,21 +1020,22 @@ __global__ void __launch_bounds__(BWD_TC_NT)
 }
 
 // backward (b'), bf16: dK = scale * sum and dV = sum of a kv head's split
-// partials, in a fixed order; one thread per two head dims
+// partials, in a fixed order, over the B*Sk*KV key rows; one thread per two
+// head dims
 __global__ void __launch_bounds__(NT)
     flash_bwd_reduce_kernel(const float* __restrict__ dkp,
                             const float* __restrict__ dvp,
                             bf16* __restrict__ dk, bf16* __restrict__ dv,
-                            int B, int S, int KV, int hd, int split,
+                            int B, int Sk, int KV, int hd, int split,
                             Strides sdk, Strides sdv, float scale) {
   const int hp = hd / 2;
-  const long long n = (long long)B * S * KV * hp;
+  const long long n = (long long)B * Sk * KV * hp;
   for (long long i = (long long)blockIdx.x * NT + threadIdx.x; i < n;
        i += (long long)gridDim.x * NT) {
     const int d = 2 * (int)(i % hp);
     const int kvh = (int)((i / hp) % KV);
-    const long long bs = i / ((long long)hp * KV);  // b * S + s
-    const int s_ = (int)(bs % S), b = (int)(bs / S);
+    const long long bs = i / ((long long)hp * KV);  // b * Sk + s
+    const int s_ = (int)(bs % Sk), b = (int)(bs / Sk);
     const float* pk = dkp + ((bs * KV + kvh) * split) * hd + d;
     const float* pv = dvp + ((bs * KV + kvh) * split) * hd + d;
     float2 sk_ = make_float2(0.f, 0.f), sv_ = make_float2(0.f, 0.f);
@@ -1037,7 +1056,8 @@ __global__ void __launch_bounds__(NT)
   }
 }
 
-// backward (c), bf16: dQ of one 64-row q tile of one q head.  Eight warps:
+// backward (c), bf16: dQ of one 64-row q tile (of Sq) of one q head,
+// walking the 64-key tiles (of Sk).  Eight warps:
 // for S = Q K^T and dP = dO V^T warp w takes rows 16 (w % 4) and keys
 // 32 (w / 4); dS goes to shared memory in bf16; for dQ += dS K warp w
 // takes rows 16 (w % 4) and head dims HD/2 (w / 4).  K/V tiles through a
@@ -1050,7 +1070,7 @@ __global__ void __launch_bounds__(BWD_TC_NT)
                            const bf16* __restrict__ dout,
                            const float* __restrict__ lse,
                            const float* __restrict__ D, bf16* __restrict__ dq,
-                           int S, int H, int hd, int group, Strides sq,
+                           int Sq, int Sk, int H, int hd, int group, Strides sq,
                            Strides sk, Strides sv, Strides sdo, Strides sdq,
                            float scale, float scale_log2, int causal,
                            int window) {
@@ -1072,25 +1092,26 @@ __global__ void __launch_bounds__(BWD_TC_NT)
   const bf16* kb = k + b * sk.b + kvh * sk.h;
   const bf16* vb = v + b * sv.b + kvh * sv.h;
 
-  const int k_end = causal ? min(S, q0 + R) : S;
+  // non-causal (Sq != Sk included): every key tile, none skipped
+  const int k_end = causal ? min(Sk, q0 + R) : Sk;
   const int k_begin = window > 0 ? (max(0, q0 - window + 1) / R) * R : 0;
   const int n_tiles = (k_end - k_begin + R - 1) / R;
 
-  load_tile_async<R, HD, BWD_TC_NT>(Qs, q + b * sq.b + h * sq.h, sq.s, q0, S,
+  load_tile_async<R, HD, BWD_TC_NT>(Qs, q + b * sq.b + h * sq.h, sq.s, q0, Sq,
                                     hd);
   load_tile_async<R, HD, BWD_TC_NT>(dOs, dout + b * sdo.b + h * sdo.h, sdo.s,
-                                    q0, S, hd);
-  load_tile_async<R, HD, BWD_TC_NT>(St, kb, sk.s, k_begin, S, hd);
-  load_tile_async<R, HD, BWD_TC_NT>(St + TILE, vb, sv.s, k_begin, S, hd);
+                                    q0, Sq, hd);
+  load_tile_async<R, HD, BWD_TC_NT>(St, kb, sk.s, k_begin, Sk, hd);
+  load_tile_async<R, HD, BWD_TC_NT>(St + TILE, vb, sv.s, k_begin, Sk, hd);
   cp_async_commit();
 
   float lse_r[2], D_r[2];
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     const int s_ = q0 + wr + (lane >> 2) + 8 * i;
-    const long long r = ((long long)b * H + h) * S + s_;
-    lse_r[i] = s_ < S ? lse[r] * LOG2E : 0.f;
-    D_r[i] = s_ < S ? D[r] : 0.f;
+    const long long r = ((long long)b * H + h) * Sq + s_;
+    lse_r[i] = s_ < Sq ? lse[r] * LOG2E : 0.f;
+    D_r[i] = s_ < Sq ? D[r] : 0.f;
   }
   float acc[NB][4];
 #pragma unroll
@@ -1104,8 +1125,8 @@ __global__ void __launch_bounds__(BWD_TC_NT)
     __syncthreads();  // tile t is in; every warp is done with tile t-1
     if (t + 1 < n_tiles) {
       const uint32_t nxt = St + ((t + 1) & 1) * 2 * TILE;
-      load_tile_async<R, HD, BWD_TC_NT>(nxt, kb, sk.s, k0 + R, S, hd);
-      load_tile_async<R, HD, BWD_TC_NT>(nxt + TILE, vb, sv.s, k0 + R, S, hd);
+      load_tile_async<R, HD, BWD_TC_NT>(nxt, kb, sk.s, k0 + R, Sk, hd);
+      load_tile_async<R, HD, BWD_TC_NT>(nxt + TILE, vb, sv.s, k0 + R, Sk, hd);
       cp_async_commit();
     }
     const uint32_t Ks = St + (t & 1) * 2 * TILE, Vs = Ks + TILE;
@@ -1131,7 +1152,9 @@ __global__ void __launch_bounds__(BWD_TC_NT)
         mma_bf16(dp[2 * n2 + 1], ao, bv + 2);
       }
     }
-    const bool edge = tile_has_dead(q0, R, k0, R, S, S, causal, window);
+    // a key past Sk scores 0 against every row (zero-filled), and exp(0 -
+    // lse) is not 0: the tail tiles take the per-element mask
+    const bool edge = tile_has_dead(q0, R, k0, R, Sq, Sk, causal, window);
 #pragma unroll
     for (int n = 0; n < 4; ++n)
 #pragma unroll
@@ -1143,7 +1166,7 @@ __global__ void __launch_bounds__(BWD_TC_NT)
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
           const bool live =
-              !edge || is_live(q0 + r, k0 + c + e, S, S, causal, window);
+              !edge || is_live(q0 + r, k0 + c + e, Sq, Sk, causal, window);
           const float p =
               live ? exp2f(sc[n][j + e] * scale_log2 - lse_r[i]) : 0.f;
           ds[e] = p * (dp[n][j + e] - D_r[i]);
@@ -1174,7 +1197,7 @@ __global__ void __launch_bounds__(BWD_TC_NT)
     for (int j = 0; j < 4; j += 2) {
       const int s_ = q0 + wr + (lane >> 2) + 8 * (j >> 1);
       const int d = wc * (HD / 2) + 8 * n + 2 * (lane & 3);
-      if (s_ < S && d < hd)
+      if (s_ < Sq && d < hd)
         *reinterpret_cast<__nv_bfloat162*>(dqb + (long long)s_ * sdq.s + d) =
             __floats2bfloat162_rn(acc[n][j] * scale, acc[n][j + 1] * scale);
     }
@@ -1283,17 +1306,19 @@ extern "C" int flash_attention_fwd(const void* q, const void* k,
 }
 
 // strides: 24 values, (b, s, h) in elements for q, k, v, o, dO, dq, dk, dv
-// in that order; the head dim is contiguous in all eight.  lse: (B, H, S)
-// f32 from the forward; D: (B, H, S) f32 scratch.  bf16 only: dkp and dvp
-// (B, S, KV * H/KV/hpb, hd) f32 scratch for the partial dK and dV of
-// chunks of hpb q heads (hpb divides H/KV); f32 passes null and 0.
+// in that order; the head dim is contiguous in all eight.  q, o, dO and dq
+// hold Sq rows, k, v, dk and dv Sk (Sq != Sk non-causal and unwindowed
+// only: the wrapper checks).  lse: (B, H, Sq) f32 from the forward; D:
+// (B, H, Sq) f32 scratch.  bf16 only: dkp and dvp (B, Sk, KV * H/KV/hpb,
+// hd) f32 scratch for the partial dK and dV of chunks of hpb q heads (hpb
+// divides H/KV); f32 passes null and 0.
 extern "C" int flash_attention_bwd(const void* q, const void* k,
                                    const void* v, const void* o,
                                    const void* dout, const void* lse,
                                    void* D, void* dq, void* dk, void* dv,
                                    void* dkp, void* dvp, int dtype, int B,
-                                   int S, int H, int KV, int hd, int hpb,
-                                   const long long* st, float scale,
+                                   int Sq, int Sk, int H, int KV, int hd,
+                                   int hpb, const long long* st, float scale,
                                    int causal, int window, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const Strides sq = strides_at(st, 0), sk = strides_at(st, 1),
@@ -1303,7 +1328,7 @@ extern "C" int flash_attention_bwd(const void* q, const void* k,
   const int group = H / KV;
   const float* tlse = static_cast<const float*>(lse);
   float* tD = static_cast<float*>(D);
-  const long long rows = (long long)B * H * S;
+  const long long rows = (long long)B * H * Sq;
   const unsigned dot_blocks = (unsigned)((rows + NT / 32 - 1) / (NT / 32));
 
   if (dtype == kF32) {
@@ -1313,7 +1338,7 @@ extern "C" int flash_attention_bwd(const void* q, const void* k,
     const T* tv = static_cast<const T*>(v);
     const T* tdo = static_cast<const T*>(dout);
     flash_bwd_dot_kernel<T><<<dot_blocks, NT, 0, s>>>(
-        static_cast<const T*>(o), tdo, tD, B, S, H, hd, so, sdo);
+        static_cast<const T*>(o), tdo, tD, B, Sq, H, hd, so, sdo);
     int err = (int)cudaGetLastError();
     if (err) return err;
     return with_hd(hd, [&](auto hdc) {
@@ -1323,19 +1348,19 @@ extern "C" int flash_attention_bwd(const void* q, const void* k,
       auto kv_kern = flash_bwd_dkdv_kernel<T, HD, R, BQ>;
       int e = allow_smem(kv_kern, smem);
       if (e) return e;
-      kv_kern<<<dim3((S + R - 1) / R, KV, B), NT, smem, s>>>(
+      kv_kern<<<dim3((Sk + R - 1) / R, KV, B), NT, smem, s>>>(
           tq, tk, tv, tdo, tlse, tD, static_cast<T*>(dk),
-          static_cast<T*>(dv), S, H, hd, group, sq, sk, sv, sdo, sdk, sdv,
-          scale, causal, window);
+          static_cast<T*>(dv), Sq, Sk, H, hd, group, sq, sk, sv, sdo, sdk,
+          sdv, scale, causal, window);
       e = (int)cudaGetLastError();
       if (e) return e;
       smem = dq_smem_bytes<HD, R, BK>();
       auto q_kern = flash_bwd_dq_kernel<T, HD, R, BK>;
       e = allow_smem(q_kern, smem);
       if (e) return e;
-      q_kern<<<dim3((S + R - 1) / R, H, B), NT, smem, s>>>(
-          tq, tk, tv, tdo, tlse, tD, static_cast<T*>(dq), S, H, hd, group,
-          sq, sk, sv, sdo, sdq, scale, causal, window);
+      q_kern<<<dim3((Sq + R - 1) / R, H, B), NT, smem, s>>>(
+          tq, tk, tv, tdo, tlse, tD, static_cast<T*>(dq), Sq, Sk, H, hd,
+          group, sq, sk, sv, sdo, sdq, scale, causal, window);
       return (int)cudaGetLastError();
     });
   }
@@ -1348,35 +1373,37 @@ extern "C" int flash_attention_bwd(const void* q, const void* k,
   float* tdkp = static_cast<float*>(dkp);
   float* tdvp = static_cast<float*>(dvp);
   flash_bwd_dot_kernel<bf16><<<dot_blocks, NT, 0, s>>>(
-      static_cast<const bf16*>(o), tdo, tD, B, S, H, hd, so, sdo);
+      static_cast<const bf16*>(o), tdo, tD, B, Sq, H, hd, so, sdo);
   int err = (int)cudaGetLastError();
   if (err) return err;
   return with_hd(hd, [&](auto hdc) {
     constexpr int HD = decltype(hdc)::value;
     const int split = group / hpb;
-    const int n_tiles = (S + TC_ROWS - 1) / TC_ROWS;
+    const int k_tiles = (Sk + TC_ROWS - 1) / TC_ROWS;
+    const int q_tiles = (Sq + TC_ROWS - 1) / TC_ROWS;
     auto kv_kern = flash_bwd_dkdv_kernel_tc<HD>;
     int e = allow_smem(kv_kern, dkdv_tc_smem<HD>());
     if (e) return e;
-    kv_kern<<<dim3(n_tiles, KV * split, B), BWD_TC_NT, dkdv_tc_smem<HD>(),
-              s>>>(tq, tk, tv, tdo, tlse, tD, tdkp, tdvp, S, H, hd, group,
-                   hpb, sq, sk, sv, sdo, scale * LOG2E, causal, window);
+    kv_kern<<<dim3(k_tiles, KV * split, B), BWD_TC_NT, dkdv_tc_smem<HD>(),
+              s>>>(tq, tk, tv, tdo, tlse, tD, tdkp, tdvp, Sq, Sk, H, hd,
+                   group, hpb, sq, sk, sv, sdo, scale * LOG2E, causal,
+                   window);
     e = (int)cudaGetLastError();
     if (e) return e;
-    const long long pairs = (long long)B * S * KV * (hd / 2);
+    const long long pairs = (long long)B * Sk * KV * (hd / 2);
     const unsigned red_blocks =
         (unsigned)std::min<long long>((pairs + NT - 1) / NT, 132 * 16);
     flash_bwd_reduce_kernel<<<red_blocks, NT, 0, s>>>(
-        tdkp, tdvp, static_cast<bf16*>(dk), static_cast<bf16*>(dv), B, S,
+        tdkp, tdvp, static_cast<bf16*>(dk), static_cast<bf16*>(dv), B, Sk,
         KV, hd, split, sdk, sdv, scale);
     e = (int)cudaGetLastError();
     if (e) return e;
     auto q_kern = flash_bwd_dq_kernel_tc<HD>;
     e = allow_smem(q_kern, dq_tc_smem<HD>());
     if (e) return e;
-    q_kern<<<dim3(n_tiles, H, B), BWD_TC_NT, dq_tc_smem<HD>(), s>>>(
-        tq, tk, tv, tdo, tlse, tD, static_cast<bf16*>(dq), S, H, hd, group,
-        sq, sk, sv, sdo, sdq, scale, scale * LOG2E, causal, window);
+    q_kern<<<dim3(q_tiles, H, B), BWD_TC_NT, dq_tc_smem<HD>(), s>>>(
+        tq, tk, tv, tdo, tlse, tD, static_cast<bf16*>(dq), Sq, Sk, H, hd,
+        group, sq, sk, sv, sdo, sdq, scale, scale * LOG2E, causal, window);
     return (int)cudaGetLastError();
   });
 }

@@ -3,9 +3,9 @@
 
 Replaces the Pallas TPU kernel ``repro/kernels/flash_attention.py``
 (``flash_attention``, ``pallas_call`` at :114): causal / sliding-window GQA
-attention with an online softmax in f32, and (forward only) the vision
-model's non-causal cross-attention, whose Sq text rows (a prompt, or one
-row a decode step) attend to Sk = 1600 media keys.  Bound on the H100:
+attention with an online softmax in f32, and the vision model's
+non-causal cross-attention, whose Sq text rows (a prompt, or one row a
+decode step) attend to Sk = 1600 media keys.  Bound on the H100:
 bytes for short prompts, operations for long ones (4 * hd * H * B *
 S(S+1)/2 FLOPs for a causal prefill, about 0.4*S per byte at
 llama3.2-1b's heads, so the two meet near S = 740; 4 * hd * H * B * Sq *
@@ -32,11 +32,14 @@ the GQA group reduced into dK/dV without atomics, deterministic) in a
 ``ref.attention``.  The two are counted apart in ``_build.launches``.
 
 Sq != Sk is taken only non-causal and unwindowed, the one form JAX asks
-for (``cross_attention_fwd``); the Pallas kernel is wrong there (it masks
-keys by the query length), so the oracle is ``ref.attention``.  Its
-backward is not written: :class:`FlashAttention` raises when a gradient
-is wanted at Sq != Sk (ROADMAP A12), so the vision model trains on the
-CPU only.
+for (``cross_attention_fwd``), forward and backward; the Pallas kernel is
+wrong there (it masks keys by the query length), so the oracle is
+``ref.attention`` and its autograd.  The backward's dQ grid and D run
+over Sq rows, its dK/dV grid and scratch over Sk keys, so the vision
+model's xattn layers train on the card through the same two kernels as
+self-attention (4 hd H B Sq Sk forward operations, 2.5 times that
+backward, every pair live).  Causal or windowed Sq != Sk raises
+``ValueError``.
 """
 from __future__ import annotations
 
@@ -54,7 +57,7 @@ SIGNATURES = {
     "flash_attention_fwd":
         [_P] * 5 + [_I] * 7 + [_P, ctypes.c_float, _I, _I, _P],
     "flash_attention_bwd":
-        [_P] * 12 + [_I] * 7 + [_P, ctypes.c_float, _I, _I, _P],
+        [_P] * 12 + [_I] * 8 + [_P, ctypes.c_float, _I, _I, _P],
     "flash_attention_smem": [_I, _I, _I],
 }
 MAX_HD = 256
@@ -71,8 +74,9 @@ def plan(Sq: int, Sk: int, H: int, KV: int, hd: int,
          dtype: torch.dtype) -> dict:
     """The kernels' tiles for one shape, a pure function of (Sq, Sk, H,
     KV, hd, dtype), never of B: a row's result does not depend on the
-    batch.  The forward's grid walks q tiles (Sq); the backward, written
-    for Sq == Sk only, walks key tiles (dK/dV) and q tiles (dQ).
+    batch.  The forward's grid walks q tiles (Sq); the backward walks key
+    tiles (dK/dV, Sk) and q tiles (dQ, Sq), the two lengths apart at
+    non-causal Sq != Sk.
 
     Returns the padded head dim ``hd_tile``; for each tiled kernel
     (``fwd``, ``dkdv``, ``dq``) its ``rows`` x ``cols`` tile (q rows by
@@ -89,7 +93,8 @@ def plan(Sq: int, Sk: int, H: int, KV: int, hd: int,
         keys = 32 if t > 128 else 64
         nq, nk = _cdiv(Sq, TC_ROWS), _cdiv(Sk, TC_ROWS)
         # q heads per dK/dV block: the largest divisor of the group that
-        # still leaves two waves of blocks per batch row, else one
+        # still leaves two waves of blocks per batch row over Sk's key
+        # tiles, else one
         hpb = next((d for d in range(group, 0, -1) if group % d == 0
                     and nk * KV * (group // d) >= 2 * SMS), 1)
         return dict(
@@ -129,14 +134,9 @@ def kernel_smem(dtype: torch.dtype, hd: int) -> dict[str, int]:
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, name: str,
            causal: bool, window: int, cross: bool) -> None:
-    """``cross``: whether Sq != Sk may be taken (the forward, non-causal
-    and unwindowed)."""
-    if q.device.type != "cuda":
-        raise ValueError(f"{name}: CUDA tensors only, got {q.device}")
-    if not (q.device == k.device == v.device):
-        raise ValueError(f"{name}: q, k, v on different devices")
-    if q.dtype not in ELEM or not (q.dtype == k.dtype == v.dtype):
-        raise ValueError(f"{name}: dtypes {q.dtype}/{k.dtype}/{v.dtype}")
+    """Shapes, lengths and strides first, then the device: ``cross`` is
+    whether Sq != Sk may be taken at all (non-causal and unwindowed, the
+    forward's and the backward's one form)."""
     if q.ndim != 4 or k.ndim != 4 or k.shape != v.shape:
         raise ValueError(f"{name}: shapes {q.shape} {k.shape} {v.shape}")
     B, S, H, hd = q.shape
@@ -145,13 +145,18 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, name: str,
         raise ValueError(f"{name}: q {tuple(q.shape)} vs k {tuple(k.shape)}")
     if k.shape[1] != S and not (cross and not causal and window <= 0):
         raise ValueError(
-            f"{name}: Sq != Sk ({S} and {k.shape[1]}) is taken only by the "
-            f"forward, non-causal and unwindowed (causal={causal}, "
-            f"window={window})")
+            f"{name}: Sq != Sk ({S} and {k.shape[1]}) is taken only "
+            f"non-causal and unwindowed (causal={causal}, window={window})")
     if hd > MAX_HD:
         raise ValueError(f"{name}: head dim {hd} > {MAX_HD}")
     if any(t.stride(-1) != 1 for t in (q, k, v)):
         raise ValueError(f"{name}: head dim must be contiguous")
+    if q.device.type != "cuda":
+        raise ValueError(f"{name}: CUDA tensors only, got {q.device}")
+    if not (q.device == k.device == v.device):
+        raise ValueError(f"{name}: q, k, v on different devices")
+    if q.dtype not in ELEM or not (q.dtype == k.dtype == v.dtype):
+        raise ValueError(f"{name}: dtypes {q.dtype}/{k.dtype}/{v.dtype}")
     if q.dtype == torch.bfloat16:
         _check_aligned(name, q=q, k=k, v=v)
 
@@ -208,12 +213,13 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         causal: bool = True, window: int = 0
                         ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Gradients (dq, dk, dv) of ``flash_attention`` given its inputs, its
-    output ``o``, the output's gradient ``do`` and the forward's ``lse``.
+    output ``o``, the output's gradient ``do`` and the forward's ``lse``
+    (B, H, Sq); Sq != Sk only with ``causal=False, window=0``.
     Deterministic: no atomics, each element written once.  bf16 sums the
     group's partial dK/dV from f32 scratch (``plan``'s split)."""
-    _check(q, k, v, BWD_NAME, causal, window, cross=False)
+    _check(q, k, v, BWD_NAME, causal, window, cross=True)
     B, S, H, hd = q.shape
-    KV = k.shape[2]
+    KV, Sk = k.shape[2], k.shape[1]
     if o.shape != q.shape or do.shape != q.shape:
         raise ValueError(f"{BWD_NAME}: o {tuple(o.shape)} / do "
                          f"{tuple(do.shape)} vs q {tuple(q.shape)}")
@@ -223,23 +229,23 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          "device")
     if lse.shape != (B, H, S) or lse.dtype != torch.float32 \
             or lse.device != q.device:
-        raise ValueError(f"{BWD_NAME}: lse must be (B, H, S) f32 on "
+        raise ValueError(f"{BWD_NAME}: lse must be (B, H, Sq) f32 on "
                          f"{q.device}")
     o = o if o.stride(-1) == 1 else o.contiguous()
     do = do if do.stride(-1) == 1 else do.contiguous()
     lse = lse.contiguous()
     dq = torch.empty((B, S, H, hd), dtype=q.dtype, device=q.device)
-    dk = torch.empty((B, S, KV, hd), dtype=q.dtype, device=q.device)
-    dv = torch.empty((B, S, KV, hd), dtype=q.dtype, device=q.device)
-    if dq.numel() == 0:
-        return dq, dk.zero_(), dv.zero_()
+    dk = torch.empty((B, Sk, KV, hd), dtype=q.dtype, device=q.device)
+    dv = torch.empty((B, Sk, KV, hd), dtype=q.dtype, device=q.device)
+    if dq.numel() == 0 or dk.numel() == 0:
+        return dq.zero_(), dk.zero_(), dv.zero_()
     D = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
     hpb, dkp, dvp = 0, None, None
     if q.dtype == torch.bfloat16:
         _check_aligned(BWD_NAME, o=o, do=do)
-        p = plan(S, S, H, KV, hd, q.dtype)
+        p = plan(S, Sk, H, KV, hd, q.dtype)
         hpb = p["heads_per_block"]
-        dkp, dvp = (torch.empty((B, S, KV * p["split"], hd),
+        dkp, dvp = (torch.empty((B, Sk, KV * p["split"], hd),
                                 dtype=torch.float32, device=q.device)
                     for _ in range(2))
     lib = _build.load(NAME, SIGNATURES)
@@ -251,8 +257,9 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             dk.data_ptr(), dv.data_ptr(),
             None if dkp is None else dkp.data_ptr(),
             None if dvp is None else dvp.data_ptr(), ELEM[q.dtype], B, S,
-            H, KV, hd, hpb, ctypes.addressof(st), hd ** -0.5, int(causal),
-            int(window), torch.cuda.current_stream(q.device).cuda_stream)
+            Sk, H, KV, hd, hpb, ctypes.addressof(st), hd ** -0.5,
+            int(causal), int(window),
+            torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(lib, rc, BWD_NAME)
     _build.count(BWD_NAME)
     return dq, dk, dv
@@ -260,21 +267,15 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 class FlashAttention(torch.autograd.Function):
     """Differentiable flash attention on the card: the forward kernel (with
-    its log-sum-exp when a gradient is wanted) and the backward kernel.
-    At Sq != Sk (cross-attention) only the forward is written, so asking
-    for a gradient there raises."""
+    its log-sum-exp when a gradient is wanted) and the backward kernel, at
+    Sq == Sk and at the vision model's non-causal Sq != Sk (its xattn
+    layers train through both)."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal: bool, window: int):
         ctx.causal, ctx.window = causal, window
         if not any(ctx.needs_input_grad[:3]):
             return flash_attention(q, k, v, causal=causal, window=window)
-        if q.shape[1] != k.shape[1]:
-            raise NotImplementedError(
-                f"{NAME}: no backward at Sq != Sk ({q.shape[1]} and "
-                f"{k.shape[1]}): the cross-attention backward comes with "
-                "ROADMAP A12 (vision training on the card); the CPU trains "
-                "xattn through autograd of ref.attention")
         o, lse = flash_attention(q, k, v, causal=causal, window=window,
                                  with_lse=True)
         ctx.save_for_backward(q, k, v, o, lse)

@@ -123,18 +123,18 @@ def test_flash_attention_refuses_a_strided_head_dim(gen):
 
 
 def test_flash_attention_rejects_cross_lengths(gen):
-    """Sq != Sk is taken only by the forward, non-causal and unwindowed
-    (the vision model's xattn): causal, windowed and backward calls at
-    such lengths are refused."""
+    """Sq != Sk is taken only non-causal and unwindowed (the vision model's
+    xattn), forward and backward: causal and windowed calls at such
+    lengths are refused by both."""
     q = _randn(gen, (1, 8, 2, 64), torch.float32)
     k = _randn(gen, (1, 16, 2, 64), torch.float32)
-    with pytest.raises(ValueError, match="Sq != Sk"):
-        flash_attention(q, k, k)
-    with pytest.raises(ValueError, match="Sq != Sk"):
-        flash_attention(q, k, k, causal=False, window=4)
     lse = torch.zeros((1, 2, 8), device="cuda")
-    with pytest.raises(ValueError, match="Sq != Sk"):
-        flash_attention_bwd(q, k, k, q, q, lse, causal=False)
+    for kw in (dict(causal=True), dict(causal=False, window=4),
+               dict(causal=True, window=4)):
+        with pytest.raises(ValueError, match="Sq != Sk"):
+            flash_attention(q, k, k, **kw)
+        with pytest.raises(ValueError, match="Sq != Sk"):
+            flash_attention_bwd(q, k, k, q, q, lse, **kw)
 
 
 # the vision model's cross-attention shapes (Sq text rows, Sk media keys),
@@ -175,15 +175,44 @@ def test_flash_attention_cross(gen, B, Sq, Sk, H, KV, hd, dtype):
     assert torch.equal(out, got)
 
 
-def test_flash_attention_cross_wants_no_gradient(gen):
-    """A gradient at Sq != Sk is refused before any launch (the backward
-    is not written)."""
+def test_flash_attention_cross_gradient_launches_both_kernels(gen):
+    """One ``ops.attention`` call with a gradient at Sq != Sk launches one
+    forward (with its lse) and one backward, no plain version, and its
+    gradients are the kernel's own."""
     q = _randn(gen, (1, 4, 4, 64), torch.bfloat16).requires_grad_()
-    k = _randn(gen, (1, 1600, 2, 64), torch.bfloat16)
+    k = _randn(gen, (1, 1600, 2, 64), torch.bfloat16).requires_grad_()
+    v = _randn(gen, (1, 1600, 2, 64), torch.bfloat16).requires_grad_()
+    do = _randn(gen, (1, 4, 4, 64), torch.bfloat16)
     ops.reset_launches()
-    with pytest.raises(NotImplementedError, match="A12"):
-        ops.attention(q, k, k, causal=False, window=0)
-    assert ops.launches["flash_attention"] == 0
+    out = ops.attention(q, k, v, causal=False, window=0)
+    got = torch.autograd.grad(out, (q, k, v), do)
+    assert ops.launches["flash_attention"] == 1
+    assert ops.launches["flash_attention_bwd"] == 1
+    assert sum(ops.launches.values()) == 2
+    want = _attn_grads(q, k, v, do, False, 0, kernel=True)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert _bf16_grads_err(got, q, k, v, do, False, 0) <= 2e-2
+
+
+@pytest.mark.parametrize("B,Sq,Sk,H,KV,hd", CROSS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_cross_bwd(gen, B, Sq, Sk, H, KV, hd, dtype):
+    """The backward at non-causal Sq != Sk (ragged tails on both sides:
+    Sq 77 and 65 past a 64-row tile, Sk 1601, 8 and 100) against torch
+    autograd of ``ref.attention``: f32 at rtol/atol 1e-4, bf16 at a
+    normalized 2e-2; dK and dV have the keys' shape."""
+    q, do = (_randn(gen, (B, Sq, H, hd), dtype) for _ in range(2))
+    k, v = (_randn(gen, (B, Sk, KV, hd), dtype) for _ in range(2))
+    got = _attn_grads(q, k, v, do, False, 0, kernel=True)
+    want = _attn_grads(q.float(), k.float(), v.float(), do.float(), False,
+                       0, kernel=False)
+    for g, w, t in zip(got, want, (q, k, v)):
+        assert g.dtype == dtype and g.shape == t.shape
+        if dtype == torch.float32:
+            torch.testing.assert_close(g, w, rtol=1e-4, atol=1e-4)
+        else:
+            err = (g.float() - w).abs().max() / w.abs().max()
+            assert err <= 2e-2, err
 
 
 @pytest.mark.parametrize("B,L,H,KV,hd", [
@@ -526,13 +555,19 @@ def test_ops_attention_gradients_on_cuda(gen):
                                    atol=1e-4 * w.abs().max().item())
 
 
+@pytest.mark.parametrize("Sq,Sk,H,KV,hd,causal", [
+    (300, 300, 16, 4, 64, True),
+    (77, 1601, 32, 8, 128, False),   # xattn: ragged tails on both sides
+])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_flash_attention_bwd_is_deterministic(gen, dtype):
-    q = _randn(gen, (2, 300, 16, 64), dtype)
-    k = _randn(gen, (2, 300, 4, 64), dtype)
-    do = _randn(gen, (2, 300, 16, 64), dtype)
-    a = _attn_grads(q, k, k, do, True, 0, kernel=True)
-    b = _attn_grads(q, k, k, do, True, 0, kernel=True)
+def test_flash_attention_bwd_is_deterministic(gen, Sq, Sk, H, KV, hd, causal,
+                                              dtype):
+    """Two backward runs give equal bits, at Sq == Sk and at the vision
+    model's Sq != Sk."""
+    q, do = (_randn(gen, (2, Sq, H, hd), dtype) for _ in range(2))
+    k = _randn(gen, (2, Sk, KV, hd), dtype)
+    a = _attn_grads(q, k, k, do, causal, 0, kernel=True)
+    b = _attn_grads(q, k, k, do, causal, 0, kernel=True)
     assert all(torch.equal(x, y) for x, y in zip(a, b))
 
 

@@ -9,7 +9,11 @@ parts (P_hi = bf16(P), P_lo = bf16(P - P_hi)), the backward rounds P and
 dS to bf16 once.  An emulation of that rounding in plain torch, written
 here and not in the package, is held to f64 attention and its autograd at
 half of the card's gates (forward rtol/atol 2e-2, backward a normalized
-2e-2), so the gates keep a margin over what the rounding alone costs.
+2e-2), so the gates keep a margin over what the rounding alone costs,
+at Sq == Sk and at the vision model's cross-attention lengths (Sq != Sk,
+non-causal), where the backward's two grids walk the two lengths apart.
+The wrappers' checks of lengths and strides come before their device
+check, so their refusals are held here too.
 """
 import inspect
 
@@ -19,7 +23,8 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.kernels.flash_attention import (  # noqa: E402
-    SMEM_LIMIT, SMS, plan)
+    SMEM_LIMIT, SMS, FlashAttention, flash_attention, flash_attention_bwd,
+    plan)
 
 torch.set_num_threads(1)
 
@@ -148,14 +153,15 @@ def _emulate_bwd(q, k, v, o, do, lse, causal, window):
     """The backward kernels' arithmetic: P = exp(scale q.k - lse) in f32,
     dS = P (dP - D) in f32, both rounded to bf16 as operands of dV = P^T
     dO, dK = scale dS^T Q and dQ = scale dS K with f32 sums; the group's
-    partial dK/dV summed in f32; outputs rounded to bf16."""
+    partial dK/dV summed in f32; outputs rounded to bf16.  q, o, do (B,
+    Sq, H, hd), k, v (B, Sk, KV, hd)."""
     B, S, H, hd = q.shape
-    KV = k.shape[2]
+    Sk, KV = k.shape[1], k.shape[2]
     group = H // KV
     scale = hd ** -0.5
     kf = k.repeat_interleave(group, 2)
     vf = v.repeat_interleave(group, 2)
-    live = _mask(S, causal, window)
+    live = _mask(S, causal, window, Sk)
     s = torch.einsum("bqhd,bkhd->bhqk", q, kf) * scale
     p = torch.exp(s - lse[..., None]) * live
     dp = torch.einsum("bqhd,bkhd->bhqk", do, vf)
@@ -164,8 +170,8 @@ def _emulate_bwd(q, k, v, o, do, lse, causal, window):
     dv = torch.einsum("bhqk,bqhd->bkhd", _bf16(p), do)
     dk = torch.einsum("bhqk,bqhd->bkhd", _bf16(ds), q)
     dq = torch.einsum("bhqk,bkhd->bqhd", _bf16(ds), kf) * scale
-    dk = dk.reshape(B, S, KV, group, hd).sum(3) * scale
-    dv = dv.reshape(B, S, KV, group, hd).sum(3)
+    dk = dk.reshape(B, Sk, KV, group, hd).sum(3) * scale
+    dv = dv.reshape(B, Sk, KV, group, hd).sum(3)
     return _bf16(dq), _bf16(dk), _bf16(dv)
 
 
@@ -242,12 +248,78 @@ def test_bf16_rounding_keeps_the_gates_margin_at_cross_lengths(Sq, Sk, H,
                                rtol=1e-5, atol=1e-5)
 
 
-def test_flash_attention_refuses_a_gradient_at_cross_lengths():
-    """The backward is written for Sq == Sk only: a gradient wanted at
-    Sq != Sk raises before any kernel is looked up, naming the roadmap
-    item that brings it (no fallback to the plain version)."""
-    from repro_torch.kernels.flash_attention import FlashAttention
-    q = torch.zeros((1, 4, 4, 64), requires_grad=True)
+@pytest.mark.parametrize("Sq,Sk,H,KV,hd", XATTN)
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_plan_backward_at_cross_lengths(Sq, Sk, H, KV, hd, dtype):
+    """The backward at Sq != Sk: dK/dV's grid walks Sk's key tiles, dQ's
+    Sq's q tiles; the q heads a dK/dV block walks follow Sk alone; shared
+    memory depends on neither length."""
+    p = plan(Sq, Sk, H, KV, hd, dtype)
+    kv, dq = p["dkdv"], p["dq"]
+    assert kv["grid"] == (-(-Sk // kv["rows"]),
+                          KV * (H // KV // p["heads_per_block"]))
+    assert dq["grid"] == (-(-Sq // dq["rows"]), H)
+    for other_sq in (1, Sq, 4096):
+        q_side = plan(other_sq, Sk, H, KV, hd, dtype)
+        assert q_side["heads_per_block"] == p["heads_per_block"]
+        assert q_side["dkdv"] == kv
+    assert p["heads_per_block"] == plan(Sk, Sk, H, KV, hd,
+                                        dtype)["heads_per_block"]
+    square = plan(512, 512, H, KV, hd, dtype)
+    for kind in ("dkdv", "dq"):
+        assert p[kind]["smem"] == square[kind]["smem"] <= SMEM_LIMIT
+        assert p[kind]["rows"] == square[kind]["rows"]
+
+
+@pytest.mark.parametrize("Sq,Sk,H,KV,hd", XATTN)
+def test_bf16_backward_rounding_keeps_the_gates_margin_at_cross_lengths(
+        Sq, Sk, H, KV, hd):
+    """The backward's bf16 arithmetic at Sq != Sk, non-causal (the dead
+    keys of a ragged tail and the dead rows past Sq at probability 0),
+    from the emulated forward's bf16 output and lse, against f64 autograd
+    of plain attention at half the card's normalized 2e-2 gate."""
+    rng = np.random.default_rng(Sq * 11 + Sk)
+    q, do = (_bf16(torch.from_numpy(
+        rng.standard_normal((1, Sq, H, hd)).astype(np.float32)))
+        for _ in range(2))
+    k, v = (_bf16(torch.from_numpy(
+        rng.standard_normal((1, Sk, KV, hd)).astype(np.float32)))
+        for _ in range(2))
+    keys = plan(Sq, Sk, H, KV, hd, torch.bfloat16)["fwd"]["cols"]
+    out, lse = _emulate_fwd(q, k, v, False, 0, keys)
+    grads = _emulate_bwd(q, k, v, out, do, lse, False, 0)
+    ins = [t.double().requires_grad_() for t in (q, k, v)]
+    want = torch.autograd.grad(_attention_f64(*ins, False, 0), ins,
+                               do.double())
+    for g, w, t in zip(grads, want, (q, k, v)):
+        assert g.shape == t.shape
+        err = ((g.double() - w).abs().max() / w.abs().max()).item()
+        assert err <= 1e-2, err
+
+
+def test_flash_wrappers_check_lengths_and_strides_before_the_device():
+    """Both wrappers refuse causal or windowed Sq != Sk and a strided head
+    dim, whatever the device; non-causal Sq != Sk passes those checks (it
+    reaches the device check), and a gradient wanted there is no longer
+    refused by ``FlashAttention`` (on the CPU it reaches the same check:
+    no fallback to the plain version)."""
+    q = torch.zeros((1, 4, 4, 64))
     k = torch.zeros((1, 1600, 2, 64))
-    with pytest.raises(NotImplementedError, match="A12"):
-        FlashAttention.apply(q, k, k, False, 0)
+    lse = torch.zeros((1, 4, 4))
+    fwd = lambda *a, **kw: flash_attention(*a, **kw)          # noqa: E731
+    bwd = lambda q_, k_, v_, **kw: flash_attention_bwd(       # noqa: E731
+        q_, k_, v_, q_, q_, lse, **kw)
+    for fn in (fwd, bwd):
+        for kw in (dict(causal=True), dict(causal=False, window=8),
+                   dict(causal=True, window=8)):
+            with pytest.raises(ValueError, match="Sq != Sk"):
+                fn(q, k, k, **kw)
+        strided = k.transpose(2, 3).contiguous().transpose(2, 3)
+        for args in ((q, strided, k), (q, k, strided)):
+            with pytest.raises(ValueError, match="head dim must be "
+                                                 "contiguous"):
+                fn(*args, causal=False)
+        with pytest.raises(ValueError, match="CUDA tensors only"):
+            fn(q, k, k, causal=False)
+    with pytest.raises(ValueError, match="CUDA tensors only"):
+        FlashAttention.apply(q.clone().requires_grad_(), k, k, False, 0)

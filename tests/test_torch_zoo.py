@@ -15,6 +15,12 @@ JAX package's, at f32 on the smoke configs.
 * Greedy outputs of the port's ``ServeEngine`` equal the JAX engine's for
   the three text models, whole prompt and chunked, and continuous equals
   static inside the port.
+* The vision model trains through the port's ParameterDB engine (delta 2,
+  the packed ring, sgd and adamw, non-zero gates) as through JAX's: losses
+  and final parameters at the f32 kernel tolerance, rtol = atol 2e-5;
+  under AdamW its moments m and v too, and its parameters at atol 2e-5 +
+  lr / 20 (the normalised step magnifies the f32 rounding of a gradient
+  near 0).
 * The engine refuses the vision model as JAX's does; the serve CLI runs
   gemma3 chunked; the train CLI trains the vision model on the CPU; the
   synthetic batch carries the media stub; the vision model's chunked
@@ -30,6 +36,9 @@ jax = pytest.importorskip("jax")
 import jax.numpy as jnp  # noqa: E402
 
 from repro import configs as jconfigs  # noqa: E402
+from repro.core.sync_jax import SyncConfig as JSyncConfig  # noqa: E402
+from repro.launch import steps as jsteps  # noqa: E402
+from repro.optim import optimizers as jopt  # noqa: E402
 from repro import serve as jserve  # noqa: E402
 from repro.models import paramlib as jparamlib  # noqa: E402
 from repro.models import transformer as jtf  # noqa: E402
@@ -41,6 +50,7 @@ from repro_torch.data import LMBatchSpec, make_lm_batch  # noqa: E402
 from repro_torch.launch import serve as serve_cli  # noqa: E402
 from repro_torch.launch import steps as tsteps  # noqa: E402
 from repro_torch.launch import train as ttrain  # noqa: E402
+from repro_torch.optim import optimizers as topt  # noqa: E402
 from repro_torch.tree import leaves_with_path  # noqa: E402
 
 torch.set_num_threads(1)
@@ -114,6 +124,53 @@ def test_lm_loss_and_grads_match_jax(arch, chunked, monkeypatch):
                                    atol=2e-6 * scale, err_msg=k)
     assert all(g.abs().sum() > 0 for g in got.values()), \
         "a parameter got no gradient"
+
+
+@pytest.mark.parametrize("opt_name", ["sgd", "adamw"])
+def test_engine_trains_vision_as_jax_does(opt_name):
+    """The smoke vision config (4 self-attention layers and one xattn
+    layer, gates drawn non-zero) trained 3 steps at delta 2 on the packed
+    ring by the port's engine and by JAX's, on the same numpy params,
+    batches and media: every loss and every final parameter within
+    rtol = atol 2e-5, and under AdamW its moments m and v (the gradients
+    through the engine).  AdamW's first steps move an element by about lr
+    whatever its gradient's size, lr m / (sqrt(v) + eps): where the
+    gradient is ~1e-7 (the two frameworks' f32 sums ~2e-9 apart there)
+    the step moves by a few % of lr, so its parameters get lr / 20 more
+    (measured: 2.99e-5 in one element of 6144 of an FFN's wd, 6.14e-5 in
+    one of 4096 of a wq, 1% and 2% of lr; every parameter moves ~3 lr)."""
+    jcfg, tcfg, jp, tp = _models(VISION)
+    sync = dict(delta=2, remat="none", packed_ring=True)
+    lr = 3e-3
+    jeng = jsteps.make_train_engine(
+        jcfg, jopt.make_optimizer(jopt.OptConfig(name=opt_name, lr=lr)),
+        JSyncConfig(**sync), jp)
+    teng = tsteps.make_train_engine(
+        tcfg, topt.make_optimizer(topt.OptConfig(name=opt_name, lr=lr)),
+        SyncConfig(**sync), tp)
+    jstate, tstate = jeng.init_state(), teng.init_state()
+    for i in range(3):
+        jb, tb = _batch(tcfg, 20 + i)
+        jstate, jm = jeng.step(jstate, jb)
+        tstate, tm = teng.step(tstate, tb)
+        np.testing.assert_allclose(float(tm["loss"]), float(jm["loss"]),
+                                   rtol=2e-5, atol=2e-5)
+    want = {k: np.asarray(v) for k, v in _jpaths(jstate.params).items()}
+    got = {"/".join(p): v for p, v in leaves_with_path(tstate.params)}
+    assert set(got) == set(want)
+    atol = 2e-5 + (lr / 20 if opt_name == "adamw" else 0.0)
+    for k, v in got.items():
+        np.testing.assert_allclose(v.numpy(), want[k], rtol=2e-5, atol=atol,
+                                   err_msg=k)
+    if opt_name == "adamw":
+        for mom in ("m", "v"):
+            want_m = _jpaths(jstate.opt_state[mom])
+            for p, v in leaves_with_path(tstate.opt_state[mom]):
+                k = "/".join(p)
+                np.testing.assert_allclose(v.numpy(), np.asarray(want_m[k]),
+                                           rtol=2e-5, atol=2e-5,
+                                           err_msg=f"{mom} {k}")
+    assert teng.telemetry.summary() == jeng.telemetry.summary()
 
 
 def _empty_subtrees(tree, path=()):
