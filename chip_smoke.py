@@ -343,6 +343,23 @@ Phases (any failure raises and the script exits non-zero):
    which every backward kernel call is held against torch autograd of
    ``ref.attention`` on its own (q, k, v, dO) (f32 1e-4, bf16 a
    normalized 2e-2); step p50, peak memory and the parameter count.
+15. the multi-device layer on one card: (a) ``llama3.2-1b`` at full
+   width and depth (f32 master, bf16 compute, batch 4 x 512, remat none,
+   AdamW) through ``steps.make_train_step`` on DTensor parameters placed
+   by ``sharding.tree_shardings`` on a one-rank NCCL group and a (1, 1)
+   ``data, model`` mesh, 2 steps in ``datacentric`` and 2 in ``bsp``,
+   each against the unsharded step run first from the same seed: losses,
+   parameters, m and v bit for bit (every collective is the identity on
+   one rank), flash forward and backward exactly 16 a step (launch counts
+   reset before each sharded run), no plain version; step seconds and the
+   peak above each run's start beside the unsharded step's; (b) started
+   before (a) as subprocesses on the host, ``python -m
+   repro_torch.launch.dryrun`` for ``llama3.2-1b`` ``train_4k`` on 16 x 16
+   (``datacentric``, ``bsp``) and 2 x 16 x 16 (``datacentric``): each exits
+   0, the parameter bytes a device holds are the sharding rules'
+   arithmetic, ``datacentric`` reduce-scatters and all-gathers, ``bsp``
+   all-reduces, every number is finite; and the dry run of (a)'s own cell
+   on a (1, 1) mesh, its predicted peak printed beside (a)'s measured one.
 
 The last two lines are the ``kernels`` JSON object (twelve rows; each
 row's ``launches_by_path`` counts its launches on every path, the
@@ -370,6 +387,7 @@ ROOT = Path(__file__).resolve().parent
 PEAK_BYTES_PER_S = 3.35e12      # H100 SXM HBM3
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 SPIN_HZ = 2.0e9                 # at or above any H100 SM clock
+SPIN_TRIES = 3                  # timed loops before an uncovered enqueue fails
 L2_BYTES = 50 * 2 ** 20
 BF16_TOL = 2e-2                 # rtol = atol, as tests/test_kernels.py
 BWD_F32_TOL = 1e-4              # f32 backward vs autograd, rtol = atol
@@ -400,7 +418,16 @@ def time_ms(fn, iters: int, warmup: int = 3,
     launches than the card's launch queue holds (the WKV plain versions,
     thousands of small kernels a call): the host cannot queue them ahead,
     so the device time includes the host's gaps and is the time a caller
-    waits."""
+    waits.
+
+    The host shares its cores with other work, and a garbage
+    collection can fall inside the timed loop, so one enqueue may stall
+    past the spin.  The collector is off while the loop is timed, and a
+    loop whose enqueue outlasted its spin is timed again behind a spin
+    sized from that enqueue (twice it): up to ``SPIN_TRIES`` loops, and
+    only a time whose enqueue the spin covered is returned."""
+    import gc
+
     import torch
     for i in range(warmup):
         fn(i)
@@ -411,20 +438,33 @@ def time_ms(fn, iters: int, warmup: int = 3,
     torch.cuda.synchronize()
     per_call = (time.perf_counter() - t0) / warmup
     spin_s = 4 * per_call * iters + 5e-3 if spin else 0.0
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    if spin:
-        torch.cuda._sleep(int(spin_s * SPIN_HZ))
-    t0 = time.perf_counter()
-    start.record()
-    for i in range(iters):
-        fn(i)
-    end.record()
-    host = time.perf_counter() - t0
-    torch.cuda.synchronize()
-    if spin and host > spin_s:
+    for attempt in range(SPIN_TRIES if spin else 1):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        gc.disable()
+        try:
+            if spin:
+                torch.cuda._sleep(int(spin_s * SPIN_HZ))
+            t0 = time.perf_counter()
+            start.record()
+            for i in range(iters):
+                fn(i)
+            end.record()
+            host = time.perf_counter() - t0
+        finally:
+            gc.enable()
+        torch.cuda.synchronize()
+        if not spin or host <= spin_s:
+            break
+        print(f"time_ms: enqueue {host:.4f} s outlasted the spin "
+              f"{spin_s:.4f} s (try {attempt + 1} of {SPIN_TRIES})",
+              flush=True)
+        if attempt + 1 < SPIN_TRIES:
+            spin_s = 2 * host + 5e-3
+    else:
         raise RuntimeError(f"enqueue {host:.4f} s outlasted the spin "
-                           f"{spin_s:.4f} s: device time would include gaps")
+                           f"{spin_s:.4f} s in each of {SPIN_TRIES} tries: "
+                           "device time would include gaps")
     return start.elapsed_time(end) / iters, host * 1e3 / iters
 
 
@@ -5156,6 +5196,260 @@ def vision_training(torch, ops, ref):
     return {"vision_training": launches}
 
 
+# ---------------------------------------------------------------------------
+# phase 15: the multi-device layer on one card
+# ---------------------------------------------------------------------------
+
+SHARD_B, SHARD_S, SHARD_STEPS = 4, 512, 2
+SHARD_REMAT = "none"
+# (mesh, mode) of the dry-run cells: llama3.2-1b train_4k
+DRYRUN_CELLS = (("single", "datacentric"), ("single", "bsp"),
+                ("multi", "datacentric"))
+DRYRUN_ONE_CARD = """
+import json
+from repro_torch.configs import get_config
+from repro_torch.core.sync import SyncConfig
+from repro_torch.launch import dryrun
+from repro_torch.launch.mesh import make_test_mesh
+from repro_torch.launch.shapes import ShapeCell
+dryrun.fake_world(1)
+r = dryrun.measure_cell(get_config("llama3.2-1b"),
+                        ShapeCell("phase15", {S}, {B}, "train"),
+                        make_test_mesh((1, 1)),
+                        SyncConfig(mode="datacentric", remat="{remat}"))
+print(json.dumps(r))
+"""
+
+
+def start_dryruns(out_dir: Path) -> dict:
+    """The dry-run subprocesses of phase 15 (b), all started together: the
+    three ``DRYRUN_CELLS`` through the CLI, and (a)'s own shape on a (1, 1)
+    mesh.  They run on the host (no CUDA) while (a) runs on the card."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+               CUDA_VISIBLE_DEVICES="")
+    procs = {}
+    for mesh, mode in DRYRUN_CELLS:
+        cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+               "llama3.2-1b", "--shape", "train_4k", "--mesh", mesh,
+               "--mode", mode, "--out", str(out_dir / f"{mesh}_{mode}")]
+        procs[(mesh, mode)] = subprocess.Popen(
+            cmd, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True)
+    code = DRYRUN_ONE_CARD.format(S=SHARD_S, B=SHARD_B, remat=SHARD_REMAT)
+    procs["one_card"] = subprocess.Popen(
+        [sys.executable, "-c", code], env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True)
+    return procs
+
+
+def _param_bytes_by_rules(mesh_axes: dict, mode: str) -> int:
+    """llama3.2-1b's f32 parameter bytes on one device, reckoned from the
+    sync rules and the mesh's axis sizes alone."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.sync import RULES
+    from repro_torch.launch.sharding import local_shape, resolve_spec
+    from repro_torch.models import paramlib
+    from repro_torch.models.transformer import model_specs
+    return sum(4 * math.prod(local_shape(
+        p.shape, resolve_spec(p.axes, p.shape, mesh_axes, RULES[mode]),
+        mesh_axes)) for _, p in paramlib.leaves(
+            model_specs(get_config("llama3.2-1b"))))
+
+
+def finish_dryruns(procs: dict, out_dir: Path) -> dict:
+    """Wait for the dry runs and gate them: each exits 0; the parameter
+    bytes a device holds are the sharding arithmetic's; ``datacentric``
+    reduce-scatters and all-gathers, ``bsp`` all-reduces; every number is
+    finite.  Prints each cell; returns the (1, 1) cell's result."""
+    outs = {}
+    try:
+        for key, p in procs.items():
+            out, err = p.communicate(timeout=600)
+            if p.returncode != 0:
+                raise AssertionError(f"dry run {key} exited {p.returncode}:"
+                                     f" {(out or '')[-2000:]}"
+                                     f" {(err or '')[-2000:]}")
+            outs[key] = out
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    sizes = {"single": {"data": 16, "model": 16},
+             "multi": {"pod": 2, "data": 16, "model": 16}}
+    for mesh, mode in DRYRUN_CELLS:
+        files = list((out_dir / f"{mesh}_{mode}").glob("*.json"))
+        if len(files) != 1:
+            raise AssertionError(f"dry run {mesh} {mode}: files {files}")
+        r = json.loads(files[0].read_text())
+        mem, coll, rl = r["memory"], r["collectives"], r["roofline"]
+        want = _param_bytes_by_rules(sizes[mesh], mode)
+        nums = [*mem.values(), *r["cost"].values(), rl["compute_s"],
+                rl["memory_s"], rl["collective_s"],
+                *coll.values(), r["collective_bytes_per_device"]]
+        print("dry run:", json.dumps(dict(
+            arch=r["arch"], shape=r["shape"], mesh=r["mesh"], mode=mode,
+            remat=r["remat"], peak_bytes_per_device=mem[
+                "peak_bytes_per_device"], memory=mem,
+            flops_per_device=r["cost"]["flops_per_device"],
+            bytes_per_device=r["cost"]["bytes_per_device"],
+            collectives=coll, roofline=rl,
+            useful_flops_ratio=r["useful_flops_ratio"],
+            parameter_bytes_by_rules=want, trace_s=r["trace_s"],
+            constants=r["device"])), flush=True)
+        if mem["parameter_bytes_per_device"] != want:
+            raise AssertionError(f"dry run {mesh} {mode}: parameter bytes "
+                                 f"{mem['parameter_bytes_per_device']}, the "
+                                 f"rules give {want}")
+        kinds = (("all-reduce",) if mode == "bsp"
+                 else ("reduce-scatter", "all-gather"))
+        if any(coll.get(k + "_count", 0) == 0 for k in kinds):
+            raise AssertionError(f"dry run {mesh} {mode}: collectives "
+                                 f"{coll}, want {kinds}")
+        if not all(math.isfinite(v) for v in nums):
+            raise AssertionError(f"dry run {mesh} {mode}: a number is not "
+                                 f"finite: {r}")
+    return json.loads(outs["one_card"].strip().splitlines()[-1])
+
+
+def _leaves_equal(torch, got, want) -> list:
+    """Paths of the leaves of a DTensor tree whose local shard differs in
+    any bit from the plain tree's leaf."""
+    from repro_torch.tree import leaves_with_path
+    return ["/".join(p) for (p, g), (_, w) in zip(leaves_with_path(got),
+                                                  leaves_with_path(want))
+            if not torch.equal(g.to_local(), w)]
+
+
+def sharded_training(torch, ops, ref) -> dict:
+    """Phase 15: (a) llama3.2-1b at full width through
+    ``steps.make_train_step`` on DTensor parameters placed by
+    ``sharding.tree_shardings`` on a one-rank NCCL group and a (1, 1)
+    ``data, model`` mesh, 2 AdamW steps in ``datacentric`` and 2 in
+    ``bsp``, held bit for bit to the unsharded step; (b) the dry run of
+    llama3.2-1b ``train_4k`` on the production meshes, started as
+    subprocesses before (a) and gated after it."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from repro_torch.configs import get_config
+    from repro_torch.core.sync import SyncConfig
+    from repro_torch.data import LMBatchSpec, make_lm_batch
+    from repro_torch.launch import sharding as sh
+    from repro_torch.launch.dryrun import make_act_specs
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import paramlib
+    from repro_torch.models.transformer import model_specs
+    from repro_torch.optim import OptConfig, make_optimizer
+    out_dir = ROOT / "build" / "dryrun_phase15"
+    if out_dir.exists():
+        for f in out_dir.rglob("*.json"):
+            f.unlink()
+    procs = start_dryruns(out_dir)
+    cfg = get_config("llama3.2-1b")
+    specs = model_specs(cfg)
+    opt = make_optimizer(OptConfig(name="adamw", lr=3e-4))
+    spec = LMBatchSpec(batch=SHARD_B, seq_len=SHARD_S,
+                       vocab_size=cfg.vocab_size, seed=0)
+    batches = [make_lm_batch(spec, t, "cuda") for t in range(SHARD_STEPS)]
+    n_layers = len(cfg.layer_kinds)
+
+    def run(mesh, mode):
+        """2 steps from seed 0's parameters: (losses, params, m, v, step
+        seconds, peak GiB above the run's start, launches, plain calls)."""
+        sync = SyncConfig(mode=mode, remat=SHARD_REMAT)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        params = paramlib.init_tree(
+            specs, torch.Generator(device="cuda").manual_seed(0),
+            dtype=cfg.param_dtype)
+        act = None
+        if mesh is not None:
+            params = sh.distribute_tree(params, sh.tree_shardings(
+                paramlib.axes_tree(specs), params, mesh, sync.param_rules),
+                mesh)
+            act = make_act_specs(mesh)
+        state = opt.init(params)
+        step = make_train_step(cfg, opt, sync, act_specs=act)
+        losses, step_s = [], []
+        ops.reset_launches()
+        with plain_versions_counted(ref) as plain:
+            for b in batches:
+                if mesh is not None:
+                    b = sh.distribute_tree(b, sh.batch_shardings(
+                        {k: ("batch", "seq") for k in b}, b, mesh), mesh)
+                t1 = time.perf_counter()
+                params, state, m = step(params, state, b)
+                loss = m["loss"]
+                losses.append(float(loss.to_local() if mesh is not None
+                                    else loss))
+                step_s.append(time.perf_counter() - t1)
+        launches = dict(ops.launches)
+        peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+        return (losses, params, state["m"], state["v"], step_s, peak,
+                launches, dict(plain))
+
+    try:
+        ref_losses, ref_p, ref_m, ref_v, ref_s, ref_peak, _, _ = run(
+            None, "datacentric")
+        torch.cuda.empty_cache()
+        dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                                world_size=1,
+                                device_id=torch.device("cuda", 0))
+        mesh = init_device_mesh("cuda", (1, 1),
+                                mesh_dim_names=("data", "model"))
+        want = {"flash_attention": n_layers * SHARD_STEPS,
+                "flash_attention_bwd": n_layers * SHARD_STEPS}
+        results, launches = {}, {}
+        for mode in ("datacentric", "bsp"):
+            losses, p, m, v, step_s, peak, launches, plain = run(mesh, mode)
+            differ = {name: _leaves_equal(torch, got, w) for name, got, w in
+                      (("params", p, ref_p), ("m", m, ref_m),
+                       ("v", v, ref_v))}
+            results[mode] = dict(losses=losses, step_s=step_s,
+                                 peak_gib=peak, launches=launches,
+                                 plain_version_calls=plain,
+                                 leaves_differing=differ)
+            del p, m, v
+            torch.cuda.empty_cache()
+            if losses != ref_losses or any(differ.values()):
+                raise AssertionError(f"sharded {mode} step is not the "
+                                     f"unsharded one: losses {losses} vs "
+                                     f"{ref_losses}, leaves {differ}")
+            if {k: n for k, n in launches.items() if n} != want:
+                raise AssertionError(f"sharded {mode} launches {launches}, "
+                                     f"expected {want}")
+            if any(plain.values()):
+                raise AssertionError(f"plain versions ran: {plain}")
+    except BaseException:
+        for p in procs.values():
+            p.kill()
+            p.wait()
+        raise
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    one_card = finish_dryruns(procs, out_dir)
+    del ref_p, ref_m, ref_v
+    torch.cuda.empty_cache()
+    print("sharded training:", json.dumps(dict(
+        arch=cfg.name, layers=n_layers,
+        parameters=paramlib.param_count(specs), batch=SHARD_B, seq=SHARD_S,
+        remat=SHARD_REMAT, optimizer="adamw", steps=SHARD_STEPS,
+        mesh="1x1 data, model (one-rank NCCL group)",
+        unsharded=dict(losses=ref_losses, step_s=ref_s, peak_gib=ref_peak),
+        sharded=results, bit_identical=True,
+        dry_run_one_card=dict(
+            mesh=one_card["mesh"], memory=one_card["memory"],
+            predicted_peak_gib=one_card["memory"]["peak_bytes_per_device"]
+            / 2 ** 30, measured_peak_gib={
+                "unsharded": ref_peak,
+                **{k: r["peak_gib"] for k, r in results.items()}},
+            flops_per_device=one_card["cost"]["flops_per_device"],
+            roofline=one_card["roofline"]))), flush=True)
+    return {"sharded_training": launches}
+
+
 def print_ptxas(source: str, log: str) -> dict[str, tuple[int, int]]:
     """One line per compiled kernel: its entry (the mangled name without
     the anonymous-namespace prefix, so the template arguments show, e.g.
@@ -5469,6 +5763,8 @@ def main() -> int:
     paths.update(timed("gemma3_training", gemma3_training, torch, ops, ref))
     timed("small_vision_training", small_vision_training, torch, ops)
     paths.update(timed("vision_training", vision_training, torch, ops, ref))
+    paths.update(timed("sharded_training", sharded_training, torch, ops,
+                       ref))
     timed("server_processes_stopped", server_processes_stopped)
     print("phase seconds:", json.dumps(dict(
         phase_s, total=time.perf_counter() - t0)), flush=True)

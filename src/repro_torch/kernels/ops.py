@@ -10,6 +10,8 @@ one right after each launch).
 from __future__ import annotations
 
 import torch
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+from torch.distributed.tensor.experimental import local_map
 
 from . import ref
 from ._build import launches, reset_launches
@@ -48,9 +50,17 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
               causal: bool = True, window: int = 0) -> torch.Tensor:
     """Differentiable on both routes: on the card through
     :class:`FlashAttention` (forward and backward kernels), on the CPU
-    through autograd of the plain version."""
+    through autograd of the plain version.  DTensors (the sharded steps,
+    ``launch/sharding.py``) take the same routes on each rank's shard
+    (:func:`_attention_sharded`)."""
+    if isinstance(q, DTensor):
+        return _attention_sharded(q, k, v, causal, window)
     if _on_cuda(q):
         return FlashAttention.apply(q, k, v, causal, window)
+    return _attention_plain(q, k, v, causal, window)
+
+
+def _attention_plain(q, k, v, causal, window):
     S = q.shape[1]
     if S >= CHUNK_THRESHOLD and S % min(1024, S) == 0 \
             and q.shape[1] == k.shape[1]:
@@ -58,11 +68,140 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return ref.attention(q, k, v, causal=causal, window=window)
 
 
+def _attention_sharded(q: DTensor, k: DTensor, v: DTensor, causal: bool,
+                       window: int) -> DTensor:
+    """``attention`` on DTensors (B, S, H, hd): q, k and v are first laid
+    out so that each rank's shard is a whole attention problem -- the
+    batch split over the mesh dims that already split q's batch, the heads
+    over ``model`` when both H and KV divide it (each rank then holds whole
+    GQA groups), everything else replicated -- and each rank runs the
+    kernel (the plain version on the CPU) on its shard through
+    ``local_map``, forward and backward.  The sequence and the head dim
+    are never split: a layout that would split them raises."""
+    mesh = q.device_mesh
+    B, H, KV = q.shape[0], q.shape[2], k.shape[2]
+    pl, nb = [], 1
+    for i, name in enumerate(mesh.mesh_dim_names):
+        size = mesh.size(i)
+        if q.placements[i] == Shard(0) and B % (nb * size) == 0:
+            pl.append(Shard(0))
+            nb *= size
+        elif name == "model" and H % size == 0 and KV % size == 0:
+            pl.append(Shard(2))
+        else:
+            pl.append(Replicate())
+    if any(isinstance(p, Shard) and p.dim in (1, 3) for p in pl):
+        raise ValueError(f"attention cannot run on a shard of the sequence "
+                         f"or head dim: {pl}")
+    q, k, v = (t.redistribute(mesh, pl) for t in (q, k, v))
+    run = local_map(_attention_local, out_placements=pl,
+                    in_placements=(pl, pl, pl, None, None),
+                    device_mesh=mesh)
+    return run(q, k, v, causal, window)
+
+
+class _ContiguousGrad(torch.autograd.Function):
+    """Identity whose backward makes the gradient contiguous: a shard's
+    gradient leaves ``local_map`` in the strides the plain version's
+    backward gave it, and DTensor cannot view a transposed shard."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.contiguous()
+
+
+def _attention_local(q, k, v, causal, window):
+    """One rank's shard of ``_attention_sharded``; the dry run's ``meta``
+    shards take the plain version (the costs of the CPU route)."""
+    q, k, v = (_ContiguousGrad.apply(t) for t in (q, k, v))
+    if q.device.type == "meta":
+        return _attention_plain(q, k, v, causal, window)
+    return attention(q, k, v, causal, window)
+
+
+def _decode_local(q, k, v, valid):
+    """One rank's rows of ``_attention_decode_sharded``; ``meta`` shards
+    (the dry run's) take the plain version."""
+    if q.device.type == "meta":
+        return ref.attention_decode(q, k, v, valid)
+    return attention_decode(q, k, v, valid)
+
+
 def attention_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      valid: torch.Tensor) -> torch.Tensor:
+    if isinstance(k, DTensor):
+        return _attention_decode_sharded(q, k, v, valid)
     if _on_cuda(q):
         return _decode_attention(q, k, v, valid)
     return ref.attention_decode(q, k, v, valid)
+
+
+def _decode_partial(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    valid: torch.Tensor):
+    """The plain decode read over one part of the ring: the f32 output
+    before normalisation (B, 1, H, hd), the softmax sum (B, H, 1) and the
+    max (B, H, 1) of this part's live scores (-inf where it has none)."""
+    H = q.shape[2]
+    k, v = ref._repeat_kv(k, H), ref._repeat_kv(v, H)
+    s = ref._scores(q, k)                                   # (B, H, 1, L)
+    vmask = valid[None, :] if valid.ndim == 1 else valid
+    s = s.masked_fill(~vmask.bool()[:, None, None, :], float("-inf"))
+    m = s.amax(dim=-1)
+    p = torch.exp(s - torch.where(torch.isinf(m), 0.0, m)[..., None])
+    o = torch.einsum("bhqk,bkhd->bqhd", p, v.float())
+    return o, p.sum(dim=-1), m
+
+
+def _attention_decode_sharded(q: DTensor, k: DTensor, v: DTensor,
+                              valid: DTensor) -> DTensor:
+    """``attention_decode`` on a DTensor ring (B, L, KV, hd), its batch
+    and its slots split as ``cache_axes`` lays them out (batch over the
+    data axes, ``kv_seq`` over ``model``).  Each rank reads its part of
+    the ring; the parts combine as flash-decoding's splits do, by an
+    all-reduce of the score max, then of the rescaled sums and outputs.
+    A ring split over no mesh dim runs the kernel (the plain version off
+    the card) on each rank's rows through ``local_map``.  The card has no
+    kernel for a part of the ring yet (its output is normalised), so a
+    split ring on the card raises."""
+    mesh, pl = k.device_mesh, k.placements
+    if any(not (p == Shard(0) or p == Shard(1) or p == Replicate())
+           for p in pl):
+        raise ValueError(f"decode attention: unsupported ring layout {pl}")
+    rows = [Shard(0) if p == Shard(0) else Replicate() for p in pl]
+    if valid.ndim == 1:         # (L,): split as the ring's slots
+        split_valid = [Shard(0) if p == Shard(1) else Replicate()
+                       for p in pl]
+    else:                       # (B, L): as the ring's rows and slots
+        split_valid = [Shard(1) if p == Shard(1) else r
+                       for p, r in zip(pl, rows)]
+    q = q.redistribute(mesh, rows)
+    k, v = k.redistribute(mesh, pl), v.redistribute(mesh, pl)
+    valid = valid.redistribute(mesh, split_valid)
+    if Shard(1) not in pl:
+        run = local_map(_decode_local, out_placements=rows,
+                        in_placements=(rows, pl, pl, split_valid),
+                        device_mesh=mesh)
+        return run(q, k, v, valid)
+    if k.to_local().device.type == "cuda":
+        raise NotImplementedError(
+            "decode attention over a ring split across ranks has no "
+            "kernel on the card yet (ROADMAP A10b)")
+    o, l, m = _decode_partial(q.to_local(), k.to_local(), v.to_local(),
+                              valid.to_local())
+    part = [Partial("max") if p == Shard(1) else r for p, r in zip(pl, rows)]
+    m_all = DTensor.from_local(m, mesh, part, run_check=False) \
+        .redistribute(mesh, rows).to_local()
+    scale = torch.exp(torch.where(torch.isinf(m), m, m - m_all))
+    part = [Partial("sum") if p == Shard(1) else r for p, r in zip(pl, rows)]
+    o, l = (DTensor.from_local(t, mesh, part, run_check=False)
+            .redistribute(mesh, rows).to_local()
+            for t in (o * scale.permute(0, 2, 1)[..., None], l * scale))
+    out = (o / l.permute(0, 2, 1)[..., None]).to(q.dtype)
+    return DTensor.from_local(out, mesh, rows, run_check=False)
 
 
 def attention_decode_paged(q: torch.Tensor, k_pool: torch.Tensor,

@@ -43,9 +43,11 @@ from ..models import paramlib
 from ..models.transformer import model_specs
 from ..serve import (ServeConfig, ServeEngine, open_loop_requests,
                      shared_prefix_requests)
+from .tuning import apply_tuning
 
 
 def main(argv=None) -> dict:
+    apply_tuning()
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True)
     ap.add_argument("--smoke", action="store_true")

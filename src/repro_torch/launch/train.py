@@ -48,6 +48,7 @@ from ..optim import OptConfig, make_optimizer
 from ..runtime.fault import (FailureInjector, InjectedFailure, RetryPolicy,
                              run_with_recovery)
 from .steps import make_lm_grad_fn, make_train_engine
+from .tuning import apply_tuning
 
 
 def build(args, device: torch.device):
@@ -307,6 +308,7 @@ def parse_args(argv=None) -> argparse.Namespace:
 
 
 def main(argv=None) -> dict:
+    apply_tuning()
     args = parse_args(argv)
     if args.backend == "server":
         return run_server_backend(args)

@@ -11,9 +11,12 @@ CUDA kernels and their plain versions share one call site.
 """
 from __future__ import annotations
 
-import torch
+import math
 
-from ..device import resolve_device
+import torch
+from torch.distributed.tensor import DTensor, Replicate, Shard
+
+from ..device import on_mesh_of, param_for, resolve_device
 from ..kernels import ops as kops
 from .config import ModelConfig
 from .layers import apply_rope, rmsnorm
@@ -40,6 +43,17 @@ def attn_specs(cfg: ModelConfig, kind: str,
 
 
 def _split_heads(x: torch.Tensor, n: int, hd: int) -> torch.Tensor:
+    """(..., n * hd) -> (..., n, hd).  A DTensor whose flattened heads are
+    split over more ranks than there are heads (llama's 8 kv heads on a
+    16-way ``model`` axis: 32 columns a rank) is first gathered over those
+    mesh dims, so no shard cuts a head."""
+    if isinstance(x, DTensor):
+        last = Shard(x.ndim - 1)
+        ranks = math.prod(x.device_mesh.size(i)
+                          for i, p in enumerate(x.placements) if p == last)
+        if n % ranks:
+            x = x.redistribute(x.device_mesh, [Replicate() if p == last
+                                               else p for p in x.placements])
     return x.reshape(x.shape[:-1] + (n, hd))
 
 
@@ -55,9 +69,11 @@ def _rope_theta(cfg: ModelConfig, kind: str) -> float:
 
 def _qkv(params: dict, x: torch.Tensor, cfg: ModelConfig):
     dt = x.dtype
-    q = _split_heads(x @ params["wq"].to(dt), cfg.n_heads, cfg.hd)
-    k = _split_heads(x @ params["wk"].to(dt), cfg.n_kv_heads, cfg.hd)
-    v = _split_heads(x @ params["wv"].to(dt), cfg.n_kv_heads, cfg.hd)
+    q = _split_heads(x @ param_for(params["wq"], dt, x), cfg.n_heads, cfg.hd)
+    k = _split_heads(x @ param_for(params["wk"], dt, x), cfg.n_kv_heads,
+                     cfg.hd)
+    v = _split_heads(x @ param_for(params["wv"], dt, x), cfg.n_kv_heads,
+                     cfg.hd)
     if cfg.qk_norm:
         q = rmsnorm(q, params["q_norm"])
         k = rmsnorm(k, params["k_norm"])
@@ -74,7 +90,7 @@ def attention_fwd(params: dict, x: torch.Tensor, cfg: ModelConfig,
     k = apply_rope(k, positions, theta)
     window = cfg.window if kind in ("local", "swa") else 0
     out = kops.attention(q, k, v, causal=True, window=window)
-    return _merge_heads(out) @ params["wo"].to(x.dtype)
+    return _merge_heads(out) @ param_for(params["wo"], x.dtype, x)
 
 
 def cross_attention_fwd(params: dict, x: torch.Tensor, media: torch.Tensor,
@@ -84,14 +100,16 @@ def cross_attention_fwd(params: dict, x: torch.Tensor, media: torch.Tensor,
     scaled by tanh(gate), taken in f32 and cast to the compute dtype
     (llama-vision's gating; the gate starts at 0)."""
     dt = x.dtype
-    q = _split_heads(x @ params["wq"].to(dt), cfg.n_heads, cfg.hd)
-    k = _split_heads(media @ params["wk"].to(dt), cfg.n_kv_heads, cfg.hd)
-    v = _split_heads(media @ params["wv"].to(dt), cfg.n_kv_heads, cfg.hd)
+    q = _split_heads(x @ param_for(params["wq"], dt, x), cfg.n_heads, cfg.hd)
+    k = _split_heads(media @ param_for(params["wk"], dt, media),
+                     cfg.n_kv_heads, cfg.hd)
+    v = _split_heads(media @ param_for(params["wv"], dt, media),
+                     cfg.n_kv_heads, cfg.hd)
     if cfg.qk_norm:
         q = rmsnorm(q, params["q_norm"])
         k = rmsnorm(k, params["k_norm"])
     out = kops.attention(q, k, v, causal=False, window=0)
-    out = _merge_heads(out) @ params["wo"].to(dt)
+    out = _merge_heads(out) @ param_for(params["wo"], dt, x)
     return torch.tanh(params["gate"].float()).to(dt) * out
 
 
@@ -101,7 +119,7 @@ def _ring_valid(pos: torch.Tensor, L: int, cfg: ModelConfig,
     position p with p % L == i, p <= pos, p > pos - L.  pos: scalar -> (L,);
     pos: (B,) -> (B, L).  ``torch.remainder`` is the floor modulo of
     ``jnp.mod``; ``pos - idx`` is negative for the slots ahead of pos."""
-    idx = torch.arange(L, device=pos.device)
+    idx = on_mesh_of(torch.arange(L, device=pos.device), pos)
     if pos.ndim:
         pos = pos[:, None]
     abs_pos = pos - torch.remainder(pos - idx, L)
@@ -127,6 +145,47 @@ def init_kv_cache(cfg: ModelConfig, kind: str, batch: int, cache_len: int,
             "v": torch.zeros(shape, dtype=cfg.dtype, device=dev)}
 
 
+def kv_cache_axes(kind: str, stack_dims: int = 0) -> dict:
+    """Logical axes of ``init_kv_cache``'s leaves (``stack_dims`` leading
+    ``layers`` dims), for the sharding rules."""
+    lead = ("layers",) * stack_dims
+    ax = lead + ("batch", "kv_seq", "kv_heads", None)
+    return {"k": ax, "v": ax}
+
+
+def _ring_write(buf: torch.Tensor, slot: torch.Tensor,
+                new: torch.Tensor) -> None:
+    """``buf[b, slot[b]] = new[b]`` for every row b, in place: buf (B, L,
+    ...), slot (B,), new (B, ...).  A DTensor ring (its rows and slots
+    split over the mesh, ``cache_axes``) is written shard by shard: each
+    rank writes the rows it holds whose slot falls in its part of the ring
+    and writes the others' current values back (DTensor has no in-place
+    scatter on a split tensor)."""
+    if not isinstance(buf, DTensor):
+        rows = torch.arange(buf.shape[0], device=buf.device)
+        buf.index_put_((rows, slot), new)
+        return
+    mesh, pl = buf.device_mesh, buf.placements
+    if any(not isinstance(p, (Shard, Replicate)) or
+           isinstance(p, Shard) and p.dim > 1 for p in pl):
+        raise ValueError(f"ring write: unsupported cache layout {pl}")
+    rows_pl = [Shard(0) if p == Shard(0) else Replicate() for p in pl]
+    slot = slot.redistribute(mesh, rows_pl).to_local()
+    new = new.redistribute(mesh, rows_pl).to_local()
+    loc = buf.to_local()
+    part, coord = 0, mesh.get_coordinate()
+    for i, p in enumerate(pl):
+        if p == Shard(1):
+            part = part * mesh.size(i) + coord[i]
+    Ll = loc.shape[1]
+    rel = slot - part * Ll
+    inside = (rel >= 0) & (rel < Ll)
+    rel = rel.clamp(0, Ll - 1)
+    rows = torch.arange(loc.shape[0], device=loc.device)
+    keep = inside.reshape((-1,) + (1,) * (new.ndim - 1))
+    loc.index_put_((rows, rel), torch.where(keep, new, loc[rows, rel]))
+
+
 def attention_decode(params: dict, x: torch.Tensor, cache: dict,
                      cfg: ModelConfig, kind: str,
                      pos: torch.Tensor) -> tuple[torch.Tensor, dict]:
@@ -148,14 +207,13 @@ def attention_decode(params: dict, x: torch.Tensor, cache: dict,
 
     k, v = cache["k"], cache["v"]
     L = k.shape[1]
-    rows = torch.arange(B, device=k.device)
     slot = torch.remainder(posb.long(), L)                       # (B,)
-    k.index_put_((rows, slot), k_new[:, 0].to(k.dtype))
-    v.index_put_((rows, slot), v_new[:, 0].to(v.dtype))
+    _ring_write(k, slot, k_new[:, 0].to(k.dtype))
+    _ring_write(v, slot, v_new[:, 0].to(v.dtype))
 
     valid = _ring_valid(pos, L, cfg, kind)
     out = kops.attention_decode(q, k, v, valid)
-    out = _merge_heads(out) @ params["wo"].to(x.dtype)
+    out = _merge_heads(out) @ param_for(params["wo"], x.dtype, x)
     return out, cache
 
 
@@ -194,7 +252,7 @@ def attention_decode_paged(params: dict, x: torch.Tensor, cache: dict,
 
     valid = _ring_valid(posb, L, cfg, kind)
     out = kops.attention_decode_paged(q, pk, pv, pt, valid)
-    out = _merge_heads(out) @ params["wo"].to(x.dtype)
+    out = _merge_heads(out) @ param_for(params["wo"], x.dtype, x)
     return out, cache
 
 
@@ -261,5 +319,5 @@ def attention_prefill_paged(params: dict, x: torch.Tensor, cache: dict,
 
     pk.index_put_((pos["phys"], pos["off"]), k_new[0].to(pk.dtype))
     pv.index_put_((pos["phys"], pos["off"]), v_new[0].to(pv.dtype))
-    out = _merge_heads(out) @ params["wo"].to(x.dtype)
+    out = _merge_heads(out) @ param_for(params["wo"], x.dtype, x)
     return out, cache

@@ -100,6 +100,24 @@ class ModelConfig:
             return min(self.window, seq_len) if self.window else seq_len
         return seq_len
 
+    @property
+    def sub_quadratic(self) -> bool:
+        """True if no layer needs an unbounded full-attention KV cache."""
+        kinds = set(self.layer_kinds)
+        if "attn" in kinds or "xattn" in kinds:
+            return False
+        return all(k in ("rwkv6", "rglru") or
+                   (k in ("local", "swa") and self.window > 0)
+                   for k in kinds)
+
+    @property
+    def runs_long_context(self) -> bool:
+        """Whether the ``long_500k`` shape cell applies
+        (``launch/shapes.py``)."""
+        if self.long_context is not None:
+            return self.long_context
+        return self.sub_quadratic
+
     def validate(self) -> None:
         if not (self.d_model % self.n_heads == 0 or self.head_dim):
             raise ValueError(f"{self.name}: d_model % n_heads != 0")

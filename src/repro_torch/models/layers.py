@@ -11,7 +11,10 @@ from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+from torch.distributed.tensor.experimental import local_map
 
+from ..device import on_mesh_of, param_for
 from .config import ModelConfig
 from .paramlib import P
 
@@ -73,7 +76,8 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     """Split-half RoPE with f32 angles.  x: (..., seq, heads, head_dim);
     positions: (..., seq)."""
     hd = x.shape[-1]
-    freqs = rope_frequencies(hd, theta, x.device)             # (hd/2,)
+    freqs = on_mesh_of(rope_frequencies(hd, theta, x.device),  # (hd/2,)
+                       positions)
     angles = positions[..., :, None].float() * freqs          # (.., S, hd/2)
     cos = torch.cos(angles)[..., :, None, :]                  # (.., S, 1, hd/2)
     sin = torch.sin(angles)[..., :, None, :]
@@ -104,13 +108,13 @@ def mlp_specs(cfg: ModelConfig, stack: tuple[int, ...] = ()) -> dict:
 def apply_mlp(params: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     dt = x.dtype
     if cfg.mlp in ("swiglu", "geglu"):
-        gate = x @ params["wg"].to(dt)
+        gate = x @ param_for(params["wg"], dt, x)
         g = F.silu(gate) if cfg.mlp == "swiglu" else \
             F.gelu(gate, approximate="tanh")
-        u = x @ params["wu"].to(dt)
-        return (g * u) @ params["wd"].to(dt)
-    h = F.gelu(x @ params["wu"].to(dt), approximate="tanh")
-    return h @ params["wd"].to(dt)
+        u = x @ param_for(params["wu"], dt, x)
+        return (g * u) @ param_for(params["wd"], dt, x)
+    h = F.gelu(x @ param_for(params["wu"], dt, x), approximate="tanh")
+    return h @ param_for(params["wd"], dt, x)
 
 
 # ---------------------------------------------------------------------------
@@ -125,9 +129,26 @@ def embed_specs(cfg: ModelConfig) -> dict:
     return specs
 
 
+def _lookup_sharded(w: DTensor, tokens: DTensor) -> DTensor:
+    """``w[tokens]`` on DTensors: the whole table on every rank, and each
+    rank looks its own tokens up with the plain index (whose backward, an
+    accumulating ``index_put``, then runs on local shards too); the
+    table's gradient is a partial sum over the mesh dims that split the
+    tokens."""
+    mesh, rows = w.device_mesh, list(tokens.placements)
+    full = [Replicate()] * mesh.ndim
+    grad = [Partial() if isinstance(p, Shard) else Replicate()
+            for p in rows]
+    run = local_map(lambda table, t: table[t], out_placements=rows,
+                    in_placements=(full, rows),
+                    in_grad_placements=(grad, rows), device_mesh=mesh)
+    return run(w.redistribute(mesh, full), tokens)
+
+
 def embed_tokens(params: dict, tokens: torch.Tensor,
                  cfg: ModelConfig) -> torch.Tensor:
-    x = params["embedding"].to(cfg.dtype)[tokens]
+    w = params["embedding"].to(cfg.dtype)
+    x = _lookup_sharded(w, tokens) if isinstance(w, DTensor) else w[tokens]
     if cfg.embed_scale:
         x = x * torch.tensor(cfg.d_model ** 0.5, dtype=cfg.dtype)
     return x
@@ -135,9 +156,9 @@ def embed_tokens(params: dict, tokens: torch.Tensor,
 
 def lm_logits(params: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     if cfg.tie_embeddings:
-        w = params["embedding"].to(cfg.dtype).T
+        w = param_for(params["embedding"], cfg.dtype, x).T
     else:
-        w = params["lm_head"].to(cfg.dtype)
+        w = param_for(params["lm_head"], cfg.dtype, x)
     logits = x @ w
     if cfg.logit_softcap > 0:
         c = cfg.logit_softcap

@@ -81,5 +81,19 @@ def init_tree(specs, generator: torch.Generator, dtype=torch.float32,
     return walk(specs)
 
 
+def abstract_tree(specs, dtype=torch.float32):
+    """The parameters as ``meta`` tensors: shapes and dtypes, no storage
+    (the dry run's stand-ins)."""
+    return {k: (torch.empty(v.shape, dtype=v.dtype or dtype, device="meta")
+                if isinstance(v, P) else abstract_tree(v, dtype))
+            for k, v in sorted(specs.items())}
+
+
+def axes_tree(specs):
+    """The logical-axes tree with the parameters' structure."""
+    return {k: v.axes if isinstance(v, P) else axes_tree(v)
+            for k, v in sorted(specs.items())}
+
+
 def param_count(specs) -> int:
     return sum(math.prod(s.shape) for _, s in leaves(specs))

@@ -103,6 +103,12 @@ def rglru_decode(p: dict, x: torch.Tensor, state: dict,
     return out, {"h": hT, "conv": new_conv}
 
 
+def rglru_state_axes(stack_dims: int = 0) -> dict:
+    """Logical axes of ``init_rglru_state``'s leaves."""
+    lead = ("layers",) * stack_dims
+    return {"h": lead + ("batch", None), "conv": lead + ("batch", None, None)}
+
+
 def init_rglru_state(cfg: ModelConfig, batch: int,
                      stack: tuple[int, ...] = (),
                      device: str | torch.device = "cpu") -> dict:

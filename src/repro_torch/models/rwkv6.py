@@ -135,6 +135,14 @@ def chan_mix_fwd(cp: dict, x: torch.Tensor, cfg: ModelConfig,
         * (kk @ cp["cv"].to(dt))
 
 
+def rwkv_state_axes(stack_dims: int = 0) -> dict:
+    """Logical axes of ``init_rwkv_state``'s leaves."""
+    lead = ("layers",) * stack_dims
+    return {"S": lead + ("batch", "heads_act", None, None),
+            "x_last": lead + ("batch", None),
+            "cx_last": lead + ("batch", None)}
+
+
 def init_rwkv_state(cfg: ModelConfig, batch: int,
                     stack: tuple[int, ...] = (),
                     device: str | torch.device = "cpu") -> dict:

@@ -3,15 +3,17 @@
 Entry points (plain functions over a params dict):
 
   model_specs(cfg)                                  -> P-spec tree
-  forward(params, tokens, cfg, remat, media)        -> logits   [train path]
-  lm_loss(params, batch, cfg, remat)                -> (loss, metrics)
-  prefill(params, tokens, cfg, cache_len, remat, media)
+  forward(params, tokens, cfg, remat, media, act_specs)
+                                                    -> logits   [train path]
+  lm_loss(params, batch, cfg, remat, act_specs)     -> (loss, metrics)
+  prefill(params, tokens, cfg, cache_len, remat, media, act_specs)
                                                     -> (last_logits, cache)
   init_cache(cfg, batch, cache_len, device)         -> dense cache
-  decode_step(params, cache, tokens, pos, cfg, media)
+  cache_axes(cfg)                                   -> its logical axes
+  decode_step(params, cache, tokens, pos, cfg, media, act_specs)
                                                     -> (logits, cache)
   prefill_chunk(params, cache, tokens, start, rows, carry, cfg, cache_len,
-                media)                              -> (logits, cache, carry)
+                media, act_specs)                   -> (logits, cache, carry)
 
 Parameters of each block-group slot are stacked ``(n, ...)`` as in the JAX
 package, so paths match its checkpoints; the port loops over the stack
@@ -44,6 +46,16 @@ the backward and ``dots`` keeps only the outputs of the products with no
 batch dimensions (JAX's ``dots_with_no_batch_dims_saveable``);
 ``REPRO_CHUNKED_CE=1`` computes the loss over sequence chunks whose
 logits the backward recomputes (JAX's ``_lm_loss_chunked``).
+
+The entry points also run on DTensor parameters and inputs (the sharded
+steps of ``launch/steps.py``): ``act_specs`` ({"act", "logits": DTensor
+placements}) lays the residual stream and the logits out at JAX's
+``with_sharding_constraint`` points, tensors made inside the model are
+replicated on the mesh (``device.on_mesh_of``), parameters are gathered
+over the batch's mesh dims where they are used (``device.param_for``),
+sublayer outputs take the residual stream's layout (:func:`_residual`),
+and the cross entropy of vocab-split logits takes JAX's one-hot sum.  On
+plain tensors all of this is the identity: the bits do not change.
 """
 from __future__ import annotations
 
@@ -52,10 +64,11 @@ from functools import partial
 from typing import Any
 
 import torch
+from torch.distributed.tensor import DTensor
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
-from ..device import resolve_device
+from ..device import on_mesh_of, param_for, resolve_device
 from ..kernels import ops as kops
 from . import attention as attn
 from .config import RECURRENT_KINDS, ModelConfig
@@ -63,9 +76,10 @@ from .layers import (apply_mlp, apply_norm, apply_rope, embed_specs,
                      embed_tokens, lm_logits, mlp_specs, norm_specs)
 from .moe import moe_ffn, moe_specs
 from .paramlib import P
-from .rglru import init_rglru_state, rglru_decode, rglru_fwd, rglru_specs
+from .rglru import (init_rglru_state, rglru_decode, rglru_fwd, rglru_specs,
+                    rglru_state_axes)
 from .rwkv6 import (chan_mix_fwd, init_rwkv_state, rwkv6_specs,
-                    time_mix_decode, time_mix_fwd)
+                    rwkv_state_axes, time_mix_decode, time_mix_fwd)
 
 SELF_ATTN_KINDS = ("attn", "local", "swa")
 
@@ -130,6 +144,28 @@ def _project_media(params: dict, media: torch.Tensor | None,
     return media.to(cfg.dtype) @ params["frontend_proj"].to(cfg.dtype)
 
 
+def _wsc(x: torch.Tensor, act_specs: dict | None,
+         name: str) -> torch.Tensor:
+    """JAX's activation sharding constraint: a DTensor redistributed to
+    the placements ``act_specs[name]`` on its mesh; a plain tensor, or a
+    name without a spec, as it is."""
+    if act_specs and name in act_specs and isinstance(x, DTensor):
+        return x.redistribute(x.device_mesh, act_specs[name])
+    return x
+
+
+def _residual(x: torch.Tensor, f: torch.Tensor) -> torch.Tensor:
+    """x + f.  On the sharded path a sublayer's output (often partial sums
+    over ``model`` after a row-split product) is first laid out as the
+    residual stream x (Megatron's all-reduce): otherwise DTensor would
+    carry the partial sums into the next norm and products and gather
+    weights there instead of reducing once."""
+    if isinstance(f, DTensor) and isinstance(x, DTensor) \
+            and f.placements != x.placements:
+        f = f.redistribute(x.device_mesh, x.placements)
+    return x + f
+
+
 def _unstack(tree: dict, n: int) -> list[dict]:
     """The ``n`` layers of a stacked ``(n, ...)`` subtree, one ``unbind``
     per leaf (views, no copies)."""
@@ -148,16 +184,17 @@ def _apply_block(bp: dict, kind: str, x: torch.Tensor, cfg: ModelConfig,
                  ) -> tuple[torch.Tensor, dict]:
     h = apply_norm(bp["ln1"], x, cfg)
     if kind == "rwkv6":
-        x = x + time_mix_fwd(bp["mix"], h, cfg)
+        x = _residual(x, time_mix_fwd(bp["mix"], h, cfg))
     elif kind == "rglru":
-        x = x + rglru_fwd(bp["mix"], h, cfg)
+        x = _residual(x, rglru_fwd(bp["mix"], h, cfg))
     elif kind == "xattn":
-        x = x + attn.cross_attention_fwd(bp["mix"], h, media, cfg)
+        x = _residual(x, attn.cross_attention_fwd(bp["mix"], h, media, cfg))
     else:
-        x = x + attn.attention_fwd(bp["mix"], h, cfg, kind, positions)
+        x = _residual(x, attn.attention_fwd(bp["mix"], h, cfg, kind,
+                                            positions))
     h2 = apply_norm(bp["ln2"], x, cfg)
     f, aux = _apply_ffn(bp, kind, h2, cfg)
-    return x + f, aux
+    return _residual(x, f), aux
 
 
 def save_dots(ctx, op, *args, **kwargs) -> CheckpointPolicy:
@@ -194,19 +231,22 @@ def _remat_wrap(fn, remat: str):
 
 
 def _forward_hidden(params: dict, tokens: torch.Tensor, cfg: ModelConfig,
-                    remat: str = "none", media: torch.Tensor | None = None
+                    remat: str = "none", media: torch.Tensor | None = None,
+                    act_specs: dict | None = None
                     ) -> tuple[torch.Tensor, dict]:
     """The forward up to the final norm (JAX's ``_forward_hidden``):
     (hidden (B, S, d), the FFNs' aux losses summed over the layers in
     layer order; Python zeros for a model without MoE layers)."""
     B, S = tokens.shape
-    x = embed_tokens(params, tokens, cfg)
+    x = _wsc(embed_tokens(params, tokens, cfg), act_specs, "act")
     media = _project_media(params, media, cfg)
-    positions = torch.arange(S, device=tokens.device).expand(B, S)
+    positions = on_mesh_of(torch.arange(S, device=tokens.device)
+                           .expand(B, S), x)
     aux = dict(AUX_ZERO)
     for gi, g in enumerate(cfg.groups):
 
         def body(xc, auxc, slot_params, _g=g):
+            xc = _wsc(xc, act_specs, "act")
             for si, kind in enumerate(_g.pattern):
                 xc, a = _apply_block(slot_params[f"s{si}"], kind, xc, cfg,
                                      positions, media)
@@ -220,36 +260,45 @@ def _forward_hidden(params: dict, tokens: torch.Tensor, cfg: ModelConfig,
 
 
 def forward(params: dict, tokens: torch.Tensor, cfg: ModelConfig,
-            remat: str = "none",
-            media: torch.Tensor | None = None) -> torch.Tensor:
+            remat: str = "none", media: torch.Tensor | None = None,
+            act_specs: dict | None = None) -> torch.Tensor:
     """Full-sequence forward.  tokens: (B, S) int -> logits (B, S, V) f32;
     media: the vision model's (B, N, d_frontend) frontend tokens."""
-    x, _ = _forward_hidden(params, tokens, cfg, remat, media)
-    return lm_logits(params, apply_norm(params["final_norm"], x, cfg), cfg)
+    x, _ = _forward_hidden(params, tokens, cfg, remat, media, act_specs)
+    return _wsc(lm_logits(params, apply_norm(params["final_norm"], x, cfg),
+                          cfg), act_specs, "logits")
 
 
 def _nll(params: dict, x: torch.Tensor, labels: torch.Tensor,
-         cfg: ModelConfig) -> torch.Tensor:
+         cfg: ModelConfig, act_specs: dict | None = None) -> torch.Tensor:
     """Per-token cross entropy of the normed hidden x (B, S, d) against
     labels (B, S).  The label logit is picked with ``gather`` where the
     JAX package sums against a one-hot: both are exact in f32, every other
-    term being 0."""
-    logits = lm_logits(params, x, cfg).float()
+    term being 0.  Sharded logits (DTensors, their vocab split over
+    ``model``) take JAX's one-hot sum, in the logits' layout."""
+    logits = _wsc(lm_logits(params, x, cfg).float(), act_specs, "logits")
     lse = torch.logsumexp(logits, dim=-1)                       # (B, S)
-    correct = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    if isinstance(logits, DTensor):
+        vocab = on_mesh_of(torch.arange(logits.shape[-1],
+                                        device=labels.device), labels)
+        onehot = _wsc((labels[..., None] == vocab).float(), act_specs,
+                      "logits")
+        correct = torch.sum(logits * onehot, dim=-1)
+    else:
+        correct = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
     return lse - correct
 
 
 def _chunk_sums(params: dict, x: torch.Tensor, labels: torch.Tensor,
-                mask: torch.Tensor,
-                cfg: ModelConfig) -> tuple[torch.Tensor, torch.Tensor]:
-    nll = _nll(params, x, labels, cfg)
+                mask: torch.Tensor, cfg: ModelConfig,
+                act_specs: dict | None) -> tuple[torch.Tensor, torch.Tensor]:
+    nll = _nll(params, x, labels, cfg, act_specs)
     return torch.sum(nll * mask), torch.sum(mask)
 
 
 def _lm_loss_chunked(params: dict, batch: dict, cfg: ModelConfig,
-                     remat: str, n_chunks: int = 8
-                     ) -> tuple[torch.Tensor, dict]:
+                     remat: str, act_specs: dict | None = None,
+                     n_chunks: int = 8) -> tuple[torch.Tensor, dict]:
     """``lm_loss`` over sequence chunks (JAX's ``_lm_loss_chunked``): the
     chunk count is ``min(n_chunks, S)`` stepped down until it divides S;
     each chunk's (B, c, V) logits, log-sum-exp and masked sums run inside
@@ -259,28 +308,31 @@ def _lm_loss_chunked(params: dict, batch: dict, cfg: ModelConfig,
     tokens = batch["tokens"]
     B, S = tokens.shape
     hidden, aux = _forward_hidden(params, tokens, cfg, remat,
-                                  batch.get("media"))
+                                  batch.get("media"), act_specs)
     x = apply_norm(params["final_norm"], hidden, cfg)
     mask = batch.get("mask")
-    mask = (torch.ones((B, S), dtype=torch.float32, device=tokens.device)
+    mask = (torch.ones_like(tokens, dtype=torch.float32)
             if mask is None else mask.float())
     n_chunks = min(n_chunks, S)
     while S % n_chunks:
         n_chunks -= 1
     c = S // n_chunks
-    tot = torch.zeros((), dtype=torch.float32, device=tokens.device)
-    cnt = torch.zeros((), dtype=torch.float32, device=tokens.device)
+    tot = on_mesh_of(torch.zeros((), dtype=torch.float32,
+                                 device=tokens.device), x)
+    cnt = on_mesh_of(torch.zeros((), dtype=torch.float32,
+                                 device=tokens.device), x)
     for i in range(n_chunks):
         sl = slice(i * c, (i + 1) * c)
         t, n = checkpoint(_chunk_sums, params, x[:, sl],
                           batch["labels"][:, sl], mask[:, sl], cfg,
-                          use_reentrant=False)
+                          act_specs, use_reentrant=False)
         tot, cnt = tot + t, cnt + n
     return _with_router_losses(tot / torch.clamp(cnt, min=1.0), aux, cfg)
 
 
 def lm_loss(params: dict, batch: dict, cfg: ModelConfig,
-            remat: str = "none") -> tuple[torch.Tensor, dict]:
+            remat: str = "none",
+            act_specs: dict | None = None) -> tuple[torch.Tensor, dict]:
     """Next-token cross entropy plus the MoE router's losses, as JAX's
     ``lm_loss``: returns (total, {loss, total_loss, lb_loss,
     router_entropy}), total = loss + router_aux_coef * lb / n_moe +
@@ -290,11 +342,11 @@ def lm_loss(params: dict, batch: dict, cfg: ModelConfig,
     ``REPRO_CHUNKED_CE=1``, read at each call as JAX
     reads it, takes the chunked path (:func:`_lm_loss_chunked`)."""
     if os.environ.get("REPRO_CHUNKED_CE") == "1":
-        return _lm_loss_chunked(params, batch, cfg, remat)
+        return _lm_loss_chunked(params, batch, cfg, remat, act_specs)
     hidden, aux = _forward_hidden(params, batch["tokens"], cfg, remat,
-                                  batch.get("media"))
+                                  batch.get("media"), act_specs)
     nll = _nll(params, apply_norm(params["final_norm"], hidden, cfg),
-               batch["labels"], cfg)
+               batch["labels"], cfg, act_specs)
     mask = batch.get("mask")
     mask = torch.ones_like(nll) if mask is None else mask.float()
     loss = torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)
@@ -343,19 +395,28 @@ def _recurrent_block(bp: dict, kind: str, x: torch.Tensor, state: dict,
         mix, new = time_mix_decode(bp["mix"], h, state, cfg)
     else:
         mix, new = rglru_decode(bp["mix"], h, state, cfg)
-    x = x + mix
+    x = _residual(x, mix)
     h2 = apply_norm(bp["ln2"], x, cfg)
     if kind == "rwkv6":
         f = chan_mix_fwd(bp["ffn"], h2, cfg, x_last=state["cx_last"])
         new["cx_last"] = h2[:, -1]
     else:
         f = _apply_ffn(bp, kind, h2, cfg)[0]
-    return x + f, new
+    return _residual(x, f), new
 
 
 # ---------------------------------------------------------------------------
 # Prefill (forward + dense ring cache construction)
 # ---------------------------------------------------------------------------
+
+def _zeros_as(t: torch.Tensor, shape: tuple[int, ...]) -> torch.Tensor:
+    """Zeros of ``shape`` in t's dtype and device and, for a DTensor, in
+    its layout (``new_zeros`` would replicate them)."""
+    z = t.new_zeros(shape)
+    if isinstance(t, DTensor):
+        z = z.redistribute(t.device_mesh, t.placements)
+    return z
+
 
 def _fill_kv(cfg: ModelConfig, kind: str, k: torch.Tensor, v: torch.Tensor,
              cache_len: int) -> dict:
@@ -366,9 +427,9 @@ def _fill_kv(cfg: ModelConfig, kind: str, k: torch.Tensor, v: torch.Tensor,
     L = cfg.kv_cache_len(kind, cache_len)
     Lp = min(L, S)
     pos = S - Lp + torch.arange(Lp, device=k.device)
-    slots = torch.remainder(pos, L)
-    buf_k = k.new_zeros((B, L, KV, hd))
-    buf_v = v.new_zeros((B, L, KV, hd))
+    slots = on_mesh_of(torch.remainder(pos, L), k)
+    buf_k = _zeros_as(k, (B, L, KV, hd))
+    buf_v = _zeros_as(v, (B, L, KV, hd))
     buf_k[:, slots] = k[:, S - Lp:]
     buf_v[:, slots] = v[:, S - Lp:]
     return {"k": buf_k, "v": buf_v}
@@ -393,11 +454,12 @@ def _prefill_block(bp: dict, kind: str, x: torch.Tensor, cfg: ModelConfig,
     kk = apply_rope(kk, positions, theta)
     window = cfg.window if kind in ("local", "swa") else 0
     o = kops.attention(q, kk, vv, causal=True, window=window)
-    mix = o.reshape(o.shape[:-2] + (-1,)) @ bp["mix"]["wo"].to(x.dtype)
+    mix = o.reshape(o.shape[:-2] + (-1,)) @ param_for(bp["mix"]["wo"],
+                                                      x.dtype, x)
     c = _fill_kv(cfg, kind, kk, vv, cache_len)
-    x = x + mix
+    x = _residual(x, mix)
     h2 = apply_norm(bp["ln2"], x, cfg)
-    return x + _apply_ffn(bp, kind, h2, cfg)[0], c
+    return _residual(x, _apply_ffn(bp, kind, h2, cfg)[0]), c
 
 
 def _stack_layers(per_layer: dict[str, list[dict]]) -> dict:
@@ -409,7 +471,8 @@ def _stack_layers(per_layer: dict[str, list[dict]]) -> dict:
 
 def prefill(params: dict, tokens: torch.Tensor, cfg: ModelConfig,
             cache_len: int | None = None, remat: str = "none",
-            media: torch.Tensor | None = None) -> tuple[torch.Tensor, dict]:
+            media: torch.Tensor | None = None,
+            act_specs: dict | None = None) -> tuple[torch.Tensor, dict]:
     """Process a prompt: tokens (B, S) -> (last-position logits (B, V) f32,
     dense cache {g: {s: stacked (n, B, ...) leaves}}: the ring's "k", "v"
     (n, B, L, KV, hd) for attention, "S", "x_last", "cx_last" for rwkv6,
@@ -417,14 +480,16 @@ def prefill(params: dict, tokens: torch.Tensor, cfg: ModelConfig,
     the training forward does (it matters only under autograd)."""
     B, S = tokens.shape
     cache_len = cache_len or S
-    x = embed_tokens(params, tokens, cfg)
+    x = _wsc(embed_tokens(params, tokens, cfg), act_specs, "act")
     media = _project_media(params, media, cfg)
-    positions = torch.arange(S, device=tokens.device).expand(B, S)
+    positions = on_mesh_of(torch.arange(S, device=tokens.device)
+                           .expand(B, S), x)
 
     cache: dict[str, Any] = {}
     for gi, g in enumerate(cfg.groups):
 
         def body(xc, slot_params, _g=g):
+            xc = _wsc(xc, act_specs, "act")
             cs = {}
             for si, kind in enumerate(_g.pattern):
                 xc, cs[f"s{si}"] = _prefill_block(
@@ -473,6 +538,22 @@ def init_cache(cfg: ModelConfig, batch: int, cache_len: int,
             for gi, g in enumerate(cfg.groups)}
 
 
+def cache_axes(cfg: ModelConfig) -> dict:
+    """Logical axes of ``init_cache``'s tree, for the sharding rules."""
+    def slot(kind: str) -> dict:
+        if kind == "rwkv6":
+            return rwkv_state_axes(1)
+        if kind == "rglru":
+            return rglru_state_axes(1)
+        if kind == "xattn":
+            return {}
+        return attn.kv_cache_axes(kind, 1)
+
+    return {f"g{gi}": {f"s{si}": slot(kind)
+                       for si, kind in enumerate(g.pattern)}
+            for gi, g in enumerate(cfg.groups)}
+
+
 def _decode_block(bp: dict, kind: str, x: torch.Tensor, c: dict,
                   cfg: ModelConfig, pos: torch.Tensor,
                   media: torch.Tensor | None) -> torch.Tensor:
@@ -491,14 +572,15 @@ def _decode_block(bp: dict, kind: str, x: torch.Tensor, c: dict,
               else attn.attention_decode)
     h = apply_norm(bp["ln1"], x, cfg)
     mix, _ = decode(bp["mix"], h, c, cfg, kind, pos)
-    x = x + mix
+    x = _residual(x, mix)
     h2 = apply_norm(bp["ln2"], x, cfg)
-    return x + _apply_ffn(bp, kind, h2, cfg)[0]
+    return _residual(x, _apply_ffn(bp, kind, h2, cfg)[0])
 
 
 def decode_step(params: dict, cache: dict, tokens: torch.Tensor,
                 pos: torch.Tensor, cfg: ModelConfig,
-                media: torch.Tensor | None = None
+                media: torch.Tensor | None = None,
+                act_specs: dict | None = None
                 ) -> tuple[torch.Tensor, dict]:
     """One decode step against a dense cache (``prefill``'s or
     ``init_cache``'s) or a paged one.  tokens: (B, 1); pos: (B,)
@@ -507,8 +589,9 @@ def decode_step(params: dict, cache: dict, tokens: torch.Tensor,
     rows are updated in place (every row's, idle ones included, as in the
     JAX package: a row's state never reaches another row).  ``media``:
     the vision model's frontend tokens, re-projected every step."""
-    x = embed_tokens(params, tokens, cfg)
+    x = _wsc(embed_tokens(params, tokens, cfg), act_specs, "act")
     media = _project_media(params, media, cfg)
+    pos = on_mesh_of(pos, x)
     for gi, g in enumerate(cfg.groups):
         gp, gc = params["groups"][f"g{gi}"], cache[f"g{gi}"]
         for lp, lc in zip(_unstack(gp, g.n), _unstack(gc, g.n)):
@@ -516,7 +599,7 @@ def decode_step(params: dict, cache: dict, tokens: torch.Tensor,
                 x = _decode_block(lp[f"s{si}"], kind, x, lc[f"s{si}"], cfg,
                                   pos, media)
     x = apply_norm(params["final_norm"], x, cfg)
-    return lm_logits(params, x, cfg), cache
+    return _wsc(lm_logits(params, x, cfg), act_specs, "logits"), cache
 
 
 # ---------------------------------------------------------------------------
@@ -560,14 +643,15 @@ def _chunk_block(bp: dict, kind: str, x: torch.Tensor, c: dict, car: dict,
                                       c["pk"].shape[1])
     mix, _ = attn.attention_prefill_paged(bp["mix"], h, tmp, cfg, kind,
                                           start, pos[L])
-    x = x + mix
+    x = _residual(x, mix)
     h2 = apply_norm(bp["ln2"], x, cfg)
-    return x + _apply_ffn(bp, kind, h2, cfg)[0], car
+    return _residual(x, _apply_ffn(bp, kind, h2, cfg)[0]), car
 
 
 def prefill_chunk(params: dict, cache: dict, tokens: torch.Tensor,
                   start: int, rows: dict, carry: dict, cfg: ModelConfig,
-                  cache_len: int, media: torch.Tensor | None = None
+                  cache_len: int, media: torch.Tensor | None = None,
+                  act_specs: dict | None = None
                   ) -> tuple[torch.Tensor, dict, dict]:
     """Process one prompt chunk of an in-flight prefill against the paged
     cache.  tokens: (1, C) at absolute positions start..start+C-1; rows:
@@ -578,7 +662,7 @@ def prefill_chunk(params: dict, cache: dict, tokens: torch.Tensor,
     (last-position logits (1, V) f32, cache, the new carry: new tensors,
     the given carry is left as it was).  ``media``: the vision model's
     (1, N, d_frontend) frontend tokens."""
-    x = embed_tokens(params, tokens, cfg)
+    x = _wsc(embed_tokens(params, tokens, cfg), act_specs, "act")
     media = _project_media(params, media, cfg)
     pos: dict = {}
     new_carry: dict[str, Any] = {}
@@ -588,6 +672,7 @@ def prefill_chunk(params: dict, cache: dict, tokens: torch.Tensor,
                                       range(len(g.pattern))}
         for lp, lc, lcar in zip(_unstack(gp, g.n), _unstack(gc, g.n),
                                 _unstack(carry[f"g{gi}"], g.n)):
+            x = _wsc(x, act_specs, "act")
             for si, kind in enumerate(g.pattern):
                 x, car = _chunk_block(lp[f"s{si}"], kind, x, lc[f"s{si}"],
                                       lcar[f"s{si}"], cfg, rows, start,

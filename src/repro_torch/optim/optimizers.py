@@ -21,6 +21,7 @@ from typing import Any, Callable, NamedTuple
 
 import torch
 
+from ..device import on_mesh_of
 from ..tree import leaves, tree_map
 
 PyTree = Any
@@ -97,8 +98,9 @@ def _compress_one(g: torch.Tensor, r: torch.Tensor):
 
 
 def init_residual(params: PyTree) -> PyTree:
-    return tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
-                                          device=p.device), params)
+    return tree_map(lambda p: torch.zeros_like(
+        p, dtype=torch.float32, memory_format=torch.contiguous_format),
+        params)
 
 
 def _zeros_f32(params: PyTree) -> PyTree:
@@ -106,8 +108,9 @@ def _zeros_f32(params: PyTree) -> PyTree:
 
 
 def _step0(params: PyTree) -> torch.Tensor:
-    dev = leaves(params)[0].device
-    return torch.zeros((), dtype=torch.int32, device=dev)
+    first = leaves(params)[0]
+    return on_mesh_of(torch.zeros((), dtype=torch.int32, device=first.device),
+                      first)
 
 
 def _prepare(cfg: OptConfig, grads: PyTree, state: dict, new_state: dict

@@ -1,8 +1,8 @@
 """The port stands alone: no file of ``src/repro_torch``, not
 ``chip_smoke.py``, no probe under ``tools/`` and no port example
 (``examples/torch_*.py``) imports ``jax`` or the JAX package ``repro``;
-importing the serving or the training CLI, or an example, leaves ``jax``
-out of ``sys.modules``; and ``chip_smoke.py`` alone, or without a GPU,
+importing the serving, the training or the dry-run CLI, or an example,
+leaves ``jax`` out of ``sys.modules``; and ``chip_smoke.py`` alone, or without a GPU,
 exits non-zero and prints no result."""
 import ast
 import os
@@ -43,6 +43,17 @@ def test_no_jax_or_repro_import(path):
 
 def test_serving_cli_import_leaves_jax_out():
     code = ("import sys, repro_torch.launch.serve, repro_torch.checkpoint; "
+            "sys.exit(int(any(m == 'jax' or m.startswith(('jax.', 'repro.'))"
+            " or m == 'repro' for m in sys.modules)))")
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    res = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+
+
+def test_dryrun_cli_import_leaves_jax_out():
+    code = ("import sys, repro_torch.launch.dryrun, "
+            "repro_torch.launch.tuning; "
             "sys.exit(int(any(m == 'jax' or m.startswith(('jax.', 'repro.'))"
             " or m == 'repro' for m in sys.modules)))")
     env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}

@@ -26,6 +26,7 @@ from repro import configs as jconfigs  # noqa: E402
 from repro.data import LMBatchSpec as JLMBatchSpec  # noqa: E402
 from repro.data import make_lm_batch as jmake_lm_batch  # noqa: E402
 from repro.launch import train as jtrain  # noqa: E402
+from repro.pdb.server.client import ClientParameterDB  # noqa: E402
 from repro.models import paramlib as jparamlib  # noqa: E402
 from repro.models import transformer as jtf  # noqa: E402
 from repro_torch.checkpoint import params_from_numpy  # noqa: E402
@@ -113,8 +114,26 @@ def pulls(monkeypatch):
     return got
 
 
+@pytest.fixture
+def jax_writes_settled(monkeypatch):
+    """JAX's server CLI pulls the shards right after its workers join,
+    without flushing its clients (``src/repro/launch/train.py:137-143``);
+    in batched mode each worker's last ``write_batch`` is settled only at
+    its next exchange, so under load the pull can reach a shard first and
+    count 14 writes for 16 (ROADMAP §C).  Each ``write_many`` of the JAX
+    clients is flushed here, so every write is acknowledged before the
+    pull, as the port's CLI flushes its clients before pulling."""
+    real = ClientParameterDB.write_many
+
+    def write_many(self, worker, writes):
+        real(self, worker, writes)
+        self.flush()
+    monkeypatch.setattr(ClientParameterDB, "write_many", write_many)
+
+
 @pytest.mark.parametrize("rpc", ["batched", "per-op"])
-def test_server_backend_tracks_jax(jax_inputs, pulls, rpc):
+def test_server_backend_tracks_jax(jax_inputs, pulls, jax_writes_settled,
+                                   rpc):
     flags = CLI + ["--rpc", rpc]
     want = jtrain.main(flags)
     got = ttrain.main(flags + ["--device", "cpu"])
