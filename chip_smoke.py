@@ -360,6 +360,26 @@ Phases (any failure raises and the script exits non-zero):
    arithmetic, ``datacentric`` reduce-scatters and all-gathers, ``bsp``
    all-reduces, every number is finite; and the dry run of (a)'s own cell
    on a (1, 1) mesh, its predicted peak printed beside (a)'s measured one.
+16. the multi-device layer of the MoE, recurrent and vision configs on
+   one card: (a) ``mixtral-8x7b``, ``rwkv6-1.6b``, ``recurrentgemma-2b``
+   and ``llama-3.2-vision-11b`` at full width, each at its training
+   phase's depth, batch and optimizer (vision with its media and the
+   chunked cross entropy), 2 ``datacentric`` steps (remat none) through
+   ``steps.make_train_step`` on DTensor parameters on a one-rank NCCL
+   group and a (1, 1) mesh, each against the unsharded step run first
+   (its results kept on the host): losses, parameters and optimizer state
+   bit for bit, the MoE FFN, WKV, RG-LRU and flash kernels' launches
+   exact, no plain version; step seconds and peaks beside the unsharded
+   step's; (b) the decode kernel's split-ring partial form
+   (``decode_attention_partial``) on rings cut into 2 and 4 parts at
+   decode's shapes, in bf16 and f32: each part's (acc, l, m) against
+   ``ops._decode_partial`` (acc and l at 2e-2 / 1e-4, m at 1e-4) and
+   ``ops.combine_parts`` of the parts against the whole-ring kernel,
+   timed beside it (the ``split_ring`` and ``partial_ms`` fields of the
+   ``decode_attention`` row; 0 launches on every one-card path); (c) the
+   dry run of ``mixtral-8x7b`` and ``rwkv6-1.6b`` ``train_4k``
+   (``datacentric``) and ``llama-3.2-vision-11b``'s (``bsp``) on 16 x 16,
+   gated as (b) of phase 15.
 
 The last two lines are the ``kernels`` JSON object (twelve rows; each
 row's ``launches_by_path`` counts its launches on every path, the
@@ -2433,9 +2453,9 @@ def routing_traced(ops):
     """Record the ``dispatch`` of every MoE layer while the block runs."""
     seen, saved = [], ops.moe_grouped_ffn
 
-    def spy(dispatch, *rest):
+    def spy(dispatch, *rest, **kw):
         seen.append(dispatch.clone())
-        return saved(dispatch, *rest)
+        return saved(dispatch, *rest, **kw)
     ops.moe_grouped_ffn = spy
     try:
         yield seen
@@ -5202,9 +5222,10 @@ def vision_training(torch, ops, ref):
 
 SHARD_B, SHARD_S, SHARD_STEPS = 4, 512, 2
 SHARD_REMAT = "none"
-# (mesh, mode) of the dry-run cells: llama3.2-1b train_4k
-DRYRUN_CELLS = (("single", "datacentric"), ("single", "bsp"),
-                ("multi", "datacentric"))
+# (arch, mesh, mode) of the dry-run cells, all train_4k
+DRYRUN_CELLS = (("llama3.2-1b", "single", "datacentric"),
+                ("llama3.2-1b", "single", "bsp"),
+                ("llama3.2-1b", "multi", "datacentric"))
 DRYRUN_ONE_CARD = """
 import json
 from repro_torch.configs import get_config
@@ -5221,29 +5242,42 @@ print(json.dumps(r))
 """
 
 
-def start_dryruns(out_dir: Path) -> dict:
-    """The dry-run subprocesses of phase 15 (b), all started together: the
-    three ``DRYRUN_CELLS`` through the CLI, and (a)'s own shape on a (1, 1)
-    mesh.  They run on the host (no CUDA) while (a) runs on the card."""
-    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
-               CUDA_VISIBLE_DEVICES="")
+def _dryrun_env() -> dict:
+    return dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+                CUDA_VISIBLE_DEVICES="")
+
+
+def start_dryrun_cells(out_dir: Path, cells) -> dict:
+    """The dry run's CLI on each (arch, mesh, mode) of ``cells``
+    (``train_4k``), all started together as subprocesses on the host (no
+    CUDA), while the phase runs on the card."""
     procs = {}
-    for mesh, mode in DRYRUN_CELLS:
+    for arch, mesh, mode in cells:
+        out = out_dir / f"{arch}_{mesh}_{mode}"
         cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
-               "llama3.2-1b", "--shape", "train_4k", "--mesh", mesh,
-               "--mode", mode, "--out", str(out_dir / f"{mesh}_{mode}")]
-        procs[(mesh, mode)] = subprocess.Popen(
-            cmd, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-            text=True)
-    code = DRYRUN_ONE_CARD.format(S=SHARD_S, B=SHARD_B, remat=SHARD_REMAT)
-    procs["one_card"] = subprocess.Popen(
-        [sys.executable, "-c", code], env=env, stdout=subprocess.PIPE,
-        stderr=subprocess.PIPE, text=True)
+               arch, "--shape", "train_4k", "--mesh", mesh,
+               "--mode", mode, "--out", str(out)]
+        procs[(arch, mesh, mode)] = subprocess.Popen(
+            cmd, env=_dryrun_env(), stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True)
     return procs
 
 
-def _param_bytes_by_rules(mesh_axes: dict, mode: str) -> int:
-    """llama3.2-1b's f32 parameter bytes on one device, reckoned from the
+def start_dryruns(out_dir: Path) -> dict:
+    """The dry-run subprocesses of phase 15 (b), all started together: the
+    three ``DRYRUN_CELLS`` through the CLI, and (a)'s own shape on a (1, 1)
+    mesh."""
+    procs = start_dryrun_cells(out_dir, DRYRUN_CELLS)
+    code = DRYRUN_ONE_CARD.format(S=SHARD_S, B=SHARD_B, remat=SHARD_REMAT)
+    procs["one_card"] = subprocess.Popen(
+        [sys.executable, "-c", code], env=_dryrun_env(),
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    return procs
+
+
+def _param_bytes_by_rules(mesh_axes: dict, mode: str,
+                          arch: str = "llama3.2-1b") -> int:
+    """``arch``'s f32 parameter bytes on one device, reckoned from the
     sync rules and the mesh's axis sizes alone."""
     from repro_torch.configs import get_config
     from repro_torch.core.sync import RULES
@@ -5253,14 +5287,14 @@ def _param_bytes_by_rules(mesh_axes: dict, mode: str) -> int:
     return sum(4 * math.prod(local_shape(
         p.shape, resolve_spec(p.axes, p.shape, mesh_axes, RULES[mode]),
         mesh_axes)) for _, p in paramlib.leaves(
-            model_specs(get_config("llama3.2-1b"))))
+            model_specs(get_config(arch))))
 
 
-def finish_dryruns(procs: dict, out_dir: Path) -> dict:
+def finish_dryruns(procs: dict, out_dir: Path, cells=DRYRUN_CELLS) -> dict:
     """Wait for the dry runs and gate them: each exits 0; the parameter
     bytes a device holds are the sharding arithmetic's; ``datacentric``
     reduce-scatters and all-gathers, ``bsp`` all-reduces; every number is
-    finite.  Prints each cell; returns the (1, 1) cell's result."""
+    finite.  Prints each cell; returns {key: its standard output}."""
     outs = {}
     try:
         for key, p in procs.items():
@@ -5277,13 +5311,14 @@ def finish_dryruns(procs: dict, out_dir: Path) -> dict:
                 p.wait()
     sizes = {"single": {"data": 16, "model": 16},
              "multi": {"pod": 2, "data": 16, "model": 16}}
-    for mesh, mode in DRYRUN_CELLS:
-        files = list((out_dir / f"{mesh}_{mode}").glob("*.json"))
+    for arch, mesh, mode in cells:
+        files = list((out_dir / f"{arch}_{mesh}_{mode}").glob("*.json"))
         if len(files) != 1:
-            raise AssertionError(f"dry run {mesh} {mode}: files {files}")
+            raise AssertionError(f"dry run {arch} {mesh} {mode}: files "
+                                 f"{files}")
         r = json.loads(files[0].read_text())
         mem, coll, rl = r["memory"], r["collectives"], r["roofline"]
-        want = _param_bytes_by_rules(sizes[mesh], mode)
+        want = _param_bytes_by_rules(sizes[mesh], mode, arch)
         nums = [*mem.values(), *r["cost"].values(), rl["compute_s"],
                 rl["memory_s"], rl["collective_s"],
                 *coll.values(), r["collective_bytes_per_device"]]
@@ -5298,27 +5333,28 @@ def finish_dryruns(procs: dict, out_dir: Path) -> dict:
             parameter_bytes_by_rules=want, trace_s=r["trace_s"],
             constants=r["device"])), flush=True)
         if mem["parameter_bytes_per_device"] != want:
-            raise AssertionError(f"dry run {mesh} {mode}: parameter bytes "
-                                 f"{mem['parameter_bytes_per_device']}, the "
-                                 f"rules give {want}")
+            raise AssertionError(f"dry run {arch} {mesh} {mode}: parameter "
+                                 f"bytes {mem['parameter_bytes_per_device']}"
+                                 f", the rules give {want}")
         kinds = (("all-reduce",) if mode == "bsp"
                  else ("reduce-scatter", "all-gather"))
         if any(coll.get(k + "_count", 0) == 0 for k in kinds):
-            raise AssertionError(f"dry run {mesh} {mode}: collectives "
-                                 f"{coll}, want {kinds}")
+            raise AssertionError(f"dry run {arch} {mesh} {mode}: "
+                                 f"collectives {coll}, want {kinds}")
         if not all(math.isfinite(v) for v in nums):
-            raise AssertionError(f"dry run {mesh} {mode}: a number is not "
-                                 f"finite: {r}")
-    return json.loads(outs["one_card"].strip().splitlines()[-1])
+            raise AssertionError(f"dry run {arch} {mesh} {mode}: a number "
+                                 f"is not finite: {r}")
+    return outs
 
 
 def _leaves_equal(torch, got, want) -> list:
-    """Paths of the leaves of a DTensor tree whose local shard differs in
-    any bit from the plain tree's leaf."""
+    """Paths of the leaves of a (DTensor) tree whose local shard differs
+    in any bit from the plain tree's leaf, on the plain leaf's device."""
     from repro_torch.tree import leaves_with_path
     return ["/".join(p) for (p, g), (_, w) in zip(leaves_with_path(got),
                                                   leaves_with_path(want))
-            if not torch.equal(g.to_local(), w)]
+            if not torch.equal((g.to_local() if hasattr(g, "to_local")
+                                else g).to(w.device), w)]
 
 
 def sharded_training(torch, ops, ref) -> dict:
@@ -5429,7 +5465,8 @@ def sharded_training(torch, ops, ref) -> dict:
     finally:
         if dist.is_initialized():
             dist.destroy_process_group()
-    one_card = finish_dryruns(procs, out_dir)
+    one_card = json.loads(finish_dryruns(procs, out_dir)["one_card"]
+                          .strip().splitlines()[-1])
     del ref_p, ref_m, ref_v
     torch.cuda.empty_cache()
     print("sharded training:", json.dumps(dict(
@@ -5448,6 +5485,284 @@ def sharded_training(torch, ops, ref) -> dict:
             flops_per_device=one_card["cost"]["flops_per_device"],
             roofline=one_card["roofline"]))), flush=True)
     return {"sharded_training": launches}
+
+
+# ---------------------------------------------------------------------------
+# phase 16: the multi-device layer of the MoE, recurrent and vision configs
+# ---------------------------------------------------------------------------
+
+# (a) per arch: its training phase (the cut, batch and optimizer it trains
+# at there), the optimizer, and the kernels a layer of each kind launches
+# once a step under remat none
+SHARD_ZOO = {
+    "mixtral-8x7b": ("moe_training", "adamw", TRAIN_RUNS["mixtral-8x7b"][0]),
+    "rwkv6-1.6b": ("rwkv6_training", "adamw", TRAIN_RUNS["rwkv6-1.6b"][0]),
+    "recurrentgemma-2b": ("recurrentgemma_training", "adamw",
+                          TRAIN_RUNS["recurrentgemma-2b"][0]),
+    "llama-3.2-vision-11b": ("vision_training", "sgd",
+                             {"attn": FLASH, "xattn": FLASH}),
+}
+SHARD_ZOO_STEPS = 2
+# (b) the split-ring partial form at decode's shapes (B, L, H, KV, hd):
+# llama3.2-1b's serving ring, recurrentgemma-2b's local heads on the
+# serving ring and the 2048-slot window ring, gemma3-4b's local (1024) and
+# global (2048) rings; each in bf16 and f32, the ring cut into 2 and 4
+# parts; the first shape, 2 parts, bf16 is the kernels line's row
+SPLIT_RING_CASES = ((8, MAIN_L, 32, 8, 64), (8, MAIN_L, 10, 1, 256),
+                    (8, 2048, 10, 1, 256), (8, 1024, 8, 4, 256),
+                    (8, 2048, 8, 4, 256))
+SPLIT_RING_PARTS = (2, 4)
+# (c) the dry run's train_4k cells on 16 x 16
+ZOO_DRYRUN_CELLS = (("mixtral-8x7b", "single", "datacentric"),
+                    ("rwkv6-1.6b", "single", "datacentric"),
+                    ("llama-3.2-vision-11b", "single", "bsp"))
+
+
+def _zoo_train_setup(torch, arch):
+    """(cfg, reduced, batches, optimizer name, chunked CE) of ``arch`` at
+    its training phase's cut and batch: the engine phases' TRAIN_B x
+    TRAIN_S, the vision phase's VISION_TRAIN_B x VISION_TRAIN_S with media
+    and the chunked cross entropy."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import LMBatchSpec, make_lm_batch
+    if arch == "llama-3.2-vision-11b":
+        full = get_config(arch)
+        cfg = dataclasses.replace(full, groups=(dataclasses.replace(
+            full.groups[0], n=1),))
+        spec = LMBatchSpec(batch=VISION_TRAIN_B, seq_len=VISION_TRAIN_S,
+                           vocab_size=cfg.vocab_size,
+                           media_tokens=cfg.n_frontend_tokens,
+                           media_dim=cfg.d_frontend, seed=0)
+        reduced, chunked = VISION_TRAIN_REDUCED, True
+    else:
+        cfg, reduced = train_config(arch)
+        spec = LMBatchSpec(batch=TRAIN_B, seq_len=TRAIN_S,
+                           vocab_size=cfg.vocab_size, seed=0)
+        chunked = False
+    batches = [make_lm_batch(spec, t, "cuda") for t in range(SHARD_ZOO_STEPS)]
+    return cfg, reduced, batches, SHARD_ZOO[arch][1], chunked
+
+
+def sharded_zoo_step(torch, ops, ref, arch, mesh) -> dict:
+    """(a) for one arch: ``SHARD_ZOO_STEPS`` steps of ``steps.
+    make_train_step`` (remat none, ``datacentric``) on plain tensors, its
+    results moved to the host and freed, then the same steps on DTensor
+    parameters placed by ``sharding.tree_shardings`` on the one-rank
+    ``mesh``: loss, parameters and optimizer state bit for bit; exact
+    launches a step; no plain version."""
+    from repro_torch.core.sync import SyncConfig
+    from repro_torch.launch import sharding as sh
+    from repro_torch.launch.dryrun import make_act_specs
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import paramlib
+    from repro_torch.models.transformer import model_specs
+    from repro_torch.optim import OptConfig, make_optimizer
+    from repro_torch.tree import tree_map
+    cfg, reduced, batches, opt_name, chunked = _zoo_train_setup(torch, arch)
+    specs = model_specs(cfg)
+    opt = make_optimizer(OptConfig(name=opt_name, lr=3e-4))
+    sync = SyncConfig(mode="datacentric", remat="none")
+    kind_kernels = SHARD_ZOO[arch][2]
+    want = {}
+    for kind, names in kind_kernels.items():
+        for k in names:
+            want[k] = want.get(k, 0) \
+                + cfg.layer_kinds.count(kind) * SHARD_ZOO_STEPS
+
+    def run(mesh):
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        params = paramlib.init_tree(
+            specs, torch.Generator(device="cuda").manual_seed(0),
+            dtype=cfg.param_dtype)
+        if cfg.frontend == "vision":
+            _draw_gates(torch, params, cfg,
+                        torch.Generator(device="cuda").manual_seed(1))
+        act, bs = None, batches
+        if mesh is not None:
+            params = sh.distribute_tree(params, sh.tree_shardings(
+                paramlib.axes_tree(specs), params, mesh, sync.param_rules),
+                mesh)
+            act = make_act_specs(mesh)
+            axes = {k: ("batch", "seq") if v.ndim == 2
+                    else ("batch", None, None) for k, v in bs[0].items()}
+            bs = [sh.distribute_tree(b, sh.batch_shardings(axes, b, mesh),
+                                     mesh) for b in bs]
+        state = opt.init(params)
+        step = make_train_step(cfg, opt, sync, act_specs=act)
+        losses, step_s = [], []
+        ops.reset_launches()
+        with plain_versions_counted(ref) as plain:
+            for b in bs:
+                t1 = time.perf_counter()
+                params, state, m = step(params, state, b)
+                loss = m["loss"]
+                losses.append(float(loss.to_local() if mesh is not None
+                                    else loss))
+                step_s.append(time.perf_counter() - t1)
+        launches = dict(ops.launches)
+        peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+        return losses, params, state, step_s, peak, launches, dict(plain)
+
+    saved_env = os.environ.get("REPRO_CHUNKED_CE")
+    if chunked:
+        os.environ["REPRO_CHUNKED_CE"] = "1"
+    try:
+        ref_losses, p, st, ref_s, ref_peak, _, _ = run(None)
+        want_p, want_st = (tree_map(lambda t: t.detach().cpu(), t)
+                           for t in (p, st))
+        del p, st
+        losses, p, st, step_s, peak, launches, plain = run(mesh)
+        differ = {"params": _leaves_equal(torch, p, want_p),
+                  "opt_state": _leaves_equal(torch, st, want_st)}
+        del p, st, want_p, want_st
+    finally:
+        if saved_env is None:
+            os.environ.pop("REPRO_CHUNKED_CE", None)
+        else:
+            os.environ["REPRO_CHUNKED_CE"] = saved_env
+    torch.cuda.empty_cache()
+    row = dict(arch=arch, training_phase=SHARD_ZOO[arch][0],
+               layers=len(cfg.layer_kinds), reduced=reduced,
+               parameters=paramlib.param_count(specs),
+               batch=[batches[0]["tokens"].shape[0],
+                      batches[0]["tokens"].shape[1]],
+               media=(list(batches[0]["media"].shape)
+                      if "media" in batches[0] else None),
+               optimizer=opt_name, chunked_ce=chunked, remat="none",
+               mode="datacentric", steps=SHARD_ZOO_STEPS,
+               unsharded=dict(losses=ref_losses, step_s=ref_s,
+                              peak_gib=ref_peak),
+               sharded=dict(losses=losses, step_s=step_s, peak_gib=peak),
+               launches={k: n for k, n in launches.items() if n},
+               expected_launches=want, plain_version_calls=plain,
+               leaves_differing=differ)
+    print("sharded zoo step:", json.dumps(row), flush=True)
+    if losses != ref_losses or any(differ.values()):
+        raise AssertionError(f"{arch}: the sharded step is not the "
+                             f"unsharded one: losses {losses} vs "
+                             f"{ref_losses}, leaves {differ}")
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"{arch}: losses {losses}")
+    if {k: n for k, n in launches.items() if n} != want:
+        raise AssertionError(f"{arch}: sharded launches {launches}, "
+                             f"expected {want}")
+    if any(plain.values()):
+        raise AssertionError(f"{arch}: plain versions ran: {plain}")
+    return launches
+
+
+def check_split_ring(torch, ref, gen) -> dict:
+    """(b) The decode kernel's partial form over each part of a ring cut
+    into ``SPLIT_RING_PARTS`` (ring masks as the engine makes them, so
+    some rows have parts with no live slot): each part's (acc, l, m)
+    against ``ops._decode_partial`` on the same part (acc and l at BF16_TOL
+    / F32_TOL, m at F32_TOL), and ``ops.combine_parts`` of the parts
+    against the whole-ring kernel (BF16_TOL / F32_TOL).  Timed: one part
+    of the partial form beside the whole ring's kernel and its bound."""
+    from repro_torch.kernels.decode_attention import (
+        decode_attention, decode_attention_partial)
+    from repro_torch.kernels.ops import _decode_partial, combine_parts
+    rows = []
+    for B, L, H, KV, hd in SPLIT_RING_CASES:
+        for dt in ("bfloat16", "float32"):
+            dtype = getattr(torch, dt)
+            tol = BF16_TOL if dt == "bfloat16" else F32_TOL
+            mk = lambda s, n: torch.randn(  # noqa: E731
+                (B, s, n, hd), generator=gen, device="cuda").to(dtype)
+            q, k, v = mk(1, H), mk(L, KV), mk(L, KV)
+            n_live = torch.randint(1, L + 1, (B,), generator=gen,
+                                   device="cuda")
+            n_live[0], n_live[1] = 1, L
+            valid = torch.arange(L, device="cuda")[None, :] \
+                < n_live[:, None]
+            whole = decode_attention(q, k, v, valid)
+            whole_ms = time_ms(lambda i: decode_attention(q, k, v, valid),
+                               100)[0]
+            for n in SPLIT_RING_PARTS:
+                Lp = L // n
+                got, errs = [], dict(acc=0.0, l=0.0, m=0.0)
+                for i in range(n):
+                    sl = slice(i * Lp, (i + 1) * Lp)
+                    part = (q, k[:, sl].contiguous(), v[:, sl].contiguous(),
+                            valid[:, sl].contiguous())
+                    g = decode_attention_partial(*part)
+                    w = _decode_partial(*part)
+                    for name, a, b, t in zip(("acc", "l", "m"), g, w,
+                                             (tol, tol, F32_TOL)):
+                        torch.testing.assert_close(a, b, rtol=t, atol=t)
+                        fin = torch.isfinite(b)
+                        errs[name] = max(errs[name], (a - b)[fin].abs()
+                                         .max().item() if fin.any() else 0.0)
+                    got.append(g)
+                o, l, m = (torch.stack(t) for t in zip(*got))
+                out = combine_parts(o, l, m,
+                                    lambda t: t.amax(0, keepdim=True),
+                                    lambda t: t.sum(0))
+                torch.testing.assert_close(out.to(dtype).float(),
+                                           whole.float(), rtol=tol, atol=tol)
+                err = (out.to(dtype).float() - whole.float()).abs().max()
+                live = int(valid[:, :Lp].sum().item())
+                need = nbytes(q, valid[:, :Lp]) + 4 * B * H * (hd + 2) \
+                    + live * KV * hd * 2 * k.element_size()
+                b_ms, b_by = bound(need, 4.0 * hd * H * live, dt)
+                sets = rotation((q, k[:, :Lp].contiguous(),
+                                 v[:, :Lp].contiguous(),
+                                 valid[:, :Lp].contiguous()))
+                ms = time_ms(lambda i: decode_attention_partial(
+                    *sets[i % len(sets)]), 100)[0]
+                rows.append(dict(
+                    shape=[B, L, H, KV, hd], dtype=dt, parts=n,
+                    part_slots=Lp, part_errs=errs, tolerance=tol,
+                    m_tolerance=F32_TOL, combined_max_abs_err=err.item(),
+                    partial_ms=ms, partial_bound_ms=b_ms,
+                    partial_bound_by=b_by, whole_ring_ms=whole_ms))
+                print("decode split ring:", json.dumps(rows[-1]),
+                      flush=True)
+                del sets
+    return {"partial_ms": rows[0]["partial_ms"],
+            "partial_bound_ms": rows[0]["partial_bound_ms"],
+            "whole_ring_ms": rows[0]["whole_ring_ms"],
+            "launches_on_one_card_paths": 0, "cases": rows}
+
+
+def sharded_zoo(torch, ops, ref, gen) -> tuple[dict, dict]:
+    """Phase 16: (a) the sharded train steps of mixtral-8x7b, rwkv6-1.6b,
+    recurrentgemma-2b and llama-3.2-vision-11b (``sharded_zoo_step``) on a
+    one-rank NCCL group and a (1, 1) ``data, model`` mesh; (b) the split
+    ring's partial decode form (``check_split_ring``); (c) the dry run's
+    ``ZOO_DRYRUN_CELLS``, started as subprocesses before (a) and gated
+    after it.  Returns (the launches of each step's run, (b)'s row)."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    out_dir = ROOT / "build" / "dryrun_phase16"
+    if out_dir.exists():
+        for f in out_dir.rglob("*.json"):
+            f.unlink()
+    procs = start_dryrun_cells(out_dir, ZOO_DRYRUN_CELLS)
+    paths = {}
+    try:
+        dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                                world_size=1,
+                                device_id=torch.device("cuda", 0))
+        mesh = init_device_mesh("cuda", (1, 1),
+                                mesh_dim_names=("data", "model"))
+        for arch, (phase, _, _) in SHARD_ZOO.items():
+            paths[f"sharded_{phase}"] = sharded_zoo_step(
+                torch, ops, ref, arch, mesh)
+    except BaseException:
+        for p in procs.values():
+            p.kill()
+            p.wait()
+        raise
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    split = check_split_ring(torch, ref, gen)
+    finish_dryruns(procs, out_dir, ZOO_DRYRUN_CELLS)
+    return paths, split
 
 
 def print_ptxas(source: str, log: str) -> dict[str, tuple[int, int]]:
@@ -5765,6 +6080,11 @@ def main() -> int:
     paths.update(timed("vision_training", vision_training, torch, ops, ref))
     paths.update(timed("sharded_training", sharded_training, torch, ops,
                        ref))
+    zoo_paths, split = timed("sharded_zoo", sharded_zoo, torch, ops, ref,
+                             gen)
+    paths.update(zoo_paths)
+    results["decode_attention"].update(partial_ms=split["partial_ms"],
+                                       split_ring=split)
     timed("server_processes_stopped", server_processes_stopped)
     print("phase seconds:", json.dumps(dict(
         phase_s, total=time.perf_counter() - t0)), flush=True)
@@ -5825,7 +6145,8 @@ def main() -> int:
                                    "library", "serial_steps", "state_bytes",
                                    "checkpoint_bytes", "chunk", "threads",
                                    "gathered_ms", "gathered_pair_ms",
-                                   "gathered_plain_ms", "gathered_bound_ms")
+                                   "gathered_plain_ms", "gathered_bound_ms",
+                                   "partial_ms", "split_ring")
                if k in row},
             **({"stateful": stateful[name]} if name in stateful else {})))
     print(smi())

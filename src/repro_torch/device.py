@@ -50,3 +50,12 @@ def param_for(p: torch.Tensor, dtype: torch.dtype,
     if pl == list(w.placements):
         return w
     return w.redistribute(w.device_mesh, pl)
+
+
+def replicated(t: torch.Tensor) -> torch.Tensor:
+    """A DTensor (a loss, a metric, a mean over split rows: often partial
+    sums) replicated on its mesh; a plain tensor as it is."""
+    if not isinstance(t, DTensor):
+        return t
+    mesh = t.device_mesh
+    return t.redistribute(mesh, [Replicate()] * mesh.ndim)

@@ -51,6 +51,13 @@
 //   depend on which block that is) and resets the counter to 0.  A dead
 //   split has m = NEG_INF, l = 0 and acc = 0, and merges to nothing.
 //   One split writes the output directly (finish_split).
+// * The partial form (PartOut: a ring split across ranks, whose parts the
+//   caller combines) writes the merged state instead of the output: the
+//   unnormalised acc (B,1,H,hd) f32, l and m (B,H) f32, m divided by
+//   log2 e into the natural-log units of the score (the kernel keeps it
+//   in log2 units with the scale folded in); a row with no live slot
+//   gives m = -inf, l = 0 and acc = 0.  It reads and merges as the other
+//   forms do: only the last store differs.
 //
 // bf16: the tensor cores (mma.sync m16n8k16, hopper_mma.cuh).  The query
 // group is the A operand's 16 rows (zero past the group), so a group of 10
@@ -108,13 +115,6 @@ struct St {
   long long qb, qh, kp, ks, kh, vp, vs, vh, pt, valb, ob, oh;
 };
 
-// the split's keys into shared memory, one thread a key: its live flag
-// and the offsets of its K and V rows in the pools (page id from the
-// table row, slot key % page; no table: the gathered form, row b is page
-// b), the flag and id loads issued together so their latencies overlap.
-// The tile loads then read a row's offset instead of dividing by the page
-// (a thread issues 4 to 16 row copies a tile, with 4 warps an SM to hide
-// their latency).  A page id outside [0, P) traps.
 template <int NTH>
 __device__ __forceinline__ void load_split(
     const uint8_t* __restrict__ valid, const int* __restrict__ table, int P,
@@ -169,6 +169,44 @@ __device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
   *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
 }
 
+// the partial form's outputs (acc == nullptr: the normalised output o):
+// acc (b, h) at the strides St gives o, l and m [B][H]
+struct PartOut {
+  float *acc, *l, *m;
+  int H;
+};
+
+// a query head's merged state in the partial form: acc over the head dims
+// this thread holds, and (its first thread) l and m in natural-log units
+template <int HD, int GP>
+__device__ __forceinline__ void write_partial(const float* num, float M,
+                                              float den, int gp, int tig,
+                                              int hd, int group, const St& st,
+                                              const PartOut& po) {
+  constexpr int TPG = NT / GP;
+  constexpr int EPT = HD / TPG;
+  const int kvh = blockIdx.y, b = blockIdx.z;
+  const int h = kvh * group + gp;
+  float* ab = po.acc + b * st.ob + (long long)h * st.oh;
+#pragma unroll
+  for (int e = 0; e < EPT / 2; ++e) {
+    const int d = 2 * (tig + TPG * e);
+    if (d < hd) store2(ab + d, num[2 * e], num[2 * e + 1]);
+  }
+  if (tig == 0) {
+    const long long i = (long long)b * po.H + h;
+    po.l[i] = den;
+    po.m[i] = M > 0.5f * NEG_INF ? M / LOG2E : __int_as_float(0xff800000);
+  }
+}
+
+// the split's keys into shared memory, one thread a key: its live flag
+// and the offsets of its K and V rows in the pools (page id from the
+// table row, slot key % page; no table: the gathered form, row b is page
+// b), the flag and id loads issued together so their latencies overlap.
+// The tile loads then read a row's offset instead of dividing by the page
+// (a thread issues 4 to 16 row copies a tile, with 4 warps an SM to hide
+// their latency).  A page id outside [0, P) traps.
 // the end of a block: with one split, the output; else this split's
 // partial (acc [group][HD], then m [group], l [group]) and, in the block
 // that comes last for its (batch row, kv head), the merge of every split
@@ -179,7 +217,7 @@ template <typename T, int HD, int GP>
 __device__ __forceinline__ void finish_split(
     const float* acc, const float* m_s, const float* l_s, T* __restrict__ o,
     float* __restrict__ part, unsigned* __restrict__ counters, int group,
-    int hd, const St& st, int* last_s) {
+    int hd, const St& st, const PartOut& po, int* last_s) {
   constexpr int TPG = NT / GP;
   constexpr int EPT = HD / TPG;
   const int split = blockIdx.x, kvh = blockIdx.y, b = blockIdx.z;
@@ -188,7 +226,10 @@ __device__ __forceinline__ void finish_split(
   const int gp = tid / TPG, tig = tid % TPG;
   T* ob = o + b * st.ob + (long long)kvh * group * st.oh;
   if (nsplit == 1) {
-    if (gp < group) {
+    if (gp < group && po.acc != nullptr) {
+      write_partial<HD, GP>(acc, m_s[gp], l_s[gp], gp, tig, hd, group, st,
+                            po);
+    } else if (gp < group) {
       const float inv = 1.f / fmaxf(l_s[gp], 1e-30f);
 #pragma unroll
       for (int e = 0; e < EPT / 2; ++e) {
@@ -242,12 +283,17 @@ __device__ __forceinline__ void finish_split(
         num[2 * e + 1] = fmaf(a.y, w, num[2 * e + 1]);
       }
     }
-    const float inv = 1.f / fmaxf(den, 1e-30f);
+    if (po.acc != nullptr) {
+      write_partial<HD, GP>(num, M, den, gp, tig, hd, group, st, po);
+    } else {
+      const float inv = 1.f / fmaxf(den, 1e-30f);
 #pragma unroll
-    for (int e = 0; e < EPT / 2; ++e) {
-      const int d = 2 * (tig + TPG * e);
-      if (d < hd)
-        store2(ob + gp * st.oh + d, num[2 * e] * inv, num[2 * e + 1] * inv);
+      for (int e = 0; e < EPT / 2; ++e) {
+        const int d = 2 * (tig + TPG * e);
+        if (d < hd)
+          store2(ob + gp * st.oh + d, num[2 * e] * inv,
+                 num[2 * e + 1] * inv);
+      }
     }
   }
   if (tid == 0) counters[row] = 0u;
@@ -265,7 +311,7 @@ __global__ void __launch_bounds__(NT, 1)
                         float* __restrict__ o, float* __restrict__ part,
                         unsigned* __restrict__ counters, int L, int page,
                         int P, int hd, int group, int kps, St st,
-                        float scale_log2) {
+                        PartOut po, float scale_log2) {
   using T = float;
   constexpr int TK = tile_keys<HD>();
   constexpr int VEC = 16 / sizeof(T);        // elements a 16-byte slice
@@ -452,7 +498,7 @@ __global__ void __launch_bounds__(NT, 1)
   __syncthreads();
 
   finish_split<float, HD, GP>(acc, m_s, l_s, o, part, counters, group, hd,
-                              st, &last_s);
+                              st, po, &last_s);
 }
 
 // ---------------------------------------------------------------------------
@@ -491,7 +537,7 @@ __global__ void __launch_bounds__(NT, 1)
                            bf16* __restrict__ o, float* __restrict__ part,
                            unsigned* __restrict__ counters, int L, int page,
                            int P, int hd, int group, int kps, St st,
-                           float scale_log2) {
+                           PartOut po, float scale_log2) {
   constexpr int CPR = HD / 8;              // 16-byte chunks a row
   constexpr uint32_t TILE = TC_TK * HD * 2;
   constexpr int GP = 16;
@@ -710,7 +756,7 @@ __global__ void __launch_bounds__(NT, 1)
     mine[2 * e + 1] = x.y;
   }
   finish_split<bf16, HD, GP>(mine, m_s, l_s, o, part, counters, group, hd,
-                             st, &last_s);
+                             st, po, &last_s);
 }
 
 template <typename K>
@@ -734,6 +780,7 @@ struct Args {
   void *o, *part, *counters;
   int B, L, page, P, KV, hd, group, kps, nsplit;
   St st;
+  PartOut po;
   float scale_log2;
   cudaStream_t stream;
 };
@@ -751,7 +798,7 @@ int launch_f32(const Args& a) {
       static_cast<const float*>(a.v), static_cast<const int*>(a.table),
       static_cast<const uint8_t*>(a.valid), static_cast<float*>(a.o),
       static_cast<float*>(a.part), static_cast<unsigned*>(a.counters), a.L,
-      a.page, a.P, a.hd, a.group, a.kps, a.st, a.scale_log2);
+      a.page, a.P, a.hd, a.group, a.kps, a.st, a.po, a.scale_log2);
   return (int)cudaGetLastError();
 }
 
@@ -767,7 +814,7 @@ int launch_tc(const Args& a) {
       static_cast<const bf16*>(a.v), static_cast<const int*>(a.table),
       static_cast<const uint8_t*>(a.valid), static_cast<bf16*>(a.o),
       static_cast<float*>(a.part), static_cast<unsigned*>(a.counters), a.L,
-      a.page, a.P, a.hd, a.group, a.kps, a.st, a.scale_log2);
+      a.page, a.P, a.hd, a.group, a.kps, a.st, a.po, a.scale_log2);
   return (int)cudaGetLastError();
 }
 
@@ -798,10 +845,13 @@ int with_group(int group, F&& f) {
 // and nsplit come from the wrapper's plan (keys_per_split a multiple of
 // the tile); with nsplit > 1, part is f32 scratch of B * KV * nsplit *
 // group * (hd_tile + 2) and counters B * KV zeroed unsigned ints (the
-// kernel leaves them 0).
+// kernel leaves them 0).  With acc_out (f32, at o's strides; l_out and
+// m_out f32 [B][H]) the partial form writes the merged (acc, l, m) and
+// not o.
 extern "C" int decode_attention_fwd(
     const void* q, const void* k, const void* v, const void* page_table,
-    const void* valid, void* o, void* part, void* counters, int dtype, int B,
+    const void* valid, void* o, void* part, void* counters, void* acc_out,
+    void* l_out, void* m_out, int dtype, int B,
     int L, int H, int KV, int hd, int page, int P, int keys_per_split,
     int nsplit, long long qsb, long long qsh, long long ksp, long long kss,
     long long ksh, long long vsp, long long vss, long long vsh,
@@ -814,6 +864,9 @@ extern "C" int decode_attention_fwd(
                KV, hd, H / KV, keys_per_split, nsplit,
                St{qsb, qsh, ksp, kss, ksh, vsp, vss, vsh, ptsb, valsb, osb,
                   osh},
+               PartOut{static_cast<float*>(acc_out),
+                       static_cast<float*>(l_out), static_cast<float*>(m_out),
+                       H},
                scale * LOG2E, static_cast<cudaStream_t>(stream)};
   if (dtype == kBF16)
     return with_hd(hd, [&](auto hdc) {

@@ -20,7 +20,9 @@ do not depend on the batch.  bf16 runs on the tensor cores (``mma.sync``,
 the query group as the 16 rows of the product), f32 on the CUDA cores;
 both take q and the pools with 16-byte aligned rows.  The plain version
 is ``ref.attention_decode`` (over ``ref.page_gather`` of both pools for
-the paged form).
+the paged form).  ``decode_attention_partial`` is the gathered form whose
+merge writes the unnormalised state (acc, l, m) of its part of a ring split
+across ranks, for the caller to combine with the other parts'.
 """
 from __future__ import annotations
 
@@ -35,7 +37,7 @@ NAME = "decode_attention"
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 PAGED_NAME = "decode_attention_paged"
 SIGNATURES = {"decode_attention_fwd":
-              [_P] * 8 + [_I] * 10 + [_LL] * 12 + [ctypes.c_float, _P]}
+              [_P] * 11 + [_I] * 10 + [_LL] * 12 + [ctypes.c_float, _P]}
 HEAD_DIMS = (16, 32, 64, 128, 256)
 MAX_GROUP = 16
 TILE_BYTES = 8192           # f32: one K (or V) tile in shared memory
@@ -81,10 +83,12 @@ def split_counters(device: torch.device, n: int) -> torch.Tensor:
 
 def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             table: torch.Tensor | None, valid: torch.Tensor,
-            name: str) -> torch.Tensor:
+            name: str, partial: bool = False):
     """One launch over pools k, v (P, page, KV, hd) read through ``table``
     (B, n_pp) int32, or, with no table, over the gathered ring k, v (B, L,
-    KV, hd) as B pages of L slots.  Checks what the kernel takes."""
+    KV, hd) as B pages of L slots.  Checks what the kernel takes.
+    ``partial``: the merged (acc, l, m) of :func:`decode_attention_partial`
+    instead of the output."""
     ts = (q, k, v) + (() if table is None else (table,)) + (valid,)
     if q.device.type != "cuda" or any(t.device != q.device for t in ts):
         raise ValueError(f"{name}: CUDA tensors on one device only, got "
@@ -126,9 +130,15 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if L > 1 and valid.stride(-1) != 1:
         valid = valid.contiguous()
     live = valid.view(torch.uint8).expand(B, L)   # a bool mask: no copy
-    o = torch.empty((B, 1, H, hd), dtype=q.dtype, device=q.device)
-    if o.numel() == 0 or L == 0:
-        return o.zero_()
+    if partial:
+        o = torch.empty((B, 1, H, hd), dtype=torch.float32, device=q.device)
+        lm = torch.empty((2, B, H, 1), dtype=torch.float32, device=q.device)
+        if o.numel() == 0 or L == 0:
+            return o.zero_(), lm[0].zero_(), lm[1].fill_(float("-inf"))
+    else:
+        o = torch.empty((B, 1, H, hd), dtype=q.dtype, device=q.device)
+        if o.numel() == 0 or L == 0:
+            return o.zero_()
     p = plan(L, hd, q.dtype)
     n = p["splits"]
     part, counters = None, None
@@ -141,8 +151,12 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         rc = lib.decode_attention_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(),
             None if table is None else table.data_ptr(), live.data_ptr(),
-            o.data_ptr(), None if part is None else part.data_ptr(),
+            None if partial else o.data_ptr(),
+            None if part is None else part.data_ptr(),
             None if counters is None else counters.data_ptr(),
+            o.data_ptr() if partial else None,
+            lm[0].data_ptr() if partial else None,
+            lm[1].data_ptr() if partial else None,
             ELEM[q.dtype], B, L, H, KV, hd, page, P, p["keys_per_split"], n,
             q.stride(0), q.stride(2), *k.stride()[:3], *v.stride()[:3],
             0 if table is None else table.stride(0), live.stride(0),
@@ -150,7 +164,7 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(lib, rc, name)
     _build.count(NAME)
-    return o
+    return (o, lm[0], lm[1]) if partial else o
 
 
 def decode_attention_paged(q: torch.Tensor, k_pool: torch.Tensor,
@@ -174,3 +188,19 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     slots and no table (row b reads page b); valid: (L,) or (B, L) bool ->
     (B, 1, H, hd) in q's dtype."""
     return _launch(q, k, v, None, valid, NAME)
+
+
+def decode_attention_partial(q: torch.Tensor, k: torch.Tensor,
+                             v: torch.Tensor, valid: torch.Tensor
+                             ) -> tuple[torch.Tensor, torch.Tensor,
+                                        torch.Tensor]:
+    """One part of a ring split across ranks (the sharded decode of
+    ``ops._attention_decode_sharded``): :func:`decode_attention`'s read of
+    k, v (B, L, KV, hd) under valid (L,) or (B, L), returning its merged
+    state instead of the output -- acc (B, 1, H, hd) f32 before
+    normalisation, the softmax sum l and the score max m (B, H, 1) f32, m
+    in natural-log units; a row with no live slot gives m = -inf, l = 0,
+    acc = 0 (``ops._decode_partial``'s contract).  The same kernel and
+    reads as the gathered form; counted under ``decode_attention``."""
+    return _launch(q, k, v, None, valid, "decode_attention_partial",
+                   partial=True)

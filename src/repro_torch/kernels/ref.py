@@ -148,18 +148,21 @@ def ring_gather(hist: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 
 def moe_grouped_ffn(dispatch: torch.Tensor, combine: torch.Tensor,
                     xg: torch.Tensor, wg: torch.Tensor, wu: torch.Tensor,
-                    wd: torch.Tensor) -> torch.Tensor:
+                    wd: torch.Tensor, ep=None) -> torch.Tensor:
     """Dense one-hot MoE dispatch (GShard style).
 
     dispatch: (G, g, E, C) bool; combine: (G, g, E, C) f32; xg: (G, g, d);
     wg/wu: (E, d, f); wd: (E, f, d) -> (G, g, d) in xg's dtype.  The
     combine weights are rounded to xg's dtype before the last product, as
-    the JAX package's plain version does.
+    the JAX package's plain version does.  ``ep`` optionally lays the
+    dispatched intermediates out (models/moe.py).
     """
-    xin = torch.einsum("GgEC,Ggd->EGCd", dispatch.to(xg.dtype), xg)
+    if ep is None:
+        ep = lambda t: t  # noqa: E731
+    xin = ep(torch.einsum("GgEC,Ggd->EGCd", dispatch.to(xg.dtype), xg))
     h = torch.nn.functional.silu(torch.einsum("EGCd,Edf->EGCf", xin, wg))
     u = torch.einsum("EGCd,Edf->EGCf", xin, wu)
-    out_e = torch.einsum("EGCf,Efd->EGCd", h * u, wd)
+    out_e = ep(torch.einsum("EGCf,Efd->EGCd", h * u, wd))
     return torch.einsum("GgEC,EGCd->Ggd", combine.to(xg.dtype), out_e)
 
 

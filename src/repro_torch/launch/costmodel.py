@@ -27,11 +27,14 @@ standalone under the step's shardings, as JAX's does.
 from __future__ import annotations
 
 import weakref
+from concurrent.futures import ThreadPoolExecutor
 
 import torch
 from torch._guards import active_fake_mode
 from torch.distributed.tensor import DTensor
-from torch.utils._python_dispatch import TorchDispatchMode
+from torch.utils._python_dispatch import (TorchDispatchMode,
+                                         _disable_current_modes,
+                                         _get_current_dispatch_mode_stack)
 from torch.utils.flop_counter import flop_registry
 from torch.utils.weak import WeakIdKeyDictionary
 
@@ -165,6 +168,149 @@ class CostMode(TorchDispatchMode):
         return out
 
 
+def _active_cost_mode() -> CostMode | None:
+    """The innermost :class:`CostMode` on the dispatch-mode stack."""
+    for m in reversed(_get_current_dispatch_mode_stack()):
+        if isinstance(m, CostMode):
+            return m
+    return None
+
+
+def _meta_like(shape, dtype) -> torch.Tensor:
+    return torch.empty(shape, dtype=dtype, device="meta")
+
+
+_SCAN_COSTS: dict = {}
+
+
+def _scan_cost(plain, args: tuple, n_seq: int, T: int, grad: bool) -> dict:
+    """What :class:`CostMode` counts for ``plain(*args)`` with the
+    sequence dim (dim 1 of the first ``n_seq`` args) at length ``T``, on
+    ``meta`` tensors: the forward's FLOPs, bytes and the storage it leaves
+    live beside its inputs (its outputs and, under ``grad``, what its
+    backward keeps); the backward's FLOPs and bytes; the outputs' shapes
+    and dtypes."""
+    xs = [_meta_like(a.shape[:1] + (T,) + a.shape[2:] if i < n_seq
+                     else a.shape, a.dtype) for i, a in enumerate(args)]
+    need = [grad and a.requires_grad for a in args]
+    xs = [x.requires_grad_() if n else x for x, n in zip(xs, need)]
+    fwd = CostMode()
+    held = fwd.hold(xs)
+    with torch.set_grad_enabled(grad), fwd:
+        out = plain(*xs)
+    outs = out if isinstance(out, tuple) else (out,)
+    r = {"flops": fwd.flops, "bytes": fwd.bytes, "live": fwd.live - held,
+         "outs": [(tuple(o.shape), o.dtype) for o in outs],
+         "bwd_flops": 0, "bwd_bytes": 0}
+    if grad:
+        ys = [o for o in outs if o.requires_grad]
+        cts = [torch.ones_like(y) for y in ys]
+        bwd = CostMode()
+        with bwd:
+            torch.autograd.grad(ys, [x for x, n in zip(xs, need) if n], cts,
+                                allow_unused=True)
+        r["bwd_flops"], r["bwd_bytes"] = bwd.flops, bwd.bytes
+    return r
+
+
+_FIT = (2, 3, 4)         # the lengths the counts are fitted through
+
+
+def _scan_counts(plain, args: tuple, n_seq: int, grad: bool) -> dict:
+    """:func:`_scan_cost` at the args' own length T: counted directly up
+    to ``_FIT[-1]`` steps, else a quadratic through the counts at
+    ``_FIT``.  From 2 steps on every step of the plain loop is the same
+    ops at the same shapes and strides (a step's select of a 1-step
+    input is contiguous, so 1 is left out), every other forward op
+    scales with T, and the backward adds one full-length zero gradient a
+    step (``select``'s): each count is a polynomial of degree <= 2 in T,
+    which three lengths fix exactly (``tests/test_torch_sharding_
+    recurrent.py`` holds it to the loop at 8 and 16 steps)."""
+    T = args[0].shape[1]
+    key = (plain, tuple((a.shape[:1] + a.shape[2:] if i < n_seq
+                         else a.shape, a.dtype, a.requires_grad)
+                        for i, a in enumerate(args)), n_seq, grad)
+    lengths = (T,) if T <= _FIT[-1] else _FIT
+    for n in lengths:
+        if (key, n) not in _SCAN_COSTS:
+            # a thread of its own: none of the caller's dispatch modes,
+            # grad mode or saved-tensor hooks (a remat checkpoint's, which
+            # would take the count's own graph for the layer's)
+            with ThreadPoolExecutor(1) as pool:
+                _SCAN_COSTS[key, n] = pool.submit(
+                    _scan_cost, plain, args, n_seq, n, grad).result()
+    if T <= _FIT[-1]:
+        return _SCAN_COSTS[key, T]
+    c2, c3, c4 = (_SCAN_COSTS[key, n] for n in _FIT)
+    j = T - _FIT[0]
+
+    def fit(a, b, c):
+        return a + j * (b - a) + j * (j - 1) // 2 * (c - 2 * b + a)
+    r = {k: fit(c2[k], c3[k], c4[k])
+         for k in ("flops", "bytes", "live", "bwd_flops", "bwd_bytes")}
+    r["outs"] = [(tuple(fit(*d) for d in zip(s2, s3, s4)), dt)
+                 for (s2, dt), (s3, _), (s4, _) in
+                 zip(c2["outs"], c3["outs"], c4["outs"])]
+    return r
+
+
+class _ScanStandIn(torch.autograd.Function):
+    """The recurrence's place on ``meta`` shards: outputs of the plain
+    route's shapes, and the plain route's counts added to the active
+    :class:`CostMode` -- forward FLOPs and bytes, the storage its
+    backward keeps (one ``meta`` block saved for the backward, so that
+    remat drops and recomputes it as it would the loop's), backward FLOPs
+    and bytes."""
+
+    @staticmethod
+    def forward(ctx, plain, n_seq, *args):
+        grad = any(ctx.needs_input_grad[2:])
+        c = _scan_counts(plain, args, n_seq, grad)
+        mode = _active_cost_mode()
+        with _disable_current_modes():
+            outs = [_meta_like(s, dt) for s, dt in c["outs"]]
+            kept = c["live"] - sum(_nbytes(o) for o in outs)
+            blob = _meta_like((kept,), torch.uint8) if grad else None
+        if mode is not None:
+            mode.flops += c["flops"]
+            mode.bytes += c["bytes"]
+            for t in outs + ([blob] if grad else []):
+                mode._add_storage(t)
+            mode.peak = max(mode.peak, mode.live)
+        if grad:
+            ctx.save_for_backward(blob)
+            ctx.bwd = (c["bwd_flops"], c["bwd_bytes"],
+                       [(a.shape, a.dtype) for a in args])
+        return tuple(outs) if len(outs) > 1 else outs[0]
+
+    @staticmethod
+    def backward(ctx, *grads):
+        flops, byts, shapes = ctx.bwd
+        mode = _active_cost_mode()
+        with _disable_current_modes():
+            gs = [_meta_like(s, dt) if need else None
+                  for (s, dt), need in zip(shapes, ctx.needs_input_grad[2:])]
+        if mode is not None:
+            mode.flops += flops
+            mode.bytes += byts
+            for g in gs:
+                if g is not None:
+                    mode._add_storage(g)
+            mode.peak = max(mode.peak, mode.live)
+        return (None, None, *gs)
+
+
+def scan_standin(plain, args: tuple, n_seq: int):
+    """``plain(*args)`` (a recurrence's plain version: a Python loop over
+    the sequence dim, dim 1 of the first ``n_seq`` args) on ``meta``
+    tensors without running the loop: the dry run's cost of the scan is
+    the plain route's, as JAX's dry run counts its XLA route.  Its
+    FLOPs, bytes and the storage its backward keeps are counted at three
+    short lengths once per shape and fitted (:func:`_scan_counts`);
+    differentiable, its backward counted likewise."""
+    return _ScanStandIn.apply(plain, n_seq, *args)
+
+
 def cost_dict(mode: CostMode) -> dict:
     """JAX's ``cost_analysis`` keys from a finished count."""
     return {"flops": float(mode.flops), "bytes accessed": float(mode.bytes)}
@@ -209,8 +355,11 @@ def group_body_cost(cfg: ModelConfig, gi: int, mesh, rules, kind: str,
     """One layer of group ``gi``, standalone under the step's shardings:
     its forward for ``prefill``, and for ``train`` the forward plus, under
     ``autograd``, remat's recomputed forward and the backward, on
-    ``meta`` shards over a (fake) process group's mesh.  Returns {flops,
-    bytes, collectives, n}.  (``decode`` is counted as the forward of one
+    ``meta`` shards over a (fake) process group's mesh.  Every layer kind
+    runs: the MoE FFN (its aux losses dropped), the recurrences (through
+    :func:`scan_standin`) and ``xattn`` against projected media of the
+    config's (B, N, d) laid out as the batch.  Returns {flops, bytes,
+    collectives, n}.  (``decode`` is counted as the forward of one
     token.)"""
     g = cfg.groups[gi]
     specs = _slot_specs_for_group(cfg, gi)
@@ -225,10 +374,15 @@ def group_body_cost(cfg: ModelConfig, gi: int, mesh, rules, kind: str,
     pos_spec = resolve_spec(("batch", None), (B, seq), mesh,
                             activation_rules())
     positions = _meta_dtensor((B, seq), torch.int64, pos_spec, mesh)
+    media = None
+    if cfg.frontend == "vision":        # the projected media of xattn
+        shape = (B, cfg.n_frontend_tokens, cfg.d_model)
+        media = _meta_dtensor(shape, cfg.dtype, resolve_spec(
+            ("batch", None, None), shape, mesh, activation_rules()), mesh)
 
     def body(xc, lp):
         for si, k in enumerate(g.pattern):
-            xc, _ = _apply_block(lp[f"s{si}"], k, xc, cfg, positions)
+            xc, _ = _apply_block(lp[f"s{si}"], k, xc, cfg, positions, media)
         return xc
 
     mode = CostMode()

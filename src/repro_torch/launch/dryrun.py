@@ -29,8 +29,10 @@ test run it in a process of their own.  Each cell's JSON holds:
 PyTorch lowers a shard-to-shard redistribution on a CPU mesh as an
 all-gather and a local chunk (gloo has no all-to-all), so a layout change
 that NCCL would run as an all-to-all is counted as that all-gather.
-Only the attention-only dense configs have a sharded route yet; the MoE,
-recurrent and vision configs raise (ROADMAP A10b).
+Every config of the zoo has its sharded route, so ``--all`` runs JAX's
+34 cells.  On ``meta`` shards the attention and the grouped MoE FFN run
+their plain versions, and the two recurrences a stand-in that counts
+what their plain loops would (``costmodel.scan_standin``).
 
 Usage:
   python -m repro_torch.launch.dryrun --arch llama3.2-1b --shape train_4k
@@ -63,20 +65,6 @@ from .shapes import (ShapeCell, applicable_shapes, cell_of,
 from .sharding import (activation_rules, opt_state_shardings, placements,
                        tree_shardings, tree_specs)
 from .steps import make_decode_step, make_prefill_step, make_train_step
-
-# the configs with a sharded route: attention-only, dense, text or codebook
-# tokens (the MoE, recurrent and vision ones wait for ROADMAP A10b)
-DENSE_ARCHS = ("llama3.2-1b", "smollm-360m", "olmo-1b", "gemma3-4b",
-               "musicgen-large")
-
-
-def check_arch(arch: str) -> None:
-    if arch not in DENSE_ARCHS:
-        raise NotImplementedError(
-            f"{arch}: the sharded steps cover the dense configs "
-            f"{', '.join(DENSE_ARCHS)}; the MoE, recurrent and vision "
-            f"configs are ROADMAP A10b")
-
 
 def fake_world(n: int) -> None:
     """The process-wide fake process group at world size ``n`` (rank 0)."""
@@ -278,7 +266,6 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool,
     """One cell on the production mesh, written to ``out_dir``.  JAX's
     trip-count correction is not applied: the eager step runs, and is
     counted at, every layer."""
-    check_arch(arch)
     shape, _ = production_shape(multi_pod)
     fake_world(math.prod(shape))
     mesh = make_production_mesh(multi_pod=multi_pod, device_type="cpu")
@@ -290,6 +277,13 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool,
         with open(os.path.join(out_dir, tag + ".json"), "w") as f:
             json.dump(result, f, indent=1)
     return result
+
+
+def sweep_cells() -> list[tuple[str, str]]:
+    """JAX's ``--all`` sweep: every arch with each of its applicable
+    shapes (34 cells)."""
+    return [(arch, shp) for arch in all_arch_ids()
+            for shp in applicable_shapes(get_config(arch))]
 
 
 def main(argv: list[str] | None = None) -> None:
@@ -312,9 +306,7 @@ def main(argv: list[str] | None = None) -> None:
 
     cells: list[tuple[str, str]] = []
     if args.all:
-        for arch in all_arch_ids():     # the MoE, recurrent and vision
-            for shp in applicable_shapes(get_config(arch)):  # cells fail
-                cells.append((arch, shp))
+        cells = sweep_cells()
     else:
         if not (args.arch and args.shape):
             ap.error("--arch/--shape or --all required")

@@ -14,24 +14,16 @@ from __future__ import annotations
 from typing import Any, Callable
 
 import torch
-from torch.distributed.tensor import DTensor, Replicate
+from torch.distributed.tensor import DTensor
 
 from ..core.sync import SyncConfig
+from ..device import replicated
 from ..models.config import ModelConfig
 from ..models.transformer import decode_step as model_decode
 from ..models.transformer import lm_loss, prefill
 from ..optim.optimizers import Optimizer
 from ..pdb.torch_backend import TrainEngine, make_engine
 from ..tree import leaves, unflatten
-
-
-def _replicated(t: torch.Tensor) -> torch.Tensor:
-    """A DTensor (a loss, a metric: often partial sums) replicated on its
-    mesh; a plain tensor as it is."""
-    if not isinstance(t, DTensor):
-        return t
-    mesh = t.device_mesh
-    return t.redistribute(mesh, [Replicate()] * mesh.ndim)
 
 
 def make_train_step(cfg: ModelConfig, opt: Optimizer, sync: SyncConfig,
@@ -70,9 +62,9 @@ def make_lm_grad_fn(cfg: ModelConfig, sync: SyncConfig,
         xs = [t.detach().requires_grad_() for t in leaves(params)]
         loss, metrics = lm_loss(unflatten(params, xs), batch, cfg,
                                 remat=sync.remat, act_specs=act_specs)
-        loss = _replicated(loss)
+        loss = replicated(loss)
         if on_metrics is not None:
-            on_metrics({k: _replicated(v.detach())
+            on_metrics({k: replicated(v.detach())
                         for k, v in metrics.items()})
         gs = torch.autograd.grad(loss, xs, allow_unused=True)
         gs = [torch.zeros_like(x) if g is None else g

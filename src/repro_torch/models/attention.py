@@ -57,8 +57,25 @@ def _split_heads(x: torch.Tensor, n: int, hd: int) -> torch.Tensor:
     return x.reshape(x.shape[:-1] + (n, hd))
 
 
+class _GradAsValue(torch.autograd.Function):
+    """Identity on a DTensor whose backward lays the gradient out as the
+    value was: the merged heads' gradient comes back split over ``model``
+    (from the row-split ``wo``), which the merge's backward cannot cut
+    into heads that do not divide the axis (llama4-scout's 40 on 16)."""
+
+    @staticmethod
+    def forward(ctx, x):
+        ctx.placements = x.placements
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.redistribute(g.device_mesh, ctx.placements)
+
+
 def _merge_heads(x: torch.Tensor) -> torch.Tensor:
-    return x.reshape(x.shape[:-2] + (x.shape[-2] * x.shape[-1],))
+    out = x.reshape(x.shape[:-2] + (x.shape[-2] * x.shape[-1],))
+    return _GradAsValue.apply(out) if isinstance(out, DTensor) else out
 
 
 def _rope_theta(cfg: ModelConfig, kind: str) -> float:

@@ -25,6 +25,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from ..device import param_for
 from ..kernels import ops as kops
 from .config import ModelConfig
 from .paramlib import P
@@ -55,10 +56,13 @@ def _causal_conv(u: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
                  carry: torch.Tensor | None = None) -> torch.Tensor:
     """Depthwise causal conv over time.  u: (B, T, dr); w: (cw, dr); b:
     (dr,); carry: (B, cw-1, dr) the previous inputs (decode, a prompt
-    chunk), or None for zero history."""
+    chunk), or None for zero history.  The history is concatenated in
+    front (zero rows, or the carry), which DTensor propagates on every
+    torch version (a pad it does not)."""
     cw, T = w.shape[0], u.shape[1]
-    up = (F.pad(u, (0, 0, cw - 1, 0)) if carry is None
-          else torch.cat([carry.to(u.dtype), u], dim=1))
+    hist = ([torch.zeros_like(u[:, :1])] * (cw - 1) if carry is None
+            else [carry.to(u.dtype)])
+    up = torch.cat(hist + [u], dim=1)
     out = torch.zeros_like(u)
     for i in range(cw):
         out = out + up[:, i:i + T] * w[i].to(u.dtype)
@@ -67,20 +71,22 @@ def _causal_conv(u: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
 
 def _gates(p: dict, u: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     uf = u.float()
-    ra = torch.sigmoid(uf @ p["wa"].float() + p["ba"].float())
+    f32 = torch.float32
+    ra = torch.sigmoid(uf @ param_for(p["wa"], f32, uf) + p["ba"].float())
     log_a = -_C * F.softplus(p["lam"].float()) * ra
     a = torch.exp(log_a)
-    i = torch.sigmoid(uf @ p["wi"].float() + p["bi"].float())
+    i = torch.sigmoid(uf @ param_for(p["wi"], f32, uf) + p["bi"].float())
     return a.to(u.dtype), i.to(u.dtype)
 
 
 def rglru_fwd(p: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     dt = x.dtype
-    y = F.gelu(x @ p["wy"].to(dt), approximate="tanh")
-    u = _causal_conv(x @ p["wx"].to(dt), p["conv_w"], p["conv_b"])
+    y = F.gelu(x @ param_for(p["wy"], dt, x), approximate="tanh")
+    u = _causal_conv(x @ param_for(p["wx"], dt, x), p["conv_w"],
+                     p["conv_b"])
     a, i = _gates(p, u)
     h = kops.rglru(i * u, a)
-    return (y * h) @ p["wo"].to(dt)
+    return (y * h) @ param_for(p["wo"], dt, x)
 
 
 def rglru_decode(p: dict, x: torch.Tensor, state: dict,
@@ -91,12 +97,12 @@ def rglru_decode(p: dict, x: torch.Tensor, state: dict,
     recurrence's final state and the last cw-1 inputs across the carry and
     the chunk), new tensors."""
     dt = x.dtype
-    y = F.gelu(x @ p["wy"].to(dt), approximate="tanh")
-    u_in = x @ p["wx"].to(dt)
+    y = F.gelu(x @ param_for(p["wy"], dt, x), approximate="tanh")
+    u_in = x @ param_for(p["wx"], dt, x)
     u = _causal_conv(u_in, p["conv_w"], p["conv_b"], state["conv"])
     a, i = _gates(p, u)
     h_seq, hT = kops.rglru_stateful(i * u, a, state["h"])
-    out = (y * h_seq) @ p["wo"].to(dt)
+    out = (y * h_seq) @ param_for(p["wo"], dt, x)
     conv = state["conv"]
     new_conv = torch.cat([conv, u_in.to(conv.dtype)],
                          dim=1)[:, -conv.shape[1]:]

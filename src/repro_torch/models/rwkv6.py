@@ -18,7 +18,9 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from ..device import param_for
 from ..kernels import ops as kops
+from .attention import _split_heads
 from .config import ModelConfig
 from .layers import rmsnorm
 from .paramlib import P
@@ -64,12 +66,12 @@ def _token_shift(x: torch.Tensor, x_prev_last: torch.Tensor | None,
                  mu: torch.Tensor) -> torch.Tensor:
     """lerp(x_t, x_{t-1}, sigmoid(mu)).  x: (B, T, d); x_prev_last: (B, d)
     the previous chunk's last token (decode, a prompt chunk), or None for
-    x_{-1} = 0."""
-    if x_prev_last is None:
-        prev = F.pad(x, (0, 0, 1, 0))[:, :-1]
-    else:
-        prev = torch.cat([x_prev_last[:, None].to(x.dtype), x[:, :-1]],
-                         dim=1)
+    x_{-1} = 0.  The shift is a concatenation (a zero row or the carry,
+    then x's first T - 1 rows), which DTensor propagates on every torch
+    version (a pad it does not)."""
+    first = (torch.zeros_like(x[:, :1]) if x_prev_last is None
+             else x_prev_last[:, None].to(x.dtype))
+    prev = torch.cat([first, x[:, :-1]], dim=1)
     m = torch.sigmoid(mu.float()).to(x.dtype)
     return x + m * (prev - x)
 
@@ -83,16 +85,18 @@ def _time_mix_inputs(tp: dict, x: torch.Tensor, cfg: ModelConfig,
     dt = x.dtype
 
     def proj(mu, w):
-        return (_token_shift(x, x_last, mu) @ w.to(dt)).reshape(B, T, H, hd)
+        return _split_heads(_token_shift(x, x_last, mu)
+                            @ param_for(w, dt, x), H, hd)
 
     r = proj(tp["mu_r"], tp["wr"])
     k = proj(tp["mu_k"], tp["wk"])
     v = proj(tp["mu_v"], tp["wv"])
     g = proj(tp["mu_g"], tp["wg"])
     xw = _token_shift(x, x_last, tp["mu_w"])
-    dlo = (xw @ tp["decay_w1"].to(dt)) @ tp["decay_w2"].to(dt)
+    dlo = xw @ param_for(tp["decay_w1"], dt, xw)
+    dlo = dlo @ param_for(tp["decay_w2"], dt, dlo)
     dlog = tp["decay_base"].float()[None, None] \
-        + dlo.reshape(B, T, H, hd).float()
+        + _split_heads(dlo, H, hd).float()
     w = torch.exp(-torch.exp(dlog))                      # decay in (0,1)
     return r, k, v, g, w
 
@@ -102,7 +106,8 @@ def _finish(tp: dict, y: torch.Tensor, g: torch.Tensor,
     B, T, H, hd = y.shape
     y = rmsnorm(y, tp["gn_scale"])                       # per-head group norm
     y = y * F.silu(g.float()).to(y.dtype)
-    return y.reshape(B, T, H * hd).to(x_dtype) @ tp["wo"].to(x_dtype)
+    y = y.reshape(B, T, H * hd).to(x_dtype)
+    return y @ param_for(tp["wo"], x_dtype, y)
 
 
 def time_mix_fwd(tp: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
@@ -130,9 +135,9 @@ def chan_mix_fwd(cp: dict, x: torch.Tensor, cfg: ModelConfig,
     dt = x.dtype
     xk = _token_shift(x, x_last, cp["mu_ck"])
     xr = _token_shift(x, x_last, cp["mu_cr"])
-    kk = torch.square(F.relu(xk @ cp["ck"].to(dt)))
-    return torch.sigmoid((xr @ cp["cr"].to(dt)).float()).to(dt) \
-        * (kk @ cp["cv"].to(dt))
+    kk = torch.square(F.relu(xk @ param_for(cp["ck"], dt, x)))
+    return torch.sigmoid((xr @ param_for(cp["cr"], dt, x)).float()).to(dt) \
+        * (kk @ param_for(cp["cv"], dt, x))
 
 
 def rwkv_state_axes(stack_dims: int = 0) -> dict:

@@ -64,7 +64,7 @@ from functools import partial
 from typing import Any
 
 import torch
-from torch.distributed.tensor import DTensor
+from torch.distributed.tensor import DTensor, Replicate, Shard
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
@@ -135,13 +135,15 @@ def model_specs(cfg: ModelConfig) -> dict:
 def _project_media(params: dict, media: torch.Tensor | None,
                    cfg: ModelConfig) -> torch.Tensor | None:
     """The vision model's media (B, N, d_frontend) in the model width
-    (B, N, d), once a call as JAX does; None for the other frontends."""
+    (B, N, d), once a call as JAX does; None for the other frontends.
+    Sharded media keep their batch split (``device.param_for``)."""
     if cfg.frontend != "vision":
         return None
     if media is None:
         raise ValueError(f"{cfg.name}: the vision frontend needs media "
                          f"(B, {cfg.n_frontend_tokens}, {cfg.d_frontend})")
-    return media.to(cfg.dtype) @ params["frontend_proj"].to(cfg.dtype)
+    media = media.to(cfg.dtype)
+    return media @ param_for(params["frontend_proj"], cfg.dtype, media)
 
 
 def _wsc(x: torch.Tensor, act_specs: dict | None,
@@ -418,6 +420,17 @@ def _zeros_as(t: torch.Tensor, shape: tuple[int, ...]) -> torch.Tensor:
     return z
 
 
+def _rows_as(state: dict, x: torch.Tensor) -> dict:
+    """A state made inside the model (batch first) with its rows split
+    as x's batch when x is a DTensor; as it is otherwise."""
+    if not isinstance(x, DTensor):
+        return state
+    mesh = x.device_mesh
+    rows = [p if p == Shard(0) else Replicate() for p in x.placements]
+    return {k: on_mesh_of(t, x).redistribute(mesh, rows)
+            for k, t in state.items()}
+
+
 def _fill_kv(cfg: ModelConfig, kind: str, k: torch.Tensor, v: torch.Tensor,
              cache_len: int) -> dict:
     """Place full-sequence K/V (B,S,KV,hd) into a ring cache of length L,
@@ -444,7 +457,7 @@ def _prefill_block(bp: dict, kind: str, x: torch.Tensor, cfg: ModelConfig,
     package); nothing for ``xattn``."""
     if kind in RECURRENT_KINDS:
         zero = init_recurrent_state(cfg, kind, x.shape[0], device=x.device)
-        return _recurrent_block(bp, kind, x, zero, cfg)
+        return _recurrent_block(bp, kind, x, _rows_as(zero, x), cfg)
     if kind == "xattn":
         return _apply_block(bp, kind, x, cfg, positions, media)[0], {}
     h = apply_norm(bp["ln1"], x, cfg)
@@ -634,7 +647,7 @@ def _chunk_block(bp: dict, kind: str, x: torch.Tensor, c: dict, car: dict,
     if kind == "xattn":
         return _apply_block(bp, kind, x, cfg, None, media)[0], car
     if kind in RECURRENT_KINDS:
-        return _recurrent_block(bp, kind, x, car, cfg)
+        return _recurrent_block(bp, kind, x, _rows_as(car, x), cfg)
     h = apply_norm(bp["ln1"], x, cfg)
     L = cfg.kv_cache_len(kind, cache_len)
     tmp = {"pk": c["pk"], "pv": c["pv"], "pt": rows[L][None]}

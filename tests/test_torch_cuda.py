@@ -36,7 +36,7 @@ torch = pytest.importorskip("torch")
 
 from repro_torch.kernels import _build, ops, ref  # noqa: E402
 from repro_torch.kernels.decode_attention import (  # noqa: E402
-    decode_attention, decode_attention_paged)
+    decode_attention, decode_attention_paged, decode_attention_partial)
 from repro_torch.kernels.flash_attention import (  # noqa: E402
     FlashAttention, flash_attention, flash_attention_bwd, kernel_smem, plan)
 from repro_torch.kernels.moe_matmul import (  # noqa: E402
@@ -279,6 +279,41 @@ def test_decode_attention_dead_splits_merge_to_nothing(gen):
     torch.testing.assert_close(got[:2].float(), ref.attention_decode(
         q[:2], k[:2], v[:2], valid[:2]).float(), **TOL[torch.bfloat16])
     assert torch.equal(got[2], torch.zeros_like(got[2]))
+
+
+@pytest.mark.parametrize("B,L,H,KV,hd", [
+    (8, 544, 32, 8, 64), (4, 2048, 10, 1, 256), (3, 1024, 8, 4, 256),
+    (2, 300, 4, 1, 16)])
+@pytest.mark.parametrize("parts", [2, 4])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_attention_partial(gen, B, L, H, KV, hd, parts, dtype):
+    """The partial form over each part of a ring cut into ``parts`` (rows
+    with dead parts included) against ``ops._decode_partial`` (m at f32's
+    tolerance), and the parts' combine against the whole-ring kernel."""
+    q = _randn(gen, (B, 1, H, hd), dtype)
+    k = _randn(gen, (B, L, KV, hd), dtype)
+    v = _randn(gen, (B, L, KV, hd), dtype)
+    n_live = torch.randint(1, L + 1, (B,), generator=gen, device="cuda")
+    n_live[0] = 1
+    valid = torch.arange(L, device="cuda")[None, :] < n_live[:, None]
+    Lp = L // parts
+    got = []
+    for i in range(parts):
+        sl = slice(i * Lp, (i + 1) * Lp)
+        part = (q, k[:, sl], v[:, sl], valid[:, sl])
+        g = decode_attention_partial(*part)
+        w = ops._decode_partial(*part)
+        for a, b, tol in zip(g, w, (TOL[dtype], TOL[dtype],
+                                    TOL[torch.float32])):
+            torch.testing.assert_close(a, b, **tol)
+        got.append(g)
+    o, l, m = (torch.stack(t) for t in zip(*got))
+    out = ops.combine_parts(o, l, m, lambda t: t.amax(0, keepdim=True),
+                            lambda t: t.sum(0))
+    whole = decode_attention(q, k[:, :parts * Lp], v[:, :parts * Lp],
+                             valid[:, :parts * Lp])
+    torch.testing.assert_close(out.to(dtype).float(), whole.float(),
+                               **TOL[dtype])
 
 
 def test_decode_attention_refuses(gen):

@@ -15,8 +15,7 @@ process-wide), against hand reckoning and the JAX package's specs.
   FLOPs per device.  The port's eager count is already the corrected one:
   the 1-layer model's count plus 5 x ``group_body_cost`` equals it.
 * The memory tracker on cases reckoned by hand.
-* The CLI refuses the configs outside this slice (ROADMAP A10b) and
-  exits 1, as JAX's does for a failed cell.
+* ``--all`` builds JAX's 34-cell sweep (the cells compared, not run).
 """
 import json
 import math
@@ -204,10 +203,18 @@ def test_memory_tracker_by_hand(result):
     assert peak == held + 64 * 1024 * 4 and live == held
 
 
-def test_cli_refuses_other_configs():
+def test_cli_all_builds_jax_sweep():
+    """``--all``'s cells are JAX's sweep, compared without running them:
+    ``applicable_shapes`` over ``all_arch_ids()``, 34 cells, every config
+    of the zoo (nothing is refused any more)."""
+    from repro.launch.shapes import applicable_shapes as japplicable
+    want = [(arch, shp) for arch in jconfigs.all_arch_ids()
+            for shp in japplicable(jconfigs.get_config(arch))]
     out = _run("""
-        from repro_torch.launch.dryrun import main
-        main(["--arch", "mixtral-8x7b", "--shape", "train_4k", "--out", ""])
+        import json
+        from repro_torch.launch.dryrun import sweep_cells
+        print(json.dumps(sweep_cells()))
         """, timeout=120)
-    assert out.returncode == 1
-    assert "NotImplementedError" in out.stdout and "A10b" in out.stdout
+    assert out.returncode == 0, out.stderr[-3000:]
+    got = [tuple(c) for c in json.loads(out.stdout.strip().splitlines()[-1])]
+    assert got == want and len(got) == 34
