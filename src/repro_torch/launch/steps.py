@@ -23,6 +23,7 @@ from ..models.transformer import decode_step as model_decode
 from ..models.transformer import lm_loss, prefill
 from ..optim.optimizers import Optimizer
 from ..pdb.torch_backend import TrainEngine, make_engine
+from ..trace import span
 from ..tree import leaves, unflatten
 
 
@@ -59,19 +60,20 @@ def make_lm_grad_fn(cfg: ModelConfig, sync: SyncConfig,
     replicated and each gradient in its parameter's placements."""
 
     def grad_fn(params, batch):
-        xs = [t.detach().requires_grad_() for t in leaves(params)]
-        loss, metrics = lm_loss(unflatten(params, xs), batch, cfg,
-                                remat=sync.remat, act_specs=act_specs)
-        loss = replicated(loss)
-        if on_metrics is not None:
-            on_metrics({k: replicated(v.detach())
-                        for k, v in metrics.items()})
-        gs = torch.autograd.grad(loss, xs, allow_unused=True)
-        gs = [torch.zeros_like(x) if g is None else g
-              for x, g in zip(xs, gs)]
-        gs = [g.redistribute(x.device_mesh, x.placements)
-              if isinstance(g, DTensor) else g for x, g in zip(xs, gs)]
-        return loss.detach(), unflatten(params, gs)
+        with span("model.grad"):
+            xs = [t.detach().requires_grad_() for t in leaves(params)]
+            loss, metrics = lm_loss(unflatten(params, xs), batch, cfg,
+                                    remat=sync.remat, act_specs=act_specs)
+            loss = replicated(loss)
+            if on_metrics is not None:
+                on_metrics({k: replicated(v.detach())
+                            for k, v in metrics.items()})
+            gs = torch.autograd.grad(loss, xs, allow_unused=True)
+            gs = [torch.zeros_like(x) if g is None else g
+                  for x, g in zip(xs, gs)]
+            gs = [g.redistribute(x.device_mesh, x.placements)
+                  if isinstance(g, DTensor) else g for x, g in zip(xs, gs)]
+            return loss.detach(), unflatten(params, gs)
     return grad_fn
 
 

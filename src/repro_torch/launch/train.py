@@ -304,7 +304,59 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--device", default="cuda",
                     help="cuda (hand-written kernels) or cpu (plain "
                          "versions)")
+    ap.add_argument("--profile-steps", type=_step_range, default=None,
+                    metavar="A:B",
+                    help="engine backend: record steps A..B-1 under "
+                         "torch.profiler and write their Chrome trace "
+                         "(the program's spans over the device timeline)")
+    ap.add_argument("--profile-out", default="train_trace.json",
+                    help="where --profile-steps writes its trace")
     return ap.parse_args(argv)
+
+
+def _step_range(text: str) -> tuple[int, int]:
+    a, sep, b = text.partition(":")
+    try:
+        lo, hi = int(a), int(b)
+    except ValueError:
+        lo = hi = -1
+    if not sep or not 0 <= lo < hi:
+        raise argparse.ArgumentTypeError(f"want A:B with 0 <= A < B, got "
+                                         f"{text!r}")
+    return lo, hi
+
+
+class _StepProfile:
+    """``--profile-steps A:B``: ``torch.profiler`` (host and, on a card,
+    device activities) over steps A..B-1, its Chrome trace written when
+    step B begins or the run ends."""
+
+    def __init__(self, window, path: str, device: torch.device):
+        self.window, self.path, self.device = window, path, device
+        self.prof = None
+
+    def at_step(self, step: int) -> None:
+        if self.window is None:
+            return
+        if step == self.window[1]:
+            self.stop()
+        if step == self.window[0]:
+            acts = [torch.profiler.ProfilerActivity.CPU]
+            if self.device.type == "cuda":
+                acts.append(torch.profiler.ProfilerActivity.CUDA)
+            self.prof = torch.profiler.profile(activities=acts)
+            self.prof.start()
+
+    def stop(self) -> None:
+        if self.prof is None:
+            return
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        self.prof.stop()
+        self.prof.export_chrome_trace(self.path)
+        self.prof = None
+        print(f"profile: steps {self.window[0]}..{self.window[1] - 1} -> "
+              f"{self.path}", flush=True)
 
 
 def main(argv=None) -> dict:
@@ -335,9 +387,11 @@ def main(argv=None) -> dict:
     injector = FailureInjector(
         fail_steps=(args.fail_at_step,) if args.fail_at_step >= 0 else ())
     policy = RetryPolicy()
+    profiled = _StepProfile(args.profile_steps, args.profile_out, device)
     losses = []
     t0 = time.time()
     for step in range(start, args.steps):
+        profiled.at_step(step)
         batch = make_lm_batch(spec, step, device)
         try:
             state, metrics, outcome = run_with_recovery(
@@ -359,6 +413,7 @@ def main(argv=None) -> dict:
                   f"{(time.time()-t0):.1f}s", flush=True)
         if args.ckpt_dir and (step + 1) % args.ckpt_every == 0:
             save_checkpoint(args.ckpt_dir, step + 1, engine.commit(state))
+    profiled.stop()
     tele = engine.telemetry.summary()
     if not losses:   # resumed from a checkpoint at/after the last step:
         # don't re-save — it would label step-`start` weights as args.steps

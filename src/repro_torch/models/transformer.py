@@ -70,6 +70,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 
 from ..device import on_mesh_of, param_for, resolve_device
 from ..kernels import ops as kops
+from ..trace import span
 from . import attention as attn
 from .config import RECURRENT_KINDS, ModelConfig
 from .layers import (apply_mlp, apply_norm, apply_rope, embed_specs,
@@ -180,22 +181,30 @@ def _unstack(tree: dict, n: int) -> list[dict]:
 # Train forward and loss
 # ---------------------------------------------------------------------------
 
+def _normed(p: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """``apply_norm`` inside the training path's ``model.norm`` span."""
+    with span("model.norm"):
+        return apply_norm(p, x, cfg)
+
+
 def _apply_block(bp: dict, kind: str, x: torch.Tensor, cfg: ModelConfig,
                  positions: torch.Tensor | None,
                  media: torch.Tensor | None = None
                  ) -> tuple[torch.Tensor, dict]:
-    h = apply_norm(bp["ln1"], x, cfg)
+    h = _normed(bp["ln1"], x, cfg)
     if kind == "rwkv6":
         x = _residual(x, time_mix_fwd(bp["mix"], h, cfg))
     elif kind == "rglru":
         x = _residual(x, rglru_fwd(bp["mix"], h, cfg))
-    elif kind == "xattn":
-        x = _residual(x, attn.cross_attention_fwd(bp["mix"], h, media, cfg))
     else:
-        x = _residual(x, attn.attention_fwd(bp["mix"], h, cfg, kind,
-                                            positions))
-    h2 = apply_norm(bp["ln2"], x, cfg)
-    f, aux = _apply_ffn(bp, kind, h2, cfg)
+        with span("model.attn"):
+            f = (attn.cross_attention_fwd(bp["mix"], h, media, cfg)
+                 if kind == "xattn" else
+                 attn.attention_fwd(bp["mix"], h, cfg, kind, positions))
+        x = _residual(x, f)
+    h2 = _normed(bp["ln2"], x, cfg)
+    with span("model.mlp"):
+        f, aux = _apply_ffn(bp, kind, h2, cfg)
     return _residual(x, f), aux
 
 
@@ -248,12 +257,15 @@ def _forward_hidden(params: dict, tokens: torch.Tensor, cfg: ModelConfig,
     for gi, g in enumerate(cfg.groups):
 
         def body(xc, auxc, slot_params, _g=g):
-            xc = _wsc(xc, act_specs, "act")
-            for si, kind in enumerate(_g.pattern):
-                xc, a = _apply_block(slot_params[f"s{si}"], kind, xc, cfg,
-                                     positions, media)
-                auxc = {k: auxc[k] + a[k] for k in AUX_ZERO}
-            return xc, auxc
+            # inside the remat wrapper, so a recomputed layer opens its
+            # spans again, within the backward
+            with span("model.layer"):
+                xc = _wsc(xc, act_specs, "act")
+                for si, kind in enumerate(_g.pattern):
+                    xc, a = _apply_block(slot_params[f"s{si}"], kind, xc,
+                                         cfg, positions, media)
+                    auxc = {k: auxc[k] + a[k] for k in AUX_ZERO}
+                return xc, auxc
 
         layer = _remat_wrap(body, remat)
         for lp in _unstack(params["groups"][f"g{gi}"], g.n):
@@ -278,17 +290,20 @@ def _nll(params: dict, x: torch.Tensor, labels: torch.Tensor,
     JAX package sums against a one-hot: both are exact in f32, every other
     term being 0.  Sharded logits (DTensors, their vocab split over
     ``model``) take JAX's one-hot sum, in the logits' layout."""
-    logits = _wsc(lm_logits(params, x, cfg).float(), act_specs, "logits")
-    lse = torch.logsumexp(logits, dim=-1)                       # (B, S)
-    if isinstance(logits, DTensor):
-        vocab = on_mesh_of(torch.arange(logits.shape[-1],
-                                        device=labels.device), labels)
-        onehot = _wsc((labels[..., None] == vocab).float(), act_specs,
+    with span("model.head"):
+        logits = _wsc(lm_logits(params, x, cfg).float(), act_specs,
                       "logits")
-        correct = torch.sum(logits * onehot, dim=-1)
-    else:
-        correct = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
-    return lse - correct
+        lse = torch.logsumexp(logits, dim=-1)                   # (B, S)
+        if isinstance(logits, DTensor):
+            vocab = on_mesh_of(torch.arange(logits.shape[-1],
+                                            device=labels.device), labels)
+            onehot = _wsc((labels[..., None] == vocab).float(), act_specs,
+                          "logits")
+            correct = torch.sum(logits * onehot, dim=-1)
+        else:
+            correct = torch.gather(logits, -1,
+                                   labels.long()[..., None])[..., 0]
+        return lse - correct
 
 
 def _chunk_sums(params: dict, x: torch.Tensor, labels: torch.Tensor,
@@ -311,7 +326,7 @@ def _lm_loss_chunked(params: dict, batch: dict, cfg: ModelConfig,
     B, S = tokens.shape
     hidden, aux = _forward_hidden(params, tokens, cfg, remat,
                                   batch.get("media"), act_specs)
-    x = apply_norm(params["final_norm"], hidden, cfg)
+    x = _normed(params["final_norm"], hidden, cfg)
     mask = batch.get("mask")
     mask = (torch.ones_like(tokens, dtype=torch.float32)
             if mask is None else mask.float())
@@ -347,7 +362,7 @@ def lm_loss(params: dict, batch: dict, cfg: ModelConfig,
         return _lm_loss_chunked(params, batch, cfg, remat, act_specs)
     hidden, aux = _forward_hidden(params, batch["tokens"], cfg, remat,
                                   batch.get("media"), act_specs)
-    nll = _nll(params, apply_norm(params["final_norm"], hidden, cfg),
+    nll = _nll(params, _normed(params["final_norm"], hidden, cfg),
                batch["labels"], cfg, act_specs)
     mask = batch.get("mask")
     mask = torch.ones_like(nll) if mask is None else mask.float()

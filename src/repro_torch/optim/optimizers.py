@@ -22,6 +22,7 @@ from typing import Any, Callable, NamedTuple
 import torch
 
 from ..device import on_mesh_of
+from ..trace import span
 from ..tree import leaves, tree_map
 
 PyTree = Any
@@ -151,34 +152,36 @@ def _adamw(cfg: OptConfig) -> Optimizer:
         return state
 
     def update(grads, state, params):
-        step = state["step"] + 1
-        new_state: dict = {}
-        grads, scale = _prepare(cfg, grads, state, new_state)
-        t = step.float()
-        bc1 = 1 - torch.pow(cfg.b1, t)
-        bc2 = 1 - torch.pow(cfg.b2, t)
+        with span("opt.update"):
+            step = state["step"] + 1
+            new_state: dict = {}
+            grads, scale = _prepare(cfg, grads, state, new_state)
+            t = step.float()
+            bc1 = 1 - torch.pow(cfg.b1, t)
+            bc2 = 1 - torch.pow(cfg.b2, t)
 
-        def upd(g, m, v, p):
-            # m = b1 m + (1 - b1) g;  v = b2 v + (1 - b2) g g;
-            # p - lr (m / bc1 / (sqrt(v / bc2) + eps) + wd p), each product
-            # and sum rounded as written, but in place on fresh
-            # temporaries: at most four leaf-sized f32 tensors are alive
-            # besides the old state (a 2.6 GB embedding would take seven)
-            gf = _clipped(g, scale).float()
-            m = torch.mul(m, cfg.b1).add_(torch.mul(gf, 1 - cfg.b1))
-            v = torch.mul(v, cfg.b2).add_(
-                torch.mul(gf, 1 - cfg.b2).mul_(gf))
-            del gf
-            step_ = torch.div(m, bc1)
-            step_.div_(torch.div(v, bc2).sqrt_().add_(cfg.eps))
-            pf = p.float()
-            step_.add_(torch.mul(pf, cfg.weight_decay)).mul_(cfg.lr)
-            return torch.sub(pf, step_).to(p.dtype), m, v
+            def upd(g, m, v, p):
+                # m = b1 m + (1 - b1) g;  v = b2 v + (1 - b2) g g;
+                # p - lr (m / bc1 / (sqrt(v / bc2) + eps) + wd p), each
+                # product and sum rounded as written, but in place on
+                # fresh temporaries: at most four leaf-sized f32 tensors
+                # are alive besides the old state (a 2.6 GB embedding
+                # would take seven)
+                gf = _clipped(g, scale).float()
+                m = torch.mul(m, cfg.b1).add_(torch.mul(gf, 1 - cfg.b1))
+                v = torch.mul(v, cfg.b2).add_(
+                    torch.mul(gf, 1 - cfg.b2).mul_(gf))
+                del gf
+                step_ = torch.div(m, bc1)
+                step_.div_(torch.div(v, bc2).sqrt_().add_(cfg.eps))
+                pf = p.float()
+                step_.add_(torch.mul(pf, cfg.weight_decay)).mul_(cfg.lr)
+                return torch.sub(pf, step_).to(p.dtype), m, v
 
-        triples = tree_map(upd, grads, state["m"], state["v"], params)
-        new_state.update(m=tree_map(lambda t3: t3[1], triples),
-                         v=tree_map(lambda t3: t3[2], triples), step=step)
-        return tree_map(lambda t3: t3[0], triples), new_state
+            triples = tree_map(upd, grads, state["m"], state["v"], params)
+            new_state.update(m=tree_map(lambda t3: t3[1], triples),
+                             v=tree_map(lambda t3: t3[2], triples), step=step)
+            return tree_map(lambda t3: t3[0], triples), new_state
 
     return Optimizer(init, update)
 
@@ -193,21 +196,22 @@ def _sgd(cfg: OptConfig, momentum: float) -> Optimizer:
         return state
 
     def update(grads, state, params):
-        new_state: dict = {"step": state["step"] + 1}
-        grads, scale = _prepare(cfg, grads, state, new_state)
-        if momentum > 0:
-            new_mom = tree_map(
-                lambda m, g: momentum * m + _clipped(g, scale).float(),
-                state["mom"], grads)
-            new_params = tree_map(
-                lambda p, m: (p.float() - cfg.lr * m).to(p.dtype),
-                params, new_mom)
-            new_state["mom"] = new_mom
-        else:
-            new_params = tree_map(
-                lambda p, g: (p.float() - cfg.lr
-                              * _clipped(g, scale).float()).to(p.dtype),
-                params, grads)
-        return new_params, new_state
+        with span("opt.update"):
+            new_state: dict = {"step": state["step"] + 1}
+            grads, scale = _prepare(cfg, grads, state, new_state)
+            if momentum > 0:
+                new_mom = tree_map(
+                    lambda m, g: momentum * m + _clipped(g, scale).float(),
+                    state["mom"], grads)
+                new_params = tree_map(
+                    lambda p, m: (p.float() - cfg.lr * m).to(p.dtype),
+                    params, new_mom)
+                new_state["mom"] = new_mom
+            else:
+                new_params = tree_map(
+                    lambda p, g: (p.float() - cfg.lr
+                                  * _clipped(g, scale).float()).to(p.dtype),
+                    params, grads)
+            return new_params, new_state
 
     return Optimizer(init, update)

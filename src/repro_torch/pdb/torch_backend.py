@@ -52,6 +52,7 @@ from typing import Any, Callable, NamedTuple
 import torch
 
 from ..kernels import ops as kops
+from ..trace import span
 from ..tree import (Path, leaves, leaves_with_path, structure, tree_map,
                     unflatten)
 from .telemetry import Telemetry
@@ -206,46 +207,50 @@ def make_delayed_step(
         """Write ``state.params`` into its ring slot (in place; writing
         the same values again is harmless)."""
         use_packed, (plan, _) = layout(state.params)
-        at = state.ptr.view(1).long()
-        if use_packed:
-            rows = _pack_rows(plan, leaves(state.params))
-            for g in plan:
-                state.hist[g.key].index_copy_(0, at, rows[g.key][None])
-        else:
-            for h, p in zip(leaves(state.hist), leaves(state.params)):
-                h.index_copy_(0, at, p[None].to(h.dtype))
+        with span("pdb.commit_ring"):
+            at = state.ptr.view(1).long()
+            if use_packed:
+                rows = _pack_rows(plan, leaves(state.params))
+                for g in plan:
+                    state.hist[g.key].index_copy_(0, at, rows[g.key][None])
+            else:
+                for h, p in zip(leaves(state.hist), leaves(state.params)):
+                    h.index_copy_(0, at, p[None].to(h.dtype))
         return state
 
     def read_stale(state: DelayedState) -> PyTree:
-        commit_ring(state)
-        use_packed, (plan, like) = layout(state.params)
-        if use_packed:
-            rows = {g.key: kops.ring_gather(
-                        state.hist[g.key],
-                        torch.remainder(state.ptr - g.delay, size))
-                    for g in plan}
-            return _unpack_rows(plan, rows, like)
-        out = []
-        for path, h in leaves_with_path(state.hist):
-            d = _leaf_delay(path, delta, delay_for)
-            idx = torch.remainder(state.ptr - d, size)
-            out.append(h.index_select(0, idx.view(1))[0])
-        return unflatten(like, out)
+        with span("pdb.read_stale"):
+            commit_ring(state)
+            use_packed, (plan, like) = layout(state.params)
+            if use_packed:
+                rows = {g.key: kops.ring_gather(
+                            state.hist[g.key],
+                            torch.remainder(state.ptr - g.delay, size))
+                        for g in plan}
+                return _unpack_rows(plan, rows, like)
+            out = []
+            for path, h in leaves_with_path(state.hist):
+                d = _leaf_delay(path, delta, delay_for)
+                idx = torch.remainder(state.ptr - d, size)
+                out.append(h.index_select(0, idx.view(1))[0])
+            return unflatten(like, out)
 
     def step(state: DelayedState, batch: Any) -> tuple[DelayedState, dict]:
-        stale_params = read_stale(state)
-        loss, grads = grad_fn(stale_params, batch)
-        del stale_params
-        new_params, new_opt = opt_update(grads, state.opt_state, state.params)
-        del grads
-        new_state = DelayedState(
-            params=new_params, hist=state.hist,
-            ptr=torch.remainder(state.ptr + 1, size), opt_state=new_opt,
-            step=state.step + 1)
-        return new_state, {"loss": loss,
-                           "staleness": torch.full((), delta,
-                                                   dtype=torch.int32,
-                                                   device=loss.device)}
+        with span("pdb.step"):
+            stale_params = read_stale(state)
+            loss, grads = grad_fn(stale_params, batch)
+            del stale_params
+            new_params, new_opt = opt_update(grads, state.opt_state,
+                                             state.params)
+            del grads
+            new_state = DelayedState(
+                params=new_params, hist=state.hist,
+                ptr=torch.remainder(state.ptr + 1, size), opt_state=new_opt,
+                step=state.step + 1)
+            return new_state, {"loss": loss,
+                               "staleness": torch.full((), delta,
+                                                       dtype=torch.int32,
+                                                       device=loss.device)}
 
     step.read_stale = read_stale
     step.commit_ring = commit_ring
@@ -324,13 +329,14 @@ def make_engine(params: PyTree,
 
     if delta == 0:
         def sync_step(state, batch):
-            loss, grads = grad_fn(state["params"], batch)
-            new_params, new_opt = opt.update(grads, state["opt"],
-                                             state["params"])
-            return ({"params": new_params, "opt": new_opt},
-                    {"loss": loss,
-                     "staleness": torch.zeros((), dtype=torch.int32,
-                                              device=loss.device)})
+            with span("pdb.step"):
+                loss, grads = grad_fn(state["params"], batch)
+                new_params, new_opt = opt.update(grads, state["opt"],
+                                                 state["params"])
+                return ({"params": new_params, "opt": new_opt},
+                        {"loss": loss,
+                         "staleness": torch.zeros((), dtype=torch.int32,
+                                                  device=loss.device)})
 
         return TrainEngine(
             init_state=lambda: {"params": params, "opt": opt.init(params)},
