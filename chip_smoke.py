@@ -106,6 +106,15 @@ Phases (any failure raises and the script exits non-zero):
    recurrentgemma-2b's training shapes: each batch row alone gives the
    bits of the forward, lse and the three gradients it gives inside the
    batch of 4;
+2b. AdamW's one-pass kernel (``kernels/adamw.py``, no TPU kernel behind
+   it) against its plain version at olmo-1b's leaf shapes and a ragged
+   1,000,003 (also through unaligned views), f32 and bf16 leaves, with and
+   without the clip, three steps: p, m and v bit for bit (``ADAMW_ULPS``
+   0: round-to-nearest intrinsics, no FMA contraction); a non-contiguous
+   CUDA leaf refused, no host sync; each olmo shape timed beside its bound
+   (28 bytes an f32 parameter), the plain version and
+   ``torch._fused_adamw_`` (timed only).  The training phases below gate
+   every parameter of every step through it;
 3. end to end, small: the serving engine on a narrow f32 model on the card
    (CUDA kernels) against the same model on the CPU (plain versions): same
    greedy tokens, prefill logits within 1e-3; on shared-prefix requests,
@@ -911,6 +920,162 @@ def check_ring_gather(torch, ref, gen):
     print("ring_gather", json.dumps(row), flush=True)
     del hist
     torch.cuda.empty_cache()
+    return row
+
+
+# AdamW's leaves: olmo-1b's (the tied embedding, then the attention and MLP
+# weights stacked over its 16 layers: the counts of each shape) and a
+# ragged size, at the benchmark cells' optimizer over three steps
+ADAMW_LEAVES = (("embedding", (50304, 2048), 1), ("wq", (16, 2048, 2048), 4),
+                ("wg", (16, 2048, 8192), 3), ("ragged", (1_000_003,), 0))
+ADAMW_HYPER = dict(lr=3e-4, b1=0.9, b2=0.95, eps=1e-8, weight_decay=0.1)
+ADAMW_STEPS = 3
+ADAMW_SCALE = 0.3721            # a clip scale that bf16 rounds
+ADAMW_ULPS = 0                  # kernel vs plain: round-to-nearest intrinsics
+
+
+def _ulps(torch, a, b) -> int:
+    """Largest distance in units of the last place between two tensors of
+    one float type (their bit patterns as integers)."""
+    it = {torch.float32: torch.int32, torch.bfloat16: torch.int16}[a.dtype]
+    return int((a.view(it).long() - b.view(it).long()).abs().max())
+
+
+def check_adamw(torch, gen):
+    """The one-pass AdamW kernel against its plain version at olmo-1b's
+    leaf shapes and a ragged size, f32 and bf16 leaves (p and g), with and
+    without the clip, over three steps from one state (each side carries
+    its own), and the ragged size through unaligned views (the kernel's
+    element-at-a-time path); p, m and v within ``ADAMW_ULPS``.  Then: the
+    functional contract (inputs unchanged), a refused non-contiguous CUDA
+    leaf, no host sync, the count of updated elements, and each olmo shape
+    timed beside its bound (28 bytes an f32 parameter), the plain version
+    and ``torch._fused_adamw_`` (in place; timed only), with the peak the
+    update adds above its inputs."""
+    from repro_torch.kernels.adamw import (adamw, adamw_kernel, adamw_plain,
+                                           counts)
+    f32, bf16 = torch.float32, torch.bfloat16
+
+    def draw(shape, dtype, s, offset=0):
+        n = math.prod(shape)
+        buf = torch.empty(n + offset, device="cuda")
+        buf.normal_(generator=gen).mul_(s)
+        return buf[offset:].view(shape).to(dtype)
+
+    def bias(step):
+        t = torch.tensor(float(step), device="cuda")
+        return (1 - torch.pow(ADAMW_HYPER["b1"], t),
+                1 - torch.pow(ADAMW_HYPER["b2"], t))
+
+    cases, worst = [], 0
+    for name, shape, _ in ADAMW_LEAVES:
+        for dtype in (f32, bf16):
+            for clip in (False, True):
+                # f32 only unaligned: a bf16 draw is a copy, aligned again
+                for offset in ((0, 1) if name == "ragged" and dtype == f32
+                               else (0,)):
+                    p = draw(shape, dtype, 0.02, offset)
+                    m = draw(shape, f32, 1e-3, offset)
+                    v = draw(shape, f32, 1e-3, offset).abs_()
+                    scale = (torch.tensor(ADAMW_SCALE, device="cuda")
+                             if clip else None)
+                    kp, km, kv = p, m, v
+                    pp, pm, pv = p, m, v
+                    ulps = dict(p=0, m=0, v=0)
+                    for step in range(1, ADAMW_STEPS + 1):
+                        g = draw(shape, dtype, 1e-2, offset)
+                        bc1, bc2 = bias(step)
+                        given = (g, kp, km, kv)
+                        kept = [x.clone() for x in given]
+                        kp, km, kv = adamw_kernel(g, km, kv, kp, scale, bc1,
+                                                  bc2, **ADAMW_HYPER)
+                        if not all(map(torch.equal, kept, given)):
+                            raise AssertionError("adamw wrote an input")
+                        pp, pm, pv = adamw_plain(g, pm, pv, pp, scale, bc1,
+                                                 bc2, **ADAMW_HYPER)
+                        for k, a, b in (("p", kp, pp), ("m", km, pm),
+                                        ("v", kv, pv)):
+                            ulps[k] = max(ulps[k], _ulps(torch, a, b))
+                        del g, given, kept
+                    worst = max(worst, *ulps.values())
+                    cases.append(dict(leaf=name, shape=list(shape),
+                                      dtype=str(dtype).removeprefix("torch."),
+                                      clip=clip, unaligned=bool(offset),
+                                      max_ulps=ulps))
+                    del p, m, v, kp, km, kv, pp, pm, pv
+    torch.cuda.empty_cache()
+    if worst > ADAMW_ULPS:
+        raise AssertionError(f"adamw kernel vs plain: {worst} ulps > "
+                             f"{ADAMW_ULPS}: {json.dumps(cases)}")
+    # refusals and the sync detector
+    x = torch.zeros((64, 32), device="cuda")
+    one = torch.ones((), device="cuda")
+    for what, args in (("non-contiguous p", (x, x, x, x.t().contiguous().t())),
+                       ("non-contiguous g", (x.t().contiguous().t(), x, x, x))):
+        try:
+            adamw(*args, None, one, one, **ADAMW_HYPER)
+        except ValueError:
+            continue
+        raise AssertionError(f"adamw took a {what}")
+    counts.reset()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        adamw(x, x, x, x, one, one, one, **ADAMW_HYPER)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    if (counts.launches, counts.elements) != (1, x.numel()):
+        raise AssertionError(f"adamw counts {counts.launches} launches, "
+                             f"{counts.elements} elements")
+    del x
+    # timing at olmo's shapes, f32 leaves and the clip as the cells run it
+    timed, step_ms, step_bound, step_plain, step_lib = [], 0.0, 0.0, 0.0, 0.0
+    for name, shape, k in ADAMW_LEAVES:
+        if not k:
+            continue
+        p, g = draw(shape, f32, 0.02), draw(shape, f32, 1e-2)
+        m, v = draw(shape, f32, 1e-3), draw(shape, f32, 1e-3).abs_()
+        scale = torch.tensor(ADAMW_SCALE, device="cuda")
+        bc1, bc2 = bias(3)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        peaks = {}
+        for side, fn in (("kernel", adamw_kernel), ("plain", adamw_plain)):
+            torch.cuda.reset_peak_memory_stats()
+            out = fn(g, m, v, p, scale, bc1, bc2, **ADAMW_HYPER)
+            torch.cuda.synchronize()
+            peaks[side] = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+            del out
+        ms, host_ms = time_ms(lambda i: adamw_kernel(
+            g, m, v, p, scale, bc1, bc2, **ADAMW_HYPER), 10)
+        plain_ms = time_ms(lambda i: adamw_plain(
+            g, m, v, p, scale, bc1, bc2, **ADAMW_HYPER), 5)[0]
+        steps = [torch.tensor(3.0, device="cuda")]
+        lib_ms = time_ms(lambda i: torch._fused_adamw_(
+            [p], [g], [m], [v], [], steps, lr=ADAMW_HYPER["lr"],
+            beta1=ADAMW_HYPER["b1"], beta2=ADAMW_HYPER["b2"],
+            weight_decay=ADAMW_HYPER["weight_decay"],
+            eps=ADAMW_HYPER["eps"], amsgrad=False, maximize=False), 10)[0]
+        n = math.prod(shape)
+        b_ms, b_by = bound(28 * n, 0.0, "float32")
+        timed.append(dict(leaf=name, shape=list(shape), count=k, ms=ms,
+                          host_ms=host_ms, bound_ms=b_ms, bound_by=b_by,
+                          plain_ms=plain_ms, library_ms=lib_ms,
+                          roofline=b_ms / ms, peak_above_inputs_gib=peaks))
+        step_ms += k * ms
+        step_bound += k * b_ms
+        step_plain += k * plain_ms
+        step_lib += k * lib_ms
+        del p, g, m, v
+        torch.cuda.empty_cache()
+    row = dict(shape="olmo-1b's leaves, f32", dtype="float32",
+               max_abs_err=0.0, max_ulps=worst, tolerance=ADAMW_ULPS,
+               ms=step_ms, bound_ms=step_bound, bound_by="bytes",
+               plain_ms=step_plain, library_ms=step_lib,
+               roofline=step_bound / step_ms, host_sync_free=True,
+               parameters=sum(k * math.prod(s) for _, s, k in ADAMW_LEAVES),
+               leaves=timed, cases=cases)
+    print("adamw", json.dumps(row), flush=True)
     return row
 
 
@@ -3447,6 +3612,7 @@ def full_width_training(torch, ops, ref, arch):
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.core.sync import SyncConfig
     from repro_torch.data import LMBatchSpec, make_lm_batch
+    from repro_torch.kernels.adamw import counts as adamw_counts
     from repro_torch.launch.steps import make_lm_grad_fn
     from repro_torch.models import paramlib
     from repro_torch.models.transformer import model_specs
@@ -3491,6 +3657,7 @@ def full_width_training(torch, ops, ref, arch):
     stats = eng.telemetry.stats
     losses, step_s, ramp = [], [], []
     ops.reset_launches()                 # the training path starts here
+    adamw_counts.reset()
     with plain_versions_counted(ref) as plain_calls:
         for b in batches[:TRAIN_STEPS]:
             before = stats.sum_staleness
@@ -3501,6 +3668,8 @@ def full_width_training(torch, ops, ref, arch):
             ramp.append((stats.sum_staleness - before)
                         / len(eng.group_delays))
     launches = dict(ops.launches)        # ... and ends here
+    adamw_run = dict(launches=adamw_counts.launches,
+                     elements=adamw_counts.elements)
     n_groups = len(state.hist)
     n_layers = len(cfg.layer_kinds)
     want = {"ring_gather": n_groups * TRAIN_STEPS}
@@ -3523,7 +3692,7 @@ def full_width_training(torch, ops, ref, arch):
     print("full-width training:", json.dumps(dict(
         arch=cfg.name, layers=n_layers, reduced=reduced,
         parameters=sum(t.numel() for t in leaves(state.params)),
-        batch=TRAIN_B, seq=TRAIN_S,
+        adamw_kernel=adamw_run, batch=TRAIN_B, seq=TRAIN_S,
         delta=TRAIN_DELTA, optimizer="adamw", steps=TRAIN_STEPS,
         losses=losses, step_s=step_s, step_s_p50_after_first=steady,
         tokens_per_s=TRAIN_B * TRAIN_S / steady, peak_mem_gib=peak,
@@ -3542,6 +3711,12 @@ def full_width_training(torch, ops, ref, arch):
         raise AssertionError(f"launches {launches}, expected {want}")
     if any(plain_calls.values()):
         raise AssertionError(f"plain versions ran: {plain_calls}")
+    adamw_want = dict(
+        launches=len(leaves(state.params)) * TRAIN_STEPS,
+        elements=sum(t.numel() for t in leaves(state.params)) * TRAIN_STEPS)
+    if adamw_run != adamw_want:
+        raise AssertionError(f"AdamW kernel {adamw_run}, expected "
+                             f"{adamw_want}: a leaf took another route")
     if not min(grad_min.values()) > 0:
         raise AssertionError(f"a watched parameter got no gradient: "
                              f"{grad_min}")
@@ -5362,7 +5537,9 @@ def sharded_training(torch, ops, ref) -> dict:
     ``steps.make_train_step`` on DTensor parameters placed by
     ``sharding.tree_shardings`` on a one-rank NCCL group and a (1, 1)
     ``data, model`` mesh, 2 AdamW steps in ``datacentric`` and 2 in
-    ``bsp``, held bit for bit to the unsharded step; (b) the dry run of
+    ``bsp``, held bit for bit to the unsharded step (each run's AdamW
+    through its kernel, the DTensor leaves' local shards included, every
+    parameter a step); (b) the dry run of
     llama3.2-1b ``train_4k`` on the production meshes, started as
     subprocesses before (a) and gated after it."""
     import torch.distributed as dist
@@ -5370,6 +5547,7 @@ def sharded_training(torch, ops, ref) -> dict:
     from repro_torch.configs import get_config
     from repro_torch.core.sync import SyncConfig
     from repro_torch.data import LMBatchSpec, make_lm_batch
+    from repro_torch.kernels.adamw import counts as adamw_counts
     from repro_torch.launch import sharding as sh
     from repro_torch.launch.dryrun import make_act_specs
     from repro_torch.launch.steps import make_train_step
@@ -5388,6 +5566,7 @@ def sharded_training(torch, ops, ref) -> dict:
                        vocab_size=cfg.vocab_size, seed=0)
     batches = [make_lm_batch(spec, t, "cuda") for t in range(SHARD_STEPS)]
     n_layers = len(cfg.layer_kinds)
+    n_params = paramlib.param_count(specs)
 
     def run(mesh, mode):
         """2 steps from seed 0's parameters: (losses, params, m, v, step
@@ -5409,6 +5588,7 @@ def sharded_training(torch, ops, ref) -> dict:
         step = make_train_step(cfg, opt, sync, act_specs=act)
         losses, step_s = [], []
         ops.reset_launches()
+        adamw_counts.reset()
         with plain_versions_counted(ref) as plain:
             for b in batches:
                 if mesh is not None:
@@ -5421,6 +5601,10 @@ def sharded_training(torch, ops, ref) -> dict:
                                     else loss))
                 step_s.append(time.perf_counter() - t1)
         launches = dict(ops.launches)
+        if adamw_counts.elements != n_params * SHARD_STEPS:
+            raise AssertionError(f"AdamW kernel updated "
+                                 f"{adamw_counts.elements} elements, "
+                                 f"expected {n_params * SHARD_STEPS}")
         peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
         return (losses, params, state["m"], state["v"], step_s, peak,
                 launches, dict(plain))
@@ -6033,6 +6217,7 @@ def main() -> int:
                 "rglru_scan": timed("rglru_stateful", check_rglru_stateful,
                                     torch, ref, gen)}
     timed("flash_batch_invariance", check_flash_batch_invariance, torch, gen)
+    timed("adamw", check_adamw, torch, gen)
     timed("small_end_to_end", small_end_to_end, torch)
     paths, static_outputs = timed("full_width_serving", full_width, torch,
                                   ops, ref)

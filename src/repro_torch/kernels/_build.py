@@ -17,7 +17,8 @@ per kernel (``KERNELS``: the flash-attention, the MoE FFN, the WKV and
 the RG-LRU sources hold two each, the forward and the backward); each
 wrapper adds one right after its launch and nowhere else, through
 ``count``, under a lock: worker threads (the parameter server's) launch
-at once, and ``+= 1`` on a dict entry is not atomic.
+at once, and ``+= 1`` on a dict entry is not atomic.  The optimizer's
+``adamw`` is no model kernel and keeps its own count (``adamw.counts``).
 """
 from __future__ import annotations
 
@@ -34,7 +35,7 @@ CSRC = Path(__file__).with_name("csrc")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "torch_kernels"
 SOURCES = ("flash_attention", "page_gather", "decode_attention",
            "ring_gather", "prefill_page_attention", "moe_grouped_ffn",
-           "rwkv6_scan", "rglru_scan")
+           "rwkv6_scan", "rglru_scan", "adamw")
 KERNELS = ("flash_attention", "flash_attention_bwd", "page_gather",
            "decode_attention", "ring_gather", "prefill_page_attention",
            "moe_grouped_ffn", "moe_grouped_ffn_bwd", "rwkv6_scan",

@@ -4,7 +4,9 @@
 AdamW with f32 moments over an f32 master copy (new parameters are cast
 back to each leaf's dtype), SGD / momentum, global-norm clipping, and the
 int8 gradient compression with error feedback.  These are plain tensor
-operations, as in the JAX package, where no Pallas kernel stands either.
+operations, as in the JAX package, where no Pallas kernel stands either,
+but for AdamW's update of each leaf: on the card one pass of a CUDA kernel
+(``kernels/adamw.py``), elsewhere its plain version, the same arithmetic.
 
 The update is functional, like JAX's: it returns new parameters and a new
 state and leaves its inputs as they were, so a driver that rejects a step
@@ -22,8 +24,9 @@ from typing import Any, Callable, NamedTuple
 import torch
 
 from ..device import on_mesh_of
+from ..kernels.adamw import adamw
 from ..trace import span
-from ..tree import leaves, tree_map
+from ..tree import leaves, tree_map, unflatten
 
 PyTree = Any
 
@@ -151,6 +154,9 @@ def _adamw(cfg: OptConfig) -> Optimizer:
             state["residual"] = init_residual(params)
         return state
 
+    hyper = dict(lr=cfg.lr, b1=cfg.b1, b2=cfg.b2, eps=cfg.eps,
+                 weight_decay=cfg.weight_decay)
+
     def update(grads, state, params):
         with span("opt.update"):
             step = state["step"] + 1
@@ -159,29 +165,14 @@ def _adamw(cfg: OptConfig) -> Optimizer:
             t = step.float()
             bc1 = 1 - torch.pow(cfg.b1, t)
             bc2 = 1 - torch.pow(cfg.b2, t)
-
-            def upd(g, m, v, p):
-                # m = b1 m + (1 - b1) g;  v = b2 v + (1 - b2) g g;
-                # p - lr (m / bc1 / (sqrt(v / bc2) + eps) + wd p), each
-                # product and sum rounded as written, but in place on
-                # fresh temporaries: at most four leaf-sized f32 tensors
-                # are alive besides the old state (a 2.6 GB embedding
-                # would take seven)
-                gf = _clipped(g, scale).float()
-                m = torch.mul(m, cfg.b1).add_(torch.mul(gf, 1 - cfg.b1))
-                v = torch.mul(v, cfg.b2).add_(
-                    torch.mul(gf, 1 - cfg.b2).mul_(gf))
-                del gf
-                step_ = torch.div(m, bc1)
-                step_.div_(torch.div(v, bc2).sqrt_().add_(cfg.eps))
-                pf = p.float()
-                step_.add_(torch.mul(pf, cfg.weight_decay)).mul_(cfg.lr)
-                return torch.sub(pf, step_).to(p.dtype), m, v
-
-            triples = tree_map(upd, grads, state["m"], state["v"], params)
-            new_state.update(m=tree_map(lambda t3: t3[1], triples),
-                             v=tree_map(lambda t3: t3[2], triples), step=step)
-            return tree_map(lambda t3: t3[0], triples), new_state
+            new_p, new_m, new_v = zip(*(
+                adamw(g, m, v, p, scale, bc1, bc2, **hyper)
+                for g, m, v, p in zip(leaves(grads), leaves(state["m"]),
+                                      leaves(state["v"]), leaves(params),
+                                      strict=True)))
+            new_state.update(m=unflatten(params, new_m),
+                             v=unflatten(params, new_v), step=step)
+            return unflatten(params, new_p), new_state
 
     return Optimizer(init, update)
 

@@ -22,8 +22,9 @@ a = 1 it is held to its stated value da = dh h_{t-1}, dx = 0).  Serving's
 forms of both recurrences, from a carried state (h0, S0) with the final
 state out, are held to ``ref.rglru(x, a, h0)`` and ``ref.rwkv6_stateful``
 at f32 1e-4 and bf16 2e-2, at T = 1 included, and a null or zero state to
-the stateless call's bits.  TF32 is off, so the plain versions' f32
-products run in full f32.
+the stateless call's bits.  AdamW's one-pass kernel is held to its plain
+version bit for bit (its round-to-nearest intrinsics contract nothing).
+TF32 is off, so the plain versions' f32 products run in full f32.
 """
 import os
 import subprocess
@@ -504,6 +505,64 @@ def test_ring_gather_traps_on_an_index_outside_the_ring(gen):
     res = subprocess.run([sys.executable, "-c", code], env=env,
                          capture_output=True, text=True, timeout=300)
     assert res.returncode != 0 and "no trap" not in res.stdout
+
+
+ADAMW_HYPER = dict(lr=3e-4, b1=0.9, b2=0.95, eps=1e-8, weight_decay=0.1)
+
+
+@pytest.mark.parametrize("p_dtype,g_dtype", [
+    (torch.float32, torch.float32), (torch.bfloat16, torch.bfloat16),
+    (torch.float32, torch.bfloat16), (torch.bfloat16, torch.float32)])
+@pytest.mark.parametrize("n,offset", [
+    (1, 0), (4, 0), (1_003, 0), (1 << 20, 0),   # tails and 16-byte vectors
+    (1_003, 1)])                                # unaligned: one at a time
+@pytest.mark.parametrize("clip", [False, True])
+def test_adamw_bit_exact(gen, p_dtype, g_dtype, n, offset, clip):
+    """Three steps of the one-pass kernel against its plain version: p, m
+    and v bit for bit (round-to-nearest intrinsics: nothing contracted)."""
+    from repro_torch.kernels.adamw import adamw_kernel, adamw_plain
+
+    def draw(dtype, s):
+        buf = torch.randn(n + offset, generator=gen, device="cuda") * s
+        return buf[offset:].to(dtype)
+    kp = pp = draw(p_dtype, 0.02)
+    km = pm = draw(torch.float32, 1e-3)
+    kv = pv = draw(torch.float32, 1e-3).abs()
+    scale = torch.tensor(0.3721, device="cuda") if clip else None
+    for step in range(1, 4):
+        g = draw(g_dtype, 1e-2)
+        t = torch.tensor(float(step), device="cuda")
+        bc1 = 1 - torch.pow(ADAMW_HYPER["b1"], t)
+        bc2 = 1 - torch.pow(ADAMW_HYPER["b2"], t)
+        kp, km, kv = adamw_kernel(g, km, kv, kp, scale, bc1, bc2,
+                                  **ADAMW_HYPER)
+        pp, pm, pv = adamw_plain(g, pm, pv, pp, scale, bc1, bc2,
+                                 **ADAMW_HYPER)
+        for a, b in ((kp, pp), (km, pm), (kv, pv)):
+            assert a.dtype == b.dtype and torch.equal(a, b)
+
+
+def test_adamw_routes_refuses_and_counts(gen):
+    from repro_torch.kernels.adamw import adamw, counts
+    x = torch.randn((64, 32), generator=gen, device="cuda")
+    one = torch.ones((), device="cuda")
+    before = x.clone()
+    counts.reset()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        outs = adamw(x, x, x.abs(), x, one, one, one, **ADAMW_HYPER)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert (counts.launches, counts.elements) == (1, x.numel())
+    assert torch.equal(x, before)
+    assert all(o.data_ptr() != x.data_ptr() for o in outs)
+    nc = x.t().contiguous().t()
+    for args in ((x, x, x, nc), (nc, x, x, x)):
+        with pytest.raises(ValueError, match="contiguous"):
+            adamw(*args, None, one, one, **ADAMW_HYPER)
+    with pytest.raises(ValueError, match="0-d f32"):
+        adamw(x, x, x, x, None, one.cpu(), one, **ADAMW_HYPER)
+    assert counts.launches == 1
 
 
 def _attn_grads(q, k, v, do, causal, window, kernel):
