@@ -1,6 +1,6 @@
 """The yardstick's arithmetic: the H100's published peaks, a launch's least
 time, the live work of the attention kernels, and the model FLOPs of a
-trained token.
+trained token (summed over the parts' descriptions, ``kinds/``).
 
 A launch's bound is the larger of its operations over the peak FLOP/s and
 its bytes over the peak bandwidth.  Work is counted as the inputs need
@@ -55,19 +55,14 @@ def head_dim(cfg: dict) -> int:
 
 
 def model_flops_per_token(cfg: dict, seq: int) -> float:
-    """Training FLOPs a token of a dense decoder: 6 x the weights of the
-    products a token passes through (attention projections, the MLP, the
-    output head; not the embedding lookup), plus the causal attention
-    products, forward and backward (12 H hd a live key); no
-    recomputation."""
-    if cfg["n_experts"]:
-        raise ValueError("counts: experts are not described here")
-    d, f, V = cfg["d_model"], cfg["d_ff"], cfg["vocab_size"]
-    H, KV, hd = cfg["n_heads"], cfg["n_kv_heads"], head_dim(cfg)
-    weights = d * V
-    attn = 0.0
-    for kind in layer_kinds(cfg):
-        weights += d * hd * (2 * H + 2 * KV) + 3 * d * f
-        window = cfg["window"] if kind in ("local", "swa") else 0
-        attn += 12.0 * H * hd * live_pairs(seq, True, window) / seq
-    return 6.0 * weights + attn
+    """Training FLOPs a token: 6 x the weights of the products a token
+    passes through, plus each part's further FLOPs (attention's scores),
+    forward and backward, summed over the parts' descriptions
+    (``kinds/``: each layer's mixer and feed-forward, the head); no
+    recomputation.  A part with no description raises."""
+    from perfbench import kinds
+    weights, extra = 0, 0.0
+    for desc in kinds.parts(cfg):
+        weights += desc.weights(cfg)
+        extra += desc.flops(cfg, seq)
+    return 6.0 * weights + extra

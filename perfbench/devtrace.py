@@ -7,7 +7,9 @@ The profiler's Chrome trace holds, on the host, the benchmark's spans
 (``cuda_runtime``, ``cuda_driver``); on the device, the kernels, copies
 and fills.  A device operation and the call that launched it share a
 ``correlation`` id, so each device operation is charged to the innermost
-benchmark span open on the host when it was launched.
+benchmark span open on the host when it was launched, and is given the
+``part`` and ``phase`` that the program's own spans (``pdb.*``,
+``model.*``, ``opt.*``) give it (``parts.py``).
 """
 from __future__ import annotations
 
@@ -15,8 +17,8 @@ import bisect
 import dataclasses
 import json
 
-DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
-LAUNCH_CATS = ("cuda_runtime", "cuda_driver")
+from .parts import DEVICE_CATS, LAUNCH_CATS, read_events
+
 SPAN_PREFIX = "perfbench."
 
 
@@ -26,6 +28,8 @@ class DeviceOp:
     start_us: float
     dur_us: float
     span: str | None          # innermost benchmark span at its launch
+    part: str | None          # the program span whose work it did
+    phase: str                # forward, backward or recompute
 
 
 @dataclasses.dataclass
@@ -76,10 +80,12 @@ def read_chrome_trace(path: str) -> Trace:
         elif cat in DEVICE_CATS:
             device.append((e["name"], ts, dur, args.get("correlation")))
     ops = []
-    for name, ts, dur, corr in device:
+    for (name, ts, dur, corr), p in zip(device, read_events(events),
+                                        strict=True):
         at = launches.get(corr)
         ops.append(DeviceOp(name, ts, dur,
-                            None if at is None else _innermost(spans, at)))
+                            None if at is None else _innermost(spans, at),
+                            p.part, p.phase))
     return Trace(ops, spans, host_ops)
 
 

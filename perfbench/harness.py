@@ -27,7 +27,7 @@ import sys
 import tempfile
 import time
 
-from . import compare, counts, devtrace, faults, feed
+from . import compare, devtrace, faults, feed, kinds
 from .cells import Cell
 
 FORBIDDEN = ("jax", "jaxlib", "flax", "repro")
@@ -153,16 +153,17 @@ def checked_steps(prog: Program, cell: Cell, seed: int, device
 
 
 def expected_launches(cell: Cell, steps: int, n_ring_groups: int) -> dict:
-    """The kernels a step launches by the model: per attention layer one
-    flash forward (two under remat, whose backward recomputes the layer)
-    and one backward; one ring read per ring group."""
+    """The kernels a step launches: each part's as its description says
+    (``kinds/``; attention: one flash forward a layer, two under remat,
+    whose backward recomputes the layer, and one backward), and one ring
+    read per ring group."""
     cfg, tr = cell.config, cell.traffic
-    fwd = 1 if tr["remat"] == "none" else 2
-    attn = sum(k in ("attn", "local", "swa")
-               for k in counts.layer_kinds(cfg))
-    return {"flash_attention": fwd * attn * steps,
-            "flash_attention_bwd": attn * steps,
-            "ring_gather": n_ring_groups * steps if tr["delta"] else 0}
+    want: dict = {}
+    for desc in kinds.parts(cfg):
+        for k, n in desc.launches(cfg, tr).items():
+            want[k] = want.get(k, 0) + n * steps
+    want["ring_gather"] = n_ring_groups * steps if tr["delta"] else 0
+    return want
 
 
 @contextlib.contextmanager
@@ -315,7 +316,10 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool, device,
 
 
 def kernel_sources(cell: Cell) -> tuple[str, ...]:
-    return ("flash_attention", "ring_gather")
+    """The kernel sources to build before the run: the parts' (``kinds/``)
+    and the ring's."""
+    names = [s for desc in kinds.parts(cell.config) for s in desc.SOURCES]
+    return tuple(dict.fromkeys(names + ["ring_gather"]))
 
 
 class TracedRun:

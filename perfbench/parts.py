@@ -28,12 +28,9 @@ import bisect
 import dataclasses
 import json
 import sys
-from pathlib import Path
 
-if not __package__:             # run as a script
-    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
-from perfbench.devtrace import DEVICE_CATS, LAUNCH_CATS  # noqa: E402
-
+DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
+LAUNCH_CATS = ("cuda_runtime", "cuda_driver")
 PROGRAM_PREFIXES = ("pdb.", "model.", "opt.")
 BACKWARD_PREFIX = "autograd::engine::evaluate_function: "
 
@@ -123,7 +120,11 @@ def read(path: str) -> list[PartOp]:
     """Every device operation of the Chrome trace at ``path``, in the
     trace's order, with its part and phase."""
     with open(path) as fh:
-        events = json.load(fh)["traceEvents"]
+        return read_events(json.load(fh)["traceEvents"])
+
+
+def read_events(events: list) -> list[PartOp]:
+    """``read`` of a trace's ``traceEvents``, already loaded."""
     program, backward, seq_ops, launches, device = {}, {}, [], {}, []
     for e in events:
         if e.get("ph") != "X":

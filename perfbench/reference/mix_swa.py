@@ -1,0 +1,3 @@
+"""Mixtral's sliding-window attention (``swa``): ``mix_attn`` with the
+window."""
+from .mix_attn import apply  # noqa: F401

@@ -1,37 +1,34 @@
-"""The plain reference of the benchmark's language models: the dense
-decoder, its next-token loss and its gradients, in plain PyTorch.
+"""The plain reference of the benchmark's language models: the decoder,
+its next-token loss and its gradients, in plain PyTorch.
 
 It follows the published descriptions as the benchmark's configuration
 files state them (``perfbench/configs/*.json``) and reads the parameters
 as the same nested dict the program trains: ``embedding`` (V, d),
 ``lm_head`` (d, V) when the embeddings are untied, ``final_norm``, and
 ``groups/g<i>/s<j>`` holding each slot's layers stacked ``(n, ...)``:
-``ln1``, ``mix`` (``wq``, ``wk``, ``wv``, ``wo``), ``ln2`` and ``ffn``
-(``wg``, ``wu``, ``wd`` of a SwiGLU MLP).
+``ln1``, ``mix``, ``ln2`` and ``ffn``.
+
+Each part is a module of this package found by name: ``norm_<norm>`` for
+the configuration's norm, ``mix_<kind>`` for each layer kind's mixer, and
+``ffn_<name>`` for its feed-forward (``kinds.ffn_name``: the mixer's own,
+the experts, or the configuration's ``mlp``).  A block is
+
+    x = x + mix(norm(x));   x = x + ffn(norm(x))
 
 Everything is computed in float32 with TF32 off (:func:`exact_matmuls`);
 the ``fp8`` numerics round both operands of every product to float8
 e4m3 with a per-tensor scale first, the lower precision a faster
 implementation would be tempted by (the control of ``perfbench/compare.py``).
 
-The layer equations:
-
-* norm: ``rmsnorm`` x / sqrt(mean(x^2) + eps) * scale, or the
-  non-parametric ``layernorm_np`` (x - mean) / sqrt(var + eps);
-* attention: q, k, v projections, split-half rotary embeddings at
-  positions 0..S-1, causal softmax(q k^T / sqrt(hd)) v over grouped
-  key/value heads, keys limited to the last ``window`` positions where
-  the layer kind is windowed (``local``, ``swa``), output projection;
-* SwiGLU MLP: (silu(x wg) * (x wu)) wd;
-* loss: mean over tokens of logsumexp(logits) - logit[label].
+The loss: mean over tokens of logsumexp(logits) - logit[label].
 """
 from __future__ import annotations
 
 import contextlib
-import math
 
 import torch
-import torch.nn.functional as F
+
+from ..kinds import ffn_name, find
 
 FP8_MAX = 448.0                   # largest finite float8 e4m3 value
 
@@ -78,60 +75,6 @@ class Numerics:
         return torch.einsum(eq, self.q(a), self.q(b))
 
 
-def norm(p: dict, x: torch.Tensor, cfg: dict) -> torch.Tensor:
-    eps = cfg["norm_eps"]
-    if cfg["norm"] == "rmsnorm":
-        out = x * torch.rsqrt(torch.mean(x * x, dim=-1, keepdim=True) + eps)
-        return out * p["scale"]
-    if cfg["norm"] == "layernorm_np":
-        mean = torch.mean(x, dim=-1, keepdim=True)
-        var = torch.mean((x - mean) ** 2, dim=-1, keepdim=True)
-        return (x - mean) * torch.rsqrt(var + eps)
-    raise ValueError(f"reference: no norm {cfg['norm']!r}")
-
-
-def rope(x: torch.Tensor, theta: float) -> torch.Tensor:
-    """Split-half rotary embedding of x (B, S, H, hd) at positions
-    0..S-1."""
-    S, hd = x.shape[1], x.shape[-1]
-    inv = 1.0 / theta ** (torch.arange(0, hd, 2, dtype=torch.float32,
-                                       device=x.device) / hd)
-    ang = torch.arange(S, dtype=torch.float32, device=x.device)[:, None] \
-        * inv
-    cos, sin = torch.cos(ang)[:, None, :], torch.sin(ang)[:, None, :]
-    x1, x2 = x[..., :hd // 2], x[..., hd // 2:]
-    return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
-
-
-def head_dim(cfg: dict) -> int:
-    return cfg.get("head_dim") or cfg["d_model"] // cfg["n_heads"]
-
-
-def attention(p: dict, x: torch.Tensor, cfg: dict, kind: str,
-              nm: Numerics) -> torch.Tensor:
-    B, S, _ = x.shape
-    H, KV, hd = cfg["n_heads"], cfg["n_kv_heads"], head_dim(cfg)
-    q = nm.mm(x, p["wq"]).view(B, S, H, hd)
-    k = nm.mm(x, p["wk"]).view(B, S, KV, hd)
-    v = nm.mm(x, p["wv"]).view(B, S, KV, hd)
-    q, k = rope(q, cfg["rope_theta"]), rope(k, cfg["rope_theta"])
-    k = k.repeat_interleave(H // KV, dim=2)
-    v = v.repeat_interleave(H // KV, dim=2)
-    s = nm.einsum("bqhd,bkhd->bhqk", q, k) / math.sqrt(hd)
-    qp = torch.arange(S, device=x.device)[:, None]
-    kp = torch.arange(S, device=x.device)[None, :]
-    live = kp <= qp
-    if kind in ("local", "swa") and cfg["window"] > 0:
-        live = live & (kp > qp - cfg["window"])
-    s = s.masked_fill(~live, float("-inf"))
-    o = nm.einsum("bhqk,bkhd->bqhd", torch.softmax(s, dim=-1), v)
-    return nm.mm(o.reshape(B, S, H * hd), p["wo"])
-
-
-def swiglu(p: dict, x: torch.Tensor, nm: Numerics) -> torch.Tensor:
-    return nm.mm(F.silu(nm.mm(x, p["wg"])) * nm.mm(x, p["wu"]), p["wd"])
-
-
 def _layers(params: dict, cfg: dict):
     """(kind, that layer's parameters) in the model's order: each group's
     pattern repeated ``n`` times, layer i of a slot being index i of its
@@ -152,16 +95,16 @@ def loss_sum(params: dict, tokens: torch.Tensor, labels: torch.Tensor,
              cfg: dict, nm: Numerics) -> torch.Tensor:
     """The sum of the tokens' losses over the rows of ``tokens``/``labels``
     (B, S)."""
-    if cfg["embed_scale"] or cfg["logit_softcap"] or cfg["qk_norm"] \
-            or cfg["n_experts"]:
-        raise ValueError("reference: embedding scale, logit softcap, "
-                         "qk-norm and experts are not described here")
+    if cfg["embed_scale"] or cfg["logit_softcap"] or cfg["qk_norm"]:
+        raise ValueError("reference: embedding scale, logit softcap and "
+                         "qk-norm are not described here")
+    norm = find(f"norm_{cfg['norm']}", __package__).apply
     x = params["embedding"][tokens.long()]
     for kind, p in _layers(params, cfg):
-        if kind not in ("attn", "local", "swa"):
-            raise ValueError(f"reference: no layer kind {kind!r}")
-        x = x + attention(p["mix"], norm(p["ln1"], x, cfg), cfg, kind, nm)
-        x = x + swiglu(p["ffn"], norm(p["ln2"], x, cfg), nm)
+        mix = find(f"mix_{kind}", __package__).apply
+        ffn = find(f"ffn_{ffn_name(cfg, kind)}", __package__).apply
+        x = x + mix(p["mix"], norm(p["ln1"], x, cfg), cfg, kind, nm)
+        x = x + ffn(p["ffn"], norm(p["ln2"], x, cfg), cfg, nm)
     x = norm(params["final_norm"], x, cfg)
     head = (params["embedding"].T if cfg["tie_embeddings"]
             else params["lm_head"])

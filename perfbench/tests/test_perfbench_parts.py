@@ -1,7 +1,9 @@
 """``perfbench/parts.py``: each device operation's ``part`` and ``phase``
 from the program's spans, on a hand-made trace with a second (autograd)
 thread, on a trace without program spans, on a real CPU profile of the
-program, and on the card's flash launches."""
+program, and on the card's flash launches; and the same part and phase
+on each ``devtrace.DeviceOp`` of the harness's trace, read by the
+per-layer metrics."""
 import json
 
 import pytest
@@ -225,3 +227,57 @@ def test_flash_attribution_on_the_card(tmp_path, remat):
     assert {op.phase for op in bwd} == {"backward"}
     recomputed = sum(op.phase == "recompute" for op in fwd)
     assert recomputed == (len(fwd) // 2 if remat == "full" else 0)
+
+
+def _readers():
+    from perfbench.metrics import (attn_ms, device_idle, engine_self_ms,
+                                   flash_roofline, grad_ms, lm_head_ms,
+                                   mlp_ms, norm_ms, optimizer_ms,
+                                   recompute_ms, ring_commit_ms,
+                                   ring_read_ms, train_mfu)
+    return {m.__name__.rsplit(".", 1)[1]: m.read for m in (
+        engine_self_ms, grad_ms, optimizer_ms, flash_roofline, train_mfu,
+        device_idle, ring_commit_ms, ring_read_ms, attn_ms, mlp_ms,
+        norm_ms, lm_head_ms, recompute_ms)}
+
+
+def test_the_harness_trace_carries_parts_and_phases(tmp_path):
+    """``devtrace`` gives each device operation ``parts.read``'s part and
+    phase, keeps its benchmark span, and the readers read them: the
+    seven of the program's parts, and the six of the benchmark's spans as
+    before (device ms a step; the hand trace is one step)."""
+    from perfbench import devtrace
+    from perfbench.tests.test_perfbench_counts import Run
+    path = str(_program_trace(tmp_path))
+    trace = devtrace.read_chrome_trace(path)
+    assert [(op.name, op.part, op.phase) for op in trace.ops] == \
+        [(op.name, op.part, op.phase) for op in parts.read(path)]
+    assert {op.span for op in trace.ops} == {"perfbench.step", None}
+    run = Run(trace)
+    run.launches = {"flash_attention": 2, "flash_attention_bwd": 1}
+    got = {k: read(run) for k, read in _readers().items()}
+    assert got == pytest.approx({
+        "engine_self_ms": 0.139, "grad_ms": 0.0, "optimizer_ms": 0.0,
+        "flash_roofline": got["flash_roofline"], "train_mfu":
+        got["train_mfu"], "device_idle": 100 * (1 - 0.144 / 0.25),
+        "ring_commit_ms": 0.006, "ring_read_ms": 0.004,
+        "attn_ms": 0.053, "mlp_ms": 0.050, "norm_ms": None,
+        "lm_head_ms": 0.003, "recompute_ms": 0.012})
+    # flash: the two forwards 10 + 10 us, the backward 25 + 8
+    assert got["flash_roofline"] == pytest.approx(
+        100 * (2 * counts_bound("fwd") + counts_bound("bwd")) / 53e-6)
+
+
+def counts_bound(which):
+    from perfbench import counts
+    fn = counts.flash_fwd if which == "fwd" else counts.flash_bwd
+    return counts.bound_s(*fn(1, 4, 16, 16, 128))
+
+
+@pytest.mark.parametrize("remat", ["none", "full"])
+def test_parts_of_a_real_profile_reach_the_harness(tmp_path, remat):
+    from perfbench import devtrace
+    _, ops = _profile_step(tmp_path, remat)
+    trace = devtrace.read_chrome_trace(str(tmp_path / "cpu.json"))
+    assert [(op.name, op.part, op.phase) for op in trace.ops] == \
+        [(op.name, op.part, op.phase) for op in ops]
