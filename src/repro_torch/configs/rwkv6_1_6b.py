@@ -1,5 +1,13 @@
 """rwkv6-1.6b [ssm]: 24L d_model=2048 (attention-free) d_ff=7168
-vocab=65536.  Finch — data-dependent decay.  [arXiv:2404.05892; unverified]"""
+vocab=65536, 32 heads of 64, decay LoRA 64.  [arXiv:2404.05892]
+
+``config()`` is the JAX package's block (``mix_lora`` 0): its token
+shifts are static ``sigmoid(mu)`` lerps, its decay LoRA has no tanh and
+its output norm is a per-head RMS norm, departures from the paper.
+Finch as published (data-dependent token shift of rank 32, tanh decay
+LoRA, per-head GroupNorm) is ``dataclasses.replace(config(),
+mix_lora=32)``; ``models/rwkv6.py`` gives both.
+Finch's ``ln0`` on the embedding is in neither form."""
 import dataclasses
 
 from repro_torch.models.config import BlockGroup, ModelConfig

@@ -10,7 +10,9 @@ scans).  Layer kinds:
   local   — sliding-window causal self-attention (bounded KV)
   swa     — alias of local (mixtral-style sliding window)
   xattn   — cross-attention to modality tokens (vision frontend stub)
-  rwkv6   — RWKV-6 token-shift + data-dependent-decay WKV mixer
+  rwkv6   — RWKV-6 token-shift + data-dependent-decay WKV mixer (the JAX
+            package's block, or Finch's as published where ``mix_lora``
+            is set: ``models/rwkv6.py``)
   rglru   — Griffin RG-LRU recurrent block (conv1d + gated linear recurrence)
 
 Every kind runs in the port, on the training and the serving paths.
@@ -63,6 +65,9 @@ class ModelConfig:
     d_rnn: int = 0                    # rglru recurrence width (default d_model)
     conv_width: int = 4               # rglru temporal conv width
     decay_lora: int = 64              # rwkv6 data-dependent decay rank
+    mix_lora: int = 0                 # rwkv6: 0 the JAX package's block; > 0
+    #                                   Finch's token-shift LoRA rank (32 at
+    #                                   d 2048), the block as published
     # --- modality frontend stubs ---
     frontend: str | None = None       # None | "vision" | "audio_tokens"
     n_frontend_tokens: int = 0        # e.g. vision patch count

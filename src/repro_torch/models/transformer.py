@@ -193,7 +193,9 @@ def _apply_block(bp: dict, kind: str, x: torch.Tensor, cfg: ModelConfig,
                  ) -> tuple[torch.Tensor, dict]:
     h = _normed(bp["ln1"], x, cfg)
     if kind == "rwkv6":
-        x = _residual(x, time_mix_fwd(bp["mix"], h, cfg))
+        with span("model.time_mix"):
+            f = time_mix_fwd(bp["mix"], h, cfg)
+        x = _residual(x, f)
     elif kind == "rglru":
         x = _residual(x, rglru_fwd(bp["mix"], h, cfg))
     else:

@@ -47,6 +47,8 @@ group at its configured delay, write every group).
 from __future__ import annotations
 
 import dataclasses
+import gc
+import weakref
 from typing import Any, Callable, NamedTuple
 
 import torch
@@ -276,6 +278,10 @@ class TrainEngine:
     ``record_step()`` only for accepted steps, so the Op history matches
     the actual parameter evolution.  ``commit(state)`` completes a state's
     ring before it is checkpointed (the identity at delta=0).
+
+    ``on_card``: the parameters live on a card; after ``WARM_STEPS``
+    recorded steps the engine freezes the interpreter's heap
+    (:func:`_freeze_heap`) until it is itself collected.
     """
 
     init_state: Callable[[], Any]
@@ -284,6 +290,7 @@ class TrainEngine:
     delta: int
     group_delays: tuple[int, ...]                     # delay per chunk/group
     commit: Callable[[Any], Any] = lambda state: state
+    on_card: bool = False
 
     def __post_init__(self):
         self._itr = 0
@@ -301,10 +308,39 @@ class TrainEngine:
             self.telemetry.on_read(0, g, itr, version=max(itr - 1 - d, 0))
         for g in range(len(self.group_delays)):
             self.telemetry.on_write(0, g, itr)
+        if self.on_card and itr == WARM_STEPS:
+            _freeze_heap(self)
 
     @property
     def history(self):
         return self.telemetry.history
+
+
+# recorded steps after which a training engine on a card freezes the heap
+WARM_STEPS = 2
+_heap_frozen_by: list = []          # the engine that froze it, while it lives
+
+
+def _freeze_heap(engine: TrainEngine) -> None:
+    """Collect what is garbage, then move every object alive out of the
+    cycle collector's reach, until ``engine`` is collected; once at a time
+    in a process.  After the first steps the heap holds what training keeps
+    to its end (the framework's modules, the parameters, what the first
+    steps built lazily), and a full collection walks all of it: ~0.1 s of
+    host time every few steps under remat, whose checkpoints promote
+    thousands of short-lived objects a step, while the card waits for
+    launches.  Objects made later are collected as before, and the frozen
+    ones again once the engine is gone."""
+    if _heap_frozen_by:
+        return
+    gc.collect()
+    gc.freeze()
+    _heap_frozen_by.append(weakref.finalize(engine, _unfreeze_heap))
+
+
+def _unfreeze_heap() -> None:
+    gc.unfreeze()
+    _heap_frozen_by.clear()
 
 
 def make_engine(params: PyTree,
@@ -317,7 +353,20 @@ def make_engine(params: PyTree,
     delta == 0: plain synchronous dict state {"params", "opt"} (the JAX
     package's checkpoint layout); otherwise: :class:`DelayedState` ring
     buffer with per-group delays.
+
+    ``init_state()`` hands ``params`` over to the first state, once: the
+    engine keeps no reference to them, so they go with that state rather
+    than stay alive, a parameter-sized copy, for the whole run.
     """
+    held = [params]
+
+    def handed_over() -> PyTree:
+        if not held:
+            raise RuntimeError("init_state() hands the initial parameters "
+                               "over once; build another engine for "
+                               "another initial state")
+        return held.pop()
+
     delta = int(getattr(sync, "delta", 0))
     group_delays_cfg = tuple(getattr(sync, "group_delays", ()) or ())
     lv = leaves_with_path(params)
@@ -326,8 +375,13 @@ def make_engine(params: PyTree,
     else:
         delays = tuple(delta for _ in lv)
     telemetry = Telemetry(record_history=record_history)
+    on_card = bool(lv) and lv[0][1].device.type == "cuda"
 
     if delta == 0:
+        def init_state():
+            p = handed_over()
+            return {"params": p, "opt": opt.init(p)}
+
         def sync_step(state, batch):
             with span("pdb.step"):
                 loss, grads = grad_fn(state["params"], batch)
@@ -339,17 +393,19 @@ def make_engine(params: PyTree,
                                                   device=loss.device)})
 
         return TrainEngine(
-            init_state=lambda: {"params": params, "opt": opt.init(params)},
-            step_fn=sync_step, telemetry=telemetry, delta=0,
-            group_delays=delays)
+            init_state=init_state, step_fn=sync_step, telemetry=telemetry,
+            delta=0, group_delays=delays, on_card=on_card)
 
     delay_for = sync.delay_for if group_delays_cfg else None
     packed = _resolve_packed(getattr(sync, "packed_ring", None), params)
     raw = make_delayed_step(grad_fn, opt.update, delta, delay_for,
                             packed=packed)
+
+    def init_state():
+        return init_delayed_state(handed_over(), opt.init, delta,
+                                  packed=packed, delay_for=delay_for)
+
     return TrainEngine(
-        init_state=lambda: init_delayed_state(params, opt.init, delta,
-                                              packed=packed,
-                                              delay_for=delay_for),
-        step_fn=raw, telemetry=telemetry, delta=delta, group_delays=delays,
-        commit=raw.commit_ring)
+        init_state=init_state, step_fn=raw, telemetry=telemetry,
+        delta=delta, group_delays=delays, commit=raw.commit_ring,
+        on_card=on_card)

@@ -10,7 +10,8 @@ switch.
 The names say what a span covers: ``pdb.*`` the ParameterDB engine
 (``pdb.step``, ``pdb.commit_ring``, ``pdb.read_stale``), ``model.*`` the
 model (``model.grad``, ``model.layer``, ``model.attn``, ``model.mlp``,
-``model.norm``, ``model.head``) and ``opt.*`` the optimizer
+``model.norm``, ``model.head``, and RWKV-6's ``model.time_mix`` with the
+WKV recurrence's ``model.wkv`` inside it) and ``opt.*`` the optimizer
 (``opt.update``).  Only the forward runs inside a model span: autograd
 launches the backward later, from its own thread, and a reader of the
 trace finds each backward node's forward operation by its sequence number.

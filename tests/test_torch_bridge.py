@@ -89,6 +89,8 @@ def test_configs_match_jax(arch, smoke):
     jd, td = dataclasses.asdict(j), dataclasses.asdict(t)
     for field in ("dtype", "param_dtype"):
         assert DTYPE_MAP[jd.pop(field)] == td.pop(field)
+    # the port's one field of its own: 0 is the JAX package's rwkv6 block
+    assert td.pop("mix_lora") == 0
     assert jd == td
     assert t.hd == j.hd and t.layer_kinds == j.layer_kinds
 

@@ -13,7 +13,14 @@ package's (``repro.pdb.jax_backend``) and against its own exactness claims.
 * A rejected step leaves the prior state intact (the ring write is
   deferred), and the copies of the Op-history oracle, the telemetry and
   ``SyncConfig`` agree with the originals.
+* ``init_state`` hands the initial parameters over once: the engine keeps
+  no reference to them.
+* An engine on a card freezes the interpreter's heap after its warm-up
+  steps, once at a time, until it is collected; one on the CPU never does.
 """
+import gc
+import weakref
+
 import numpy as np
 import pytest
 
@@ -335,3 +342,42 @@ def test_sync_config_delay_for_matches_jax():
         assert t.delay_for(path) == j.delay_for(jpath)
     with pytest.raises(ValueError):
         SyncConfig(mode="async")
+
+
+@pytest.mark.parametrize("delta", [0, 2])
+def test_engine_hands_the_initial_parameters_over(delta):
+    params, batch, grad_fn = _torch_problem()
+    eng = tb.make_engine(params, grad_fn, _opt("adamw", "torch"),
+                         SyncConfig(delta=delta))
+    initial = weakref.ref(params["w"])
+    state = eng.init_state()
+    del params
+    state, _ = eng.step(state, batch)
+    gc.collect()
+    assert initial() is None                # gone with the first state
+    with pytest.raises(RuntimeError, match="once"):
+        eng.init_state()
+
+
+def _engine(on_card: bool) -> tb.TrainEngine:
+    return tb.TrainEngine(init_state=dict, step_fn=lambda s, b: (s, {}),
+                          telemetry=Telemetry(), delta=0, group_delays=(0,),
+                          on_card=on_card)
+
+
+@pytest.mark.parametrize("on_card", [False, True])
+def test_engine_freezes_the_heap_after_warm_up_on_a_card(on_card):
+    base = gc.get_freeze_count()           # what the interpreter froze
+    first, second = _engine(on_card), _engine(on_card)
+    for i in range(1, tb.WARM_STEPS + 3):
+        first.record_step()
+        assert (gc.get_freeze_count() > base) == (on_card
+                                                  and i >= tb.WARM_STEPS)
+    for _ in range(tb.WARM_STEPS + 1):     # a second engine's warm-up
+        second.record_step()
+    del second                             # and death leave it as it was
+    gc.collect()
+    assert (gc.get_freeze_count() > base) == on_card
+    del first                              # the one that froze it thaws it
+    gc.collect()
+    assert gc.get_freeze_count() <= base

@@ -195,8 +195,9 @@ def test_config_matches_jax():
     for get in ("get_config", "get_smoke_config"):
         t, j = getattr(tconfigs, get)(ARCH), getattr(jconfigs, get)(ARCH)
         for f in dataclasses.fields(t):
-            if f.name not in ("dtype", "param_dtype", "groups"):
+            if f.name not in ("dtype", "param_dtype", "groups", "mix_lora"):
                 assert getattr(t, f.name) == getattr(j, f.name), f.name
+        assert t.mix_lora == 0          # the JAX package's block
         assert [(g.pattern, g.n) for g in t.groups] == \
             [(g.pattern, g.n) for g in j.groups]
     assert ARCH in tconfigs.all_arch_ids()
